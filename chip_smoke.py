@@ -1,28 +1,37 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (gst_plugins_rs_tpu_torch).
 
-Drives the port's main path on one CUDA card, YOLOX-tiny detection at
-640x640 through the elements a user would call, and holds every kernel of
-that path against its plain PyTorch version.  Run from the repository root:
+Drives the port's paths on one CUDA card through the elements a user would
+call, and holds every kernel of those paths against its plain PyTorch
+version.  The paths: YOLOX-tiny detection at 640x640 (kernel B1), and the
+per-pixel video effects at 1920x1080 with a 33^3 grade: colorlut
+precision=approx (B2 for RGBA, B3 for RGBA64LE), hsvfilter (B4), and
+lut3d_apply_mxu (B5, which no element calls).  Run from the repository
+root:
 
     python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit):
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: every csrc/*.cu with nvcc for sm_90a;
-  3. kernels: each kernel against its plain version at the main path's
-     shapes, then timed (CUDA events, median) beside its plain version, the
-     one-call library equivalent and its bound;
+  2. build: every csrc/*.cu with nvcc for sm_90a, one nvcc per source;
+  3. kernels: each kernel against its plain version at its path's shapes
+     (and, for B2/B3, at 8 frames of 1080p over ranks 16, 64, 128), then
+     timed (CUDA events, median) beside its plain version, the one-call
+     library yardstick and its bound;
   4. pipelines: videotestsrc ! yoloxinference ! yoloxtensordec ! appsink at
-     640x640 (engine=fast, fast-bf16) and 4 streams through
-     analyticscombiner / analyticssplitter, with the launch counters set to 0
-     just before each run and read just after;
-  5. card against CPU: one frame through apply_fast on the card (fused
-     kernel) and on the CPU (plain path), same seeded weights;
+     640x640 (engine=fast, fast-bf16), 4 streams through analyticscombiner
+     / analyticssplitter, videotestsrc RGBA 1080p ! colorlut approx !
+     hsvfilter ! appsink, videotestsrc RGBA64LE 1080p ! colorlut approx !
+     appsink, and lut3d_apply_mxu over 1080p frames; the launch counters
+     are set to 0 just before each path and read just after;
+  5. card against CPU: one frame through apply_fast, and one seeded 1080p
+     frame through colorlut approx, hsvfilter and lut3d_apply_mxu, on the
+     card (kernels) and on the CPU (plain versions);
   6. timing: apply_fast frames per second at batch 1 and 8, and the element
      pipelines end to end.
-Prints a JSON line of the kernels, then, last, {"ok": true, "device": ...}.
-It imports nothing of JAX and nothing of the JAX package.
+Prints a JSON line of the kernels, the card's name and power limit, then,
+last, {"ok": true, "device": ...}.  It imports nothing of JAX and nothing of
+the JAX package.
 """
 from __future__ import annotations
 
@@ -50,13 +59,46 @@ F32_TOL = 1e-4        # kernel vs plain, max abs error over the output's scale
 BF16_TOL = 0.05       # kernel vs plain, |d| / (|ref| + 0.1)
 CPU_TOL = 1e-3        # card vs CPU, |d| / (|ref| + 1e-2), the engine's gate
 
+# The per-pixel effects: 1080p frames and a 33^3 grade (written by write_grade).
+HD_H, HD_W = 1080, 1920
+LUT_SIZE = 33
+SWEEP_FRAMES = 8             # B2/B3 also at 8 frames of 1080p ...
+SWEEP_RANKS = (16, 64, 128)  # ... over these ranks, with synthetic factors
+EFFECT_FRAMES = 8            # frames per effects pipeline in phase 4
+TIMING_FRAMES = 64           # ... and in phase 6
+HSV_PROPS = "hue-shift=30 saturation-mul=1.2 value-off=0.02"
+HSV_PARAMS = [30.0, 1.2, 0.0, 1.0, 0.02]  # the same, as the kernel's params
+LSB_TOL = 1                  # u8 LSBs: kernel vs plain, card vs CPU
+EFFECT_F32_TOL = 1e-5        # raw f32 outputs and B4 planes, kernel vs plain
+# colorlut approx vs the exact grade, a sanity gate: the fit's node error
+# (<= 2 LSB) and the final rounding (1 LSB) are the documented 3 LSB, but the
+# bf16 rounding of the factors and hat weights comes on top (5 LSB seen on
+# random 1080p frames, on the card and on the CPU alike)
+APPROX_TOL = 8
+# f32 operations per pixel (selects and integer work not counted): B2/B3 per
+# rank: 3 x (2 products + 1 sum) for u, v, w, 2 products, 3 x (product +
+# sum) into r, g, b; B4 and B5 counted from their sources.
+LOWRANK_OPS_PER_RANK = 17
+HSV_OPS = 45
+MXU_OPS = 88
+
 
 def phase(name):
     print(f"== {name}", flush=True)
 
 
+# Cycles the card spins before each timed call (~1 ms): the host enqueues
+# the start event, fn's launches and the end event while the card is busy,
+# so the events time the device work of fn, not the host's time to launch it
+# (which is most of a sub-0.1 ms kernel's single-launch time otherwise).
+SPIN_CYCLES = 2_000_000
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of fn() on the card, each run timed by events."""
+    """Median milliseconds of fn() on the card, each run timed by events
+    behind a spin of the card (an eager fn that launches faster than the
+    card runs is timed as device time; one that launches slower, as the
+    host's launch time)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -64,6 +106,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -340,6 +383,407 @@ def timing(card_line):
               f"{frames / secs:.1f} frames/s end to end [{card_line}]")
 
 
+def bound(flop, nbytes):
+    """(ms, 'operations'|'bytes'): the larger of the f32 operations over the
+    CUDA cores' peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flop / PEAK_F32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def write_grade() -> Path:
+    """The .cube the effects pipelines load: a 33^3 saturation-and-tint grade
+    (5% saturation boost, +0.01 green, +0.02 blue, clipped), the form of
+    tests/test_colorlut.py's grade, mild enough to fit at rank 16 in about a
+    second.  Written next to the kernel builds (git-ignored)."""
+    from gst_plugins_rs_tpu_torch.utils.build import BUILD_DIR
+
+    g = np.linspace(0, 1, LUT_SIZE)
+    Bz, Gy, Rx = np.meshgrid(g, g, g, indexing="ij")
+    Y = 0.299 * Rx + 0.587 * Gy + 0.114 * Bz
+    table = np.stack([np.clip(Y + 1.05 * (Rx - Y), 0, 1),
+                      np.clip(Y + 1.05 * (Gy - Y) + 0.01, 0, 1),
+                      np.clip(Y + 1.05 * (Bz - Y) + 0.02, 0, 1)], -1).reshape(-1, 3)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = BUILD_DIR / "smoke_grade33.cube"
+    path.write_text(f'TITLE "smoke grade"\nLUT_3D_SIZE {LUT_SIZE}\n'
+                    + "\n".join(f"{r:.6f} {gg:.6f} {b:.6f}" for r, gg, b in table) + "\n")
+    return path
+
+
+def hd_frame(seed: int) -> np.ndarray:
+    """A seeded random 1080p RGBA u8 frame (no two neighbours alike: the
+    hardest case for the kernels' caches and shared-memory banks)."""
+    return np.random.RandomState(seed).randint(0, 256, (HD_H, HD_W, 4)).astype(np.uint8)
+
+
+def synthetic_factors(K, seed, dev):
+    """CP factors in the kernel layout at rank K: ut/vt/wt [K,48] with rows
+    >= 33 zero, c [8,K] with rows >= 3 zero, outputs mostly inside [0,1]."""
+    rng = np.random.RandomState(seed)
+    ops = []
+    for _ in range(3):
+        f = np.zeros((K, 48), np.float32)
+        f[:, :LUT_SIZE] = rng.uniform(0.0, 1.0, (K, LUT_SIZE))
+        ops.append(f)
+    c = np.zeros((8, K), np.float32)
+    c[:3] = rng.uniform(0.0, 8.0 / K, (3, K))
+    return [torch.from_numpy(a).to(dev) for a in ops + [c]]
+
+
+def lut_grid(xyz, S):
+    """grid_sample's grid for grid coordinates xyz [3,P] in [0,S-1]:
+    [1,1,1,P,3] as (x,y,z) in [-1,1] (align_corners=True)."""
+    return (xyz.t() * (2.0 / (S - 1)) - 1.0).reshape(1, 1, 1, -1, 3).contiguous()
+
+
+def grid_sample_lut(lut5, grid):
+    """The library yardstick of B2, B3 and B5: trilinear sampling of the
+    5-D LUT [1,3,S,S,S] (c, z, y, x) in f32 in one PyTorch call.  It leaves
+    out the kernels' normalisation, rounding and packing (B2), the bf16
+    rounding of weights and factors, and the low-rank sum (it samples a
+    dense table).  The port never calls it."""
+    return torch.nn.functional.grid_sample(lut5, grid, mode="bilinear", padding_mode="border",
+                                           align_corners=True)
+
+
+def effect_kernels(card_line, grade):
+    """Phase 3 for B2-B5: each kernel against its plain version, timed."""
+    phase("3b effect kernels against their plain versions")
+    from gst_plugins_rs_tpu_torch.ops import colorlut_lowrank_fused as lowrank
+    from gst_plugins_rs_tpu_torch.ops import colorlut_mxu, hsv_planes
+    from gst_plugins_rs_tpu_torch.ops.colorlut import CubeLut, grid_coord, quantize
+    from gst_plugins_rs_tpu_torch.ops.colorlut_lowrank import fit_lowrank
+    from gst_plugins_rs_tpu_torch.ops.hsv import quantize_u8
+    from gst_plugins_rs_tpu_torch.ops.pixels import to_unit
+
+    dev, S = torch.device("cuda"), LUT_SIZE
+    lut = CubeLut.parse_file(str(grade))
+    scale = [float(v) for v in lut.domain_scale]
+    offset = [float(v) for v in lut.domain_offset]
+    t0 = time.perf_counter()
+    fit = fit_lowrank(lut.table, S, tolerance=2.0 / 255.0)
+    if fit is None:
+        raise AssertionError("the smoke grade does not factor within 2 LSB")
+    path_ops = [torch.from_numpy(a).to(dev)
+                for a in lowrank.pack_factors(fit.U, fit.V, fit.W, fit.C)]
+    print(f"grade {S}^3 fits at rank {fit.U.shape[1]} (Kp {path_ops[0].shape[0]}), max node "
+          f"error {fit.max_node_err * 255:.3f} LSB, in {time.perf_counter() - t0:.2f} s")
+    frame = torch.from_numpy(hd_frame(0)).to(dev)
+    frame_px = frame.view(torch.int32).reshape(-1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sweep_px = torch.randint(-2**31, 2**31 - 1, (SWEEP_FRAMES * HD_H * HD_W,), generator=gen,
+                             device=dev, dtype=torch.int32)
+    params = torch.tensor(scale + offset + [255.0, 0.0], dtype=torch.float32, device=dev)
+    b2, b3 = [], []
+    runs = [("path: 1 frame, the grade's factors", frame_px, path_ops)]
+    runs += [(f"{SWEEP_FRAMES} frames, rank {k}", sweep_px, synthetic_factors(k, k, dev))
+             for k in SWEEP_RANKS]
+    for label, px, ops in runs:
+        P, K = px.numel(), ops[0].shape[0]
+        fi = px.view(torch.uint8).reshape(P, 4).to(torch.int32)
+        xyz = torch.stack([grid_coord(fi, c, scale[c], offset[c], S, 255.0)
+                           for c in range(3)]).contiguous()
+        got2 = lowrank.lowrank_sample_packed(px, params, *ops, size=S)
+        got3 = lowrank.lowrank_sample_fused(xyz, *ops)
+        torch.cuda.synchronize()
+        ref2 = lowrank.lowrank_sample_packed_plain(px, params, *ops, size=S)
+        ref3 = lowrank.lowrank_sample_fused_plain(xyz, *ops)
+        err2 = int((got2.view(torch.uint8).int() - ref2.view(torch.uint8).int()).abs().max())
+        err3 = float((got3 - ref3).abs().max())
+        lsb3 = int((quantize(got3, 255.0) - quantize(ref3, 255.0)).abs().max())
+        q3 = quantize(got3, 255.0)
+        same = torch.equal(q3[0] | (q3[1] << 8) | (q3[2] << 16)
+                           | torch.bitwise_and(px, -(1 << 24)), got2)
+        # the yardstick samples the dense reconstruction of the same factors
+        U, V, W = (f[:, :S].t() for f in ops[:3])
+        lut5 = torch.einsum("zk,yk,xk,ck->czyx", W, V, U, ops[3][:3])[None].contiguous()
+        grid = lut_grid(xyz, S)
+        print(f"B2/B3 {label}: P={P}, K={K}: B2 max err {err2} LSB, B3 max abs err {err3:.3e} "
+              f"({lsb3} LSB), B2 == B3 bit for bit: {same}")
+        if err2 > LSB_TOL or lsb3 > LSB_TOL or err3 > EFFECT_F32_TOL or not same:
+            raise AssertionError(f"B2/B3 {label} disagree with their plain versions or each other")
+        flop = LOWRANK_OPS_PER_RANK * K * P
+        factor_bytes = 4 * (3 * K * 48 + 8 * K)
+        for out, name, fn, plain, nbytes, err in (
+                (b2, "B2 colorlut_lowrank_packed",
+                 lambda: lowrank.lowrank_sample_packed(px, params, *ops, size=S),
+                 lambda: lowrank.lowrank_sample_packed_plain(px, params, *ops, size=S),
+                 8 * P + factor_bytes + 32, err2),
+                (b3, "B3 colorlut_lowrank_fused",
+                 lambda: lowrank.lowrank_sample_fused(xyz, *ops),
+                 lambda: lowrank.lowrank_sample_fused_plain(xyz, *ops),
+                 24 * P + factor_bytes, err3)):
+            ms = cuda_ms(fn)
+            plain_ms = cuda_ms(plain, iters=2, warmup=1)
+            library_ms = cuda_ms(lambda: grid_sample_lut(lut5, grid))
+            bound_ms, bound_by = bound(flop, nbytes)
+            out.append(dict(case=label, P=P, K=K, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                            flop=flop, bytes=nbytes))
+            print(f"{name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample "
+                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+                  f"{flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) [{card_line}]")
+        del fi, xyz, grid, ref2, ref3
+
+    # B4 at [1080, 1920], the hsvfilter element's planes
+    P = HD_H * HD_W
+    planes = [to_unit(frame[..., c], 255.0).contiguous() for c in range(3)]
+    hp = torch.tensor(HSV_PARAMS, dtype=torch.float32, device=dev)
+    got = hsv_planes.hsv_filter_planes(*planes, hp)
+    torch.cuda.synchronize()
+    ref = hsv_planes.hsv_filter_planes_plain(*planes, hp)
+    err4 = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    lsb4 = max(int((quantize_u8(g).int() - quantize_u8(r).int()).abs().max())
+               for g, r in zip(got, ref))
+    print(f"B4 hsv_planes [{HD_H},{HD_W}]: max abs err {err4:.3e}, {lsb4} LSB after quantization")
+    if err4 > EFFECT_F32_TOL or lsb4 > LSB_TOL:
+        raise AssertionError("B4 disagrees with its plain version")
+    flop, nbytes = HSV_OPS * P, 24 * P + 20
+    bound_ms, bound_by = bound(flop, nbytes)
+    b4 = [dict(case="[1080,1920]", P=P, ms=cuda_ms(lambda: hsv_planes.hsv_filter_planes(*planes, hp)),
+               plain_ms=cuda_ms(lambda: hsv_planes.hsv_filter_planes_plain(*planes, hp)),
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err4,
+               flop=flop, bytes=nbytes)]
+    print(f"B4 hsv_planes: kernel {b4[0]['ms']:.4f} ms, plain {b4[0]['plain_ms']:.4f} ms, "
+          f"library none, bound {bound_ms:.4f} ms ({bound_by}) [{card_line}]")
+
+    # B5 at 1080p with the 33^3 grade
+    t2 = torch.from_numpy(colorlut_mxu.pack_matmul_table(lut.table, S)).to(dev, torch.bfloat16)
+    fi = frame.to(torch.int32)
+    pos = [grid_coord(fi, c, scale[c], offset[c], S, 255.0).reshape(-1).contiguous()
+           for c in range(3)]
+    got = colorlut_mxu.lut3d_positions_mxu(*pos, t2, size=S)
+    torch.cuda.synchronize()
+    ref = colorlut_mxu.lut3d_positions_mxu_plain(*pos, t2, size=S)
+    err5 = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    lsb5 = max(int((quantize(g, 255.0) - quantize(r, 255.0)).abs().max())
+               for g, r in zip(got, ref))
+    print(f"B5 colorlut_mxu 1080p S={S}: max abs err {err5:.3e}, {lsb5} LSB after quantization")
+    if err5 > EFFECT_F32_TOL or lsb5 > LSB_TOL:
+        raise AssertionError("B5 disagrees with its plain version")
+    lut5 = torch.from_numpy(lut.table.reshape(S, S, S, 3)).to(dev).permute(3, 0, 1, 2)[None]
+    lut5, grid = lut5.contiguous(), lut_grid(torch.stack(pos), S)
+    flop, nbytes = MXU_OPS * P, 24 * P + 2 * t2.numel()
+    bound_ms, bound_by = bound(flop, nbytes)
+    b5 = [dict(case="1080p, S=33", P=P, ms=cuda_ms(lambda: colorlut_mxu.lut3d_positions_mxu(
+                   *pos, t2, size=S)),
+               plain_ms=cuda_ms(lambda: colorlut_mxu.lut3d_positions_mxu_plain(*pos, t2, size=S)),
+               library_ms=cuda_ms(lambda: grid_sample_lut(lut5, grid)), bound_ms=bound_ms,
+               bound_by=bound_by, max_abs_err=err5, flop=flop, bytes=nbytes)]
+    print(f"B5 colorlut_mxu: kernel {b5[0]['ms']:.4f} ms, plain {b5[0]['plain_ms']:.4f} ms, "
+          f"grid_sample {b5[0]['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+          f"[{card_line}]")
+    return {"colorlut_lowrank_packed": b2, "colorlut_lowrank_fused": b3, "hsv_planes": b4,
+            "colorlut_mxu": b5}
+
+
+def effects_rgba(grade, frames):
+    import gst_plugins_rs_tpu_torch as g
+
+    return g.parse_launch(
+        f"videotestsrc num-buffers={frames} "
+        f"! video/x-raw,format=RGBA,width={HD_W},height={HD_H},framerate=30/1 "
+        f"! colorlut location={grade} precision=approx ! hsvfilter {HSV_PROPS} "
+        f"! appsink name=sink")
+
+
+def effects_rgba64(grade, frames):
+    import gst_plugins_rs_tpu_torch as g
+
+    return g.parse_launch(
+        f"videotestsrc num-buffers={frames} "
+        f"! video/x-raw,format=RGBA64LE,width={HD_W},height={HD_H},framerate=30/1 "
+        f"! colorlut location={grade} precision=approx ! appsink name=sink")
+
+
+def _check_frames(samples, n, dtype, alpha):
+    if len(samples) != n:
+        raise AssertionError(f"expected {n} buffers, got {len(samples)}")
+    for s in samples:
+        d = s.buffer.data
+        if not isinstance(d, torch.Tensor) or d.device.type != "cuda":
+            raise AssertionError(f"output frame lies on {getattr(d, 'device', type(d))}")
+        if tuple(d.shape) != (HD_H, HD_W, 4) or d.dtype != dtype:
+            raise AssertionError(f"output frame {tuple(d.shape)} {d.dtype}")
+        if not bool((d[..., 3].to(torch.int32) == alpha).all()):
+            raise AssertionError("alpha did not pass through unchanged")
+
+
+def effect_pipelines(grade):
+    """Phase 4 for the effects: each path with its counters set to 0 just
+    before it and read just after.  Returns the launches per kernel."""
+    phase("4b effect pipelines on the card")
+    from gst_plugins_rs_tpu_torch.ops import colorlut_lowrank_fused as lowrank
+    from gst_plugins_rs_tpu_torch.ops import colorlut_mxu, hsv_planes
+    from gst_plugins_rs_tpu_torch.ops.colorlut import CubeLut
+
+    n = EFFECT_FRAMES
+    lowrank.packed_launches = lowrank.fused_launches = hsv_planes.launches = 0
+    p = effects_rgba(grade, n)
+    p.play_until_eos()
+    torch.cuda.synchronize()
+    counts = {"packed": lowrank.packed_launches, "fused": lowrank.fused_launches,
+              "hsv": hsv_planes.launches}
+    _check_frames(p.by_name("sink").samples, n, torch.uint8, 255)
+    print(f"RGBA {HD_W}x{HD_H} ! colorlut approx ! hsvfilter: {n} frames, launches {counts}")
+    if counts != {"packed": n, "fused": 0, "hsv": n}:
+        raise AssertionError("B2 and B4 launches != RGBA frames")
+    launches = {"colorlut_lowrank_packed": counts["packed"], "hsv_planes": counts["hsv"]}
+
+    lowrank.packed_launches = lowrank.fused_launches = hsv_planes.launches = 0
+    p = effects_rgba64(grade, n)
+    p.play_until_eos()
+    torch.cuda.synchronize()
+    counts = {"packed": lowrank.packed_launches, "fused": lowrank.fused_launches,
+              "hsv": hsv_planes.launches}
+    _check_frames(p.by_name("sink").samples, n, torch.uint16, 65535)
+    print(f"RGBA64LE {HD_W}x{HD_H} ! colorlut approx: {n} frames, launches {counts}")
+    if counts != {"packed": 0, "fused": n, "hsv": 0}:
+        raise AssertionError("B3 launches != RGBA64LE frames")
+    launches["colorlut_lowrank_fused"] = counts["fused"]
+
+    # B5 through its public function, as the JAX package offers it
+    lut = CubeLut.parse_file(str(grade))
+    t2 = torch.from_numpy(colorlut_mxu.pack_matmul_table(lut.table, LUT_SIZE)).to(
+        "cuda", torch.bfloat16)
+    frames = [torch.from_numpy(hd_frame(100 + i)).to("cuda") for i in range(n)]
+    colorlut_mxu.launches = 0
+    outs = [colorlut_mxu.lut3d_apply_mxu(f, t2, [1.0] * 3, [0.0] * 3, size=LUT_SIZE)
+            for f in frames]
+    torch.cuda.synchronize()
+    counted = colorlut_mxu.launches
+    for f, o in zip(frames, outs):
+        if o.device.type != "cuda" or o.shape != f.shape or o.dtype != torch.uint8 \
+                or not torch.equal(o[..., 3], f[..., 3]):
+            raise AssertionError("lut3d_apply_mxu output: device, shape, dtype or alpha")
+    print(f"lut3d_apply_mxu over {n} 1080p frames: launches {counted}")
+    if counted != n:
+        raise AssertionError("B5 launches != frames")
+    launches["colorlut_mxu"] = counted
+    return launches
+
+
+def _through_element(factory, props, frame, fmt, dev):
+    """One frame through one element on `dev` ("cuda" or "cpu"), as numpy."""
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.core import Buffer, Caps, Fraction, Harness
+
+    g.set_device(dev)
+    try:
+        elem = g.element_factory_make(factory)
+        for k, v in props.items():
+            elem.set_property(k, v)
+        h = Harness(elem)
+        h.set_src_caps(Caps.builder("video/x-raw", format=fmt, width=frame.shape[1],
+                                    height=frame.shape[0], framerate=Fraction(30, 1)))
+        h.push(Buffer(torch.from_numpy(frame), pts=0))
+        out = h.pull().data
+        if out.device.type != dev:
+            raise AssertionError(f"{factory} on {dev} returned a frame on {out.device}")
+        h.teardown()
+        return out.cpu().numpy()
+    finally:
+        g.set_device("cuda")
+
+
+def _lsb(a, b):
+    return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+
+
+def effects_card_vs_cpu(grade):
+    phase("5b effects, card against CPU")
+    from gst_plugins_rs_tpu_torch.ops import colorlut_lowrank_fused as lowrank
+    from gst_plugins_rs_tpu_torch.ops import colorlut_mxu, hsv_planes
+    from gst_plugins_rs_tpu_torch.ops.colorlut import CubeLut
+
+    frame = hd_frame(1)
+    approx = {"location": str(grade), "precision": "approx"}
+    before = (lowrank.packed_launches, hsv_planes.launches)
+    card = _through_element("colorlut", approx, frame, "RGBA", "cuda")
+    host = _through_element("colorlut", approx, frame, "RGBA", "cpu")
+    exact = _through_element("colorlut", {"location": str(grade)}, frame, "RGBA", "cuda")
+    hsv_props = {"hue-shift": HSV_PARAMS[0], "saturation-mul": HSV_PARAMS[1],
+                 "value-off": HSV_PARAMS[4]}
+    hcard = _through_element("hsvfilter", hsv_props, frame, "RGBA", "cuda")
+    hhost = _through_element("hsvfilter", hsv_props, frame, "RGBA", "cpu")
+    if (lowrank.packed_launches, hsv_planes.launches) != (before[0] + 1, before[1] + 1):
+        raise AssertionError("the card runs did not launch B2 and B4 once each")
+    d_lut, d_exact, d_hsv = _lsb(card, host), _lsb(card[..., :3], exact[..., :3]), _lsb(hcard, hhost)
+    alpha = np.array_equal(card[..., 3], frame[..., 3]) and np.array_equal(hcard[..., 3],
+                                                                          frame[..., 3])
+    print(f"colorlut approx 1080p, card (B2) vs CPU (plain): max {d_lut} LSB; vs exact grade: "
+          f"max {d_exact} LSB (gate {APPROX_TOL}); hsvfilter card (B4) vs CPU: max {d_hsv} LSB; "
+          f"alpha unchanged: {alpha}")
+    lut = CubeLut.parse_file(str(grade))
+    t2 = torch.from_numpy(colorlut_mxu.pack_matmul_table(lut.table, LUT_SIZE)).to(torch.bfloat16)
+    args = ([1.0] * 3, [0.0] * 3)
+    mcard = colorlut_mxu.lut3d_apply_mxu(torch.from_numpy(frame).cuda(), t2.cuda(), *args,
+                                         size=LUT_SIZE).cpu().numpy()
+    mhost = colorlut_mxu.lut3d_apply_mxu(torch.from_numpy(frame), t2, *args,
+                                         size=LUT_SIZE).numpy()
+    d_mxu, d_mxu_exact = _lsb(mcard, mhost), _lsb(mcard[..., :3], exact[..., :3])
+    print(f"lut3d_apply_mxu 1080p, card (B5) vs CPU (plain): max {d_mxu} LSB; "
+          f"vs exact grade: max {d_mxu_exact} LSB")
+    if max(d_lut, d_hsv, d_mxu) > LSB_TOL or d_exact > APPROX_TOL or not alpha:
+        raise AssertionError("the effects on the card and on the CPU disagree")
+
+
+def effects_timing(card_line, grade):
+    phase("6b effects timing")
+    from gst_plugins_rs_tpu_torch.core import State
+
+    for label, make in (("RGBA colorlut approx ! hsvfilter", effects_rgba),
+                        ("RGBA64LE colorlut approx", effects_rgba64)):
+        make(grade, EFFECT_FRAMES).play_until_eos()  # warm-up
+        torch.cuda.synchronize()
+        p = make(grade, TIMING_FRAMES)
+        t0 = time.perf_counter()
+        p.set_state(State.PLAYING)  # start(): parse the .cube, fit the factors
+        t1 = time.perf_counter()
+        p.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        p.set_state(State.NULL)
+        if len(p.by_name("sink").samples) != TIMING_FRAMES:
+            raise AssertionError(f"{label}: expected {TIMING_FRAMES} frames")
+        print(f"pipeline {label}, {HD_W}x{HD_H}: {TIMING_FRAMES} frames in {secs:.3f} s, "
+              f"{TIMING_FRAMES / secs:.1f} frames/s end to end (set-up {t1 - t0:.3f} s) "
+              f"[{card_line}]")
+        device_ms, upload_ms, top = profile_device(make(grade, EFFECT_FRAMES))
+        per_frame = device_ms / EFFECT_FRAMES
+        print(f"pipeline {label}: device busy {per_frame:.4f} ms per frame (torch.profiler, "
+              f"{EFFECT_FRAMES} frames, host-to-device copies left out: {upload_ms:.4f} ms in "
+              f"all, the source's one upload of its pattern and the per-frame parameters), "
+              f"{100 * per_frame * TIMING_FRAMES / (secs * 1e3):.1f}% of the unprofiled wall "
+              f"time; ms per frame by device op: "
+              + ", ".join(f"{name} {ms / EFFECT_FRAMES:.4f}" for name, ms in top))
+
+
+def profile_device(pipeline, top: int = 6):
+    """(device ms, host-to-device copy ms, [(op, device ms)] of the `top`
+    largest) over one run of `pipeline` under torch.profiler: the sum of
+    the device events' own times, which is busy time as long as one stream
+    runs at a time, without the host-to-device copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gst_plugins_rs_tpu_torch.core import State
+
+    pipeline.set_state(State.PLAYING)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipeline.run()
+        torch.cuda.synchronize()
+    pipeline.set_state(State.NULL)
+    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    if not events:
+        raise AssertionError("torch.profiler recorded no device events")
+    uploads = [e for e in events if e.key.startswith("Memcpy HtoD")]
+    events = sorted((e for e in events if e not in uploads),
+                    key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    upload = sum(e.self_device_time_total for e in uploads) / 1e3
+    return total, upload, [(e.key[:48], e.self_device_time_total / 1e3) for e in events[:top]]
+
+
 def main() -> int:
     card_line = card()
     sys.path.insert(0, str(ROOT))
@@ -348,21 +792,44 @@ def main() -> int:
     g.set_device("cuda")
     build()
     cases = kernels(card_line)
+    grade = write_grade()
+    effect_cases = effect_kernels(card_line, grade)
     launches = pipelines()
+    effect_launches = effect_pipelines(grade)
     card_vs_cpu()
+    effects_card_vs_cpu(grade)
     timing(card_line)
+    effects_timing(card_line, grade)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "library_ms")
     main_case = next(c for c in cases if c["dtype"] == "f32" and c["batch"] == 1)
-    entry = {
+    entries = [{
         "name": "yolox_c3",
         "route": "cuda",
         "source": "gst_plugins_rs_tpu_torch/csrc/yolox_c3.cu",
         "replaces": "gst_plugins_rs_tpu/ops/pallas_yolox_c3.py:104",
         "launches": launches,
-        **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                     "max_abs_err", "library_ms")},
+        **{k: main_case[k] for k in keys},
         "cases": cases,
-    }
-    print(json.dumps({"kernels": [entry]}))
+    }]
+    for name, source, replaces in (
+            ("colorlut_lowrank_packed", "colorlut_lowrank.cu", "pallas_colorlut_lowrank.py:205"),
+            ("colorlut_lowrank_fused", "colorlut_lowrank.cu", "pallas_colorlut_lowrank.py:63"),
+            ("hsv_planes", "hsv_planes.cu", "pallas_hsv.py:78"),
+            ("colorlut_mxu", "colorlut_mxu.cu", "pallas_colorlut.py:87")):
+        kcases = effect_cases[name]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"gst_plugins_rs_tpu_torch/csrc/{source}",
+            "replaces": f"gst_plugins_rs_tpu/ops/{replaces}",
+            "launches": effect_launches[name],
+            **{k: kcases[0][k] for k in keys},  # the first case is the path's shape
+            "cases": kcases,
+        })
+    if any(e["launches"] < 1 for e in entries):
+        raise AssertionError("a kernel of the paths was never launched")
+    print(json.dumps({"kernels": entries}))
+    print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,0 +1,262 @@
+"""Fused low-rank (CP) colorlut sampling: kernels B2 and B3 on Hopper.
+
+The port of gst_plugins_rs_tpu/ops/pallas_colorlut_lowrank.py.  The dense
+form of ops/colorlut_lowrank.py materializes [P,S] hat weights and [P,K]
+projections between operators; the kernels keep the whole per-pixel chain
+on chip (design and bound in csrc/colorlut_lowrank.cu):
+
+- `lowrank_sample_fused` (B3): f32 grid coordinates xyz [3,P] -> [3,P] f32;
+  `lut3d_apply_lowrank_fused` normalizes the frame, calls it, rounds and
+  restacks the channels (any layout, u8 or u16);
+- `lowrank_sample_packed` (B2): RGBA u8 pixels as int32 -> int32, with the
+  normalization, rounding and repacking inside the kernel; alpha rides
+  through.  `lut3d_apply_lowrank_packed` bit-casts an RGBA u8 frame to it.
+
+Both share one per-pixel chain, so they are bit-equal on RGBA frames.  For
+a CUDA tensor each wrapper launches its kernel or raises; for a CPU tensor
+it runs the `_plain` twin, the same chain in plain PyTorch: the two
+nonzero hat weights per axis, factors and weights rounded to the compute
+type, the rank sum in f32 with k ascending, as the kernel computes it.
+The TPU kernels pad P to their lane tiles (TPL, ROWS*TPL); these take any
+P, and the public wrappers return the frame's shape.  `packed_launches` and
+`fused_launches` count kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .colorlut import grid_coord, quantize
+from .pixels import restack
+from .colorlut_lowrank import compute_type
+
+# basis rows of the padded factor layout: hat weights for rows >= S are
+# exactly 0 whenever x <= S-1, so no mask is needed
+SB = 48
+# A block may use at most 227 KB of shared memory on sm_90.
+_MAX_SMEM = 232_448
+
+packed_launches = 0  # B2
+fused_launches = 0   # B3
+
+
+def pack_factors(U, V, W, C, pad_rank_to: int = 16):
+    """CP factors [S,K]x3 + [3,K] -> kernel layout: ut/vt/wt [Kp, SB] f32
+    (transposed, zero-padded) and c [8, Kp]."""
+    s, k = U.shape
+    kp = -(-k // pad_rank_to) * pad_rank_to
+    assert s <= SB, f"LUT size {s} exceeds kernel basis capacity {SB}"
+
+    def t(m):
+        out = np.zeros((kp, SB), np.float32)
+        out[:k, :s] = m.T
+        return out
+
+    c = np.zeros((8, kp), np.float32)
+    c[:3, :k] = C
+    return t(U), t(V), t(W), c
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+
+
+def _hats(x, cdt):
+    """The two nonzero hat weights of x in [0, S-1]: rows i0 = floor(x) and
+    i0+1 (read index clamped to SB-1, where the weight is 0), weights
+    max(0, 1-|x-i|) rounded to the compute type."""
+    f = torch.floor(x)
+    h0 = torch.clamp(1.0 - torch.abs(x - f), min=0.0).to(cdt).to(torch.float32)
+    h1 = torch.clamp(1.0 - torch.abs(x - (f + 1.0)), min=0.0).to(cdt).to(torch.float32)
+    i0 = f.to(torch.int64)
+    return i0, torch.clamp(i0 + 1, max=SB - 1), h0, h1
+
+
+def _chain_plain(x, y, z, ut, vt, wt, c, compute_dtype):
+    """[3, P] f32 LUT outputs at grid coordinates x, y, z [P]."""
+    cdt = compute_type(compute_dtype)
+    hats = [_hats(a, cdt) for a in (x, y, z)]
+    factors = [f.to(cdt).to(torch.float32) for f in (ut, vt, wt)]
+    acc = [torch.zeros_like(x) for _ in range(3)]
+    for k in range(ut.shape[0]):
+        u, v, w = (f[k][i0] * h0 + f[k][i1] * h1
+                   for f, (i0, i1, h0, h1) in zip(factors, hats))
+        p = u * v * w
+        for ch in range(3):
+            acc[ch] = acc[ch] + p * c[ch, k]
+    return torch.stack(acc)
+
+
+def lowrank_sample_fused_plain(xyz, ut, vt, wt, c, *, compute_dtype="bfloat16"):
+    """B3's function in plain PyTorch: xyz [3, P] f32 in [0, S-1] -> [3, P]."""
+    return _chain_plain(xyz[0], xyz[1], xyz[2], ut, vt, wt, c, compute_dtype)
+
+
+def lowrank_sample_packed_plain(px, params, ut, vt, wt, c, *, size: int,
+                                compute_dtype="bfloat16"):
+    """B2's function in plain PyTorch: px int32 RGBA bit patterns (any
+    shape); params [8] f32 = (scale0..2, offset0..2, maxval, 0)."""
+    flat = px.reshape(-1)
+    maxval = params[6]
+    coords = []
+    for comp in range(3):
+        v = torch.bitwise_and(torch.bitwise_right_shift(flat, 8 * comp), 255)
+        v = v.to(torch.float32) * (1.0 / maxval)  # as ops/pixels.to_unit
+        coords.append(torch.clamp(v * params[comp] + params[3 + comp], 0.0, 1.0)
+                      * (size - 1.0))
+    out = _chain_plain(*coords, ut, vt, wt, c, compute_dtype)
+    q = torch.round(torch.clamp(out, 0.0, 1.0) * maxval).to(torch.int32)
+    # alpha: the top byte of the input, as the two's-complement mask ~0xFFFFFF
+    packed = (q[0] | torch.bitwise_left_shift(q[1], 8) | torch.bitwise_left_shift(q[2], 16)
+              | torch.bitwise_and(flat, -(1 << 24)))
+    return packed.reshape(px.shape)
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+
+
+def _check_factors(name, ref, ut, vt, wt, c):
+    k = ut.shape[0] if ut.dim() == 2 else -1
+    for label, t, shape in (("ut", ut, (k, SB)), ("vt", vt, (k, SB)), ("wt", wt, (k, SB)),
+                            ("c", c, (8, k))):
+        if tuple(t.shape) != shape or k < 1:
+            raise ValueError(f"{name}: {label} must be {shape} with K >= 1, got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {label} must be float32, got {t.dtype}")
+        if t.device != ref.device:
+            raise ValueError(f"{name}: {label} is on {t.device}, the pixels on {ref.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+    smem = (3 * k * SB + 3 * k) * 4
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{name}: rank {k} needs {smem} bytes of shared memory, "
+                         f"more than a block's {_MAX_SMEM}")
+    return k
+
+
+def _lib():
+    from ..utils.build import load
+
+    lib = load("colorlut_lowrank")
+    if not getattr(lib, "_argtypes_set", False):
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.colorlut_lowrank_fused.argtypes = [ptr] * 6 + [i64, i32, i32, ptr]
+        lib.colorlut_lowrank_fused.restype = ctypes.c_int
+        lib.colorlut_lowrank_packed.argtypes = [ptr] * 7 + [i64, i32, i32, i32, ptr]
+        lib.colorlut_lowrank_packed.restype = ctypes.c_int
+        lib.colorlut_lowrank_error_string.argtypes = [ctypes.c_int]
+        lib.colorlut_lowrank_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
+def _raise_on(lib, err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.colorlut_lowrank_error_string(err).decode()}")
+
+
+def lowrank_sample_fused(xyz, ut, vt, wt, c, *, compute_dtype="bfloat16"):
+    """xyz [3, P] f32 continuous grid coords in [0, S-1]; ut/vt/wt [Kp, SB]
+    transposed axis factors (rows >= S zero); c [8, Kp] channel factors
+    (rows >= 3 zero).  Returns [3, P] f32 interpolated LUT outputs."""
+    global fused_launches
+    if xyz.device.type == "cpu":
+        return lowrank_sample_fused_plain(xyz, ut, vt, wt, c, compute_dtype=compute_dtype)
+    if xyz.device.type != "cuda":
+        raise ValueError(f"lowrank_sample_fused: unsupported device {xyz.device}")
+    bf16 = compute_type(compute_dtype) == torch.bfloat16
+    if xyz.dim() != 2 or xyz.shape[0] != 3 or xyz.dtype != torch.float32:
+        raise ValueError(f"lowrank_sample_fused: xyz must be [3, P] float32, "
+                         f"got {tuple(xyz.shape)} {xyz.dtype}")
+    if not xyz.is_contiguous():
+        raise ValueError("lowrank_sample_fused: xyz must be contiguous")
+    k = _check_factors("lowrank_sample_fused", xyz, ut, vt, wt, c)
+    out = torch.empty_like(xyz)
+    lib = _lib()
+    with torch.cuda.device(xyz.device):
+        stream = torch.cuda.current_stream(xyz.device).cuda_stream
+        err = lib.colorlut_lowrank_fused(xyz.data_ptr(), ut.data_ptr(), vt.data_ptr(),
+                                         wt.data_ptr(), c.data_ptr(), out.data_ptr(),
+                                         xyz.shape[1], k, int(bf16), stream)
+    _raise_on(lib, err, "lowrank_sample_fused")
+    fused_launches += 1
+    return out
+
+
+def lowrank_sample_packed(px, params, ut, vt, wt, c, *, size: int, compute_dtype="bfloat16"):
+    """px int32 RGBA bit patterns, any shape (the TPU kernel takes
+    [Pr, 4096]); params [8] f32 = (scale0..2, offset0..2, maxval, 0).
+    Returns int32 of px's shape."""
+    global packed_launches
+    if px.device.type == "cpu":
+        return lowrank_sample_packed_plain(px, params, ut, vt, wt, c, size=size,
+                                           compute_dtype=compute_dtype)
+    if px.device.type != "cuda":
+        raise ValueError(f"lowrank_sample_packed: unsupported device {px.device}")
+    bf16 = compute_type(compute_dtype) == torch.bfloat16
+    if px.dtype != torch.int32 or not px.is_contiguous():
+        raise ValueError(f"lowrank_sample_packed: px must be contiguous int32, got {px.dtype}")
+    if (tuple(params.shape) != (8,) or params.dtype != torch.float32
+            or params.device != px.device):
+        raise ValueError("lowrank_sample_packed: params must be [8] float32 on px's device")
+    if not 2 <= size <= SB:
+        raise ValueError(f"lowrank_sample_packed: size must be in 2..{SB}, got {size}")
+    k = _check_factors("lowrank_sample_packed", px, ut, vt, wt, c)
+    out = torch.empty_like(px)
+    lib = _lib()
+    with torch.cuda.device(px.device):
+        stream = torch.cuda.current_stream(px.device).cuda_stream
+        err = lib.colorlut_lowrank_packed(px.data_ptr(), params.data_ptr(), ut.data_ptr(),
+                                          vt.data_ptr(), wt.data_ptr(), c.data_ptr(),
+                                          out.data_ptr(), px.numel(), k, size, int(bf16),
+                                          stream)
+    _raise_on(lib, err, "lowrank_sample_packed")
+    packed_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# frame wrappers
+
+
+def lut3d_apply_lowrank_fused(frame, ut, vt, wt, c, scale, offset, *,
+                              size: int, offsets: Sequence[int], bits: int,
+                              compute_dtype: str = "bfloat16"):
+    """Drop-in peer of colorlut_lowrank.lut3d_apply_lowrank running the
+    inner chain through B3.  frame [..., C] uint8/uint16."""
+    maxval = float(2**bits - 1)
+    fi = frame.to(torch.int32)
+    xyz = torch.stack([grid_coord(fi, off, scale[comp], offset[comp], size, maxval).reshape(-1)
+                       for comp, off in enumerate(offsets)])
+    cc = lowrank_sample_fused(xyz, ut, vt, wt, c, compute_dtype=compute_dtype)  # [3, P]
+    shp = fi.shape[:-1]
+    return restack(fi, offsets, [quantize(cc[comp], maxval).reshape(shp) for comp in range(3)],
+                   frame.dtype)
+
+
+def lut3d_apply_lowrank_packed(frame, ut, vt, wt, c, scale, offset, *,
+                               size: int, offsets: Sequence[int], bits: int,
+                               compute_dtype: str = "bfloat16"):
+    """Fully-fused path for RGBA u8 frames (offsets (0,1,2), bits 8): the
+    frame is bit-cast to int32 pixels (little-endian RGBA) and the whole
+    unpack/sample/repack runs in B2.  Other layouts are the caller's job."""
+    if bits != 8 or tuple(offsets) != (0, 1, 2) or frame.shape[-1] != 4 \
+            or frame.dtype != torch.uint8:
+        raise ValueError("lut3d_apply_lowrank_packed takes RGBA uint8 frames only")
+    px = frame.contiguous().view(torch.int32)  # [..., 1]
+    params = torch.tensor([scale[0], scale[1], scale[2], offset[0], offset[1], offset[2],
+                           float(2**bits - 1), 0.0], dtype=torch.float32).to(frame.device)
+    out = lowrank_sample_packed(px, params, ut, vt, wt, c, size=size,
+                                compute_dtype=compute_dtype)
+    return out.view(torch.uint8).reshape(frame.shape)
+
+
+__all__ = ["SB", "fused_launches", "lowrank_sample_fused", "lowrank_sample_fused_plain",
+           "lowrank_sample_packed", "lowrank_sample_packed_plain",
+           "lut3d_apply_lowrank_fused", "lut3d_apply_lowrank_packed", "pack_factors",
+           "packed_launches"]

@@ -7,9 +7,10 @@ so a build takes seconds, not minutes):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/lib<name>.so csrc/<name>.cu
 
-The libraries go to `gst_plugins_rs_tpu_torch/build/` (git-ignored).  A
-build is skipped while the library is newer than its source.  Nothing here
-runs at import: the CPU-only test environment has no nvcc.
+Sources named in EXTRA_FLAGS get those flags as well.  The libraries go to
+`gst_plugins_rs_tpu_torch/build/` (git-ignored).  A build is skipped while
+the library is newer than its source.  Nothing here runs at import: the
+CPU-only test environment has no nvcc.
 """
 from __future__ import annotations
 
@@ -27,6 +28,11 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# The per-pixel kernels round every product and sum on its own, as their
+# plain PyTorch versions do: no a*b+c contracted into one FMA rounding.
+EXTRA_FLAGS: Dict[str, List[str]] = {
+    name: ["-fmad=false"] for name in ("colorlut_lowrank", "colorlut_mxu", "hsv_planes")
+}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -64,7 +70,7 @@ def build(name: str, verbose: bool = False) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp, str(src)]
+           "-Xcompiler", "-fPIC", *EXTRA_FLAGS.get(name, []), "-o", tmp, str(src)]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -102,5 +108,5 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "build", "build_all", "library_path", "load",
+__all__ = ["BUILD_DIR", "CSRC_DIR", "EXTRA_FLAGS", "build", "build_all", "library_path", "load",
            "nvcc_path", "sources"]

@@ -6,17 +6,18 @@ runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_kernels_cuda.py
 
-Tolerances: f32 max abs error <= 1e-4 of the output's scale (the kernel and
-the plain version sum the same f32 products in another order); bf16
-|ref - got| / (|ref| + 0.1) < 0.05, the gate of tests/test_yolox_c3_pallas.py
-(the two round to bf16 at the same points, but a 1-ulp difference upstream
-can flip a later rounding).
+Tolerances of B1 (yolox_c3): f32 max abs error <= 1e-4 of the output's
+scale (the kernel and the plain version sum the same f32 products in
+another order); bf16 |ref - got| / (|ref| + 0.1) < 0.05, the gate of
+tests/test_yolox_c3_pallas.py (the two round to bf16 at the same points,
+but a 1-ulp difference upstream can flip a later rounding).  B2-B5: below.
 """
 import numpy as np
 import pytest
 import torch
 
-from gst_plugins_rs_tpu_torch.ops import yolox_c3
+from gst_plugins_rs_tpu_torch.ops import colorlut_lowrank_fused as lowrank
+from gst_plugins_rs_tpu_torch.ops import colorlut_mxu, hsv_planes, yolox_c3
 
 
 @pytest.fixture
@@ -76,3 +77,140 @@ def test_c3_kernel_rejects_bad_operands(cuda):
     with pytest.raises(ValueError):
         yolox_c3.c3_s2d_fused(y.transpose(1, 2), **ops, width=8, n=1)
     assert yolox_c3.launches == before
+
+
+# --- kernels B2-B5 of the per-pixel effects --------------------------------
+#
+# Tolerances: the kernels are built with -fmad=false and round every product
+# and sum where their plain versions do, so they are expected to agree bit
+# for bit; the gates are those of chip_smoke.py: B2/B3 and B5 within 1 u8
+# LSB after quantization (raw f32 within 1e-5), B4 planes within 1e-5 and
+# 1 LSB after quantization.  B2 and B3 share one per-pixel chain and must be
+# bit-equal.
+
+def _factors(S, K, seed, dev):
+    """Synthetic CP factors in the kernel layout: ut/vt/wt [K,48] with rows
+    >= S zero, c [8,K] with rows >= 3 zero, outputs mostly inside [0,1]."""
+    rng = np.random.RandomState(seed)
+    ops = []
+    for _ in range(3):
+        f = np.zeros((K, lowrank.SB), np.float32)
+        f[:, :S] = rng.uniform(0.0, 1.0, (K, S))
+        ops.append(f)
+    c = np.zeros((8, K), np.float32)
+    c[:3] = rng.uniform(0.0, 8.0 / K, (3, K))
+    return [torch.from_numpy(a).to(dev) for a in ops + [c]]
+
+
+def _quantized(t):
+    return torch.round(torch.clamp(t, 0.0, 1.0) * 255.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 33, 47])
+@pytest.mark.parametrize("K", [16, 128])
+def test_lowrank_kernels_match_plain(cuda, S, K):
+    P = 100_003  # ragged: no multiple of a block
+    ut, vt, wt, c = _factors(S, K, S * 1000 + K, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(S + K)
+    xyz = torch.rand(3, P, generator=gen, device=cuda) * (S - 1)
+    xyz[:, :3] = torch.tensor([0.0, S - 1.0, (S - 1) / 2.0], device=cuda)
+    before = lowrank.fused_launches
+    got = lowrank.lowrank_sample_fused(xyz, ut, vt, wt, c)
+    torch.cuda.synchronize()
+    assert lowrank.fused_launches == before + 1
+    ref = lowrank.lowrank_sample_fused_plain(xyz, ut, vt, wt, c)
+    assert got.shape == (3, P) and torch.isfinite(got).all()
+    assert float((got - ref).abs().max()) <= 1e-5
+    assert float((_quantized(got) - _quantized(ref)).abs().max()) <= 1
+
+    px = torch.randint(-2**31, 2**31 - 1, (P,), generator=gen, device=cuda, dtype=torch.int32)
+    params = torch.tensor([1.05, 1.0, 0.95, 0.01, 0.0, -0.02, 255.0, 0.0], device=cuda)
+    before = lowrank.packed_launches
+    got = lowrank.lowrank_sample_packed(px, params, ut, vt, wt, c, size=S)
+    torch.cuda.synchronize()
+    assert lowrank.packed_launches == before + 1
+    ref = lowrank.lowrank_sample_packed_plain(px, params, ut, vt, wt, c, size=S)
+    gb, rb = got.view(torch.uint8).reshape(P, 4), ref.view(torch.uint8).reshape(P, 4)
+    assert int((gb.int() - rb.int()).abs().max()) <= 1
+    assert torch.equal(gb[:, 3], px.view(torch.uint8).reshape(P, 4)[:, 3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 47])
+def test_lowrank_packed_and_fused_bit_equal(cuda, S):
+    ut, vt, wt, c = _factors(S, 32, S, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    frame = torch.randint(0, 256, (37, 531, 4), generator=gen, device=cuda, dtype=torch.uint8)
+    kw = dict(size=S, offsets=(0, 1, 2), bits=8)
+    scale, offset = [1.05, 1.0, 0.95], [0.01, 0.0, -0.02]
+    a = lowrank.lut3d_apply_lowrank_fused(frame, ut, vt, wt, c, scale, offset, **kw)
+    b = lowrank.lut3d_apply_lowrank_packed(frame, ut, vt, wt, c, scale, offset, **kw)
+    assert a.device.type == "cuda" and torch.equal(a, b)
+    frame16 = torch.randint(0, 65536, (9, 77, 4), generator=gen, device=cuda,
+                            dtype=torch.int32).to(torch.uint16)
+    out = lowrank.lut3d_apply_lowrank_fused(frame16, ut, vt, wt, c, scale, offset,
+                                            size=S, offsets=(0, 1, 2), bits=16)
+    assert out.dtype == torch.uint16 and torch.equal(out[..., 3].int(), frame16[..., 3].int())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W", [(37, 301), (1080, 1920)])
+def test_hsv_kernel_matches_plain(cuda, H, W):
+    gen = torch.Generator(device=cuda).manual_seed(H)
+    frame = torch.randint(0, 256, (H, W, 3), generator=gen, device=cuda, dtype=torch.uint8)
+    planes = [frame[..., i].float() * float(np.float32(1.0) / np.float32(255.0))
+              for i in range(3)]
+    params = torch.tensor([123.0, 1.1, -0.05, 0.95, 0.02], device=cuda)
+    before = hsv_planes.launches
+    got = hsv_planes.hsv_filter_planes(*planes, params)
+    torch.cuda.synchronize()
+    assert hsv_planes.launches == before + 1
+    ref = hsv_planes.hsv_filter_planes_plain(*planes, params)
+    for g, r in zip(got, ref):
+        assert g.shape == (H, W) and float((g - r).abs().max()) <= 1e-5
+        q = lambda t: torch.clamp(t * 255.0, 0.0, 255.0).to(torch.uint8).int()  # noqa: E731
+        assert int((q(g) - q(r)).abs().max()) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 33, 42])
+def test_mxu_kernel_matches_plain(cuda, S):
+    rng = np.random.RandomState(S)
+    t2 = torch.from_numpy(colorlut_mxu.pack_matmul_table(
+        rng.uniform(0, 1, (S**3, 3)).astype(np.float32), S)).to(cuda, torch.bfloat16)
+    P = 70_001
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    pos = [torch.rand(P, generator=gen, device=cuda) * (S - 1) for _ in range(3)]
+    for p in pos:
+        p[:2] = torch.tensor([0.0, S - 1.0], device=cuda)
+    before = colorlut_mxu.launches
+    got = colorlut_mxu.lut3d_positions_mxu(*pos, t2, size=S)
+    torch.cuda.synchronize()
+    assert colorlut_mxu.launches == before + 1
+    ref = colorlut_mxu.lut3d_positions_mxu_plain(*pos, t2, size=S)
+    for g, r in zip(got, ref):
+        assert float((g - r).abs().max()) <= 1e-5
+        assert float((_quantized(g) - _quantized(r)).abs().max()) <= 1
+
+
+@pytest.mark.cuda
+def test_effect_kernels_reject_bad_operands(cuda):
+    ut, vt, wt, c = _factors(9, 16, 0, cuda)
+    before = (lowrank.fused_launches, lowrank.packed_launches, hsv_planes.launches,
+              colorlut_mxu.launches)
+    with pytest.raises(ValueError):
+        lowrank.lowrank_sample_fused(torch.zeros(3, 8, device=cuda).t(), ut, vt, wt, c)
+    with pytest.raises(TypeError):
+        lowrank.lowrank_sample_fused(torch.zeros(3, 8, device=cuda), ut.double(), vt, wt, c)
+    with pytest.raises(ValueError):
+        lowrank.lowrank_sample_packed(torch.zeros(8, device=cuda), torch.zeros(8, device=cuda),
+                                      ut, vt, wt, c, size=9)
+    r = torch.zeros(4, 4, device=cuda)
+    with pytest.raises(ValueError):
+        hsv_planes.hsv_filter_planes(r, r, r.double(), torch.zeros(5, device=cuda))
+    with pytest.raises(ValueError):
+        colorlut_mxu.lut3d_positions_mxu(r[0], r[0], r[0],
+                                         torch.zeros(64, 128, device=cuda), size=9)
+    assert before == (lowrank.fused_launches, lowrank.packed_launches, hsv_planes.launches,
+                      colorlut_mxu.launches)

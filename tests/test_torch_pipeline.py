@@ -247,12 +247,13 @@ def test_adapter_and_appsink_handle_tensors():
 
 
 def test_factories_mirror_jax():
-    """The slice registers its factories with the JAX package's properties
-    and caps."""
+    """The slices register their factories with the JAX package's
+    properties and caps."""
     names = tlist()
     assert {"yoloxinference", "burn-yoloxinference", "yoloxtensordec", "analyticscombiner",
             "analyticssplitter", "videotestsrc", "appsrc", "appsink", "fakesink",
-            "capsfilter", "identity", "queue"} == set(names)
+            "capsfilter", "identity", "queue", "colorlut", "hsvfilter",
+            "hsvdetector"} == set(names)
     for name in names:
         jc, tc = jfactory(name), tfactory(name)
         assert [(p.name, repr(p.default), p.type, p.choices) for p in jc.PROPERTIES] == \
