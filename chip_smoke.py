@@ -16,17 +16,18 @@ Phases (any failure ends the run with a non-zero exit):
   2. build: every csrc/*.cu with nvcc for sm_90a, one nvcc per source;
   3. kernels: each kernel against its plain version at its path's shapes
      (and, for B2/B3, at 8 frames of 1080p over ranks 16, 64, 128), then
-     timed (CUDA events, median) beside its plain version, the one-call
-     library yardstick and its bound;
+     timed (CUDA events, median) beside its plain version, the library
+     yardstick and its bound; B1 (compact operands) also beside the s2d
+     cuDNN chain, and over its tile sides;
   4. pipelines: videotestsrc ! yoloxinference ! yoloxtensordec ! appsink at
      640x640 (engine=fast, fast-bf16), 4 streams through analyticscombiner
      / analyticssplitter, videotestsrc RGBA 1080p ! colorlut approx !
      hsvfilter ! appsink, videotestsrc RGBA64LE 1080p ! colorlut approx !
      appsink, and lut3d_apply_mxu over 1080p frames; the launch counters
      are set to 0 just before each path and read just after;
-  5. card against CPU: one frame through apply_fast, and one seeded 1080p
-     frame through colorlut approx, hsvfilter and lut3d_apply_mxu, on the
-     card (kernels) and on the CPU (plain versions);
+  5. card against CPU: one frame through apply_fast with the fused C3, and
+     one seeded 1080p frame through colorlut approx, hsvfilter and
+     lut3d_apply_mxu, on the card (kernels) and on the CPU (plain versions);
   6. timing: apply_fast frames per second at batch 1 and 8, and the element
      pipelines end to end.
 Prints a JSON line of the kernels, the card's name and power limit, then,
@@ -58,6 +59,7 @@ C3_PREFIX = "backbone.backbone.dark2.c3"
 F32_TOL = 1e-4        # kernel vs plain, max abs error over the output's scale
 BF16_TOL = 0.05       # kernel vs plain, |d| / (|ref| + 0.1)
 CPU_TOL = 1e-3        # card vs CPU, |d| / (|ref| + 1e-2), the engine's gate
+C3_TILE_SWEEP = (6, 8, 10, 12, 14, 16, 20)  # B1 tile sides timed in phase 3
 
 # The per-pixel effects: 1080p frames and a 33^3 grade (written by write_grade).
 HD_H, HD_W = 1080, 1920
@@ -144,85 +146,119 @@ def tiny_model(dev):
     return init_weights(Yolox.from_variant("tiny"), seed=0).to(dev)
 
 
-def c3_bound(B, H, W, C4, Ch, n, dtype):
-    """(ms, 'operations'|'bytes', flop, bytes) for one fused C3 call: the
-    dense s2d products, each input read once and the output written once."""
-    P = B * H * W
-    macs = P * (2 * C4 * Ch + n * Ch * Ch + 9 * n * Ch * Ch + 2 * Ch * C4)
-    flop = 2 * macs
+# B1's bound counts the compact work (the original convs in the normal
+# domain): the TPU kernel's dense s2d products are three quarters zero
+# blocks, so a count of them is four times the work the function needs.
+def c3_bound(B, H, W, C, h, n, dtype, dense=False):
+    """(ms, 'operations'|'bytes', flop, bytes) for one fused C3 call on an
+    s2d input [B,H,W,4C]: the compact products over the 4HW normal-domain
+    pixels, each input read once and the output written once; with
+    dense=True the TPU kernel's dense s2d products over HW pixels."""
+    P = B * 4 * H * W
+    if dense:
+        P, C, h = B * H * W, 4 * C, 4 * h
+    wmacs = 2 * C * h + n * h * h + 9 * n * h * h + 2 * h * C
+    flop = 2 * P * wmacs
     isz = 2 if dtype == torch.bfloat16 else 4
-    weights = (2 * C4 * Ch + n * Ch * Ch + 9 * n * Ch * Ch + 2 * Ch * C4) * isz
-    biases = (2 * Ch + 2 * n * Ch + C4) * 4
-    nbytes = 2 * P * C4 * isz + weights + biases
+    nbytes = 2 * P * C * isz + wmacs * isz + (2 * h + 2 * n * h + C) * 4
     t_ops = flop / (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flop, nbytes
 
 
+def rel_err(got, ref):
+    return float(((got.float() - ref).abs() / (ref.abs() + 0.1)).max())
+
+
 def kernels(card_line):
     """Phase 3: yolox_c3 against its plain version at the main path's
-    shapes (dark2 of YOLOX-tiny at 640: [B,80,80,192], Ch=96, n=1)."""
+    shapes (dark2 of YOLOX-tiny at 640: s2d [B,80,80,192], compact C=48,
+    h=24, n=1), timed beside both cuDNN chains, then over tile sides."""
     phase("3 kernels against their plain versions")
     from gst_plugins_rs_tpu_torch.models.yolox_fast import (
-        _c3_fused_weights, _c3_s2d_weights, _prep)
+        _c3_compact_weights, _c3_normal, _c3_normal_weights, _c3_s2d, _c3_s2d_weights, _prep)
     from gst_plugins_rs_tpu_torch.ops import yolox_c3
 
     dev = torch.device("cuda")
     state = tiny_model(dev).state_dict()
     n = 1
-    fused = _c3_fused_weights(state, C3_PREFIX, n)
-    per_conv = _c3_s2d_weights(state, C3_PREFIX, n)
+    compact = _c3_compact_weights(state, C3_PREFIX, n)
+    per_conv = {"normal": (_c3_normal, _c3_normal_weights(state, C3_PREFIX, n)),
+                "s2d": (_c3_s2d, _c3_s2d_weights(state, C3_PREFIX, n))}
     gen = torch.Generator(device=dev).manual_seed(0)
-    cases = []
+    cases, inputs = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         ops = {k: v.to(dtype=torch.float32 if k[0] == "b" else dtype).contiguous()
-               for k, v in fused.items()}
-        lib_w = {k: _prep(W, b, dtype, dev) for k, (W, b) in per_conv.items()}
+               for k, v in compact.items()}
+        chains = {k: (fn, {c: _prep(W, b, dtype, dev) for c, (W, b) in w.items()})
+                  for k, (fn, w) in per_conv.items()}
+        name = "f32" if dtype == torch.float32 else "bf16"
         for B in (1, 8):
             # dark2's conv output feeds the C3: SiLU activations, ~N(0,1) pre-activation
             y = torch.nn.functional.silu(
                 torch.randn(B, SIZE // 8, SIZE // 8, 192, generator=gen, device=dev)).to(dtype)
-            Wd, C4, Ch = y.shape[2], y.shape[3], ops["W1"].shape[1]
-            got = yolox_c3.c3_s2d_fused(y, **ops, width=Wd, n=n)
+            H, Wd, C, h = y.shape[1], y.shape[2], y.shape[3] // 4, ops["W1"].shape[1]
+            inputs[name, B] = (y, ops)
+            got = yolox_c3.c3_s2d_fused_compact(y, **ops, width=Wd, n=n)
             torch.cuda.synchronize()
-            ref = yolox_c3.c3_s2d_fused_plain(y, **ops, width=Wd, n=n)
-            lib = per_conv_c3(lib_w, y, n)
-            g, r = got.float(), ref.float()
+            ref = yolox_c3.c3_s2d_fused_plain(y, **ops, width=Wd, n=n).float()
+            g = got.float()
             if not torch.isfinite(g).all():
                 raise AssertionError(f"yolox_c3 {dtype} B={B}: non-finite output")
-            max_abs = float((g - r).abs().max())
-            scale = max(1.0, float(r.abs().max()))
-            rel = float(((g - r).abs() / (r.abs() + 0.1)).max())
-            lib_rel = float(((lib.float() - r).abs() / (r.abs() + 0.1)).max())
+            max_abs = float((g - ref).abs().max())
+            scale = max(1.0, float(ref.abs().max()))
+            rel = rel_err(g, ref)
+            chain_rel = {k: rel_err(conv_chain_c3(*c, y, n), ref) for k, c in chains.items()}
             ok = (max_abs / scale <= F32_TOL) if dtype == torch.float32 else (rel < BF16_TOL)
-            name = "f32" if dtype == torch.float32 else "bf16"
             print(f"yolox_c3 {name} B={B}: max_abs_err {max_abs:.3e} (scale {scale:.3f}), "
-                  f"rel {rel:.3e}; per-conv cuDNN vs plain rel {lib_rel:.3e}")
+                  f"rel {rel:.3e}; cuDNN chains vs plain rel: normal-domain "
+                  f"{chain_rel['normal']:.3e}, s2d {chain_rel['s2d']:.3e}")
             if not ok:
                 raise AssertionError(f"yolox_c3 {name} B={B} disagrees with its plain version")
-            ms = cuda_ms(lambda: yolox_c3.c3_s2d_fused(y, **ops, width=Wd, n=n))
+            ms = cuda_ms(lambda: yolox_c3.c3_s2d_fused_compact(y, **ops, width=Wd, n=n))
             plain_ms = cuda_ms(lambda: yolox_c3.c3_s2d_fused_plain(y, **ops, width=Wd, n=n),
                                iters=10)
-            library_ms = cuda_ms(lambda: per_conv_c3(lib_w, y, n))
-            bound_ms, bound_by, flop, nbytes = c3_bound(B, y.shape[1], Wd, C4, Ch, n, dtype)
+            library_ms = cuda_ms(lambda: conv_chain_c3(*chains["normal"], y, n))
+            s2d_chain_ms = cuda_ms(lambda: conv_chain_c3(*chains["s2d"], y, n))
+            bound_ms, bound_by, flop, nbytes = c3_bound(B, H, Wd, C, h, n, dtype)
+            dense_ms, dense_by, dense_flop, _ = c3_bound(B, H, Wd, C, h, n, dtype, dense=True)
             cases.append(dict(dtype=name, batch=B, ms=ms, plain_ms=plain_ms,
-                              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=library_ms, s2d_chain_ms=s2d_chain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by, dense_bound_ms=dense_ms,
                               max_abs_err=max_abs, rel_err=rel, flop=flop, bytes=nbytes))
             print(f"yolox_c3 {name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"per-conv cuDNN {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}; {flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) [{card_line}]")
+                  f"normal-domain cuDNN chain {library_ms:.4f} ms, s2d cuDNN chain "
+                  f"{s2d_chain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+                  f"{flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB; s2d dense {dense_ms:.4f} ms, "
+                  f"{dense_flop / 1e9:.3f} GFLOP) [{card_line}]")
+    # the path's tile side (the first of yolox_c3._TILES) against its
+    # neighbours, at both batches: the kernel takes each as the only choice
+    path_tiles = yolox_c3._TILES
+    try:
+        for (name, B), (y, ops) in inputs.items():
+            times = {}
+            for ts in C3_TILE_SWEEP:
+                yolox_c3._TILES = (ts,)
+                times[ts] = cuda_ms(lambda: yolox_c3.c3_s2d_fused_compact(
+                    y, **ops, width=y.shape[2], n=n))
+            print(f"yolox_c3 {name} B={B} by tile side: "
+                  + ", ".join(f"{ts}: {ms:.4f} ms" for ts, ms in times.items())
+                  + f" (the path takes {path_tiles[0]}) [{card_line}]")
+    finally:
+        yolox_c3._TILES = path_tiles
     print('kernels: ["yolox_c3"]')
     return cases
 
 
-def per_conv_c3(weights, y, n):
-    """The library yardstick of B1: dark2's C3 as one cuDNN conv per layer
-    (the unfused engine's path), never called by the port in B1's place."""
+def conv_chain_c3(chain, weights, y, n):
+    """The library yardsticks of B1, one cuDNN conv per layer, TF32 off:
+    `_c3_normal` runs the original convs in the normal domain (un_s2d, 5
+    convs at n=1, s2d), `_c3_s2d` the dense s2d convs (the unfused engine's
+    path).  The port never calls either in B1's place."""
     from gst_plugins_rs_tpu_torch import no_tf32
-    from gst_plugins_rs_tpu_torch.models.yolox_fast import _c3_s2d
 
     with torch.no_grad(), no_tf32():
-        return _c3_s2d(weights, y, n)
+        return chain(weights, y, n)
 
 
 def _tensor_meta(buf):
@@ -335,19 +371,29 @@ def pipelines():
 
 
 def card_vs_cpu():
+    """One frame through apply_fast on the card (dark2's C3 by kernel B1)
+    against the same path on the CPU (B1's plain version), gated; the
+    per-conv path (no B1) on both devices is printed beside it."""
     phase("5 card against CPU")
     from gst_plugins_rs_tpu_torch.models.yolox_fast import apply_fast
 
     cpu_model = tiny_model(torch.device("cpu"))
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     x = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (1, SIZE, SIZE, 3)).astype(np.uint8))
-    ref = apply_fast(cpu_model, cpu_model.state_dict(), x)
-    got = apply_fast(gpu_model, gpu_model.state_dict(), x.cuda(), fuse_c3=True).cpu()
-    if got.shape != (1, 8400, 85) or not torch.isfinite(got).all():
-        raise AssertionError(f"card output {tuple(got.shape)} not finite [1,8400,85]")
-    rel = float(((ref - got).abs() / (ref.abs() + 1e-2)).max())
-    print(f"apply_fast f32, card (fused C3 kernel) vs CPU (plain): max rel {rel:.3e} "
-          f"(gate {CPU_TOL})")
+    out = {}
+    for fuse in (True, False):
+        ref = apply_fast(cpu_model, cpu_model.state_dict(), x, fuse_c3=fuse)
+        got = apply_fast(gpu_model, gpu_model.state_dict(), x.cuda(), fuse_c3=fuse).cpu()
+        if got.shape != (1, 8400, 85) or not torch.isfinite(got).all():
+            raise AssertionError(f"card output {tuple(got.shape)} not finite [1,8400,85]")
+        r = (ref - got).abs() / (ref.abs() + 1e-2)
+        at = int(r.argmax())
+        out[fuse] = (float(r.max()), at, float(ref.flatten()[at]), float((ref - got).abs().max()))
+    rel, at, val, max_abs = out[True]
+    print(f"apply_fast f32, card (fused C3 kernel) vs CPU (the same path, B1's plain version): "
+          f"max rel {rel:.3e} at output {at} (value {val:.4g}), max abs {max_abs:.3e} "
+          f"(gate {CPU_TOL}); per-conv C3 (no B1), card vs CPU: max rel {out[False][0]:.3e} at "
+          f"output {out[False][1]} (value {out[False][2]:.4g}), max abs {out[False][3]:.3e}")
     if not rel < CPU_TOL:
         raise AssertionError("card and CPU disagree")
 

@@ -6,8 +6,9 @@ graph (models/yolox.py), and the same schedule as the JAX package's engine
 space-to-depth domain, activations [H/2, W/2, 4C] with kernels constructed
 EXACTLY from the original 3x3/1x1 kernels; BatchNorm is folded into the conv
 weights.  On CUDA, dark2's C3 runs as one hand-written kernel
-(ops/yolox_c3.py, `fuse_c3=True`); the kernel's operands are the s2d
-matrices built here.
+(ops/yolox_c3.py, `fuse_c3=True`); its operands are the compact matrices
+of the original folded convs built here (`_c3_compact_weights`), and the
+kernel works in the normal domain over the s2d activations.
 
 XLA folded the weights at trace time; eager PyTorch would redo ~40 small
 scatters per frame, so `FastEngine` folds the weights and builds the s2d
@@ -39,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import no_tf32
-from ..ops.yolox_c3 import c3_s2d_fused
+from ..ops.yolox_c3 import c3_s2d_fused_compact, s2d, un_s2d
 from .yolox import Yolox, decode, decode_grid, upsample2
 
 _EPS = 1e-3
@@ -65,20 +66,7 @@ def _conv(x, W, b, stride: int = 1, act: bool = True):
 # ---------------------------------------------------------------------------
 # s2d kernel constructors (exact; tests/test_torch_yolox.py)
 # ---------------------------------------------------------------------------
-def s2d(x):
-    """[B,H,W,C] -> [B,H/2,W/2,4C], channel (2e+f)*C + c."""
-    b, h, w, c = x.shape
-    y = x.reshape(b, h // 2, 2, w // 2, 2, c)
-    return y.permute(0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c)
-
-
-def un_s2d(x):
-    b, h, w, c4 = x.shape
-    c = c4 // 4
-    y = x.reshape(b, h, w, 2, 2, c)
-    return y.permute(0, 1, 3, 2, 4, 5).reshape(b, h * 2, w * 2, c)
-
-
+# s2d and un_s2d live in ops/yolox_c3.py, beside the kernel that reads the layout.
 def s2d_kernel_s1(W):
     """3x3/s1 kernel [Co,Ci,3,3] -> s2d-domain [4Co,4Ci,3,3]."""
     co, ci = W.shape[0], W.shape[1]
@@ -136,28 +124,29 @@ def _tile4(b):
     return b.repeat(4)
 
 
+def _c3_normal_weights(state, prefix: str, n: int) -> Dict[str, Tuple]:
+    """The folded convs (OIHW, f32) of a non-SPP C3 in the normal domain:
+    conv1, conv2, m_i.conv1 (1x1), m_i.conv2 (3x3), conv3 over cat(x1, x2)."""
+    keys = ["conv1", "conv2"] + [f"m_{i}.conv{j}" for i in range(n) for j in (1, 2)] + ["conv3"]
+    return {k: _fold_bn(state, f"{prefix}.{k}") for k in keys}
+
+
 def _c3_s2d_weights(state, prefix: str, n: int) -> Dict[str, Tuple]:
     """Per-conv s2d weights (OIHW, f32) of a non-SPP C3 run in the s2d
     domain: the unfused form of `_c3_fused_weights`."""
-    W1, b1 = _fold_bn(state, f"{prefix}.conv1")
-    W2, b2 = _fold_bn(state, f"{prefix}.conv2")
-    hidden = W1.shape[0]
-    w = {"conv1": (s2d_kernel_1x1(W1), _tile4(b1)),
-         "conv2": (s2d_kernel_1x1(W2), _tile4(b2))}
-    for i in range(n):
-        Wa, ba = _fold_bn(state, f"{prefix}.m_{i}.conv1")
-        Wb, bb = _fold_bn(state, f"{prefix}.m_{i}.conv2")
-        w[f"m_{i}.conv1"] = (s2d_kernel_1x1(Wa), _tile4(ba))
-        w[f"m_{i}.conv2"] = (s2d_kernel_s1(Wb), _tile4(bb))
-    W3, b3 = _fold_bn(state, f"{prefix}.conv3")
-    w["conv3"] = (_interleave_rows(s2d_kernel_1x1(W3), hidden, hidden), _tile4(b3))
-    return w
+    w = _c3_normal_weights(state, prefix, n)
+    hidden = w["conv1"][0].shape[0]
+    s = {k: (s2d_kernel_s1(W) if W.shape[-1] == 3 else s2d_kernel_1x1(W), _tile4(b))
+         for k, (W, b) in w.items()}
+    s["conv3"] = (_interleave_rows(s["conv3"][0], hidden, hidden), s["conv3"][1])
+    return s
 
 
 def _c3_s2d(w, y, n: int):
     """CspBottleneck (shortcut branch form — the non-SPP CspBlock C3) on an
-    s2d-domain NHWC input, one cuDNN conv per layer; `w` from
-    _c3_s2d_weights, cast to y's dtype."""
+    NHWC input, one cuDNN conv per layer; `w` from _c3_s2d_weights on an
+    s2d-domain input (or _c3_normal_weights on a normal-domain one), cast to
+    y's dtype."""
     x1 = _conv(y, *w["conv1"])
     x2 = _conv(y, *w["conv2"])
     for i in range(n):
@@ -167,11 +156,17 @@ def _c3_s2d(w, y, n: int):
     return _conv(torch.cat([x1, x2], dim=-1), *w["conv3"])
 
 
-def _c3_fused_weights(state, prefix: str, n: int) -> Dict[str, torch.Tensor]:
-    """Fold + flatten the C3 params into the 2D matrices the fused kernel
-    (ops/yolox_c3.py) consumes, in the TPU kernel's layout (in x out), f32."""
-    w = _c3_s2d_weights(state, prefix, n)
+def _c3_normal(w, y, n: int):
+    """The C3 on an s2d activation through the normal domain: un_s2d, one
+    cuDNN conv per original layer (`w` from _c3_normal_weights, cast to y's
+    dtype), s2d.  A yardstick of kernel B1 (chip_smoke.py); the engine never
+    calls it."""
+    return s2d(_c3_s2d(w, un_s2d(y), n))
 
+
+def _matrices(w, n: int) -> Dict[str, torch.Tensor]:
+    """Per-conv weights as the fused kernel's operands: in x out matrices,
+    the 3x3's taps row-major, biases [1, out]."""
     def mat(K):  # 1x1 OIHW [O,I,1,1] -> [I,O]
         return K[:, :, 0, 0].t().contiguous()
 
@@ -186,6 +181,18 @@ def _c3_fused_weights(state, prefix: str, n: int) -> Dict[str, torch.Tensor]:
         bb=torch.stack([w[f"m_{i}.conv2"][1][None] for i in range(n)]),
         W3=mat(w["conv3"][0]), b3=w["conv3"][1][None],
     )
+
+
+def _c3_fused_weights(state, prefix: str, n: int) -> Dict[str, torch.Tensor]:
+    """The TPU kernel's operands: the dense s2d matrices (in x out), f32."""
+    return _matrices(_c3_s2d_weights(state, prefix, n), n)
+
+
+def _c3_compact_weights(state, prefix: str, n: int) -> Dict[str, torch.Tensor]:
+    """Kernel B1's compact operands (ops/yolox_c3.py): the original folded
+    convs as in x out matrices, f32; `compact_from_s2d` of
+    `_c3_fused_weights`, exactly."""
+    return _matrices(_c3_normal_weights(state, prefix, n), n)
 
 
 def _prep(W, b, dtype, device):
@@ -225,7 +232,7 @@ class FastEngine:
         W, b = _fold_bn(state, f"{bb}.dark2.conv")
         self.dark2_conv = _prep(s2d_kernel_s2(W), _tile4(b), sdt, dev)
         if self.fuse_c3:
-            w = _c3_fused_weights(state, f"{bb}.dark2.c3", self.base_depth)
+            w = _c3_compact_weights(state, f"{bb}.dark2.c3", self.base_depth)
             self.c3 = {k: v.to(device=dev, dtype=torch.float32 if k[0] == "b" else sdt).contiguous()
                        for k, v in w.items()}
         else:
@@ -301,7 +308,8 @@ class FastEngine:
         y = _conv(y, *self.stem)                       # [B,H/4,W/4,4*bc]
         y = _conv(y, *self.dark2_conv, stride=2)       # [B,H/8,W/8,8*bc]
         if self.fuse_c3:
-            y = c3_s2d_fused(y.contiguous(), **self.c3, width=y.shape[2], n=self.base_depth)
+            y = c3_s2d_fused_compact(y.contiguous(), **self.c3, width=y.shape[2],
+                                     n=self.base_depth)
         else:
             y = _c3_s2d(self.c3, y, self.base_depth)
         return un_s2d(y).to(self.dtype)                # [B,H/4,W/4,2*bc]

@@ -6,9 +6,9 @@ runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_kernels_cuda.py
 
-Tolerances of B1 (yolox_c3): f32 max abs error <= 1e-4 of the output's
-scale (the kernel and the plain version sum the same f32 products in
-another order); bf16 |ref - got| / (|ref| + 0.1) < 0.05, the gate of
+Tolerances of B1 (yolox_c3, compact operands): f32 max abs error <= 1e-4
+of the output's scale (the kernel and the plain version sum the same f32
+products in another order); bf16 |ref - got| / (|ref| + 0.1) < 0.05, the gate of
 tests/test_yolox_c3_pallas.py (the two round to bf16 at the same points,
 but a 1-ulp difference upstream can flip a later rounding).  B2-B5: below.
 """
@@ -28,17 +28,20 @@ def cuda():
 
 
 def _operands(seed, B, H, W, C4, Ch, n, dtype, dev):
+    """y [B,H,W,C4] in the s2d layout and B1's compact operands for the s2d
+    widths C4, Ch: C = C4/4 channels in and out, h = Ch/4 hidden."""
     rng = np.random.RandomState(seed)
+    C, h = C4 // 4, Ch // 4
 
     def t(shape, scale, dt):
         return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev, dt)
 
     ops = dict(
-        W1=t((C4, Ch), C4 ** -0.5, dtype), b1=t((1, Ch), 0.1, torch.float32),
-        W2=t((C4, Ch), C4 ** -0.5, dtype), b2=t((1, Ch), 0.1, torch.float32),
-        Wa=t((n, Ch, Ch), Ch ** -0.5, dtype), ba=t((n, 1, Ch), 0.1, torch.float32),
-        Wb=t((9 * n, Ch, Ch), (9 * Ch) ** -0.5, dtype), bb=t((n, 1, Ch), 0.1, torch.float32),
-        W3=t((2 * Ch, C4), (2 * Ch) ** -0.5, dtype), b3=t((1, C4), 0.1, torch.float32),
+        W1=t((C, h), C ** -0.5, dtype), b1=t((1, h), 0.1, torch.float32),
+        W2=t((C, h), C ** -0.5, dtype), b2=t((1, h), 0.1, torch.float32),
+        Wa=t((n, h, h), h ** -0.5, dtype), ba=t((n, 1, h), 0.1, torch.float32),
+        Wb=t((9 * n, h, h), (9 * h) ** -0.5, dtype), bb=t((n, 1, h), 0.1, torch.float32),
+        W3=t((2 * h, C), (2 * h) ** -0.5, dtype), b3=t((1, C), 0.1, torch.float32),
     )
     return t((B, H, W, C4), 1.0, dtype), ops
 
@@ -47,13 +50,13 @@ def _operands(seed, B, H, W, C4, Ch, n, dtype, dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("B,H,W,C4,Ch,n", [
     (2, 80, 80, 192, 96, 1),   # YOLOX-tiny dark2 at 640
-    (2, 10, 6, 32, 16, 2),     # ragged tiles, two bottlenecks
-    (1, 13, 11, 256, 128, 3),  # 4x4 tiles: an 8x8 tile's halo overflows shared memory
+    (2, 10, 6, 64, 32, 2),     # ragged tiles, two bottlenecks, h = 8 (a k8 tail alone)
+    (1, 13, 11, 256, 128, 3),  # three bottlenecks: a smaller tile where the halo grows
 ])
 def test_c3_kernel_matches_plain(cuda, dtype, B, H, W, C4, Ch, n):
     y, ops = _operands(B * 100 + n, B, H, W, C4, Ch, n, dtype, cuda)
     before = yolox_c3.launches
-    got = yolox_c3.c3_s2d_fused(y, **ops, width=W, n=n)
+    got = yolox_c3.c3_s2d_fused_compact(y, **ops, width=W, n=n)
     torch.cuda.synchronize()
     assert yolox_c3.launches == before + 1
     ref = yolox_c3.c3_s2d_fused_plain(y, **ops, width=W, n=n).float()
@@ -70,13 +73,36 @@ def test_c3_kernel_matches_plain(cuda, dtype, B, H, W, C4, Ch, n):
 
 @pytest.mark.cuda
 def test_c3_kernel_rejects_bad_operands(cuda):
-    y, ops = _operands(0, 1, 8, 8, 32, 16, 1, torch.float32, cuda)
+    y, ops = _operands(0, 1, 8, 8, 64, 32, 1, torch.float32, cuda)
     before = yolox_c3.launches
     with pytest.raises(TypeError):
-        yolox_c3.c3_s2d_fused(y, **{**ops, "W1": ops["W1"].double()}, width=8, n=1)
+        yolox_c3.c3_s2d_fused_compact(y, **{**ops, "W1": ops["W1"].double()}, width=8, n=1)
     with pytest.raises(ValueError):
-        yolox_c3.c3_s2d_fused(y.transpose(1, 2), **ops, width=8, n=1)
+        yolox_c3.c3_s2d_fused_compact(y.transpose(1, 2), **ops, width=8, n=1)
+    # normal-domain widths the kernel does not take: C = 12, then h = 4
+    y12, ops12 = _operands(0, 1, 8, 8, 48, 32, 1, torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        yolox_c3.c3_s2d_fused_compact(y12, **ops12, width=8, n=1)
+    y4, ops4 = _operands(0, 1, 8, 8, 64, 16, 1, torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        yolox_c3.c3_s2d_fused_compact(y4, **ops4, width=8, n=1)
+    # the TPU kernel's dense operands must have the s2d structure
+    dense = {k: torch.randn(*v.shape, device=cuda).to(v.dtype) for k, v in
+             yolox_c3._s2d_from_compact(**ops, n=1).items()}
+    with pytest.raises(ValueError, match="s2d form"):
+        yolox_c3.c3_s2d_fused(y, **dense, width=8, n=1)
     assert yolox_c3.launches == before
+
+
+@pytest.mark.cuda
+def test_c3_dense_entry_matches_compact(cuda):
+    """The TPU-signature entry reads the compact operands out of the dense
+    ones and launches the same kernel."""
+    y, ops = _operands(5, 1, 12, 10, 64, 32, 1, torch.float32, cuda)
+    dense = yolox_c3._s2d_from_compact(**ops, n=1)
+    got = yolox_c3.c3_s2d_fused(y, **dense, width=10, n=1)
+    ref = yolox_c3.c3_s2d_fused_compact(y, **ops, width=10, n=1)
+    assert torch.equal(got, ref)
 
 
 # --- kernels B2-B5 of the per-pixel effects --------------------------------

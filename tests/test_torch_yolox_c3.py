@@ -1,10 +1,11 @@
 """Kernel B1 of the PyTorch port (ops/yolox_c3.py) against the JAX package.
 
-On the CPU the port's `c3_s2d_fused` runs its plain PyTorch version; it is
-held against the JAX Pallas kernel (interpret mode) and the JAX per-conv
-`_c3_s2d`, on the same inputs made with numpy.  The CUDA kernel itself is
-held against the plain version on the card (tests/test_torch_kernels_cuda.py,
-chip_smoke.py).
+On the CPU the port's `c3_s2d_fused` (the TPU kernel's dense s2d operands)
+and `c3_s2d_fused_compact` (the compact operands the engine passes) run the
+plain PyTorch version; both are held against the JAX Pallas kernel
+(interpret mode) and the JAX per-conv `_c3_s2d`, on the same inputs made
+with numpy.  The CUDA kernel itself is held against the plain version on
+the card (tests/test_torch_kernels_cuda.py, chip_smoke.py).
 
 Tolerances: f32 max abs error < 1e-4 (the same f32 products summed in
 another order), as tests/test_yolox_c3_pallas.py; bf16 relative error
@@ -138,3 +139,93 @@ def test_wrapper_rejects_other_devices():
     ops = {k: v.to("meta") for k, v in tyf._c3_fused_weights(state, "c3", 1).items()}
     with pytest.raises(ValueError, match="unsupported device"):
         yolox_c3.c3_s2d_fused(torch.empty(1, 8, 8, 32, device="meta"), **ops, width=8, n=1)
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_compact_from_s2d_matches_compact_weights(n):
+    """The compact operands read out of the TPU kernel's dense s2d operands
+    equal those the engine builds from the original convs, exactly."""
+    _, _, state, _ = _case(21 + n, n, (8, 8), c4=64, hidden=32)
+    dense = tyf._c3_fused_weights(state, "c3", n)
+    got = yolox_c3.compact_from_s2d(**dense, n=n)
+    ref = tyf._c3_compact_weights(state, "c3", n)
+    assert set(got) == set(ref)
+    for k in ref:
+        assert got[k].shape == ref[k].shape and torch.equal(got[k], ref[k]), k
+
+
+def test_compact_from_s2d_rejects_dense_random():
+    """A dense operand with non-zero blocks off the s2d structure has no
+    compact form."""
+    _, _, state, _ = _case(2, 1, (8, 8))
+    dense = tyf._c3_fused_weights(state, "c3", 1)
+    rng = np.random.RandomState(0)
+    for k in ("W1", "Wb", "W3"):
+        bad = dict(dense, **{k: torch.from_numpy(rng.randn(*dense[k].shape).astype(np.float32))})
+        with pytest.raises(ValueError, match=k):
+            yolox_c3.compact_from_s2d(**bad, n=1)
+    # equal zero structure, but the phase blocks of a 1x1 differ
+    W1 = dense["W1"].clone()
+    W1[-1, -1] += 1.0
+    with pytest.raises(ValueError, match="W1"):
+        yolox_c3.compact_from_s2d(**dict(dense, W1=W1), n=1)
+
+
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("hw", [(8, 8), (10, 6)])
+def test_compact_matches_jax_kernel_and_xla_c3(n, hw):
+    """The engine's entry with compact operands, f32, against the JAX kernel
+    (dense s2d operands, interpret mode) and the JAX per-conv chain."""
+    jp, js, state, y = _case(31 + n, n, hw)
+    H, W = hw
+    ref_kernel = np.asarray(jax_c3_fused(jnp.asarray(y), **jyf._c3_fused_weights(jp, js, n),
+                                         width=W, n=n, interpret=True))
+    ref_xla = np.asarray(jyf._c3_s2d(jp, js, jnp.asarray(y), n))
+    before = yolox_c3.launches
+    got = yolox_c3.c3_s2d_fused_compact(torch.from_numpy(y), **tyf._c3_compact_weights(
+        state, "c3", n), width=W, n=n)
+    assert yolox_c3.launches == before  # a CPU tensor runs the plain version
+    assert got.shape == y.shape and got.dtype == torch.float32
+    assert float(np.abs(ref_kernel - got.numpy()).max()) < 1e-4
+    assert float(np.abs(ref_xla - got.numpy()).max()) < 1e-4
+
+
+@pytest.mark.parametrize("n,hw", [(1, (8, 8)), (2, (10, 6))])
+def test_compact_bf16_matches_jax_bf16(n, hw):
+    """bf16 storage through the compact entry against the JAX kernel and the
+    XLA path, both in bf16."""
+    jp, js, state, y = _case(41 + n, n, hw, batch=1)
+    H, W = hw
+    yb = jnp.asarray(y).astype(jnp.bfloat16)
+    ref = np.asarray(jyf._c3_s2d(jp, js, yb, n).astype(jnp.float32))
+    ref_kernel = np.asarray(jax_c3_fused(yb, **jyf._c3_fused_weights(jp, js, n), width=W, n=n,
+                                         interpret=True).astype(jnp.float32))
+    ops = {k: v.to(torch.float32 if k[0] == "b" else torch.bfloat16)
+           for k, v in tyf._c3_compact_weights(state, "c3", n).items()}
+    got = yolox_c3.c3_s2d_fused_compact(torch.from_numpy(y).to(torch.bfloat16), **ops,
+                                        width=W, n=n)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    for r in (ref, ref_kernel):
+        assert float((np.abs(r - got) / (np.abs(r) + 1e-1)).max()) < 0.05
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_normal_chain_matches_jax(n):
+    """The normal-domain per-conv chain that chip_smoke.py times beside B1
+    (un_s2d, the original convs, s2d) against the JAX `_c3_s2d`."""
+    jp, js, state, y = _case(51 + n, n, (10, 6))
+    ref = np.asarray(jyf._c3_s2d(jp, js, jnp.asarray(y), n))
+    w = tyf._c3_normal_weights(state, "c3", n)
+    w = {k: tyf._prep(W, b, torch.float32, torch.device("cpu")) for k, (W, b) in w.items()}
+    got = tyf._c3_normal(w, torch.from_numpy(y), n)
+    assert got.shape == y.shape
+    assert float(np.abs(ref - got.numpy()).max()) < 1e-4
+
+
+def test_compact_wrapper_rejects_other_devices():
+    _, _, state, _ = _case(1, 1, (8, 8))
+    ops = {k: v.to("meta") for k, v in tyf._c3_compact_weights(state, "c3", 1).items()}
+    with pytest.raises(ValueError, match="unsupported device"):
+        yolox_c3.c3_s2d_fused_compact(torch.empty(1, 8, 8, 32, device="meta"), **ops,
+                                      width=8, n=1)
