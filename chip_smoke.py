@@ -5,9 +5,10 @@ Drives the port's paths on one CUDA card through the elements a user would
 call, and holds every kernel of those paths against its plain PyTorch
 version.  The paths: YOLOX-tiny detection at 640x640 (kernel B1), and the
 per-pixel video effects at 1920x1080 with a 33^3 grade: colorlut
-precision=approx (B2 for RGBA, B3 for RGBA64LE), hsvfilter (B4), and
-lut3d_apply_mxu (B5, which no element calls).  Run from the repository
-root:
+precision=approx (B2 for RGBA, packed64, B3's chain with the glue in the
+kernel, for RGBA64LE), hsvfilter (B4), and the public functions that no
+element calls: lut3d_apply_lowrank_fused (B3 with its TPU signature) and
+lut3d_apply_mxu (B5).  Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -15,21 +16,25 @@ Phases (any failure ends the run with a non-zero exit):
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: every csrc/*.cu with nvcc for sm_90a, one nvcc per source;
   3. kernels: each kernel against its plain version at its path's shapes
-     (and, for B2/B3, at 8 frames of 1080p over ranks 16, 64, 128), then
-     timed (CUDA events, median) beside its plain version, the library
-     yardstick and its bound; B1 (compact operands) also beside the s2d
-     cuDNN chain, and over its tile sides;
+     (and, for B2/B3/packed64, at 8 frames of 1080p over ranks 16, 64, 128,
+     bit for bit, with B2 == B3 and packed64 == quantize(B3)), then timed
+     (CUDA events, median) beside its plain version, the library yardstick
+     and its bound; B1 (compact operands) also beside the s2d cuDNN chain,
+     and over its tile sides; B2/B3/packed64 over the layouts of their rank
+     loop (the A/B behind the chosen one);
   4. pipelines: videotestsrc ! yoloxinference ! yoloxtensordec ! appsink at
      640x640 (engine=fast, fast-bf16), 4 streams through analyticscombiner
      / analyticssplitter, videotestsrc RGBA 1080p ! colorlut approx !
      hsvfilter ! appsink, videotestsrc RGBA64LE 1080p ! colorlut approx !
-     appsink, and lut3d_apply_mxu over 1080p frames; the launch counters
-     are set to 0 just before each path and read just after;
+     appsink, and lut3d_apply_lowrank_fused and lut3d_apply_mxu over 1080p
+     frames; the launch counters are set to 0 just before each path and
+     read just after;
   5. card against CPU: one frame through apply_fast with the fused C3, and
-     one seeded 1080p frame through colorlut approx, hsvfilter and
-     lut3d_apply_mxu, on the card (kernels) and on the CPU (plain versions);
+     one seeded 1080p frame through colorlut approx (RGBA and RGBA64LE),
+     hsvfilter and lut3d_apply_mxu, on the card (kernels) and on the CPU
+     (plain versions);
   6. timing: apply_fast frames per second at batch 1 and 8, and the element
-     pipelines end to end.
+     pipelines end to end, with their device time per frame.
 Prints a JSON line of the kernels, the card's name and power limit, then,
 last, {"ok": true, "device": ...}.  It imports nothing of JAX and nothing of
 the JAX package.
@@ -492,8 +497,49 @@ def grid_sample_lut(lut5, grid):
                                            align_corners=True)
 
 
+def hd_frame16(seed: int) -> np.ndarray:
+    """A seeded random 1080p RGBA64 frame (4 x u16), as hd_frame."""
+    return np.random.RandomState(seed).randint(0, 65536, (HD_H, HD_W, 4)).astype(np.uint16)
+
+
+def random_px64(P, gen, dev):
+    """P random RGBA64 pixels as int64 bit patterns (4 x u16, R low)."""
+    return torch.randint(0, 65536, (P, 4), generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.uint16).view(torch.int64).reshape(P)
+
+
+def packed_coords(px, bits, scale, offset, S):
+    """The element's grid coordinates [3,P] of packed pixels (int32 RGBA or
+    int64 RGBA64), computed by torch: B3's input on the same pixels."""
+    from gst_plugins_rs_tpu_torch.ops.colorlut import grid_coord
+
+    lanes = px.view(torch.uint8 if bits == 8 else torch.uint16).reshape(-1, 4).to(torch.int32)
+    return torch.stack([grid_coord(lanes, c, scale[c], offset[c], S, float(2**bits - 1))
+                        for c in range(3)]).contiguous()
+
+
+def repack(q, px, bits):
+    """Quantized outputs q [3,P] repacked with px's alpha, as B2 and
+    packed64 pack them."""
+    q = q.to(px.dtype)
+    return (q[0] | (q[1] << bits) | (q[2] << 2 * bits)
+            | torch.bitwise_and(px, -(1 << 3 * bits)))
+
+
+def max_lane_err(a, b, bits):
+    lane = torch.uint8 if bits == 8 else torch.uint16
+    return int((a.view(lane).int() - b.view(lane).int()).abs().max())
+
+
+# The A/B of the rank loop's layout (PERF.md section 6): (compute type,
+# bf16 pairs as words or float2, pixels per thread); f32 pairs are float2.
+LAYOUT_AB = ([("bfloat16", pairs, n) for pairs in ("word", "float2") for n in (1, 2, 4)]
+             + [("float32", "float2", n) for n in (1, 2, 4)])
+
+
 def effect_kernels(card_line, grade):
-    """Phase 3 for B2-B5: each kernel against its plain version, timed."""
+    """Phase 3 for B2-B5: each kernel against its plain version, timed.
+    Returns the cases per kernel and the grade's packed factors."""
     phase("3b effect kernels against their plain versions")
     from gst_plugins_rs_tpu_torch.ops import colorlut_lowrank_fused as lowrank
     from gst_plugins_rs_tpu_torch.ops import colorlut_mxu, hsv_planes
@@ -516,60 +562,82 @@ def effect_kernels(card_line, grade):
           f"error {fit.max_node_err * 255:.3f} LSB, in {time.perf_counter() - t0:.2f} s")
     frame = torch.from_numpy(hd_frame(0)).to(dev)
     frame_px = frame.view(torch.int32).reshape(-1)
+    frame_px64 = torch.from_numpy(hd_frame16(0)).to(dev).view(torch.int64).reshape(-1)
     gen = torch.Generator(device=dev).manual_seed(0)
-    sweep_px = torch.randint(-2**31, 2**31 - 1, (SWEEP_FRAMES * HD_H * HD_W,), generator=gen,
-                             device=dev, dtype=torch.int32)
-    params = torch.tensor(scale + offset + [255.0, 0.0], dtype=torch.float32, device=dev)
-    b2, b3 = [], []
-    runs = [("path: 1 frame, the grade's factors", frame_px, path_ops)]
-    runs += [(f"{SWEEP_FRAMES} frames, rank {k}", sweep_px, synthetic_factors(k, k, dev))
-             for k in SWEEP_RANKS]
-    for label, px, ops in runs:
+    P8 = SWEEP_FRAMES * HD_H * HD_W
+    sweep_px = torch.randint(-2**31, 2**31 - 1, (P8,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    sweep_px64 = random_px64(P8, gen, dev)
+    params = {8: torch.tensor(scale + offset + [255.0, 0.0], dtype=torch.float32, device=dev),
+              16: torch.tensor(scale + offset + [65535.0, 0.0], dtype=torch.float32,
+                               device=dev)}
+    b2, b3, b64 = [], [], []
+    runs = [("path: 1 frame, the grade's factors", frame_px, frame_px64, path_ops)]
+    runs += [(f"{SWEEP_FRAMES} frames, rank {k}", sweep_px, sweep_px64,
+              synthetic_factors(k, k, dev)) for k in SWEEP_RANKS]
+    ab_runs = []
+    for i, (label, px, px64, ops) in enumerate(runs):
         P, K = px.numel(), ops[0].shape[0]
-        fi = px.view(torch.uint8).reshape(P, 4).to(torch.int32)
-        xyz = torch.stack([grid_coord(fi, c, scale[c], offset[c], S, 255.0)
-                           for c in range(3)]).contiguous()
-        got2 = lowrank.lowrank_sample_packed(px, params, *ops, size=S)
+        xyz, xyz16 = packed_coords(px, 8, scale, offset, S), packed_coords(px64, 16, scale,
+                                                                          offset, S)
+        got2 = lowrank.lowrank_sample_packed(px, params[8], *ops, size=S)
         got3 = lowrank.lowrank_sample_fused(xyz, *ops)
+        got64 = lowrank.lowrank_sample_packed64(px64, params[16], *ops, size=S)
+        got3_16 = lowrank.lowrank_sample_fused(xyz16, *ops)
         torch.cuda.synchronize()
-        ref2 = lowrank.lowrank_sample_packed_plain(px, params, *ops, size=S)
+        ref2 = lowrank.lowrank_sample_packed_plain(px, params[8], *ops, size=S)
         ref3 = lowrank.lowrank_sample_fused_plain(xyz, *ops)
-        err2 = int((got2.view(torch.uint8).int() - ref2.view(torch.uint8).int()).abs().max())
+        ref64 = lowrank.lowrank_sample_packed_plain(px64, params[16], *ops, size=S, bits=16)
+        err2, err64 = max_lane_err(got2, ref2, 8), max_lane_err(got64, ref64, 16)
         err3 = float((got3 - ref3).abs().max())
-        lsb3 = int((quantize(got3, 255.0) - quantize(ref3, 255.0)).abs().max())
-        q3 = quantize(got3, 255.0)
-        same = torch.equal(q3[0] | (q3[1] << 8) | (q3[2] << 16)
-                           | torch.bitwise_and(px, -(1 << 24)), got2)
+        same = torch.equal(repack(quantize(got3, 255.0), px, 8), got2)
+        same64 = torch.equal(repack(quantize(got3_16, 65535.0), px64, 16), got64)
+        exact = torch.equal(got2, ref2) and torch.equal(got3, ref3) and torch.equal(got64, ref64)
         # the yardstick samples the dense reconstruction of the same factors
         U, V, W = (f[:, :S].t() for f in ops[:3])
         lut5 = torch.einsum("zk,yk,xk,ck->czyx", W, V, U, ops[3][:3])[None].contiguous()
-        grid = lut_grid(xyz, S)
-        print(f"B2/B3 {label}: P={P}, K={K}: B2 max err {err2} LSB, B3 max abs err {err3:.3e} "
-              f"({lsb3} LSB), B2 == B3 bit for bit: {same}")
-        if err2 > LSB_TOL or lsb3 > LSB_TOL or err3 > EFFECT_F32_TOL or not same:
-            raise AssertionError(f"B2/B3 {label} disagree with their plain versions or each other")
+        grid, grid16 = lut_grid(xyz, S), lut_grid(xyz16, S)
+        print(f"B2/B3 {label}: P={P}, K={K}: B2 max err {err2} LSB, B3 max abs err {err3:.3e}, "
+              f"packed64 max err {err64} u16 LSB; all bit-equal to plain: {exact}; B2 == B3 "
+              f"bit for bit: {same}; packed64 == quantize(B3): {same64}")
+        if not (exact and same and same64):
+            raise AssertionError(f"B2/B3/packed64 {label} disagree with their plain versions "
+                                 f"or each other")
+        if i > 0:  # the sweep
+            ab_runs.append((K, px, px64, xyz, ops, (ref2, ref3, ref64)))
         flop = LOWRANK_OPS_PER_RANK * K * P
         factor_bytes = 4 * (3 * K * 48 + 8 * K)
-        for out, name, fn, plain, nbytes, err in (
+        for out, name, fn, plain, g, nbytes, err in (
                 (b2, "B2 colorlut_lowrank_packed",
-                 lambda: lowrank.lowrank_sample_packed(px, params, *ops, size=S),
-                 lambda: lowrank.lowrank_sample_packed_plain(px, params, *ops, size=S),
-                 8 * P + factor_bytes + 32, err2),
+                 lambda: lowrank.lowrank_sample_packed(px, params[8], *ops, size=S),
+                 lambda: lowrank.lowrank_sample_packed_plain(px, params[8], *ops, size=S),
+                 grid, 8 * P + factor_bytes + 32, err2),
                 (b3, "B3 colorlut_lowrank_fused",
                  lambda: lowrank.lowrank_sample_fused(xyz, *ops),
                  lambda: lowrank.lowrank_sample_fused_plain(xyz, *ops),
-                 24 * P + factor_bytes, err3)):
+                 grid, 24 * P + factor_bytes, err3),
+                (b64, "B3 packed64 colorlut_lowrank_packed64",
+                 lambda: lowrank.lowrank_sample_packed64(px64, params[16], *ops, size=S),
+                 lambda: lowrank.lowrank_sample_packed_plain(px64, params[16], *ops, size=S,
+                                                             bits=16),
+                 grid16, 16 * P + factor_bytes + 32, err64)):
             ms = cuda_ms(fn)
             plain_ms = cuda_ms(plain, iters=2, warmup=1)
-            library_ms = cuda_ms(lambda: grid_sample_lut(lut5, grid))
+            library_ms = cuda_ms(lambda: grid_sample_lut(lut5, g))
             bound_ms, bound_by = bound(flop, nbytes)
+            # -fmad=false: 17 separate f32 instructions a rank, at half the
+            # peak that counts an FMA as two operations
+            ceiling_ms = 2 * flop / PEAK_F32 * 1e3
             out.append(dict(case=label, P=P, K=K, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                            bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
-                            flop=flop, bytes=nbytes))
+                            bound_ms=bound_ms, bound_by=bound_by, no_fma_ceiling_ms=ceiling_ms,
+                            max_abs_err=err, flop=flop, bytes=nbytes))
             print(f"{name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample "
                   f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-                  f"{flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) [{card_line}]")
-        del fi, xyz, grid, ref2, ref3
+                  f"{flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), -fmad=false ceiling "
+                  f"{ceiling_ms:.4f} ms [{card_line}]")
+        del xyz16, grid, grid16, got3_16
+    b2[0]["layout_ab"] = layout_ab(card_line, ab_runs, params, S)
+    del ab_runs
 
     # B4 at [1080, 1920], the hsvfilter element's planes
     P = HD_H * HD_W
@@ -619,8 +687,47 @@ def effect_kernels(card_line, grade):
     print(f"B5 colorlut_mxu: kernel {b5[0]['ms']:.4f} ms, plain {b5[0]['plain_ms']:.4f} ms, "
           f"grid_sample {b5[0]['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
           f"[{card_line}]")
-    return {"colorlut_lowrank_packed": b2, "colorlut_lowrank_fused": b3, "hsv_planes": b4,
-            "colorlut_mxu": b5}
+    return {"colorlut_lowrank_packed": b2, "colorlut_lowrank_fused": b3,
+            "colorlut_lowrank_packed64": b64, "hsv_planes": b4, "colorlut_mxu": b5}, path_ops
+
+
+def layout_ab(card_line, ab_runs, params, S):
+    """The A/B of part of B2/B3's design: every layout of LAYOUT_AB on the
+    8-frame rank sweep, each checked bit-equal to the plain versions and
+    timed for B2, B3 and packed64 (CUDA events, median)."""
+    from gst_plugins_rs_tpu_torch.ops import colorlut_lowrank_fused as lowrank
+
+    saved = lowrank._PIXELS_PER_THREAD, lowrank._BF16_PAIRS
+    rows = []
+    try:
+        for K, px, px64, xyz, ops, refs in ab_runs:
+            f32_refs = (lowrank.lowrank_sample_packed_plain(px, params[8], *ops, size=S,
+                                                            compute_dtype="float32"),
+                        lowrank.lowrank_sample_fused_plain(xyz, *ops, compute_dtype="float32"),
+                        lowrank.lowrank_sample_packed_plain(px64, params[16], *ops, size=S,
+                                                            bits=16, compute_dtype="float32"))
+            for cdt, pairs, n in LAYOUT_AB:
+                lowrank._PIXELS_PER_THREAD, lowrank._BF16_PAIRS = n, pairs
+                fns = (lambda: lowrank.lowrank_sample_packed(px, params[8], *ops, size=S,
+                                                             compute_dtype=cdt),
+                       lambda: lowrank.lowrank_sample_fused(xyz, *ops, compute_dtype=cdt),
+                       lambda: lowrank.lowrank_sample_packed64(px64, params[16], *ops, size=S,
+                                                               compute_dtype=cdt))
+                want = refs if cdt == "bfloat16" else f32_refs
+                if not all(torch.equal(fn(), r) for fn, r in zip(fns, want)):
+                    raise AssertionError(f"layout {cdt} {pairs} n={n} at rank {K} differs "
+                                         f"from the plain versions")
+                ms = [cuda_ms(fn) for fn in fns]
+                rows.append(dict(K=K, compute_dtype=cdt, pairs=pairs, pixels_per_thread=n,
+                                 b2_ms=ms[0], b3_ms=ms[1], packed64_ms=ms[2]))
+                print(f"layout A/B rank {K}, {SWEEP_FRAMES} frames, {cdt} pairs {pairs} "
+                      f"n={n}: B2 {ms[0]:.4f} ms, B3 {ms[1]:.4f} ms, packed64 {ms[2]:.4f} ms, "
+                      f"bit-equal to plain [{card_line}]")
+            del f32_refs
+    finally:
+        lowrank._PIXELS_PER_THREAD, lowrank._BF16_PAIRS = saved
+    print(f"layout A/B: the path takes n={saved[0]}, bf16 pairs {saved[1]}")
+    return rows
 
 
 def effects_rgba(grade, frames):
@@ -655,7 +762,7 @@ def _check_frames(samples, n, dtype, alpha):
             raise AssertionError("alpha did not pass through unchanged")
 
 
-def effect_pipelines(grade):
+def effect_pipelines(grade, path_ops):
     """Phase 4 for the effects: each path with its counters set to 0 just
     before it and read just after.  Returns the launches per kernel."""
     phase("4b effect pipelines on the card")
@@ -663,33 +770,59 @@ def effect_pipelines(grade):
     from gst_plugins_rs_tpu_torch.ops import colorlut_mxu, hsv_planes
     from gst_plugins_rs_tpu_torch.ops.colorlut import CubeLut
 
+    def zero():
+        lowrank.packed_launches = lowrank.packed64_launches = lowrank.fused_launches = 0
+        hsv_planes.launches = 0
+
+    def counts():
+        return {"packed": lowrank.packed_launches, "packed64": lowrank.packed64_launches,
+                "fused": lowrank.fused_launches, "hsv": hsv_planes.launches}
+
     n = EFFECT_FRAMES
-    lowrank.packed_launches = lowrank.fused_launches = hsv_planes.launches = 0
+    zero()
     p = effects_rgba(grade, n)
     p.play_until_eos()
     torch.cuda.synchronize()
-    counts = {"packed": lowrank.packed_launches, "fused": lowrank.fused_launches,
-              "hsv": hsv_planes.launches}
+    got = counts()
     _check_frames(p.by_name("sink").samples, n, torch.uint8, 255)
-    print(f"RGBA {HD_W}x{HD_H} ! colorlut approx ! hsvfilter: {n} frames, launches {counts}")
-    if counts != {"packed": n, "fused": 0, "hsv": n}:
+    print(f"RGBA {HD_W}x{HD_H} ! colorlut approx ! hsvfilter: {n} frames, launches {got}")
+    if got != {"packed": n, "packed64": 0, "fused": 0, "hsv": n}:
         raise AssertionError("B2 and B4 launches != RGBA frames")
-    launches = {"colorlut_lowrank_packed": counts["packed"], "hsv_planes": counts["hsv"]}
+    launches = {"colorlut_lowrank_packed": got["packed"], "hsv_planes": got["hsv"]}
 
-    lowrank.packed_launches = lowrank.fused_launches = hsv_planes.launches = 0
+    zero()
     p = effects_rgba64(grade, n)
     p.play_until_eos()
     torch.cuda.synchronize()
-    counts = {"packed": lowrank.packed_launches, "fused": lowrank.fused_launches,
-              "hsv": hsv_planes.launches}
+    got = counts()
     _check_frames(p.by_name("sink").samples, n, torch.uint16, 65535)
-    print(f"RGBA64LE {HD_W}x{HD_H} ! colorlut approx: {n} frames, launches {counts}")
-    if counts != {"packed": 0, "fused": n, "hsv": 0}:
-        raise AssertionError("B3 launches != RGBA64LE frames")
-    launches["colorlut_lowrank_fused"] = counts["fused"]
+    print(f"RGBA64LE {HD_W}x{HD_H} ! colorlut approx: {n} frames, launches {got}")
+    if got != {"packed": 0, "packed64": n, "fused": 0, "hsv": 0}:
+        raise AssertionError("packed64 launches != RGBA64LE frames")
+    launches["colorlut_lowrank_packed64"] = got["packed64"]
+
+    # B3 with its TPU signature, through its public function (the route of
+    # channel layouts other than the element's), as the JAX package offers it
+    lut = CubeLut.parse_file(str(grade))
+    scale = [float(v) for v in lut.domain_scale]
+    offset = [float(v) for v in lut.domain_offset]
+    kw = dict(size=LUT_SIZE, offsets=(0, 1, 2), bits=16)
+    frames = [torch.from_numpy(hd_frame16(200 + i)).to("cuda") for i in range(n)]
+    zero()
+    outs = [lowrank.lut3d_apply_lowrank_fused(f, *path_ops, scale, offset, **kw) for f in frames]
+    torch.cuda.synchronize()
+    counted = lowrank.fused_launches
+    for f, o in zip(frames, outs):
+        if not torch.equal(o, lowrank.lut3d_apply_lowrank_packed(f, *path_ops, scale, offset,
+                                                                 **kw)):
+            raise AssertionError("lut3d_apply_lowrank_fused (B3) != packed64 on RGBA64 frames")
+    print(f"lut3d_apply_lowrank_fused over {n} 1080p RGBA64 frames: launches {counted}, "
+          f"bit-equal to packed64")
+    if counted != n:
+        raise AssertionError("B3 launches != frames")
+    launches["colorlut_lowrank_fused"] = counted
 
     # B5 through its public function, as the JAX package offers it
-    lut = CubeLut.parse_file(str(grade))
     t2 = torch.from_numpy(colorlut_mxu.pack_matmul_table(lut.table, LUT_SIZE)).to(
         "cuda", torch.bfloat16)
     frames = [torch.from_numpy(hd_frame(100 + i)).to("cuda") for i in range(n)]
@@ -770,7 +903,18 @@ def effects_card_vs_cpu(grade):
     d_mxu, d_mxu_exact = _lsb(mcard, mhost), _lsb(mcard[..., :3], exact[..., :3])
     print(f"lut3d_apply_mxu 1080p, card (B5) vs CPU (plain): max {d_mxu} LSB; "
           f"vs exact grade: max {d_mxu_exact} LSB")
-    if max(d_lut, d_hsv, d_mxu) > LSB_TOL or d_exact > APPROX_TOL or not alpha:
+    frame16 = hd_frame16(1)
+    before = lowrank.packed64_launches
+    card16 = _through_element("colorlut", approx, frame16, "RGBA64LE", "cuda")
+    host16 = _through_element("colorlut", approx, frame16, "RGBA64LE", "cpu")
+    if lowrank.packed64_launches != before + 1:
+        raise AssertionError("the RGBA64LE card run did not launch packed64 once")
+    d_lut16 = _lsb(card16, host16)
+    alpha16 = np.array_equal(card16[..., 3], frame16[..., 3])
+    print(f"colorlut approx RGBA64LE 1080p, card (packed64) vs CPU (plain): max {d_lut16} u16 "
+          f"LSB; alpha unchanged: {alpha16}")
+    if max(d_lut, d_hsv, d_mxu, d_lut16) > LSB_TOL or d_exact > APPROX_TOL or not alpha \
+            or not alpha16:
         raise AssertionError("the effects on the card and on the CPU disagree")
 
 
@@ -778,6 +922,10 @@ def effects_timing(card_line, grade):
     phase("6b effects timing")
     from gst_plugins_rs_tpu_torch.core import State
 
+    # device ms per frame of the chains when their glue ran as torch ops
+    # around B3 (RGBA64LE) and around B4 (RGBA), on an NVIDIA H100 80GB HBM3
+    # at 700 W (PERF.md section 5): the yardstick of the fused kernels
+    before = {"RGBA colorlut approx ! hsvfilter": 0.165, "RGBA64LE colorlut approx": 0.354}
     for label, make in (("RGBA colorlut approx ! hsvfilter", effects_rgba),
                         ("RGBA64LE colorlut approx", effects_rgba64)):
         make(grade, EFFECT_FRAMES).play_until_eos()  # warm-up
@@ -797,7 +945,8 @@ def effects_timing(card_line, grade):
               f"[{card_line}]")
         device_ms, upload_ms, top = profile_device(make(grade, EFFECT_FRAMES))
         per_frame = device_ms / EFFECT_FRAMES
-        print(f"pipeline {label}: device busy {per_frame:.4f} ms per frame (torch.profiler, "
+        print(f"pipeline {label}: device busy {per_frame:.4f} ms per frame (glue in "
+              f"torch: {before[label]} ms; torch.profiler, "
               f"{EFFECT_FRAMES} frames, host-to-device copies left out: {upload_ms:.4f} ms in "
               f"all, the source's one upload of its pattern and the per-frame parameters), "
               f"{100 * per_frame * TIMING_FRAMES / (secs * 1e3):.1f}% of the unprofiled wall "
@@ -839,9 +988,9 @@ def main() -> int:
     build()
     cases = kernels(card_line)
     grade = write_grade()
-    effect_cases = effect_kernels(card_line, grade)
+    effect_cases, path_ops = effect_kernels(card_line, grade)
     launches = pipelines()
-    effect_launches = effect_pipelines(grade)
+    effect_launches = effect_pipelines(grade, path_ops)
     card_vs_cpu()
     effects_card_vs_cpu(grade)
     timing(card_line)
@@ -857,13 +1006,9 @@ def main() -> int:
         **{k: main_case[k] for k in keys},
         "cases": cases,
     }]
-    for name, source, replaces in (
-            ("colorlut_lowrank_packed", "colorlut_lowrank.cu", "pallas_colorlut_lowrank.py:205"),
-            ("colorlut_lowrank_fused", "colorlut_lowrank.cu", "pallas_colorlut_lowrank.py:63"),
-            ("hsv_planes", "hsv_planes.cu", "pallas_hsv.py:78"),
-            ("colorlut_mxu", "colorlut_mxu.cu", "pallas_colorlut.py:87")):
+    def effect_entry(name, source, replaces):
         kcases = effect_cases[name]
-        entries.append({
+        return {
             "name": name,
             "route": "cuda",
             "source": f"gst_plugins_rs_tpu_torch/csrc/{source}",
@@ -871,8 +1016,19 @@ def main() -> int:
             "launches": effect_launches[name],
             **{k: kcases[0][k] for k in keys},  # the first case is the path's shape
             "cases": kcases,
-        })
-    if any(e["launches"] < 1 for e in entries):
+        }
+
+    for name, source, replaces in (
+            ("colorlut_lowrank_packed", "colorlut_lowrank.cu", "pallas_colorlut_lowrank.py:205"),
+            ("colorlut_lowrank_fused", "colorlut_lowrank.cu", "pallas_colorlut_lowrank.py:63"),
+            ("hsv_planes", "hsv_planes.cu", "pallas_hsv.py:78"),
+            ("colorlut_mxu", "colorlut_mxu.cu", "pallas_colorlut.py:87")):
+        entries.append(effect_entry(name, source, replaces))
+    # packed64 is B3's chain on RGBA64 pixels: listed under B3's row
+    b3 = next(e for e in entries if e["name"] == "colorlut_lowrank_fused")
+    b3["entries"] = [effect_entry("colorlut_lowrank_packed64", "colorlut_lowrank.cu",
+                                  "pallas_colorlut_lowrank.py:63")]
+    if any(e["launches"] < 1 for e in entries + b3["entries"]):
         raise AssertionError("a kernel of the paths was never launched")
     print(json.dumps({"kernels": entries}))
     print(card_line)

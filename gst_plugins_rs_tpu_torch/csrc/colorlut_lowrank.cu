@@ -7,7 +7,12 @@
 //       as int32 [P] -> RGBA int32 [P], with the normalisation (scale,
 //       offset, maxval from params[8]), the rounding (half to even) and the
 //       repacking in the kernel; alpha rides through.
-// Both run the same per-pixel chain, lowrank_chain() below, so they are
+// and adds a third entry of B3's chain, packed64: RGBA64 pixels (4 x u16) as
+// int64 [P] -> int64 [P], B2's kernel at 16 bits a component.  The JAX
+// element runs that glue (normalise, stack, round, restack) as XLA ops
+// around B3's pallas_call; here it runs in the kernel, with one 8-byte load
+// and one 8-byte store per pixel.
+// All three run the same per-pixel chain, lowrank_chain() below, so they are
 // bit-equal on the same pixel (as the TPU kernels are):
 //
 //     u_k = sum_i hat_i(x) U[k,i]     (v: y and V, w: z and W)
@@ -20,23 +25,48 @@
 // zeros: the sum of the two nonzero products is the dense product, bit for
 // bit.  C stays f32 and the rank sum runs in f32, k ascending.
 //
-// What bounds it on an H100 (1080p, P = 2,073,600 per frame): 17 f32
-// operations per pixel and rank (2 products and a sum per axis, 2 products,
-// 3 products and 3 sums), 17*K*P in all, against 4 B in and 4 B out per
-// pixel (B2) or 12 + 12 (B3).  At K = 64 that is 2.26 GFLOP per frame, 34 us
-// at the 67 TFLOP/s of the CUDA cores, against 2.5 us (B2) or 7.4 us (B3)
-// for the bytes at 3.35 TB/s: the kernel is bound by operations.
+// What bounds it on an H100 (1080p, P = 2,073,600 per frame): not the bytes
+// (4 B in and 4 B out per pixel for B2, 8 + 8 for packed64, 12 + 12 for B3)
+// but the rank loop's instructions.  Per pixel and rank the chain does 17
+// f32 operations (2 products and a sum per axis, 2 products, 3 products and
+// 3 sums), each its own instruction under -fmad=false, so its ceiling is
+// half the 67 TFLOP/s that counts an FMA as two.  The first design (one
+// pixel per thread, the factors as [Kp,48] f32, C as [3,Kp]) issued 9
+// shared loads per pixel and rank: two factor words per axis and three
+// words of C.  A warp's 32-bit shared load without bank conflicts is one
+// wavefront, and an SM serves one wavefront a clock, so a warp spent 9
+// clocks a rank on loads against 17/4 on f32 issue; 9*K*P/32 wavefronts over
+// 132 SMs at 1.98 GHz predict 1.14 and 2.29 ms for 8 frames at ranks 64 and
+// 128, and an H100 80GB HBM3 at 700 W read 1.176 and 2.314 ms.
 //
 // Design.  The TPU kernel tiles pixels along lanes and runs the products on
-// the MXU.  Here one thread owns one pixel and reads only the two nonzero
+// the MXU.  Here each thread owns N pixels and reads only the two nonzero
 // rows of each factor: the dense product's 48 rows would be 24x the work.
-// The factors sit in shared memory in their padded [Kp,48] layout, already
-// rounded to bf16 (3 x Kp x 48 f32: 72 KB at Kp = 128); rows >= S are zero,
-// so i0+1 = S at x = S-1 reads a zero and needs no branch (the read index is
-// clamped to 47, where the weight is 0).  A warp reads factor row k at 32
-// pixels' columns: neighbouring columns, no bank conflicts where neighbouring
-// pixels are alike.  Blocks loop over the pixels (a grid of as many blocks
-// as fit on the SMs at once), so each block loads the factors once.
+// Shared memory holds, per block:
+//  - C as float4 [Kp] (lane 3 zero): a rank reads its three channel weights
+//    with one warp-uniform 128-bit load, shared by the thread's N pixels;
+//  - U, V, W as factor pairs [Kp,48]: entry i holds (F[k,i], F[k,i+1]), so
+//    one load gives both hat rows of an axis; entry 47 has a zero second
+//    half, and rows >= S are zero, so i0+1 = S at x = S-1 reads a zero and
+//    needs no branch.  bf16 (the element's default): a pair is one 32-bit
+//    word of two bf16, widened to f32 with a shift and a mask (4 B an entry,
+//    74 KB at Kp = 128).  f32: a float2 (147 KB at Kp = 128).
+// A warp reads factor row k at 32 pixels' columns: neighbouring words, no
+// bank conflicts where neighbouring pixels are alike (two pair words share a
+// bank only 32 columns apart).  So a warp spends 3 wavefronts per pixel and
+// rank plus 1/N for C, against 9.  Blocks loop over chunks of 256*N pixels
+// (a grid of as many blocks as fit on the SMs at once), so each block
+// stages the factors once.
+//
+// Outcome (H100 80GB HBM3 at 700 W, chip_smoke.py phase 3b; N = 4, bf16
+// words): 8 frames of 1080p take 0.329 / 1.042 / 2.000 ms at ranks 16 / 64 /
+// 128 (B2; first design 0.359 / 1.176 / 2.314), 1.13-1.16x from rank 64 up.
+// The loads are no longer the limit: the unrolled loop issues 28.1
+// instructions per pixel and rank (17 f32, 3 loads, 6 integer widenings,
+// 1.6 of address arithmetic, the C load and the loop counter), and a warp
+// takes 7.9 SM clocks a rank, 89% of the issue rate that count allows.  The
+// float2 layout of bf16 pairs (8-byte loads, no widening) ran 1.45-1.9x
+// slower on random pixels: 8-byte loads of columns 16 apart conflict.
 // Built with -fmad=false: the plain PyTorch version rounds every product and
 // sum on its own, and so does this kernel.
 #include <cuda_bf16.h>
@@ -44,91 +74,153 @@
 
 #include <stddef.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int SB = 48;  // basis rows of the padded factor layout
 constexpr int kThreads = 256;
 
-template <bool BF16>
+// Layouts of the factor pairs (the entry points' `mode`).
+constexpr int kF32 = 0;         // compute_dtype float32: float2 pairs
+constexpr int kBf16Word = 1;    // bfloat16: one 32-bit word of two bf16 a pair
+constexpr int kBf16Float2 = 2;  // bfloat16: float2 pairs of bf16-rounded values
+
+template <int MODE>
+struct Layout {
+  using Pair = float2;
+};
+template <>
+struct Layout<kBf16Word> {
+  using Pair = unsigned int;
+};
+
+template <int MODE>
 __device__ __forceinline__ float to_compute(float v) {
-  if (BF16) return __bfloat162float(__float2bfloat16_rn(v));
-  return v;
+  if (MODE == kF32) return v;
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// The two nonzero hat weights of x in [0, S-1]: rows i0 = floor(x) and i0+1
-// (read index clamped to SB-1, where the weight is 0).
-template <bool BF16>
-__device__ __forceinline__ void hat(float x, int& i0, int& i1, float& h0, float& h1) {
+template <int MODE>
+__device__ __forceinline__ typename Layout<MODE>::Pair make_pair(float lo, float hi) {
+  if constexpr (MODE == kBf16Word) {
+    return static_cast<unsigned int>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+           (static_cast<unsigned int>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+  } else {
+    return make_float2(to_compute<MODE>(lo), to_compute<MODE>(hi));
+  }
+}
+
+__device__ __forceinline__ float2 widen(float2 p) { return p; }
+__device__ __forceinline__ float2 widen(unsigned int w) {
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+
+// The two nonzero hat weights of x in [0, S-1], at rows i0 = floor(x) and
+// i0+1: pair index i0.
+template <int MODE>
+__device__ __forceinline__ void hat(float x, int& i0, float& h0, float& h1) {
   const float f = floorf(x);
   i0 = static_cast<int>(f);
-  i1 = min(i0 + 1, SB - 1);
-  h0 = to_compute<BF16>(fmaxf(0.0f, 1.0f - fabsf(x - f)));
-  h1 = to_compute<BF16>(fmaxf(0.0f, 1.0f - fabsf(x - (f + 1.0f))));
+  h0 = to_compute<MODE>(fmaxf(0.0f, 1.0f - fabsf(x - f)));
+  h1 = to_compute<MODE>(fmaxf(0.0f, 1.0f - fabsf(x - (f + 1.0f))));
 }
 
-// The per-pixel chain shared by B2 and B3.  su/sv/sw: [K,SB] factors in
-// shared memory, rounded to the compute type; sc: [3,K] f32.
-template <bool BF16>
-__device__ __forceinline__ void lowrank_chain(float x, float y, float z, const float* su,
-                                              const float* sv, const float* sw,
-                                              const float* sc, int K, float out[3]) {
-  int xi0, xi1, yi0, yi1, zi0, zi1;
-  float xh0, xh1, yh0, yh1, zh0, zh1;
-  hat<BF16>(x, xi0, xi1, xh0, xh1);
-  hat<BF16>(y, yi0, yi1, yh0, yh1);
-  hat<BF16>(z, zi0, zi1, zh0, zh1);
-  float r = 0.0f, g = 0.0f, b = 0.0f;
-  for (int k = 0; k < K; ++k) {
-    const float* uk = su + k * SB;
-    const float* vk = sv + k * SB;
-    const float* wk = sw + k * SB;
-    const float u = uk[xi0] * xh0 + uk[xi1] * xh1;
-    const float v = vk[yi0] * yh0 + vk[yi1] * yh1;
-    const float w = wk[zi0] * zh0 + wk[zi1] * zh1;
-    const float p = u * v * w;
-    r = r + p * sc[k];
-    g = g + p * sc[K + k];
-    b = b + p * sc[2 * K + k];
+// The per-pixel chain of every entry, for N pixels at once.  smem: C as
+// float4 [K], then the U, V, W pairs as [K,SB] each (load_factors).
+template <int MODE, int N>
+__device__ __forceinline__ void lowrank_chain(const float (&x)[N], const float (&y)[N],
+                                              const float (&z)[N], const float4* smem, int K,
+                                              float (&out)[N][3]) {
+  using Pair = typename Layout<MODE>::Pair;
+  const Pair* su = reinterpret_cast<const Pair*>(smem + K);
+  const Pair* sv = su + K * SB;
+  const Pair* sw = sv + K * SB;
+  int xi[N], yi[N], zi[N];
+  float xh0[N], xh1[N], yh0[N], yh1[N], zh0[N], zh1[N], r[N], g[N], b[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    hat<MODE>(x[j], xi[j], xh0[j], xh1[j]);
+    hat<MODE>(y[j], yi[j], yh0[j], yh1[j]);
+    hat<MODE>(z[j], zi[j], zh0[j], zh1[j]);
+    r[j] = g[j] = b[j] = 0.0f;
   }
-  out[0] = r;
-  out[1] = g;
-  out[2] = b;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const float4 ck = smem[k];
+    const int row = k * SB;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float2 fu = widen(su[row + xi[j]]);
+      const float2 fv = widen(sv[row + yi[j]]);
+      const float2 fw = widen(sw[row + zi[j]]);
+      const float u = fu.x * xh0[j] + fu.y * xh1[j];
+      const float v = fv.x * yh0[j] + fv.y * yh1[j];
+      const float w = fw.x * zh0[j] + fw.y * zh1[j];
+      const float p = u * v * w;
+      r[j] = r[j] + p * ck.x;
+      g[j] = g[j] + p * ck.y;
+      b[j] = b[j] + p * ck.z;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    out[j][0] = r[j];
+    out[j][1] = g[j];
+    out[j][2] = b[j];
+  }
 }
 
-// Copies the factors into shared memory, rounded to the compute type:
-// [U | V | W] as [K,SB] each, then C's rows 0..2 as [3,K].
-template <bool BF16>
+// Stages the factors in shared memory: C's rows 0..2 as float4 [K], then
+// [U | V | W] as pairs [K,SB] each, rounded to the compute type.
+template <int MODE>
 __device__ __forceinline__ void load_factors(const float* __restrict__ ut,
                                              const float* __restrict__ vt,
                                              const float* __restrict__ wt,
-                                             const float* __restrict__ c, int K, float* smem) {
+                                             const float* __restrict__ c, int K, float4* smem) {
+  using Pair = typename Layout<MODE>::Pair;
+  for (int k = threadIdx.x; k < K; k += blockDim.x)
+    smem[k] = make_float4(c[k], c[K + k], c[2 * K + k], 0.0f);
+  Pair* sp = reinterpret_cast<Pair*>(smem + K);
   const int n = K * SB;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    smem[i] = to_compute<BF16>(ut[i]);
-    smem[n + i] = to_compute<BF16>(vt[i]);
-    smem[2 * n + i] = to_compute<BF16>(wt[i]);
+  const float* const factors[3] = {ut, vt, wt};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float* f = factors[a];
+    for (int e = threadIdx.x; e < n; e += blockDim.x)
+      sp[a * n + e] = make_pair<MODE>(f[e], e % SB + 1 < SB ? f[e + 1] : 0.0f);
   }
-  for (int i = threadIdx.x; i < 3 * K; i += blockDim.x) smem[3 * n + i] = c[i];
   __syncthreads();
 }
 
-template <bool BF16>
+template <int MODE, int N>
 __global__ void __launch_bounds__(kThreads)
 lowrank_fused_kernel(const float* __restrict__ xyz, const float* __restrict__ ut,
                      const float* __restrict__ vt, const float* __restrict__ wt,
                      const float* __restrict__ c, float* __restrict__ out, long long P, int K) {
-  extern __shared__ float smem[];
-  load_factors<BF16>(ut, vt, wt, c, K, smem);
-  const int n = K * SB;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; p < P;
-       p += stride) {
-    float o[3];
-    lowrank_chain<BF16>(xyz[p], xyz[P + p], xyz[2 * P + p], smem, smem + n, smem + 2 * n,
-                        smem + 3 * n, K, o);
-    out[p] = o[0];
-    out[P + p] = o[1];
-    out[2 * P + p] = o[2];
+  extern __shared__ float4 smem[];
+  load_factors<MODE>(ut, vt, wt, c, K, smem);
+  constexpr long long kChunk = static_cast<long long>(kThreads) * N;
+  for (long long base = blockIdx.x * kChunk + threadIdx.x; base < P; base += gridDim.x * kChunk) {
+    float x[N], y[N], z[N], o[N][3];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const long long p = base + j * kThreads;
+      const bool in = p < P;
+      x[j] = in ? xyz[p] : 0.0f;
+      y[j] = in ? xyz[P + p] : 0.0f;
+      z[j] = in ? xyz[2 * P + p] : 0.0f;
+    }
+    lowrank_chain<MODE, N>(x, y, z, smem, K, o);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const long long p = base + j * kThreads;
+      if (p < P) {
+        out[p] = o[j][0];
+        out[P + p] = o[j][1];
+        out[2 * P + p] = o[j][2];
+      }
+    }
   }
 }
 
@@ -145,38 +237,59 @@ __device__ __forceinline__ unsigned int quantize(float y, float maxval) {
   return static_cast<unsigned int>(rintf(fminf(fmaxf(y, 0.0f), 1.0f) * maxval));
 }
 
-template <bool BF16>
+// Pixels of four components of B bits, R in the low bits: B = 8 (RGBA u8 as
+// a 32-bit word, B2) or 16 (RGBA64 as a 64-bit word, packed64).  Component 3
+// (alpha) rides through.
+template <int MODE, int N, typename Word>
 __global__ void __launch_bounds__(kThreads)
-lowrank_packed_kernel(const unsigned int* __restrict__ px, const float* __restrict__ params,
+lowrank_packed_kernel(const Word* __restrict__ px, const float* __restrict__ params,
                       const float* __restrict__ ut, const float* __restrict__ vt,
                       const float* __restrict__ wt, const float* __restrict__ c,
-                      unsigned int* __restrict__ out, long long P, int K, int size) {
-  extern __shared__ float smem[];
-  load_factors<BF16>(ut, vt, wt, c, K, smem);
-  const int n = K * SB;
+                      Word* __restrict__ out, long long P, int K, int size) {
+  constexpr int B = 2 * sizeof(Word);
+  constexpr Word kMask = (Word(1) << B) - 1;
+  constexpr Word kAlpha = ~((Word(1) << (3 * B)) - 1);
+  extern __shared__ float4 smem[];
+  load_factors<MODE>(ut, vt, wt, c, K, smem);
   const float maxval = params[6];
   const float inv_maxval = 1.0f / maxval;
+  const float sx = params[0], sy = params[1], sz = params[2];
+  const float ox = params[3], oy = params[4], oz = params[5];
   const float smax = static_cast<float>(size - 1);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; p < P;
-       p += stride) {
-    const unsigned int v = px[p];
-    const float x = grid_coord(v & 255u, inv_maxval, params[0], params[3], smax);
-    const float y = grid_coord((v >> 8) & 255u, inv_maxval, params[1], params[4], smax);
-    const float z = grid_coord((v >> 16) & 255u, inv_maxval, params[2], params[5], smax);
-    float o[3];
-    lowrank_chain<BF16>(x, y, z, smem, smem + n, smem + 2 * n, smem + 3 * n, K, o);
-    out[p] = quantize(o[0], maxval) | (quantize(o[1], maxval) << 8) |
-             (quantize(o[2], maxval) << 16) | (v & 0xff000000u);
+  constexpr long long kChunk = static_cast<long long>(kThreads) * N;
+  for (long long base = blockIdx.x * kChunk + threadIdx.x; base < P; base += gridDim.x * kChunk) {
+    Word v[N];
+    float x[N], y[N], z[N], o[N][3];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const long long p = base + j * kThreads;
+      v[j] = p < P ? px[p] : Word(0);
+      x[j] = grid_coord(static_cast<unsigned int>(v[j] & kMask), inv_maxval, sx, ox, smax);
+      y[j] = grid_coord(static_cast<unsigned int>((v[j] >> B) & kMask), inv_maxval, sy, oy, smax);
+      z[j] = grid_coord(static_cast<unsigned int>((v[j] >> (2 * B)) & kMask), inv_maxval, sz, oz,
+                        smax);
+    }
+    lowrank_chain<MODE, N>(x, y, z, smem, K, o);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const long long p = base + j * kThreads;
+      if (p < P)
+        out[p] = static_cast<Word>(quantize(o[j][0], maxval)) |
+                 (static_cast<Word>(quantize(o[j][1], maxval)) << B) |
+                 (static_cast<Word>(quantize(o[j][2], maxval)) << (2 * B)) | (v[j] & kAlpha);
+    }
   }
 }
 
-size_t smem_bytes(int K) { return (static_cast<size_t>(3) * K * SB + 3 * K) * sizeof(float); }
+size_t smem_bytes(int mode, int K) {
+  const size_t pair = mode == kBf16Word ? 4 : 8;
+  return static_cast<size_t>(K) * sizeof(float4) + static_cast<size_t>(3) * K * SB * pair;
+}
 
 // Blocks that fit on the card at once (each loops over its share of pixels),
-// at most one per 256 pixels.
+// at most one per chunk of `per_block` pixels.
 template <typename Kernel>
-int grid_for(Kernel kernel, size_t smem, long long P, int* blocks) {
+int grid_for(Kernel kernel, size_t smem, long long P, int per_block, int* blocks) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -187,61 +300,84 @@ int grid_for(Kernel kernel, size_t smem, long long P, int* blocks) {
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
       cudaSuccess)
     return static_cast<int>(err);
-  const long long need = (P + kThreads - 1) / kThreads;
+  const long long need = (P + per_block - 1) / per_block;
   long long g = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   *blocks = static_cast<int>(need < g ? need : g);
   return 0;
 }
 
-template <bool BF16>
-int launch_fused(const void* xyz, const void* ut, const void* vt, const void* wt, const void* c,
-                 void* out, long long P, int K, void* stream) {
+template <int MODE, int N, typename... Params, typename... Args>
+int launch(void (*kernel)(Params...), long long P, int K, void* stream, Args... args) {
   if (P == 0) return 0;
-  const size_t smem = smem_bytes(K);
+  const size_t smem = smem_bytes(MODE, K);
   int blocks = 0;
-  if (int err = grid_for(lowrank_fused_kernel<BF16>, smem, P, &blocks)) return err;
-  lowrank_fused_kernel<BF16><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xyz), static_cast<const float*>(ut),
-      static_cast<const float*>(vt), static_cast<const float*>(wt),
-      static_cast<const float*>(c), static_cast<float*>(out), P, K);
+  if (int err = grid_for(kernel, smem, P, kThreads * N, &blocks)) return err;
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BF16>
-int launch_packed(const void* px, const void* params, const void* ut, const void* vt,
-                  const void* wt, const void* c, void* out, long long P, int K, int size,
-                  void* stream) {
-  if (P == 0) return 0;
-  const size_t smem = smem_bytes(K);
-  int blocks = 0;
-  if (int err = grid_for(lowrank_packed_kernel<BF16>, smem, P, &blocks)) return err;
-  lowrank_packed_kernel<BF16><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned int*>(px), static_cast<const float*>(params),
-      static_cast<const float*>(ut), static_cast<const float*>(vt),
-      static_cast<const float*>(wt), static_cast<const float*>(c),
-      static_cast<unsigned int*>(out), P, K, size);
-  return static_cast<int>(cudaGetLastError());
+// f(MODE, N) as integral constants, for a layout and pixels per thread
+// given at run time.
+template <int N, typename F>
+int dispatch_mode(int mode, F& f) {
+  using std::integral_constant;
+  switch (mode) {
+    case kF32: return f(integral_constant<int, kF32>(), integral_constant<int, N>());
+    case kBf16Word: return f(integral_constant<int, kBf16Word>(), integral_constant<int, N>());
+    case kBf16Float2: return f(integral_constant<int, kBf16Float2>(), integral_constant<int, N>());
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename F>
+int dispatch(int mode, int n, F f) {
+  switch (n) {
+    case 1: return dispatch_mode<1>(mode, f);
+    case 2: return dispatch_mode<2>(mode, f);
+    case 4: return dispatch_mode<4>(mode, f);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes): every pointer and the stream are
 // void*; the return value is the launch's cudaError_t (0 = launched).
-// ut/vt/wt: [K,48] f32, c: [8,K] f32 (rows 0..2 read); bf16 != 0 rounds the
-// factors and hat weights to bfloat16 (compute_dtype="bfloat16").
+// ut/vt/wt: [K,48] f32, c: [8,K] f32 (rows 0..2 read); mode: the factor
+// pairs' layout (0 f32 float2; bf16 rounding of the factors and hat weights:
+// 1 bf16 pair words, 2 float2); n: pixels per thread (1, 2 or 4).
 extern "C" int colorlut_lowrank_fused(const void* xyz, const void* ut, const void* vt,
                                       const void* wt, const void* c, void* out, long long P,
-                                      int K, int bf16, void* stream) {
-  return bf16 ? launch_fused<true>(xyz, ut, vt, wt, c, out, P, K, stream)
-              : launch_fused<false>(xyz, ut, vt, wt, c, out, P, K, stream);
+                                      int K, int mode, int n, void* stream) {
+  return dispatch(mode, n, [&](auto m, auto pp) {
+    constexpr int M = decltype(m)::value, N = decltype(pp)::value;
+    return launch<M, N>(lowrank_fused_kernel<M, N>, P, K, stream, static_cast<const float*>(xyz),
+                        static_cast<const float*>(ut), static_cast<const float*>(vt),
+                        static_cast<const float*>(wt), static_cast<const float*>(c),
+                        static_cast<float*>(out), P, K);
+  });
 }
 
+// bits: 8 (B2, px/out as 32-bit words) or 16 (packed64, 64-bit words).
 extern "C" int colorlut_lowrank_packed(const void* px, const void* params, const void* ut,
                                        const void* vt, const void* wt, const void* c,
-                                       void* out, long long P, int K, int size, int bf16,
-                                       void* stream) {
-  return bf16 ? launch_packed<true>(px, params, ut, vt, wt, c, out, P, K, size, stream)
-              : launch_packed<false>(px, params, ut, vt, wt, c, out, P, K, size, stream);
+                                       void* out, long long P, int K, int size, int bits,
+                                       int mode, int n, void* stream) {
+  return dispatch(mode, n, [&](auto m, auto pp) {
+    constexpr int M = decltype(m)::value, N = decltype(pp)::value;
+    const float* f[5] = {static_cast<const float*>(params), static_cast<const float*>(ut),
+                         static_cast<const float*>(vt), static_cast<const float*>(wt),
+                         static_cast<const float*>(c)};
+    if (bits == 8)
+      return launch<M, N>(lowrank_packed_kernel<M, N, unsigned int>, P, K, stream,
+                          static_cast<const unsigned int*>(px), f[0], f[1], f[2], f[3], f[4],
+                          static_cast<unsigned int*>(out), P, K, size);
+    if (bits == 16)
+      return launch<M, N>(lowrank_packed_kernel<M, N, unsigned long long>, P, K, stream,
+                          static_cast<const unsigned long long*>(px), f[0], f[1], f[2], f[3],
+                          f[4], static_cast<unsigned long long*>(out), P, K, size);
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
 }
 
 extern "C" const char* colorlut_lowrank_error_string(int err) {

@@ -7,9 +7,12 @@ Caps RGBA / RGBA64LE / RGBA64BE; NeverInPlace; LUT parsed at start() from
 The port of gst_plugins_rs_tpu/elements/video/colorlut.py.  Frames are
 moved to the device `gst_plugins_rs_tpu_torch.set_device` selects (CUDA
 unless the CPU was requested) and graded there.  precision=approx runs the
-low-rank kernels: B2 (ops/colorlut_lowrank_fused.lut3d_apply_lowrank_packed)
-for RGBA u8, B3 (lut3d_apply_lowrank_fused) for the 16-bit layouts; the
-frame's device picks the CUDA kernel or its plain version.
+low-rank kernels through ops/colorlut_lowrank_fused.lut3d_apply_lowrank_packed:
+B2 for RGBA u8, packed64 (B3's chain, with the normalisation, rounding and
+restacking in the kernel) for RGBA64LE/BE; the JAX element runs B3 with that
+glue as XLA ops around it.  lut3d_apply_lowrank_fused (B3 with B3's TPU
+signature) stays the route for any other channel layout.  The frame's
+device picks the CUDA kernel or its plain version.
 """
 from __future__ import annotations
 
@@ -67,7 +70,7 @@ class ColorLut(VideoFilter):
                  "size <= 65 use the fast path; other LUTs run exact with a "
                  "warning. "
                  "approx: low-rank CP factorization sampled by the fused "
-                 "kernels B2/B3 at <=2 u8 LSB guaranteed (validated at "
+                 "kernels (B2, B3's chain) at <=2 u8 LSB guaranteed (validated at "
                  "load; falls back to exact with a warning when the LUT "
                  "does not factor within tolerance)"),
     ]
@@ -154,8 +157,9 @@ class ColorLut(VideoFilter):
                 lut3d_apply_lowrank_fused, lut3d_apply_lowrank_packed)
 
             ut, vt, wt, c = self._cp
-            if bits == 8 and (r, g, b) == (0, 1, 2) and info.components == 4:
-                # RGBA u8: the whole unpack/sample/repack in B2
+            if (r, g, b) == (0, 1, 2) and info.components == 4:
+                # RGBA u8 (B2) and RGBA64 (packed64): the whole
+                # unpack/sample/repack in the kernel
                 return lambda data: lut3d_apply_lowrank_packed(
                     data, ut, vt, wt, c, scale, offset, size=size,
                     offsets=(r, g, b), bits=bits)

@@ -10,16 +10,23 @@ on chip (design and bound in csrc/colorlut_lowrank.cu):
   restacks the channels (any layout, u8 or u16);
 - `lowrank_sample_packed` (B2): RGBA u8 pixels as int32 -> int32, with the
   normalization, rounding and repacking inside the kernel; alpha rides
-  through.  `lut3d_apply_lowrank_packed` bit-casts an RGBA u8 frame to it.
+  through;
+- `lowrank_sample_packed64` (B3's chain for RGBA64): 4 x u16 pixels as
+  int64 -> int64, B2's kernel at 16 bits a component.  The JAX package runs
+  this glue as XLA ops around B3; the port runs it inside the kernel.
+  `lut3d_apply_lowrank_packed` bit-casts an RGBA u8 or RGBA64 frame to B2
+  or to it.
 
-Both share one per-pixel chain, so they are bit-equal on RGBA frames.  For
-a CUDA tensor each wrapper launches its kernel or raises; for a CPU tensor
-it runs the `_plain` twin, the same chain in plain PyTorch: the two
-nonzero hat weights per axis, factors and weights rounded to the compute
-type, the rank sum in f32 with k ascending, as the kernel computes it.
-The TPU kernels pad P to their lane tiles (TPL, ROWS*TPL); these take any
-P, and the public wrappers return the frame's shape.  `packed_launches` and
-`fused_launches` count kernel launches.
+All three share one per-pixel chain, so they are bit-equal on the same
+pixels.  For a CUDA tensor each wrapper launches its kernel or raises; for
+a CPU tensor it runs the `_plain` twin, the same chain in plain PyTorch:
+the two nonzero hat weights per axis (the second factor row read from a
+zero column at SB, as the kernel's factor pairs hold it), factors and
+weights rounded to the compute type, the rank sum in f32 with k ascending,
+as the kernel computes it.  The TPU kernels pad P to their lane tiles (TPL,
+ROWS*TPL); these take any P, and the public wrappers return the frame's
+shape.  `packed_launches`, `packed64_launches` and `fused_launches` count
+kernel launches.
 """
 from __future__ import annotations
 
@@ -39,8 +46,16 @@ SB = 48
 # A block may use at most 227 KB of shared memory on sm_90.
 _MAX_SMEM = 232_448
 
-packed_launches = 0  # B2
-fused_launches = 0   # B3
+# The rank loop's layout, chosen by A/B on the card (chip_smoke.py phase
+# 3b, PERF.md section 6): pixels per thread (1, 2 or 4), and in bf16 a
+# factor pair as one 32-bit word of two bf16 ("word") or as a float2 of the
+# widened values ("float2").  f32 pairs are float2.
+_PIXELS_PER_THREAD = 4
+_BF16_PAIRS = "word"
+
+packed_launches = 0    # B2
+packed64_launches = 0  # B3's chain on RGBA64 pixels
+fused_launches = 0     # B3
 
 
 def pack_factors(U, V, W, C, pad_rank_to: int = 16):
@@ -66,20 +81,21 @@ def pack_factors(U, V, W, C, pad_rank_to: int = 16):
 
 def _hats(x, cdt):
     """The two nonzero hat weights of x in [0, S-1]: rows i0 = floor(x) and
-    i0+1 (read index clamped to SB-1, where the weight is 0), weights
-    max(0, 1-|x-i|) rounded to the compute type."""
+    i0+1, weights max(0, 1-|x-i|) rounded to the compute type."""
     f = torch.floor(x)
     h0 = torch.clamp(1.0 - torch.abs(x - f), min=0.0).to(cdt).to(torch.float32)
     h1 = torch.clamp(1.0 - torch.abs(x - (f + 1.0)), min=0.0).to(cdt).to(torch.float32)
     i0 = f.to(torch.int64)
-    return i0, torch.clamp(i0 + 1, max=SB - 1), h0, h1
+    return i0, i0 + 1, h0, h1
 
 
 def _chain_plain(x, y, z, ut, vt, wt, c, compute_dtype):
     """[3, P] f32 LUT outputs at grid coordinates x, y, z [P]."""
     cdt = compute_type(compute_dtype)
     hats = [_hats(a, cdt) for a in (x, y, z)]
-    factors = [f.to(cdt).to(torch.float32) for f in (ut, vt, wt)]
+    # a zero column at SB: row i0+1 = SB reads 0, as the kernel's last pair
+    factors = [torch.nn.functional.pad(f.to(cdt).to(torch.float32), (0, 1))
+               for f in (ut, vt, wt)]
     acc = [torch.zeros_like(x) for _ in range(3)]
     for k in range(ut.shape[0]):
         u, v, w = (f[k][i0] * h0 + f[k][i1] * h1
@@ -96,22 +112,26 @@ def lowrank_sample_fused_plain(xyz, ut, vt, wt, c, *, compute_dtype="bfloat16"):
 
 
 def lowrank_sample_packed_plain(px, params, ut, vt, wt, c, *, size: int,
-                                compute_dtype="bfloat16"):
-    """B2's function in plain PyTorch: px int32 RGBA bit patterns (any
-    shape); params [8] f32 = (scale0..2, offset0..2, maxval, 0)."""
+                                compute_dtype="bfloat16", bits: int = 8):
+    """B2's function in plain PyTorch (bits 8: px int32 RGBA u8 bit
+    patterns) and packed64's (bits 16: px int64 RGBA64 bit patterns, 4 x
+    u16), R in the low bits, any shape; params [8] f32 = (scale0..2,
+    offset0..2, maxval, 0)."""
     flat = px.reshape(-1)
     maxval = params[6]
     coords = []
     for comp in range(3):
-        v = torch.bitwise_and(torch.bitwise_right_shift(flat, 8 * comp), 255)
+        v = torch.bitwise_and(torch.bitwise_right_shift(flat, bits * comp), (1 << bits) - 1)
         v = v.to(torch.float32) * (1.0 / maxval)  # as ops/pixels.to_unit
         coords.append(torch.clamp(v * params[comp] + params[3 + comp], 0.0, 1.0)
                       * (size - 1.0))
     out = _chain_plain(*coords, ut, vt, wt, c, compute_dtype)
-    q = torch.round(torch.clamp(out, 0.0, 1.0) * maxval).to(torch.int32)
-    # alpha: the top byte of the input, as the two's-complement mask ~0xFFFFFF
-    packed = (q[0] | torch.bitwise_left_shift(q[1], 8) | torch.bitwise_left_shift(q[2], 16)
-              | torch.bitwise_and(flat, -(1 << 24)))
+    q = torch.round(torch.clamp(out, 0.0, 1.0) * maxval).to(flat.dtype)
+    # alpha: the top component of the input, as the two's-complement mask
+    # ~(2^(3 bits) - 1)
+    packed = (q[0] | torch.bitwise_left_shift(q[1], bits)
+              | torch.bitwise_left_shift(q[2], 2 * bits)
+              | torch.bitwise_and(flat, -(1 << 3 * bits)))
     return packed.reshape(px.shape)
 
 
@@ -119,7 +139,20 @@ def lowrank_sample_packed_plain(px, params, ut, vt, wt, c, *, size: int,
 # the kernels
 
 
-def _check_factors(name, ref, ut, vt, wt, c):
+def _mode(compute_dtype):
+    """The kernels' factor-pair layout: 0 f32 float2; bf16 1 word, 2 float2."""
+    if compute_type(compute_dtype) == torch.float32:
+        return 0
+    return {"word": 1, "float2": 2}[_BF16_PAIRS]
+
+
+def smem_bytes(k: int, mode: int) -> int:
+    """Shared memory of a block at rank k: C as float4 [k], then the U, V, W
+    factor pairs [k, SB] at 4 bytes a pair (bf16 words) or 8 (float2)."""
+    return 16 * k + 3 * k * SB * (4 if mode == 1 else 8)
+
+
+def _check_factors(name, ref, ut, vt, wt, c, mode):
     k = ut.shape[0] if ut.dim() == 2 else -1
     for label, t, shape in (("ut", ut, (k, SB)), ("vt", vt, (k, SB)), ("wt", wt, (k, SB)),
                             ("c", c, (8, k))):
@@ -131,7 +164,7 @@ def _check_factors(name, ref, ut, vt, wt, c):
             raise ValueError(f"{name}: {label} is on {t.device}, the pixels on {ref.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
-    smem = (3 * k * SB + 3 * k) * 4
+    smem = smem_bytes(k, mode)
     if smem > _MAX_SMEM:
         raise ValueError(f"{name}: rank {k} needs {smem} bytes of shared memory, "
                          f"more than a block's {_MAX_SMEM}")
@@ -144,9 +177,9 @@ def _lib():
     lib = load("colorlut_lowrank")
     if not getattr(lib, "_argtypes_set", False):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.colorlut_lowrank_fused.argtypes = [ptr] * 6 + [i64, i32, i32, ptr]
+        lib.colorlut_lowrank_fused.argtypes = [ptr] * 6 + [i64, i32, i32, i32, ptr]
         lib.colorlut_lowrank_fused.restype = ctypes.c_int
-        lib.colorlut_lowrank_packed.argtypes = [ptr] * 7 + [i64, i32, i32, i32, ptr]
+        lib.colorlut_lowrank_packed.argtypes = [ptr] * 7 + [i64] + [i32] * 5 + [ptr]
         lib.colorlut_lowrank_packed.restype = ctypes.c_int
         lib.colorlut_lowrank_error_string.argtypes = [ctypes.c_int]
         lib.colorlut_lowrank_error_string.restype = ctypes.c_char_p
@@ -169,22 +202,49 @@ def lowrank_sample_fused(xyz, ut, vt, wt, c, *, compute_dtype="bfloat16"):
         return lowrank_sample_fused_plain(xyz, ut, vt, wt, c, compute_dtype=compute_dtype)
     if xyz.device.type != "cuda":
         raise ValueError(f"lowrank_sample_fused: unsupported device {xyz.device}")
-    bf16 = compute_type(compute_dtype) == torch.bfloat16
+    mode = _mode(compute_dtype)
     if xyz.dim() != 2 or xyz.shape[0] != 3 or xyz.dtype != torch.float32:
         raise ValueError(f"lowrank_sample_fused: xyz must be [3, P] float32, "
                          f"got {tuple(xyz.shape)} {xyz.dtype}")
     if not xyz.is_contiguous():
         raise ValueError("lowrank_sample_fused: xyz must be contiguous")
-    k = _check_factors("lowrank_sample_fused", xyz, ut, vt, wt, c)
+    k = _check_factors("lowrank_sample_fused", xyz, ut, vt, wt, c, mode)
     out = torch.empty_like(xyz)
     lib = _lib()
     with torch.cuda.device(xyz.device):
         stream = torch.cuda.current_stream(xyz.device).cuda_stream
         err = lib.colorlut_lowrank_fused(xyz.data_ptr(), ut.data_ptr(), vt.data_ptr(),
                                          wt.data_ptr(), c.data_ptr(), out.data_ptr(),
-                                         xyz.shape[1], k, int(bf16), stream)
+                                         xyz.shape[1], k, mode, _PIXELS_PER_THREAD, stream)
     _raise_on(lib, err, "lowrank_sample_fused")
     fused_launches += 1
+    return out
+
+
+def _sample_packed(name, bits, px, params, ut, vt, wt, c, size, compute_dtype):
+    """Checks the operands of a CUDA packed entry and launches its kernel
+    (bits 8: B2, 16: packed64); the caller counts the launch."""
+    if px.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {px.device}")
+    mode = _mode(compute_dtype)
+    word = torch.int32 if bits == 8 else torch.int64
+    if px.dtype != word or not px.is_contiguous():
+        raise ValueError(f"{name}: px must be contiguous {word}, got {px.dtype}")
+    if (tuple(params.shape) != (8,) or params.dtype != torch.float32
+            or params.device != px.device):
+        raise ValueError(f"{name}: params must be [8] float32 on px's device")
+    if not 2 <= size <= SB:
+        raise ValueError(f"{name}: size must be in 2..{SB}, got {size}")
+    k = _check_factors(name, px, ut, vt, wt, c, mode)
+    out = torch.empty_like(px)
+    lib = _lib()
+    with torch.cuda.device(px.device):
+        stream = torch.cuda.current_stream(px.device).cuda_stream
+        err = lib.colorlut_lowrank_packed(px.data_ptr(), params.data_ptr(), ut.data_ptr(),
+                                          vt.data_ptr(), wt.data_ptr(), c.data_ptr(),
+                                          out.data_ptr(), px.numel(), k, size, bits, mode,
+                                          _PIXELS_PER_THREAD, stream)
+    _raise_on(lib, err, name)
     return out
 
 
@@ -196,27 +256,24 @@ def lowrank_sample_packed(px, params, ut, vt, wt, c, *, size: int, compute_dtype
     if px.device.type == "cpu":
         return lowrank_sample_packed_plain(px, params, ut, vt, wt, c, size=size,
                                            compute_dtype=compute_dtype)
-    if px.device.type != "cuda":
-        raise ValueError(f"lowrank_sample_packed: unsupported device {px.device}")
-    bf16 = compute_type(compute_dtype) == torch.bfloat16
-    if px.dtype != torch.int32 or not px.is_contiguous():
-        raise ValueError(f"lowrank_sample_packed: px must be contiguous int32, got {px.dtype}")
-    if (tuple(params.shape) != (8,) or params.dtype != torch.float32
-            or params.device != px.device):
-        raise ValueError("lowrank_sample_packed: params must be [8] float32 on px's device")
-    if not 2 <= size <= SB:
-        raise ValueError(f"lowrank_sample_packed: size must be in 2..{SB}, got {size}")
-    k = _check_factors("lowrank_sample_packed", px, ut, vt, wt, c)
-    out = torch.empty_like(px)
-    lib = _lib()
-    with torch.cuda.device(px.device):
-        stream = torch.cuda.current_stream(px.device).cuda_stream
-        err = lib.colorlut_lowrank_packed(px.data_ptr(), params.data_ptr(), ut.data_ptr(),
-                                          vt.data_ptr(), wt.data_ptr(), c.data_ptr(),
-                                          out.data_ptr(), px.numel(), k, size, int(bf16),
-                                          stream)
-    _raise_on(lib, err, "lowrank_sample_packed")
+    out = _sample_packed("lowrank_sample_packed", 8, px, params, ut, vt, wt, c, size,
+                         compute_dtype)
     packed_launches += 1
+    return out
+
+
+def lowrank_sample_packed64(px, params, ut, vt, wt, c, *, size: int,
+                            compute_dtype="bfloat16"):
+    """B3's chain on RGBA64 pixels: px int64 bit patterns of 4 x u16 (R in
+    the low bits), any shape; params [8] f32 = (scale0..2, offset0..2,
+    maxval 65535, 0).  Returns int64 of px's shape, alpha unchanged."""
+    global packed64_launches
+    if px.device.type == "cpu":
+        return lowrank_sample_packed_plain(px, params, ut, vt, wt, c, size=size,
+                                           compute_dtype=compute_dtype, bits=16)
+    out = _sample_packed("lowrank_sample_packed64", 16, px, params, ut, vt, wt, c, size,
+                         compute_dtype)
+    packed64_launches += 1
     return out
 
 
@@ -242,21 +299,26 @@ def lut3d_apply_lowrank_fused(frame, ut, vt, wt, c, scale, offset, *,
 def lut3d_apply_lowrank_packed(frame, ut, vt, wt, c, scale, offset, *,
                                size: int, offsets: Sequence[int], bits: int,
                                compute_dtype: str = "bfloat16"):
-    """Fully-fused path for RGBA u8 frames (offsets (0,1,2), bits 8): the
-    frame is bit-cast to int32 pixels (little-endian RGBA) and the whole
-    unpack/sample/repack runs in B2.  Other layouts are the caller's job."""
-    if bits != 8 or tuple(offsets) != (0, 1, 2) or frame.shape[-1] != 4 \
-            or frame.dtype != torch.uint8:
-        raise ValueError("lut3d_apply_lowrank_packed takes RGBA uint8 frames only")
-    px = frame.contiguous().view(torch.int32)  # [..., 1]
+    """Fully-fused path for RGBA frames (offsets (0,1,2)): an RGBA u8 frame
+    (bits 8) is bit-cast to int32 pixels and runs B2, an RGBA64 u16 frame
+    (bits 16) to int64 pixels and runs packed64; the whole
+    unpack/sample/repack runs in the kernel.  Other layouts are the
+    caller's job."""
+    kinds = {8: (torch.uint8, torch.int32, lowrank_sample_packed),
+             16: (torch.uint16, torch.int64, lowrank_sample_packed64)}
+    if bits not in kinds or tuple(offsets) != (0, 1, 2) or frame.shape[-1] != 4 \
+            or frame.dtype != kinds[bits][0]:
+        raise ValueError("lut3d_apply_lowrank_packed takes RGBA uint8 or RGBA64 uint16 "
+                         "frames only")
+    dtype, word, sample = kinds[bits]
+    px = frame.contiguous().view(word)  # [..., 1]
     params = torch.tensor([scale[0], scale[1], scale[2], offset[0], offset[1], offset[2],
                            float(2**bits - 1), 0.0], dtype=torch.float32).to(frame.device)
-    out = lowrank_sample_packed(px, params, ut, vt, wt, c, size=size,
-                                compute_dtype=compute_dtype)
-    return out.view(torch.uint8).reshape(frame.shape)
+    out = sample(px, params, ut, vt, wt, c, size=size, compute_dtype=compute_dtype)
+    return out.view(dtype).reshape(frame.shape)
 
 
 __all__ = ["SB", "fused_launches", "lowrank_sample_fused", "lowrank_sample_fused_plain",
-           "lowrank_sample_packed", "lowrank_sample_packed_plain",
+           "lowrank_sample_packed", "lowrank_sample_packed64", "lowrank_sample_packed_plain",
            "lut3d_apply_lowrank_fused", "lut3d_apply_lowrank_packed", "pack_factors",
-           "packed_launches"]
+           "packed64_launches", "packed_launches", "smem_bytes"]

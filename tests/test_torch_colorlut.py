@@ -288,6 +288,94 @@ def test_b2_b3_bit_equal(size):
     assert torch.equal(a, b)
 
 
+def _frame16(seed, h=48, w=64):
+    """A seeded RGBA64 frame with the domain's ends (0, 65535) in its first
+    row and the codes of grid nodes at S = 9 and 17 (v = 65535 i / 8) in its
+    second; the JAX element's frames are native-endian u16, LE or BE."""
+    frame = np.random.RandomState(seed).randint(0, 65536, (h, w, 4)).astype(np.uint16)
+    frame[0, :4] = [[0, 65535, 0, 1], [65535, 0, 65535, 2], [0, 0, 0, 0],
+                    [65535, 65535, 65535, 65535]]
+    frame[1, :9, :3] = (65535 * np.arange(9) // 8)[:, None]
+    return frame
+
+
+@pytest.mark.parametrize("domain", ["identity", "graded"])
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("size", [9, 17])
+def test_packed64_plain_matches_jax_kernel(size, compute_dtype, domain):
+    """packed64 (RGBA64 pixels through B3's chain, the glue in the kernel):
+    the port's plain twin (CPU) against the JAX package's
+    lut3d_apply_lowrank_fused (B3 in interpret mode, glue as XLA ops),
+    alpha bit-equal, within 1 u16 LSB, except for bf16 with a domain other
+    than [0, 1]: XLA's CPU backend contracts v * scale + offset into one
+    FMA, which moves about 40% of the u16 codes' grid coordinates by an f32
+    ulp, and the bf16 rounding of the hat weights turns that into tens of
+    u16 LSBs (95 seen at S = 9); there the gate is one u8 LSB (257), the
+    approx path's own unit."""
+    _, jops, tops = _factors(size)
+    frame = _frame16(size)
+    scale, offset = (_SCALE, _OFFSET) if domain == "graded" else ([1.0] * 3, [0.0] * 3)
+    kw = dict(size=size, offsets=(0, 1, 2), bits=16, compute_dtype=compute_dtype)
+    ref = np.asarray(jfused.lut3d_apply_lowrank_fused(
+        jnp.asarray(frame), *jops, jnp.asarray(scale, jnp.float32),
+        jnp.asarray(offset, jnp.float32), interpret=True, **kw))
+    before = tfused.packed64_launches
+    got = tfused.lut3d_apply_lowrank_packed(torch.from_numpy(frame), *tops, scale, offset, **kw)
+    assert tfused.packed64_launches == before  # a CPU tensor runs the plain version
+    assert got.dtype == torch.uint16 and tuple(got.shape) == frame.shape
+    got = got.numpy()
+    tol = 257 if (compute_dtype, domain) == ("bfloat16", "graded") else 1
+    assert _max_lsb(ref, got) <= tol and np.array_equal(got[..., 3], frame[..., 3])
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("size", [9, 17])
+def test_packed64_plain_bit_equal_fused(size, compute_dtype):
+    """packed64's plain twin is bit-equal to the f32-coordinate wrapper (B3
+    with the glue in torch) on the same RGBA64 frame, as the kernels are on
+    the card."""
+    _, _, tops = _factors(size)
+    frame = torch.from_numpy(_frame16(size + 1, 37, 53))
+    kw = dict(size=size, offsets=(0, 1, 2), bits=16, compute_dtype=compute_dtype)
+    a = tfused.lut3d_apply_lowrank_fused(frame, *tops, _SCALE, _OFFSET, **kw)
+    b = tfused.lut3d_apply_lowrank_packed(frame, *tops, _SCALE, _OFFSET, **kw)
+    assert a.dtype == b.dtype == torch.uint16 and torch.equal(a, b)
+    px = frame.contiguous().view(torch.int64)
+    params = torch.tensor(_SCALE + _OFFSET + [65535.0, 0.0])
+    direct = tfused.lowrank_sample_packed64(px, params, *tops, size=size,
+                                            compute_dtype=compute_dtype)
+    assert torch.equal(direct.view(torch.uint16).reshape(frame.shape), b)
+
+
+def test_b3_plain_matches_jax_at_full_basis():
+    """At S = SB = 48 the hat's second row at x = 47 is row 48, past the
+    factor layout: the plain chain reads it as the zero second half of the
+    kernel's last factor pair, and still matches the Pallas kernel."""
+    rng = np.random.RandomState(48)
+    ops = [rng.uniform(-1.0, 1.0, (16, tfused.SB)).astype(np.float32) for _ in range(3)]
+    c = np.zeros((8, 16), np.float32)
+    c[:3] = rng.uniform(0.0, 0.5, (3, 16))
+    xyz = rng.uniform(0, 47, (3, 4096)).astype(np.float32)  # a multiple of its TPL
+    xyz[:, :4] = [[0.0, 47.0, 46.0, 23.0]] * 3
+    ref = np.asarray(jfused.lowrank_sample_pallas(jnp.asarray(xyz), *map(jnp.asarray, ops),
+                                                  jnp.asarray(c), interpret=True))
+    got = tfused.lowrank_sample_fused(torch.from_numpy(xyz), *map(torch.from_numpy, ops),
+                                      torch.from_numpy(c)).numpy()
+    assert float(np.abs(got - ref).max()) <= 1e-5
+
+
+def test_shared_memory_check_follows_layout():
+    """The kernels' shared-memory need (C as float4, factor pairs of 4 B in
+    bf16 words, 8 B as float2) decides which ranks a wrapper takes."""
+    assert tfused.smem_bytes(128, 1) == 16 * 128 + 3 * 128 * 48 * 4  # 75,776
+    assert tfused.smem_bytes(128, 0) == 16 * 128 + 3 * 128 * 48 * 8  # 149,504
+    ops = [torch.zeros(200, tfused.SB) for _ in range(3)] + [torch.zeros(8, 200)]
+    ref = torch.zeros(3, 8)
+    assert tfused._check_factors("t", ref, *ops, tfused._mode("bfloat16")) == 200
+    with pytest.raises(ValueError, match="shared memory"):
+        tfused._check_factors("t", ref, *ops, tfused._mode("float32"))
+
+
 @pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
 def test_dense_lowrank_matches_jax(compute_dtype):
     fit, _, _ = _factors(9)
@@ -302,9 +390,10 @@ def test_dense_lowrank_matches_jax(compute_dtype):
     assert _max_lsb(ref, got) <= 1
 
 
-@pytest.mark.parametrize("fmt", ["RGBA", "RGBA64LE"])
+@pytest.mark.parametrize("fmt", ["RGBA", "RGBA64LE", "RGBA64BE"])
 def test_element_approx_matches_jax(tmp_path, fmt):
-    """TestColorLutApprox through both packages: RGBA takes B2, RGBA64LE B3;
+    """TestColorLutApprox through both packages: RGBA takes B2, RGBA64LE/BE
+    packed64 in the port (B3 with its glue as XLA ops in the JAX package);
     port vs JAX <= 1 LSB, alpha bit-equal, and within the approx tolerance
     (2 LSB node error + 1 LSB rounding) of the exact grade."""
     loc = _write(tmp_path, _smooth_grade_lut_text())
@@ -314,7 +403,7 @@ def test_element_approx_matches_jax(tmp_path, fmt):
         counter, lsb = "packed_launches", 1
     else:
         frame = rng.randint(0, 65536, (24, 32, 4)).astype(np.uint16)
-        counter, lsb = "fused_launches", 257
+        counter, lsb = "packed64_launches", 257
     ref, jelem = _run(JPKG, frame, loc, fmt=fmt, precision="approx")
     before = getattr(tfused, counter)
     got, telem = _run(TPKG, frame, loc, fmt=fmt, precision="approx")
@@ -400,3 +489,9 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="RGBA uint8"):
         tfused.lut3d_apply_lowrank_packed(torch.zeros(2, 2, 3, dtype=torch.uint8), *tops,
                                           _SCALE, _OFFSET, size=9, offsets=(0, 1, 2), bits=8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfused.lowrank_sample_packed64(torch.empty(8, dtype=torch.int64, device="meta"),
+                                       torch.empty(8, device="meta"), *meta, size=9)
+    with pytest.raises(ValueError, match="RGBA64 uint16"):
+        tfused.lut3d_apply_lowrank_packed(torch.zeros(2, 2, 4, dtype=torch.uint8), *tops,
+                                          _SCALE, _OFFSET, size=9, offsets=(0, 1, 2), bits=16)

@@ -18,6 +18,7 @@ import torch
 
 from gst_plugins_rs_tpu_torch.ops import colorlut_lowrank_fused as lowrank
 from gst_plugins_rs_tpu_torch.ops import colorlut_mxu, hsv_planes, yolox_c3
+from gst_plugins_rs_tpu_torch.ops.colorlut import grid_coord, quantize
 
 
 @pytest.fixture
@@ -111,8 +112,9 @@ def test_c3_dense_entry_matches_compact(cuda):
 # and sum where their plain versions do, so they are expected to agree bit
 # for bit; the gates are those of chip_smoke.py: B2/B3 and B5 within 1 u8
 # LSB after quantization (raw f32 within 1e-5), B4 planes within 1e-5 and
-# 1 LSB after quantization.  B2 and B3 share one per-pixel chain and must be
-# bit-equal.
+# 1 LSB after quantization.  B2, B3 and packed64 (B3's chain on RGBA64
+# pixels) share one per-pixel chain: they are held to their plain versions
+# and to each other bit for bit.
 
 def _factors(S, K, seed, dev):
     """Synthetic CP factors in the kernel layout: ut/vt/wt [K,48] with rows
@@ -178,6 +180,142 @@ def test_lowrank_packed_and_fused_bit_equal(cuda, S):
     out = lowrank.lut3d_apply_lowrank_fused(frame16, ut, vt, wt, c, scale, offset,
                                             size=S, offsets=(0, 1, 2), bits=16)
     assert out.dtype == torch.uint16 and torch.equal(out[..., 3].int(), frame16[..., 3].int())
+
+
+def _lowrank_inputs(S, P, seed, dev):
+    """Grid coordinates xyz [3,P] in [0,S-1] whose first columns are every
+    grid node (0 and S-1 among them), and RGBA (int32) and RGBA64 (int64)
+    bit patterns whose first pixels hold the codes 0 and maxval."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xyz = torch.rand(3, P, generator=gen, device=dev) * (S - 1)
+    nodes = torch.arange(S, dtype=torch.float32, device=dev)
+    xyz[:, :S] = nodes
+    xyz[1, :S] = nodes.flip(0)
+    words = []
+    for lane, word in ((torch.uint8, torch.int32), (torch.uint16, torch.int64)):
+        top = torch.iinfo(lane).max
+        lanes = torch.randint(0, top + 1, (P, 4), generator=gen, device=dev, dtype=torch.int32)
+        lanes[0, :3], lanes[1, :3] = 0, top
+        lanes[2, :3] = torch.tensor([0, top, 0], device=dev)
+        words.append(lanes.to(lane).view(word).reshape(P))
+    return (xyz, *words)
+
+
+def _params(maxval):
+    return torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0, 0.0, maxval, 0.0], device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("K", [1, 17, 64, 128])
+@pytest.mark.parametrize("S", [9, 33])
+def test_lowrank_kernels_bit_equal_plain(cuda, S, K, compute_dtype):
+    """B2, B3 and packed64 against their plain versions, bit for bit
+    (-fmad=false, the same roundings and k ascending), at padded and
+    unpadded ranks (K = 1, 17), with the edge coordinates and grid nodes."""
+    P = 100_003
+    ops = _factors(S, K, S * 1000 + K, cuda)
+    xyz, px, px64 = _lowrank_inputs(S, P, S + K, cuda)
+    kw = dict(compute_dtype=compute_dtype)
+    before = (lowrank.fused_launches, lowrank.packed_launches, lowrank.packed64_launches)
+    got3 = lowrank.lowrank_sample_fused(xyz, *ops, **kw)
+    got2 = lowrank.lowrank_sample_packed(px, _params(255.0), *ops, size=S, **kw)
+    got64 = lowrank.lowrank_sample_packed64(px64, _params(65535.0), *ops, size=S, **kw)
+    torch.cuda.synchronize()
+    assert (lowrank.fused_launches, lowrank.packed_launches, lowrank.packed64_launches) == \
+        tuple(n + 1 for n in before)
+    assert torch.isfinite(got3).all()
+    assert torch.equal(got3, lowrank.lowrank_sample_fused_plain(xyz, *ops, **kw))
+    assert torch.equal(got2, lowrank.lowrank_sample_packed_plain(px, _params(255.0), *ops,
+                                                                  size=S, **kw))
+    assert torch.equal(got64, lowrank.lowrank_sample_packed_plain(
+        px64, _params(65535.0), *ops, size=S, bits=16, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("K", [1, 17, 64, 128])
+@pytest.mark.parametrize("S", [9, 33])
+def test_lowrank_packed_entries_equal_quantized_b3(cuda, S, K, compute_dtype):
+    """B2 and packed64 equal B3 on the same pixels, quantized at 255 and
+    65535 and repacked with the input's alpha, bit for bit: one chain."""
+    P = 100_003
+    ops = _factors(S, K, S + K, cuda)
+    _, px, px64 = _lowrank_inputs(S, P, S * K, cuda)
+    kw = dict(compute_dtype=compute_dtype)
+    for t, bits, sample in ((px, 8, lowrank.lowrank_sample_packed),
+                            (px64, 16, lowrank.lowrank_sample_packed64)):
+        maxval = float(2**bits - 1)
+        lanes = t.view(torch.uint8 if bits == 8 else torch.uint16).view(P, 4).to(torch.int32)
+        xyz = torch.stack([grid_coord(lanes, c, 1.0, 0.0, S, maxval) for c in range(3)])
+        q = quantize(lowrank.lowrank_sample_fused(xyz.contiguous(), *ops, **kw), maxval)
+        q = q.to(t.dtype)
+        want = (q[0] | (q[1] << bits) | (q[2] << 2 * bits)
+                | torch.bitwise_and(t, -(1 << 3 * bits)))
+        got = sample(t, _params(maxval), *ops, size=S, **kw)
+        assert torch.equal(got, want), bits
+        assert torch.equal(_alpha(got, bits), _alpha(t, bits)), bits
+
+
+def _alpha(t, bits):
+    return torch.bitwise_right_shift(t, 3 * bits) & ((1 << bits) - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs", ["word", "float2"])
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_lowrank_layouts_bit_equal(cuda, n, pairs):
+    """Every layout of the rank loop that the A/B compares (pixels per
+    thread, bf16 pair words or float2) gives the plain version's bits."""
+    P, S, K = 50_001, 33, 64
+    ops = _factors(S, K, 7, cuda)
+    xyz, px, px64 = _lowrank_inputs(S, P, 7, cuda)
+    saved = lowrank._PIXELS_PER_THREAD, lowrank._BF16_PAIRS
+    lowrank._PIXELS_PER_THREAD, lowrank._BF16_PAIRS = n, pairs
+    try:
+        for cd in ("bfloat16", "float32"):
+            got = lowrank.lowrank_sample_fused(xyz, *ops, compute_dtype=cd)
+            assert torch.equal(got, lowrank.lowrank_sample_fused_plain(xyz, *ops,
+                                                                       compute_dtype=cd))
+            got = lowrank.lowrank_sample_packed64(px64, _params(65535.0), *ops, size=S,
+                                                  compute_dtype=cd)
+            assert torch.equal(got, lowrank.lowrank_sample_packed_plain(
+                px64, _params(65535.0), *ops, size=S, bits=16, compute_dtype=cd))
+        got = lowrank.lowrank_sample_packed(px, _params(255.0), *ops, size=S)
+        assert torch.equal(got, lowrank.lowrank_sample_packed_plain(px, _params(255.0), *ops,
+                                                                    size=S))
+    finally:
+        lowrank._PIXELS_PER_THREAD, lowrank._BF16_PAIRS = saved
+
+
+@pytest.mark.cuda
+def test_lowrank_packed64_rejects_bad_operands(cuda):
+    ops = _factors(9, 16, 0, cuda)
+    px64 = torch.zeros(64, dtype=torch.int64, device=cuda)
+    p16 = _params(65535.0)
+    before = (lowrank.fused_launches, lowrank.packed_launches, lowrank.packed64_launches)
+    with pytest.raises(ValueError, match="int64"):
+        lowrank.lowrank_sample_packed64(px64.int(), p16, *ops, size=9)
+    with pytest.raises(ValueError, match="int64"):
+        lowrank.lowrank_sample_packed64(torch.zeros(8, 2, dtype=torch.int64, device=cuda).t(),
+                                        p16, *ops, size=9)
+    with pytest.raises(ValueError, match="params"):
+        lowrank.lowrank_sample_packed64(px64, p16[:6], *ops, size=9)
+    with pytest.raises(ValueError, match="size"):
+        lowrank.lowrank_sample_packed64(px64, p16, *ops, size=49)
+    with pytest.raises(TypeError):
+        lowrank.lowrank_sample_packed64(px64, p16, ops[0].double(), *ops[1:], size=9)
+    with pytest.raises(ValueError, match="K >= 1"):
+        lowrank.lowrank_sample_packed64(px64, p16, ops[0][:, :40].contiguous(), *ops[1:],
+                                        size=9)
+    big = _factors(9, 200, 0, cuda)  # float2 pairs of rank 200 exceed 227 KB
+    with pytest.raises(ValueError, match="shared memory"):
+        lowrank.lowrank_sample_packed64(px64, p16, *big, size=9, compute_dtype="float32")
+    with pytest.raises(ValueError, match="shared memory"):
+        lowrank.lowrank_sample_fused(torch.zeros(3, 8, device=cuda), *big,
+                                     compute_dtype="float32")
+    assert before == (lowrank.fused_launches, lowrank.packed_launches,
+                      lowrank.packed64_launches)
 
 
 @pytest.mark.cuda
