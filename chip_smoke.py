@@ -20,8 +20,8 @@ Phases (any failure ends the run with a non-zero exit):
      bit for bit, with B2 == B3 and packed64 == quantize(B3)), then timed
      (CUDA events, median) beside its plain version, the library yardstick
      and its bound; B1 (compact operands) also beside the s2d cuDNN chain,
-     and over its tile sides; B2/B3/packed64 over the layouts of their rank
-     loop (the A/B behind the chosen one);
+     and over its tile sides; B2/B3/packed64 also at compute_dtype float32
+     over the ranks, bit for bit;
   4. pipelines: videotestsrc ! yoloxinference ! yoloxtensordec ! appsink at
      640x640 (engine=fast, fast-bf16), 4 streams through analyticscombiner
      / analyticssplitter, videotestsrc RGBA 1080p ! colorlut approx !
@@ -531,12 +531,6 @@ def max_lane_err(a, b, bits):
     return int((a.view(lane).int() - b.view(lane).int()).abs().max())
 
 
-# The A/B of the rank loop's layout (PERF.md section 6): (compute type,
-# bf16 pairs as words or float2, pixels per thread); f32 pairs are float2.
-LAYOUT_AB = ([("bfloat16", pairs, n) for pairs in ("word", "float2") for n in (1, 2, 4)]
-             + [("float32", "float2", n) for n in (1, 2, 4)])
-
-
 def effect_kernels(card_line, grade):
     """Phase 3 for B2-B5: each kernel against its plain version, timed.
     Returns the cases per kernel and the grade's packed factors."""
@@ -575,7 +569,7 @@ def effect_kernels(card_line, grade):
     runs = [("path: 1 frame, the grade's factors", frame_px, frame_px64, path_ops)]
     runs += [(f"{SWEEP_FRAMES} frames, rank {k}", sweep_px, sweep_px64,
               synthetic_factors(k, k, dev)) for k in SWEEP_RANKS]
-    ab_runs = []
+    f32_runs = []
     for i, (label, px, px64, ops) in enumerate(runs):
         P, K = px.numel(), ops[0].shape[0]
         xyz, xyz16 = packed_coords(px, 8, scale, offset, S), packed_coords(px64, 16, scale,
@@ -604,7 +598,7 @@ def effect_kernels(card_line, grade):
             raise AssertionError(f"B2/B3/packed64 {label} disagree with their plain versions "
                                  f"or each other")
         if i > 0:  # the sweep
-            ab_runs.append((K, px, px64, xyz, ops, (ref2, ref3, ref64)))
+            f32_runs.append((K, px, px64, xyz, ops))
         flop = LOWRANK_OPS_PER_RANK * K * P
         factor_bytes = 4 * (3 * K * 48 + 8 * K)
         for out, name, fn, plain, g, nbytes, err in (
@@ -636,8 +630,8 @@ def effect_kernels(card_line, grade):
                   f"{flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), -fmad=false ceiling "
                   f"{ceiling_ms:.4f} ms [{card_line}]")
         del xyz16, grid, grid16, got3_16
-    b2[0]["layout_ab"] = layout_ab(card_line, ab_runs, params, S)
-    del ab_runs
+    b2[0]["float32"] = lowrank_f32(card_line, f32_runs, params, S)
+    del f32_runs
 
     # B4 at [1080, 1920], the hsvfilter element's planes
     P = HD_H * HD_W
@@ -691,42 +685,29 @@ def effect_kernels(card_line, grade):
             "colorlut_lowrank_packed64": b64, "hsv_planes": b4, "colorlut_mxu": b5}, path_ops
 
 
-def layout_ab(card_line, ab_runs, params, S):
-    """The A/B of part of B2/B3's design: every layout of LAYOUT_AB on the
-    8-frame rank sweep, each checked bit-equal to the plain versions and
-    timed for B2, B3 and packed64 (CUDA events, median)."""
+def lowrank_f32(card_line, runs, params, S):
+    """B2, B3 and packed64 at compute_dtype float32 (the public functions'
+    other type; its factors are single f32 words, two loads an axis) on the
+    8-frame rank sweep: each bit-equal to its plain version, and timed
+    (CUDA events, median)."""
     from gst_plugins_rs_tpu_torch.ops import colorlut_lowrank_fused as lowrank
 
-    saved = lowrank._PIXELS_PER_THREAD, lowrank._BF16_PAIRS
-    rows = []
-    try:
-        for K, px, px64, xyz, ops, refs in ab_runs:
-            f32_refs = (lowrank.lowrank_sample_packed_plain(px, params[8], *ops, size=S,
-                                                            compute_dtype="float32"),
-                        lowrank.lowrank_sample_fused_plain(xyz, *ops, compute_dtype="float32"),
-                        lowrank.lowrank_sample_packed_plain(px64, params[16], *ops, size=S,
-                                                            bits=16, compute_dtype="float32"))
-            for cdt, pairs, n in LAYOUT_AB:
-                lowrank._PIXELS_PER_THREAD, lowrank._BF16_PAIRS = n, pairs
-                fns = (lambda: lowrank.lowrank_sample_packed(px, params[8], *ops, size=S,
-                                                             compute_dtype=cdt),
-                       lambda: lowrank.lowrank_sample_fused(xyz, *ops, compute_dtype=cdt),
-                       lambda: lowrank.lowrank_sample_packed64(px64, params[16], *ops, size=S,
-                                                               compute_dtype=cdt))
-                want = refs if cdt == "bfloat16" else f32_refs
-                if not all(torch.equal(fn(), r) for fn, r in zip(fns, want)):
-                    raise AssertionError(f"layout {cdt} {pairs} n={n} at rank {K} differs "
-                                         f"from the plain versions")
-                ms = [cuda_ms(fn) for fn in fns]
-                rows.append(dict(K=K, compute_dtype=cdt, pairs=pairs, pixels_per_thread=n,
-                                 b2_ms=ms[0], b3_ms=ms[1], packed64_ms=ms[2]))
-                print(f"layout A/B rank {K}, {SWEEP_FRAMES} frames, {cdt} pairs {pairs} "
-                      f"n={n}: B2 {ms[0]:.4f} ms, B3 {ms[1]:.4f} ms, packed64 {ms[2]:.4f} ms, "
-                      f"bit-equal to plain [{card_line}]")
-            del f32_refs
-    finally:
-        lowrank._PIXELS_PER_THREAD, lowrank._BF16_PAIRS = saved
-    print(f"layout A/B: the path takes n={saved[0]}, bf16 pairs {saved[1]}")
+    rows, kw = [], dict(compute_dtype="float32")
+    for K, px, px64, xyz, ops in runs:
+        cases = ((lambda: lowrank.lowrank_sample_packed(px, params[8], *ops, size=S, **kw),
+                  lambda: lowrank.lowrank_sample_packed_plain(px, params[8], *ops, size=S, **kw)),
+                 (lambda: lowrank.lowrank_sample_fused(xyz, *ops, **kw),
+                  lambda: lowrank.lowrank_sample_fused_plain(xyz, *ops, **kw)),
+                 (lambda: lowrank.lowrank_sample_packed64(px64, params[16], *ops, size=S, **kw),
+                  lambda: lowrank.lowrank_sample_packed_plain(px64, params[16], *ops, size=S,
+                                                              bits=16, **kw)))
+        if not all(torch.equal(fn(), plain()) for fn, plain in cases):
+            raise AssertionError(f"B2/B3/packed64 float32 at rank {K} differ from their plain "
+                                 f"versions")
+        ms = [cuda_ms(fn) for fn, _ in cases]
+        rows.append(dict(K=K, b2_ms=ms[0], b3_ms=ms[1], packed64_ms=ms[2]))
+        print(f"float32 rank {K}, {SWEEP_FRAMES} frames: B2 {ms[0]:.4f} ms, B3 {ms[1]:.4f} ms, "
+              f"packed64 {ms[2]:.4f} ms, bit-equal to plain [{card_line}]")
     return rows
 
 
@@ -922,10 +903,10 @@ def effects_timing(card_line, grade):
     phase("6b effects timing")
     from gst_plugins_rs_tpu_torch.core import State
 
-    # device ms per frame of the chains when their glue ran as torch ops
-    # around B3 (RGBA64LE) and around B4 (RGBA), on an NVIDIA H100 80GB HBM3
-    # at 700 W (PERF.md section 5): the yardstick of the fused kernels
-    before = {"RGBA colorlut approx ! hsvfilter": 0.165, "RGBA64LE colorlut approx": 0.354}
+    # device ms per frame of the RGBA64LE chain when its glue ran as torch
+    # ops around B3, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section
+    # 5): the yardstick of packed64, which took the glue into the kernel
+    before = {"RGBA64LE colorlut approx": 0.354}
     for label, make in (("RGBA colorlut approx ! hsvfilter", effects_rgba),
                         ("RGBA64LE colorlut approx", effects_rgba64)):
         make(grade, EFFECT_FRAMES).play_until_eos()  # warm-up
@@ -945,8 +926,8 @@ def effects_timing(card_line, grade):
               f"[{card_line}]")
         device_ms, upload_ms, top = profile_device(make(grade, EFFECT_FRAMES))
         per_frame = device_ms / EFFECT_FRAMES
-        print(f"pipeline {label}: device busy {per_frame:.4f} ms per frame (glue in "
-              f"torch: {before[label]} ms; torch.profiler, "
+        was = f"glue in torch around B3: {before[label]} ms; " if label in before else ""
+        print(f"pipeline {label}: device busy {per_frame:.4f} ms per frame ({was}torch.profiler, "
               f"{EFFECT_FRAMES} frames, host-to-device copies left out: {upload_ms:.4f} ms in "
               f"all, the source's one upload of its pattern and the per-frame parameters), "
               f"{100 * per_frame * TIMING_FRAMES / (secs * 1e3):.1f}% of the unprofiled wall "

@@ -45,28 +45,32 @@
 // Shared memory holds, per block:
 //  - C as float4 [Kp] (lane 3 zero): a rank reads its three channel weights
 //    with one warp-uniform 128-bit load, shared by the thread's N pixels;
-//  - U, V, W as factor pairs [Kp,48]: entry i holds (F[k,i], F[k,i+1]), so
-//    one load gives both hat rows of an axis; entry 47 has a zero second
-//    half, and rows >= S are zero, so i0+1 = S at x = S-1 reads a zero and
-//    needs no branch.  bf16 (the element's default): a pair is one 32-bit
-//    word of two bf16, widened to f32 with a shift and a mask (4 B an entry,
-//    74 KB at Kp = 128).  f32: a float2 (147 KB at Kp = 128).
+//  - U, V, W as 32-bit words, [Kp, row] each.  bf16 (the element's
+//    default): word i of a row is the pair (F[k,i], F[k,i+1]) of two bf16,
+//    so one load gives both hat rows of an axis, widened to f32 with a shift
+//    and a mask (row = 48; word 47 has a zero second half).  f32: word i is
+//    F[k,i], and an axis takes two loads (row = 49, word 48 zero).  Rows >= S
+//    are zero, so i0+1 = S at x = S-1 reads a zero, as in the plain version,
+//    and needs no branch.  74 KB (bf16) or 76 KB (f32) at Kp = 128.
 // A warp reads factor row k at 32 pixels' columns: neighbouring words, no
-// bank conflicts where neighbouring pixels are alike (two pair words share a
-// bank only 32 columns apart).  So a warp spends 3 wavefronts per pixel and
-// rank plus 1/N for C, against 9.  Blocks loop over chunks of 256*N pixels
-// (a grid of as many blocks as fit on the SMs at once), so each block
-// stages the factors once.
+// bank conflicts where neighbouring pixels are alike (two words share a bank
+// only 32 columns apart).  So a warp spends 3 (bf16) or 6 (f32) wavefronts
+// per pixel and rank plus 1/N for C, against 9.  Blocks loop over chunks of
+// 256*N pixels (a grid of as many blocks as fit on the SMs at once), so each
+// block stages the factors once.  N is 4 for B2 and packed64 and 2 for B3,
+// each the fastest of 1, 2 and 4 on the card.
 //
-// Outcome (H100 80GB HBM3 at 700 W, chip_smoke.py phase 3b; N = 4, bf16
-// words): 8 frames of 1080p take 0.329 / 1.042 / 2.000 ms at ranks 16 / 64 /
-// 128 (B2; first design 0.359 / 1.176 / 2.314), 1.13-1.16x from rank 64 up.
-// The loads are no longer the limit: the unrolled loop issues 28.1
-// instructions per pixel and rank (17 f32, 3 loads, 6 integer widenings,
-// 1.6 of address arithmetic, the C load and the loop counter), and a warp
-// takes 7.9 SM clocks a rank, 89% of the issue rate that count allows.  The
-// float2 layout of bf16 pairs (8-byte loads, no widening) ran 1.45-1.9x
-// slower on random pixels: 8-byte loads of columns 16 apart conflict.
+// Outcome (H100 80GB HBM3 at 700 W, chip_smoke.py phase 3b; bf16): 8 frames
+// of 1080p take 0.329 / 1.042 / 2.000 ms at ranks 16 / 64 / 128 (B2; first
+// design 0.359 / 1.176 / 2.314), 1.13-1.16x from rank 64 up.  The loads are
+// no longer the limit: the unrolled loop issues 28.1 instructions per pixel
+// and rank (17 f32, 3 loads, 6 integer widenings, 1.6 of address
+// arithmetic, the C load and the loop counter), and a warp takes 7.9 SM
+// clocks a rank, 89% of the issue rate that count allows.  bf16 pairs as
+// float2 (8-byte loads, no widening) ran 1.45-1.9x slower on random pixels:
+// 8-byte loads of columns 16 apart conflict.  So f32 keeps single words:
+// 1.069 / 2.060 ms at ranks 64 / 128 (B2; as float2 pairs 1.625 / 3.731,
+// the first design 1.171 / 2.306; utils/lowrank_timing.py).
 // Built with -fmad=false: the plain PyTorch version rounds every product and
 // sum on its own, and so does this kernel.
 #include <cuda_bf16.h>
@@ -74,86 +78,74 @@
 
 #include <stddef.h>
 
-#include <type_traits>
-
 namespace {
 
 constexpr int SB = 48;  // basis rows of the padded factor layout
 constexpr int kThreads = 256;
+constexpr int kFusedPixels = 2;   // pixels per thread: B3
+constexpr int kPackedPixels = 4;  // B2 and packed64
 
-// Layouts of the factor pairs (the entry points' `mode`).
-constexpr int kF32 = 0;         // compute_dtype float32: float2 pairs
-constexpr int kBf16Word = 1;    // bfloat16: one 32-bit word of two bf16 a pair
-constexpr int kBf16Float2 = 2;  // bfloat16: float2 pairs of bf16-rounded values
+// Words of a factor row in shared memory (see above).
+template <bool BF16>
+constexpr int kRow = BF16 ? SB : SB + 1;
 
-template <int MODE>
-struct Layout {
-  using Pair = float2;
-};
-template <>
-struct Layout<kBf16Word> {
-  using Pair = unsigned int;
-};
-
-template <int MODE>
-__device__ __forceinline__ float to_compute(float v) {
-  if (MODE == kF32) return v;
+__device__ __forceinline__ float to_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <int MODE>
-__device__ __forceinline__ typename Layout<MODE>::Pair make_pair(float lo, float hi) {
-  if constexpr (MODE == kBf16Word) {
-    return static_cast<unsigned int>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
-           (static_cast<unsigned int>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+// Factor row entries i and i+1 of the row at f.
+template <bool BF16>
+__device__ __forceinline__ float2 factor_pair(const unsigned int* f, int i) {
+  if constexpr (BF16) {
+    const unsigned int w = f[i];
+    return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
   } else {
-    return make_float2(to_compute<MODE>(lo), to_compute<MODE>(hi));
+    return make_float2(__uint_as_float(f[i]), __uint_as_float(f[i + 1]));
   }
 }
 
-__device__ __forceinline__ float2 widen(float2 p) { return p; }
-__device__ __forceinline__ float2 widen(unsigned int w) {
-  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
-}
-
 // The two nonzero hat weights of x in [0, S-1], at rows i0 = floor(x) and
-// i0+1: pair index i0.
-template <int MODE>
+// i0+1.
+template <bool BF16>
 __device__ __forceinline__ void hat(float x, int& i0, float& h0, float& h1) {
   const float f = floorf(x);
   i0 = static_cast<int>(f);
-  h0 = to_compute<MODE>(fmaxf(0.0f, 1.0f - fabsf(x - f)));
-  h1 = to_compute<MODE>(fmaxf(0.0f, 1.0f - fabsf(x - (f + 1.0f))));
+  h0 = fmaxf(0.0f, 1.0f - fabsf(x - f));
+  h1 = fmaxf(0.0f, 1.0f - fabsf(x - (f + 1.0f)));
+  if (BF16) {
+    h0 = to_bf16(h0);
+    h1 = to_bf16(h1);
+  }
 }
 
 // The per-pixel chain of every entry, for N pixels at once.  smem: C as
-// float4 [K], then the U, V, W pairs as [K,SB] each (load_factors).
-template <int MODE, int N>
+// float4 [K], then U, V, W as words [K, kRow] each (load_factors).
+template <bool BF16, int N>
 __device__ __forceinline__ void lowrank_chain(const float (&x)[N], const float (&y)[N],
                                               const float (&z)[N], const float4* smem, int K,
                                               float (&out)[N][3]) {
-  using Pair = typename Layout<MODE>::Pair;
-  const Pair* su = reinterpret_cast<const Pair*>(smem + K);
-  const Pair* sv = su + K * SB;
-  const Pair* sw = sv + K * SB;
+  constexpr int R = kRow<BF16>;
+  const unsigned int* su = reinterpret_cast<const unsigned int*>(smem + K);
+  const unsigned int* sv = su + K * R;
+  const unsigned int* sw = sv + K * R;
   int xi[N], yi[N], zi[N];
   float xh0[N], xh1[N], yh0[N], yh1[N], zh0[N], zh1[N], r[N], g[N], b[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
-    hat<MODE>(x[j], xi[j], xh0[j], xh1[j]);
-    hat<MODE>(y[j], yi[j], yh0[j], yh1[j]);
-    hat<MODE>(z[j], zi[j], zh0[j], zh1[j]);
+    hat<BF16>(x[j], xi[j], xh0[j], xh1[j]);
+    hat<BF16>(y[j], yi[j], yh0[j], yh1[j]);
+    hat<BF16>(z[j], zi[j], zh0[j], zh1[j]);
     r[j] = g[j] = b[j] = 0.0f;
   }
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
     const float4 ck = smem[k];
-    const int row = k * SB;
+    const int row = k * R;
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      const float2 fu = widen(su[row + xi[j]]);
-      const float2 fv = widen(sv[row + yi[j]]);
-      const float2 fw = widen(sw[row + zi[j]]);
+      const float2 fu = factor_pair<BF16>(su + row, xi[j]);
+      const float2 fv = factor_pair<BF16>(sv + row, yi[j]);
+      const float2 fw = factor_pair<BF16>(sw + row, zi[j]);
       const float u = fu.x * xh0[j] + fu.y * xh1[j];
       const float v = fv.x * yh0[j] + fv.y * yh1[j];
       const float w = fw.x * zh0[j] + fw.y * zh1[j];
@@ -172,34 +164,45 @@ __device__ __forceinline__ void lowrank_chain(const float (&x)[N], const float (
 }
 
 // Stages the factors in shared memory: C's rows 0..2 as float4 [K], then
-// [U | V | W] as pairs [K,SB] each, rounded to the compute type.
-template <int MODE>
+// [U | V | W] as words [K, kRow] each, rounded to the compute type.
+template <bool BF16>
 __device__ __forceinline__ void load_factors(const float* __restrict__ ut,
                                              const float* __restrict__ vt,
                                              const float* __restrict__ wt,
                                              const float* __restrict__ c, int K, float4* smem) {
-  using Pair = typename Layout<MODE>::Pair;
+  constexpr int R = kRow<BF16>;
   for (int k = threadIdx.x; k < K; k += blockDim.x)
     smem[k] = make_float4(c[k], c[K + k], c[2 * K + k], 0.0f);
-  Pair* sp = reinterpret_cast<Pair*>(smem + K);
-  const int n = K * SB;
+  unsigned int* sf = reinterpret_cast<unsigned int*>(smem + K);
+  const int n = K * R;
   const float* const factors[3] = {ut, vt, wt};
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     const float* f = factors[a];
-    for (int e = threadIdx.x; e < n; e += blockDim.x)
-      sp[a * n + e] = make_pair<MODE>(f[e], e % SB + 1 < SB ? f[e + 1] : 0.0f);
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      const int k = e / R, i = e % R;
+      const float lo = i < SB ? f[k * SB + i] : 0.0f;
+      if constexpr (BF16) {
+        const float hi = i + 1 < SB ? f[k * SB + i + 1] : 0.0f;
+        sf[a * n + e] =
+            static_cast<unsigned int>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+            (static_cast<unsigned int>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+      } else {
+        sf[a * n + e] = __float_as_uint(lo);
+      }
+    }
   }
   __syncthreads();
 }
 
-template <int MODE, int N>
+template <bool BF16>
 __global__ void __launch_bounds__(kThreads)
 lowrank_fused_kernel(const float* __restrict__ xyz, const float* __restrict__ ut,
                      const float* __restrict__ vt, const float* __restrict__ wt,
                      const float* __restrict__ c, float* __restrict__ out, long long P, int K) {
+  constexpr int N = kFusedPixels;
   extern __shared__ float4 smem[];
-  load_factors<MODE>(ut, vt, wt, c, K, smem);
+  load_factors<BF16>(ut, vt, wt, c, K, smem);
   constexpr long long kChunk = static_cast<long long>(kThreads) * N;
   for (long long base = blockIdx.x * kChunk + threadIdx.x; base < P; base += gridDim.x * kChunk) {
     float x[N], y[N], z[N], o[N][3];
@@ -211,7 +214,7 @@ lowrank_fused_kernel(const float* __restrict__ xyz, const float* __restrict__ ut
       y[j] = in ? xyz[P + p] : 0.0f;
       z[j] = in ? xyz[2 * P + p] : 0.0f;
     }
-    lowrank_chain<MODE, N>(x, y, z, smem, K, o);
+    lowrank_chain<BF16, N>(x, y, z, smem, K, o);
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       const long long p = base + j * kThreads;
@@ -240,17 +243,18 @@ __device__ __forceinline__ unsigned int quantize(float y, float maxval) {
 // Pixels of four components of B bits, R in the low bits: B = 8 (RGBA u8 as
 // a 32-bit word, B2) or 16 (RGBA64 as a 64-bit word, packed64).  Component 3
 // (alpha) rides through.
-template <int MODE, int N, typename Word>
+template <bool BF16, typename Word>
 __global__ void __launch_bounds__(kThreads)
 lowrank_packed_kernel(const Word* __restrict__ px, const float* __restrict__ params,
                       const float* __restrict__ ut, const float* __restrict__ vt,
                       const float* __restrict__ wt, const float* __restrict__ c,
                       Word* __restrict__ out, long long P, int K, int size) {
+  constexpr int N = kPackedPixels;
   constexpr int B = 2 * sizeof(Word);
   constexpr Word kMask = (Word(1) << B) - 1;
   constexpr Word kAlpha = ~((Word(1) << (3 * B)) - 1);
   extern __shared__ float4 smem[];
-  load_factors<MODE>(ut, vt, wt, c, K, smem);
+  load_factors<BF16>(ut, vt, wt, c, K, smem);
   const float maxval = params[6];
   const float inv_maxval = 1.0f / maxval;
   const float sx = params[0], sy = params[1], sz = params[2];
@@ -269,7 +273,7 @@ lowrank_packed_kernel(const Word* __restrict__ px, const float* __restrict__ par
       z[j] = grid_coord(static_cast<unsigned int>((v[j] >> (2 * B)) & kMask), inv_maxval, sz, oz,
                         smax);
     }
-    lowrank_chain<MODE, N>(x, y, z, smem, K, o);
+    lowrank_chain<BF16, N>(x, y, z, smem, K, o);
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       const long long p = base + j * kThreads;
@@ -281,15 +285,19 @@ lowrank_packed_kernel(const Word* __restrict__ px, const float* __restrict__ par
   }
 }
 
-size_t smem_bytes(int mode, int K) {
-  const size_t pair = mode == kBf16Word ? 4 : 8;
-  return static_cast<size_t>(K) * sizeof(float4) + static_cast<size_t>(3) * K * SB * pair;
+size_t smem_bytes(bool bf16, int K) {
+  return static_cast<size_t>(K) * sizeof(float4) +
+         static_cast<size_t>(3) * K * (bf16 ? kRow<true> : kRow<false>) * sizeof(unsigned int);
 }
 
-// Blocks that fit on the card at once (each loops over its share of pixels),
-// at most one per chunk of `per_block` pixels.
-template <typename Kernel>
-int grid_for(Kernel kernel, size_t smem, long long P, int per_block, int* blocks) {
+// Launches kernel on a grid of as many blocks as fit on the card at once
+// (each loops over its share of pixels), at most one per chunk of
+// `per_block` pixels.
+template <typename... Params, typename... Args>
+int launch(void (*kernel)(Params...), bool bf16, long long P, int K, int per_block,
+           void* stream, Args... args) {
+  if (P == 0) return 0;
+  const size_t smem = smem_bytes(bf16, K);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -301,83 +309,61 @@ int grid_for(Kernel kernel, size_t smem, long long P, int per_block, int* blocks
       cudaSuccess)
     return static_cast<int>(err);
   const long long need = (P + per_block - 1) / per_block;
-  long long g = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  *blocks = static_cast<int>(need < g ? need : g);
-  return 0;
-}
-
-template <int MODE, int N, typename... Params, typename... Args>
-int launch(void (*kernel)(Params...), long long P, int K, void* stream, Args... args) {
-  if (P == 0) return 0;
-  const size_t smem = smem_bytes(MODE, K);
-  int blocks = 0;
-  if (int err = grid_for(kernel, smem, P, kThreads * N, &blocks)) return err;
+  const long long fit = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const int blocks = static_cast<int>(need < fit ? need : fit);
   kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-// f(MODE, N) as integral constants, for a layout and pixels per thread
-// given at run time.
-template <int N, typename F>
-int dispatch_mode(int mode, F& f) {
-  using std::integral_constant;
-  switch (mode) {
-    case kF32: return f(integral_constant<int, kF32>(), integral_constant<int, N>());
-    case kBf16Word: return f(integral_constant<int, kBf16Word>(), integral_constant<int, N>());
-    case kBf16Float2: return f(integral_constant<int, kBf16Float2>(), integral_constant<int, N>());
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+template <bool BF16>
+int launch_fused(const void* xyz, const void* ut, const void* vt, const void* wt, const void* c,
+                 void* out, long long P, int K, void* stream) {
+  return launch(lowrank_fused_kernel<BF16>, BF16, P, K, kThreads * kFusedPixels, stream,
+                static_cast<const float*>(xyz), static_cast<const float*>(ut),
+                static_cast<const float*>(vt), static_cast<const float*>(wt),
+                static_cast<const float*>(c), static_cast<float*>(out), P, K);
 }
 
-template <typename F>
-int dispatch(int mode, int n, F f) {
-  switch (n) {
-    case 1: return dispatch_mode<1>(mode, f);
-    case 2: return dispatch_mode<2>(mode, f);
-    case 4: return dispatch_mode<4>(mode, f);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+template <bool BF16, typename Word>
+int launch_packed(const void* px, const void* params, const void* ut, const void* vt,
+                  const void* wt, const void* c, void* out, long long P, int K, int size,
+                  void* stream) {
+  return launch(lowrank_packed_kernel<BF16, Word>, BF16, P, K, kThreads * kPackedPixels, stream,
+                static_cast<const Word*>(px), static_cast<const float*>(params),
+                static_cast<const float*>(ut), static_cast<const float*>(vt),
+                static_cast<const float*>(wt), static_cast<const float*>(c),
+                static_cast<Word*>(out), P, K, size);
 }
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes): every pointer and the stream are
 // void*; the return value is the launch's cudaError_t (0 = launched).
-// ut/vt/wt: [K,48] f32, c: [8,K] f32 (rows 0..2 read); mode: the factor
-// pairs' layout (0 f32 float2; bf16 rounding of the factors and hat weights:
-// 1 bf16 pair words, 2 float2); n: pixels per thread (1, 2 or 4).
+// ut/vt/wt: [K,48] f32, c: [8,K] f32 (rows 0..2 read); bf16: round the
+// factors and hat weights to bf16 (compute_dtype bfloat16), else f32.
 extern "C" int colorlut_lowrank_fused(const void* xyz, const void* ut, const void* vt,
                                       const void* wt, const void* c, void* out, long long P,
-                                      int K, int mode, int n, void* stream) {
-  return dispatch(mode, n, [&](auto m, auto pp) {
-    constexpr int M = decltype(m)::value, N = decltype(pp)::value;
-    return launch<M, N>(lowrank_fused_kernel<M, N>, P, K, stream, static_cast<const float*>(xyz),
-                        static_cast<const float*>(ut), static_cast<const float*>(vt),
-                        static_cast<const float*>(wt), static_cast<const float*>(c),
-                        static_cast<float*>(out), P, K);
-  });
+                                      int K, int bf16, void* stream) {
+  return bf16 ? launch_fused<true>(xyz, ut, vt, wt, c, out, P, K, stream)
+              : launch_fused<false>(xyz, ut, vt, wt, c, out, P, K, stream);
 }
 
 // bits: 8 (B2, px/out as 32-bit words) or 16 (packed64, 64-bit words).
 extern "C" int colorlut_lowrank_packed(const void* px, const void* params, const void* ut,
                                        const void* vt, const void* wt, const void* c,
                                        void* out, long long P, int K, int size, int bits,
-                                       int mode, int n, void* stream) {
-  return dispatch(mode, n, [&](auto m, auto pp) {
-    constexpr int M = decltype(m)::value, N = decltype(pp)::value;
-    const float* f[5] = {static_cast<const float*>(params), static_cast<const float*>(ut),
-                         static_cast<const float*>(vt), static_cast<const float*>(wt),
-                         static_cast<const float*>(c)};
-    if (bits == 8)
-      return launch<M, N>(lowrank_packed_kernel<M, N, unsigned int>, P, K, stream,
-                          static_cast<const unsigned int*>(px), f[0], f[1], f[2], f[3], f[4],
-                          static_cast<unsigned int*>(out), P, K, size);
-    if (bits == 16)
-      return launch<M, N>(lowrank_packed_kernel<M, N, unsigned long long>, P, K, stream,
-                          static_cast<const unsigned long long*>(px), f[0], f[1], f[2], f[3],
-                          f[4], static_cast<unsigned long long*>(out), P, K, size);
-    return static_cast<int>(cudaErrorInvalidValue);
-  });
+                                       int bf16, void* stream) {
+  if (bits == 8)
+    return bf16 ? launch_packed<true, unsigned int>(px, params, ut, vt, wt, c, out, P, K, size,
+                                                    stream)
+                : launch_packed<false, unsigned int>(px, params, ut, vt, wt, c, out, P, K, size,
+                                                     stream);
+  if (bits == 16)
+    return bf16 ? launch_packed<true, unsigned long long>(px, params, ut, vt, wt, c, out, P, K,
+                                                          size, stream)
+                : launch_packed<false, unsigned long long>(px, params, ut, vt, wt, c, out, P, K,
+                                                           size, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* colorlut_lowrank_error_string(int err) {

@@ -21,7 +21,7 @@ All three share one per-pixel chain, so they are bit-equal on the same
 pixels.  For a CUDA tensor each wrapper launches its kernel or raises; for
 a CPU tensor it runs the `_plain` twin, the same chain in plain PyTorch:
 the two nonzero hat weights per axis (the second factor row read from a
-zero column at SB, as the kernel's factor pairs hold it), factors and
+zero column at SB, as the kernel's factor rows hold it), factors and
 weights rounded to the compute type, the rank sum in f32 with k ascending,
 as the kernel computes it.  The TPU kernels pad P to their lane tiles (TPL,
 ROWS*TPL); these take any P, and the public wrappers return the frame's
@@ -45,13 +45,6 @@ from .colorlut_lowrank import compute_type
 SB = 48
 # A block may use at most 227 KB of shared memory on sm_90.
 _MAX_SMEM = 232_448
-
-# The rank loop's layout, chosen by A/B on the card (chip_smoke.py phase
-# 3b, PERF.md section 6): pixels per thread (1, 2 or 4), and in bf16 a
-# factor pair as one 32-bit word of two bf16 ("word") or as a float2 of the
-# widened values ("float2").  f32 pairs are float2.
-_PIXELS_PER_THREAD = 4
-_BF16_PAIRS = "word"
 
 packed_launches = 0    # B2
 packed64_launches = 0  # B3's chain on RGBA64 pixels
@@ -139,20 +132,14 @@ def lowrank_sample_packed_plain(px, params, ut, vt, wt, c, *, size: int,
 # the kernels
 
 
-def _mode(compute_dtype):
-    """The kernels' factor-pair layout: 0 f32 float2; bf16 1 word, 2 float2."""
-    if compute_type(compute_dtype) == torch.float32:
-        return 0
-    return {"word": 1, "float2": 2}[_BF16_PAIRS]
-
-
-def smem_bytes(k: int, mode: int) -> int:
+def smem_bytes(k: int, compute_dtype="bfloat16") -> int:
     """Shared memory of a block at rank k: C as float4 [k], then the U, V, W
-    factor pairs [k, SB] at 4 bytes a pair (bf16 words) or 8 (float2)."""
-    return 16 * k + 3 * k * SB * (4 if mode == 1 else 8)
+    factors as 32-bit words, [k, 48] bf16 pairs or [k, 49] f32 entries."""
+    row = SB if compute_type(compute_dtype) == torch.bfloat16 else SB + 1
+    return 16 * k + 3 * k * row * 4
 
 
-def _check_factors(name, ref, ut, vt, wt, c, mode):
+def _check_factors(name, ref, ut, vt, wt, c, compute_dtype):
     k = ut.shape[0] if ut.dim() == 2 else -1
     for label, t, shape in (("ut", ut, (k, SB)), ("vt", vt, (k, SB)), ("wt", wt, (k, SB)),
                             ("c", c, (8, k))):
@@ -164,7 +151,7 @@ def _check_factors(name, ref, ut, vt, wt, c, mode):
             raise ValueError(f"{name}: {label} is on {t.device}, the pixels on {ref.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
-    smem = smem_bytes(k, mode)
+    smem = smem_bytes(k, compute_dtype)
     if smem > _MAX_SMEM:
         raise ValueError(f"{name}: rank {k} needs {smem} bytes of shared memory, "
                          f"more than a block's {_MAX_SMEM}")
@@ -177,9 +164,9 @@ def _lib():
     lib = load("colorlut_lowrank")
     if not getattr(lib, "_argtypes_set", False):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.colorlut_lowrank_fused.argtypes = [ptr] * 6 + [i64, i32, i32, i32, ptr]
+        lib.colorlut_lowrank_fused.argtypes = [ptr] * 6 + [i64, i32, i32, ptr]
         lib.colorlut_lowrank_fused.restype = ctypes.c_int
-        lib.colorlut_lowrank_packed.argtypes = [ptr] * 7 + [i64] + [i32] * 5 + [ptr]
+        lib.colorlut_lowrank_packed.argtypes = [ptr] * 7 + [i64] + [i32] * 4 + [ptr]
         lib.colorlut_lowrank_packed.restype = ctypes.c_int
         lib.colorlut_lowrank_error_string.argtypes = [ctypes.c_int]
         lib.colorlut_lowrank_error_string.restype = ctypes.c_char_p
@@ -202,20 +189,20 @@ def lowrank_sample_fused(xyz, ut, vt, wt, c, *, compute_dtype="bfloat16"):
         return lowrank_sample_fused_plain(xyz, ut, vt, wt, c, compute_dtype=compute_dtype)
     if xyz.device.type != "cuda":
         raise ValueError(f"lowrank_sample_fused: unsupported device {xyz.device}")
-    mode = _mode(compute_dtype)
     if xyz.dim() != 2 or xyz.shape[0] != 3 or xyz.dtype != torch.float32:
         raise ValueError(f"lowrank_sample_fused: xyz must be [3, P] float32, "
                          f"got {tuple(xyz.shape)} {xyz.dtype}")
     if not xyz.is_contiguous():
         raise ValueError("lowrank_sample_fused: xyz must be contiguous")
-    k = _check_factors("lowrank_sample_fused", xyz, ut, vt, wt, c, mode)
+    k = _check_factors("lowrank_sample_fused", xyz, ut, vt, wt, c, compute_dtype)
+    bf16 = int(compute_type(compute_dtype) == torch.bfloat16)
     out = torch.empty_like(xyz)
     lib = _lib()
     with torch.cuda.device(xyz.device):
         stream = torch.cuda.current_stream(xyz.device).cuda_stream
         err = lib.colorlut_lowrank_fused(xyz.data_ptr(), ut.data_ptr(), vt.data_ptr(),
                                          wt.data_ptr(), c.data_ptr(), out.data_ptr(),
-                                         xyz.shape[1], k, mode, _PIXELS_PER_THREAD, stream)
+                                         xyz.shape[1], k, bf16, stream)
     _raise_on(lib, err, "lowrank_sample_fused")
     fused_launches += 1
     return out
@@ -226,7 +213,6 @@ def _sample_packed(name, bits, px, params, ut, vt, wt, c, size, compute_dtype):
     (bits 8: B2, 16: packed64); the caller counts the launch."""
     if px.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {px.device}")
-    mode = _mode(compute_dtype)
     word = torch.int32 if bits == 8 else torch.int64
     if px.dtype != word or not px.is_contiguous():
         raise ValueError(f"{name}: px must be contiguous {word}, got {px.dtype}")
@@ -235,15 +221,16 @@ def _sample_packed(name, bits, px, params, ut, vt, wt, c, size, compute_dtype):
         raise ValueError(f"{name}: params must be [8] float32 on px's device")
     if not 2 <= size <= SB:
         raise ValueError(f"{name}: size must be in 2..{SB}, got {size}")
-    k = _check_factors(name, px, ut, vt, wt, c, mode)
+    k = _check_factors(name, px, ut, vt, wt, c, compute_dtype)
+    bf16 = int(compute_type(compute_dtype) == torch.bfloat16)
     out = torch.empty_like(px)
     lib = _lib()
     with torch.cuda.device(px.device):
         stream = torch.cuda.current_stream(px.device).cuda_stream
         err = lib.colorlut_lowrank_packed(px.data_ptr(), params.data_ptr(), ut.data_ptr(),
                                           vt.data_ptr(), wt.data_ptr(), c.data_ptr(),
-                                          out.data_ptr(), px.numel(), k, size, bits, mode,
-                                          _PIXELS_PER_THREAD, stream)
+                                          out.data_ptr(), px.numel(), k, size, bits, bf16,
+                                          stream)
     _raise_on(lib, err, name)
     return out
 

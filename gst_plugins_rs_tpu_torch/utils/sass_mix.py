@@ -1,7 +1,7 @@
 """Instruction mix of a kernel's loops, read from its SASS.
 
     python -m gst_plugins_rs_tpu_torch.utils.sass_mix colorlut_lowrank \
-        lowrank_packed_kernelILi1ELi4EjE
+        lowrank_packed_kernelILb1EjE
 
 Builds csrc/<source>.cu (utils/build.py), disassembles the library with the
 CUDA toolkit's cuobjdump -sass, and for every function whose mangled name

@@ -307,11 +307,12 @@ def test_packed64_plain_matches_jax_kernel(size, compute_dtype, domain):
     the port's plain twin (CPU) against the JAX package's
     lut3d_apply_lowrank_fused (B3 in interpret mode, glue as XLA ops),
     alpha bit-equal, within 1 u16 LSB, except for bf16 with a domain other
-    than [0, 1]: XLA's CPU backend contracts v * scale + offset into one
-    FMA, which moves about 40% of the u16 codes' grid coordinates by an f32
-    ulp, and the bf16 rounding of the hat weights turns that into tens of
-    u16 LSBs (95 seen at S = 9); there the gate is one u8 LSB (257), the
-    approx path's own unit."""
+    than [0, 1]: XLA folds scale / maxval into one constant and contracts
+    v * that + offset into one FMA, which moves about a fifth of the grid
+    coordinates by an f32 ulp, and the bf16 rounding of the hat weights
+    turns that into tens of u16 LSBs (95 seen at S = 9); there the gate is
+    one u8 LSB (257), the approx path's own unit
+    (test_packed64_jax_gap_is_its_coordinates shows the cause)."""
     _, jops, tops = _factors(size)
     frame = _frame16(size)
     scale, offset = (_SCALE, _OFFSET) if domain == "graded" else ([1.0] * 3, [0.0] * 3)
@@ -326,6 +327,37 @@ def test_packed64_plain_matches_jax_kernel(size, compute_dtype, domain):
     got = got.numpy()
     tol = 257 if (compute_dtype, domain) == ("bfloat16", "graded") else 1
     assert _max_lsb(ref, got) <= tol and np.array_equal(got[..., 3], frame[..., 3])
+
+
+@pytest.mark.parametrize("size", [9, 17])
+def test_packed64_jax_gap_is_its_coordinates(size):
+    """Why the bf16 graded case above needs its wider gate: on the CPU the
+    JAX element's grid coordinates are fma(v, f32(scale * f32(1/maxval)),
+    offset), one rounding, where the port (and the kernel) rounds v/maxval,
+    then the product with scale, then the sum.  The port's chain at JAX's
+    coordinates matches the JAX output within 1 u16 LSB; at its own it does
+    not.  The fma is taken in f64, exact here: v has 16 bits and the
+    constant 24."""
+    _, jops, tops = _factors(size)
+    frame = _frame16(size)
+    ref = np.asarray(jfused.lut3d_apply_lowrank_fused(
+        jnp.asarray(frame), *jops, jnp.asarray(_SCALE, jnp.float32),
+        jnp.asarray(_OFFSET, jnp.float32), interpret=True, size=size, offsets=(0, 1, 2),
+        bits=16, compute_dtype="bfloat16"))
+    v = frame[..., :3].reshape(-1, 3).astype(np.float32)
+    scale, offset = np.float32(_SCALE), np.float32(_OFFSET)
+    inv = np.float32(1.0) / np.float32(65535.0)
+    coords = {"jax": (v.astype(np.float64) * (scale * inv).astype(np.float64)
+                      + offset.astype(np.float64)).astype(np.float32),
+              "port": v * inv * scale + offset}
+    lsb = {}
+    for name, t in coords.items():
+        xyz = torch.from_numpy(np.ascontiguousarray((np.clip(t, 0.0, 1.0)
+                                                     * np.float32(size - 1)).T))
+        out = tfused.lowrank_sample_fused_plain(xyz, *tops, compute_dtype="bfloat16")
+        q = tcl.quantize(out, 65535.0).numpy().T.reshape(frame.shape[:-1] + (3,))
+        lsb[name] = _max_lsb(ref[..., :3], q)
+    assert lsb["jax"] <= 1 < lsb["port"], lsb
 
 
 @pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
@@ -349,8 +381,9 @@ def test_packed64_plain_bit_equal_fused(size, compute_dtype):
 
 def test_b3_plain_matches_jax_at_full_basis():
     """At S = SB = 48 the hat's second row at x = 47 is row 48, past the
-    factor layout: the plain chain reads it as the zero second half of the
-    kernel's last factor pair, and still matches the Pallas kernel."""
+    factor layout: the plain chain reads it from a zero column, as the
+    kernel reads the zero second half of its last bf16 pair or the zero
+    word that ends an f32 row, and still matches the Pallas kernel."""
     rng = np.random.RandomState(48)
     ops = [rng.uniform(-1.0, 1.0, (16, tfused.SB)).astype(np.float32) for _ in range(3)]
     c = np.zeros((8, 16), np.float32)
@@ -365,15 +398,16 @@ def test_b3_plain_matches_jax_at_full_basis():
 
 
 def test_shared_memory_check_follows_layout():
-    """The kernels' shared-memory need (C as float4, factor pairs of 4 B in
-    bf16 words, 8 B as float2) decides which ranks a wrapper takes."""
-    assert tfused.smem_bytes(128, 1) == 16 * 128 + 3 * 128 * 48 * 4  # 75,776
-    assert tfused.smem_bytes(128, 0) == 16 * 128 + 3 * 128 * 48 * 8  # 149,504
-    ops = [torch.zeros(200, tfused.SB) for _ in range(3)] + [torch.zeros(8, 200)]
+    """The kernels' shared-memory need (C as float4, the factors as 32-bit
+    words: [K, 48] bf16 pairs, [K, 49] f32 entries) decides which ranks a
+    wrapper takes."""
+    assert tfused.smem_bytes(128, "bfloat16") == 16 * 128 + 3 * 128 * 48 * 4  # 75,776
+    assert tfused.smem_bytes(128, "float32") == 16 * 128 + 3 * 128 * 49 * 4  # 77,312
+    ops = [torch.zeros(392, tfused.SB) for _ in range(3)] + [torch.zeros(8, 392)]
     ref = torch.zeros(3, 8)
-    assert tfused._check_factors("t", ref, *ops, tfused._mode("bfloat16")) == 200
+    assert tfused._check_factors("t", ref, *ops, "bfloat16") == 392
     with pytest.raises(ValueError, match="shared memory"):
-        tfused._check_factors("t", ref, *ops, tfused._mode("float32"))
+        tfused._check_factors("t", ref, *ops, "float32")
 
 
 @pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
