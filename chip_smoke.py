@@ -8,7 +8,9 @@ per-pixel video effects at 1920x1080 with a 33^3 grade: colorlut
 precision=approx (B2 for RGBA, packed64, B3's chain with the glue in the
 kernel, for RGBA64LE), hsvfilter (B4), and the public functions that no
 element calls: lut3d_apply_lowrank_fused (B3 with its TPU signature) and
-lut3d_apply_mxu (B5).  Run from the repository root:
+lut3d_apply_mxu (B5: its packed entries for RGBA and RGBA64 frames, its
+TPU signature with the glue in torch for other layouts).  Run from the
+repository root:
 
     python3 chip_smoke.py
 
@@ -21,20 +23,22 @@ Phases (any failure ends the run with a non-zero exit):
      (CUDA events, median) beside its plain version, the library yardstick
      and its bound; B1 (compact operands) also beside the s2d cuDNN chain,
      and over its tile sides; B2/B3/packed64 also at compute_dtype float32
-     over the ranks, bit for bit;
+     over the ranks, bit for bit; B5 and its packed entries bit for bit,
+     the packed entries also equal to quantize(B5);
   4. pipelines: videotestsrc ! yoloxinference ! yoloxtensordec ! appsink at
      640x640 (engine=fast, fast-bf16), 4 streams through analyticscombiner
      / analyticssplitter, videotestsrc RGBA 1080p ! colorlut approx !
      hsvfilter ! appsink, videotestsrc RGBA64LE 1080p ! colorlut approx !
-     appsink, and lut3d_apply_lowrank_fused and lut3d_apply_mxu over 1080p
-     frames; the launch counters are set to 0 just before each path and
-     read just after;
+     appsink, lut3d_apply_lowrank_fused over 1080p frames, and
+     lut3d_apply_mxu over 1080p RGBA, RGBA64LE and BGRA frames; the launch
+     counters are set to 0 just before each path and read just after;
   5. card against CPU: one frame through apply_fast with the fused C3, and
      one seeded 1080p frame through colorlut approx (RGBA and RGBA64LE),
-     hsvfilter and lut3d_apply_mxu, on the card (kernels) and on the CPU
-     (plain versions);
+     hsvfilter and lut3d_apply_mxu (RGBA, RGBA64LE, BGRA), on the card
+     (kernels) and on the CPU (plain versions);
   6. timing: apply_fast frames per second at batch 1 and 8, and the element
-     pipelines end to end, with their device time per frame.
+     pipelines end to end, with their device time per frame, and
+     lut3d_apply_mxu's device time per frame on both of its routes.
 Prints a JSON line of the kernels, the card's name and power limit, then,
 last, {"ok": true, "device": ...}.  It imports nothing of JAX and nothing of
 the JAX package.
@@ -82,12 +86,21 @@ EFFECT_F32_TOL = 1e-5        # raw f32 outputs and B4 planes, kernel vs plain
 # bf16 rounding of the factors and hat weights comes on top (5 LSB seen on
 # random 1080p frames, on the card and on the CPU alike)
 APPROX_TOL = 8
+# lut3d_apply_mxu (B5) vs the exact grade: the bf16 table rounds entries
+# near 1.0 to steps of 2^-8, and the bf16 row weights add their own
+# rounding, so a 1080p frame reads 2 LSB (PERF.md section 7); the JAX
+# docstring's "<= 1 LSB" holds on small frames only
+MXU_EXACT_TOL = 2
 # f32 operations per pixel (selects and integer work not counted): B2/B3 per
 # rank: 3 x (2 products + 1 sum) for u, v, w, 2 products, 3 x (product +
-# sum) into r, g, b; B4 and B5 counted from their sources.
+# sum) into r, g, b; B4 and B5 counted from their sources; B5's packed
+# entries add per channel 6 for the grid coordinate (reciprocal product,
+# scale, offset, two clamps, * (S-1)) and 4 for the rounding (two clamps,
+# * maxval, rint).
 LOWRANK_OPS_PER_RANK = 17
 HSV_OPS = 45
 MXU_OPS = 88
+MXU_PACKED_OPS = MXU_OPS + 3 * (6 + 4)
 
 
 def phase(name):
@@ -502,6 +515,15 @@ def hd_frame16(seed: int) -> np.ndarray:
     return np.random.RandomState(seed).randint(0, 65536, (HD_H, HD_W, 4)).astype(np.uint16)
 
 
+MXU_DOMAIN = ([1.0] * 3, [0.0] * 3)  # lut3d_apply_mxu's scale and offset: the grade's domain
+
+
+def mxu_frames(n):
+    """The n seeded 1080p RGBA frames lut3d_apply_mxu grades in phases 4b
+    and 6b, on the card."""
+    return [torch.from_numpy(hd_frame(100 + i)).to("cuda") for i in range(n)]
+
+
 def random_px64(P, gen, dev):
     """P random RGBA64 pixels as int64 bit patterns (4 x u16, R low)."""
     return torch.randint(0, 65536, (P, 4), generator=gen, device=dev,
@@ -536,8 +558,8 @@ def effect_kernels(card_line, grade):
     Returns the cases per kernel and the grade's packed factors."""
     phase("3b effect kernels against their plain versions")
     from gst_plugins_rs_tpu_torch.ops import colorlut_lowrank_fused as lowrank
-    from gst_plugins_rs_tpu_torch.ops import colorlut_mxu, hsv_planes
-    from gst_plugins_rs_tpu_torch.ops.colorlut import CubeLut, grid_coord, quantize
+    from gst_plugins_rs_tpu_torch.ops import hsv_planes
+    from gst_plugins_rs_tpu_torch.ops.colorlut import CubeLut, quantize
     from gst_plugins_rs_tpu_torch.ops.colorlut_lowrank import fit_lowrank
     from gst_plugins_rs_tpu_torch.ops.hsv import quantize_u8
     from gst_plugins_rs_tpu_torch.ops.pixels import to_unit
@@ -655,34 +677,80 @@ def effect_kernels(card_line, grade):
     print(f"B4 hsv_planes: kernel {b4[0]['ms']:.4f} ms, plain {b4[0]['plain_ms']:.4f} ms, "
           f"library none, bound {bound_ms:.4f} ms ({bound_by}) [{card_line}]")
 
-    # B5 at 1080p with the 33^3 grade
+    return {"colorlut_lowrank_packed": b2, "colorlut_lowrank_fused": b3,
+            "colorlut_lowrank_packed64": b64, "hsv_planes": b4,
+            **mxu_kernels(card_line, lut, scale, offset, frame_px, frame_px64, params)}, path_ops
+
+
+def mxu_kernels(card_line, lut, scale, offset, px, px64, params):
+    """Phase 3b for B5 at 1080p with the 33^3 grade: the TPU signature on
+    the RGBA frame's grid coordinates, and the packed entries on the RGBA
+    and RGBA64 frames, each bit-equal to its plain version, the packed
+    entries also to quantize-and-repack of the TPU signature's output;
+    each timed beside its plain version, grid_sample and its bound."""
+    from gst_plugins_rs_tpu_torch.ops import colorlut_mxu
+    from gst_plugins_rs_tpu_torch.ops.colorlut import quantize
+
+    dev, S = torch.device("cuda"), LUT_SIZE
     t2 = torch.from_numpy(colorlut_mxu.pack_matmul_table(lut.table, S)).to(dev, torch.bfloat16)
-    fi = frame.to(torch.int32)
-    pos = [grid_coord(fi, c, scale[c], offset[c], S, 255.0).reshape(-1).contiguous()
-           for c in range(3)]
+    lut5 = torch.from_numpy(lut.table.reshape(S, S, S, 3)).to(dev).permute(3, 0, 1, 2)[None]
+    lut5 = lut5.contiguous()
+    out = {}
+    xyz = packed_coords(px, 8, scale, offset, S)
+    pos = list(xyz)  # rows of a contiguous [3, P]
+    P = px.numel()
     got = colorlut_mxu.lut3d_positions_mxu(*pos, t2, size=S)
     torch.cuda.synchronize()
     ref = colorlut_mxu.lut3d_positions_mxu_plain(*pos, t2, size=S)
     err5 = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-    lsb5 = max(int((quantize(g, 255.0) - quantize(r, 255.0)).abs().max())
-               for g, r in zip(got, ref))
-    print(f"B5 colorlut_mxu 1080p S={S}: max abs err {err5:.3e}, {lsb5} LSB after quantization")
-    if err5 > EFFECT_F32_TOL or lsb5 > LSB_TOL:
+    same5 = all(torch.equal(g, r) for g, r in zip(got, ref))
+    print(f"B5 colorlut_mxu 1080p S={S}: max abs err {err5:.3e}, bit-equal to plain: {same5}")
+    if not same5:
         raise AssertionError("B5 disagrees with its plain version")
-    lut5 = torch.from_numpy(lut.table.reshape(S, S, S, 3)).to(dev).permute(3, 0, 1, 2)[None]
-    lut5, grid = lut5.contiguous(), lut_grid(torch.stack(pos), S)
     flop, nbytes = MXU_OPS * P, 24 * P + 2 * t2.numel()
     bound_ms, bound_by = bound(flop, nbytes)
-    b5 = [dict(case="1080p, S=33", P=P, ms=cuda_ms(lambda: colorlut_mxu.lut3d_positions_mxu(
-                   *pos, t2, size=S)),
-               plain_ms=cuda_ms(lambda: colorlut_mxu.lut3d_positions_mxu_plain(*pos, t2, size=S)),
-               library_ms=cuda_ms(lambda: grid_sample_lut(lut5, grid)), bound_ms=bound_ms,
-               bound_by=bound_by, max_abs_err=err5, flop=flop, bytes=nbytes)]
-    print(f"B5 colorlut_mxu: kernel {b5[0]['ms']:.4f} ms, plain {b5[0]['plain_ms']:.4f} ms, "
-          f"grid_sample {b5[0]['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
-          f"[{card_line}]")
-    return {"colorlut_lowrank_packed": b2, "colorlut_lowrank_fused": b3,
-            "colorlut_lowrank_packed64": b64, "hsv_planes": b4, "colorlut_mxu": b5}, path_ops
+    grid = lut_grid(xyz, S)
+    out["colorlut_mxu"] = [dict(
+        case="1080p, S=33", P=P, ms=cuda_ms(lambda: colorlut_mxu.lut3d_positions_mxu(
+            *pos, t2, size=S)),
+        plain_ms=cuda_ms(lambda: colorlut_mxu.lut3d_positions_mxu_plain(*pos, t2, size=S)),
+        library_ms=cuda_ms(lambda: grid_sample_lut(lut5, grid)), bound_ms=bound_ms,
+        bound_by=bound_by, max_abs_err=err5, flop=flop, bytes=nbytes)]
+    c = out["colorlut_mxu"][0]
+    print(f"B5 colorlut_mxu: kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, grid_sample "
+          f"{c['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card_line}]")
+    del got, ref, grid
+    for name, entry, t, bits in (
+            ("colorlut_mxu_packed", colorlut_mxu.lut3d_sample_mxu_packed, px, 8),
+            ("colorlut_mxu_packed64", colorlut_mxu.lut3d_sample_mxu_packed64, px64, 16)):
+        maxval = float(2**bits - 1)
+        xyz = packed_coords(t, bits, scale, offset, S)
+        got = entry(t, params[bits], t2, size=S)
+        torch.cuda.synchronize()
+        ref = colorlut_mxu.lut3d_sample_mxu_packed_plain(t, params[bits], t2, size=S, bits=bits)
+        sig = repack(torch.stack([quantize(o, maxval) for o in
+                                  colorlut_mxu.lut3d_positions_mxu(*xyz, t2, size=S)]), t, bits)
+        err = max_lane_err(got, ref, bits)
+        same, same_sig = torch.equal(got, ref), torch.equal(got, sig)
+        print(f"B5 {name} 1080p S={S}: max err {err} LSB, bit-equal to plain: {same}, to "
+              f"quantize(lut3d_positions_mxu): {same_sig}")
+        if not (same and same_sig):
+            raise AssertionError(f"B5 {name} disagrees with its plain version or with B5")
+        flop, nbytes = MXU_PACKED_OPS * P, 2 * t.element_size() * P + 2 * t2.numel() + 32
+        bound_ms, bound_by = bound(flop, nbytes)
+        grid = lut_grid(xyz, S)
+        out[name] = [dict(
+            case="1080p, S=33", P=P,
+            ms=cuda_ms(lambda: entry(t, params[bits], t2, size=S)),
+            plain_ms=cuda_ms(lambda: colorlut_mxu.lut3d_sample_mxu_packed_plain(
+                t, params[bits], t2, size=S, bits=bits)),
+            library_ms=cuda_ms(lambda: grid_sample_lut(lut5, grid)), bound_ms=bound_ms,
+            bound_by=bound_by, max_abs_err=err, flop=flop, bytes=nbytes)]
+        c = out[name][0]
+        print(f"B5 {name}: kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, grid_sample "
+              f"{c['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{nbytes / 1e6:.2f} MB) [{card_line}]")
+    return out
 
 
 def lowrank_f32(card_line, runs, params, S):
@@ -803,23 +871,40 @@ def effect_pipelines(grade, path_ops):
         raise AssertionError("B3 launches != frames")
     launches["colorlut_lowrank_fused"] = counted
 
-    # B5 through its public function, as the JAX package offers it
+    # B5 through its public function, as the JAX package offers it: RGBA and
+    # RGBA64LE frames take the packed entries, BGRA offsets the TPU signature
     t2 = torch.from_numpy(colorlut_mxu.pack_matmul_table(lut.table, LUT_SIZE)).to(
         "cuda", torch.bfloat16)
-    frames = [torch.from_numpy(hd_frame(100 + i)).to("cuda") for i in range(n)]
-    colorlut_mxu.launches = 0
-    outs = [colorlut_mxu.lut3d_apply_mxu(f, t2, [1.0] * 3, [0.0] * 3, size=LUT_SIZE)
-            for f in frames]
-    torch.cuda.synchronize()
-    counted = colorlut_mxu.launches
-    for f, o in zip(frames, outs):
-        if o.device.type != "cuda" or o.shape != f.shape or o.dtype != torch.uint8 \
-                or not torch.equal(o[..., 3], f[..., 3]):
-            raise AssertionError("lut3d_apply_mxu output: device, shape, dtype or alpha")
-    print(f"lut3d_apply_mxu over {n} 1080p frames: launches {counted}")
-    if counted != n:
-        raise AssertionError("B5 launches != frames")
-    launches["colorlut_mxu"] = counted
+    rgba = mxu_frames(n)
+    runs = (("RGBA", rgba, (0, 1, 2), 8, "colorlut_mxu_packed", "packed"),
+            ("RGBA64LE", [torch.from_numpy(hd_frame16(300 + i)).to("cuda") for i in range(n)],
+             (0, 1, 2), 16, "colorlut_mxu_packed64", "packed"),
+            ("BGRA", [f[..., [2, 1, 0, 3]].contiguous() for f in rgba], (2, 1, 0), 8,
+             "colorlut_mxu", "positions"))
+    outs = {}
+    for label, frames, offsets, bits, name, route in runs:
+        colorlut_mxu.launches = colorlut_mxu.packed_launches = 0
+        outs[label] = [colorlut_mxu.lut3d_apply_mxu(f, t2, *MXU_DOMAIN, size=LUT_SIZE,
+                                                    offsets=offsets, bits=bits) for f in frames]
+        torch.cuda.synchronize()
+        got = {"packed": colorlut_mxu.packed_launches, "positions": colorlut_mxu.launches}
+        for f, o in zip(frames, outs[label]):
+            if o.device.type != "cuda" or o.shape != f.shape or o.dtype != f.dtype \
+                    or not torch.equal(o[..., 3].to(torch.int32), f[..., 3].to(torch.int32)):
+                raise AssertionError(f"lut3d_apply_mxu {label}: device, shape, dtype or alpha")
+        print(f"lut3d_apply_mxu over {n} 1080p {label} frames: launches {got}")
+        if got != {"packed": 0, "positions": 0, route: n}:
+            raise AssertionError(f"B5 {label}: launches != frames on the {route} route")
+        launches[name] = got[route]
+    # the TPU-signature route against the CPU, and against the packed route
+    t2_cpu = t2.cpu()
+    for f, o, p in zip(runs[2][1], outs["BGRA"], outs["RGBA"]):
+        host = colorlut_mxu.lut3d_apply_mxu(f.cpu(), t2_cpu, *MXU_DOMAIN, size=LUT_SIZE,
+                                            offsets=(2, 1, 0))
+        if not (torch.equal(o.cpu(), host) and torch.equal(o[..., [2, 1, 0, 3]], p)):
+            raise AssertionError("lut3d_apply_mxu BGRA differs from the CPU or the RGBA route")
+    print(f"lut3d_apply_mxu BGRA: equal to the CPU run and to the RGBA (packed) route on all "
+          f"{n} frames")
     return launches
 
 
@@ -876,15 +961,22 @@ def effects_card_vs_cpu(grade):
           f"alpha unchanged: {alpha}")
     lut = CubeLut.parse_file(str(grade))
     t2 = torch.from_numpy(colorlut_mxu.pack_matmul_table(lut.table, LUT_SIZE)).to(torch.bfloat16)
-    args = ([1.0] * 3, [0.0] * 3)
-    mcard = colorlut_mxu.lut3d_apply_mxu(torch.from_numpy(frame).cuda(), t2.cuda(), *args,
-                                         size=LUT_SIZE).cpu().numpy()
-    mhost = colorlut_mxu.lut3d_apply_mxu(torch.from_numpy(frame), t2, *args,
-                                         size=LUT_SIZE).numpy()
-    d_mxu, d_mxu_exact = _lsb(mcard, mhost), _lsb(mcard[..., :3], exact[..., :3])
-    print(f"lut3d_apply_mxu 1080p, card (B5) vs CPU (plain): max {d_mxu} LSB; "
-          f"vs exact grade: max {d_mxu_exact} LSB")
     frame16 = hd_frame16(1)
+    d_mxu, d_mxu_exact = {}, {}
+    # the packed route (RGBA, RGBA64), then the TPU signature's (BGRA: the
+    # same pixels with R and B swapped, offsets (2, 1, 0))
+    for label, f, offsets, bits in (("RGBA", frame, (0, 1, 2), 8),
+                                    ("RGBA64LE", frame16, (0, 1, 2), 16),
+                                    ("BGRA", frame[..., [2, 1, 0, 3]], (2, 1, 0), 8)):
+        f = torch.from_numpy(np.ascontiguousarray(f))
+        kw = dict(size=LUT_SIZE, offsets=offsets, bits=bits)
+        mcard = colorlut_mxu.lut3d_apply_mxu(f.cuda(), t2.cuda(), *MXU_DOMAIN, **kw).cpu()
+        mhost = colorlut_mxu.lut3d_apply_mxu(f, t2, *MXU_DOMAIN, **kw)
+        d_mxu[label] = _lsb(mcard.numpy(), mhost.numpy())
+        if bits == 8:  # the exact grade of the same pixels, in RGB order
+            d_mxu_exact[label] = _lsb(mcard.numpy()[..., list(offsets)], exact[..., :3])
+    print(f"lut3d_apply_mxu 1080p, card (B5) vs CPU (plain), max LSB: {d_mxu}; vs exact grade: "
+          f"max {d_mxu_exact} LSB (gate {MXU_EXACT_TOL})")
     before = lowrank.packed64_launches
     card16 = _through_element("colorlut", approx, frame16, "RGBA64LE", "cuda")
     host16 = _through_element("colorlut", approx, frame16, "RGBA64LE", "cpu")
@@ -894,8 +986,8 @@ def effects_card_vs_cpu(grade):
     alpha16 = np.array_equal(card16[..., 3], frame16[..., 3])
     print(f"colorlut approx RGBA64LE 1080p, card (packed64) vs CPU (plain): max {d_lut16} u16 "
           f"LSB; alpha unchanged: {alpha16}")
-    if max(d_lut, d_hsv, d_mxu, d_lut16) > LSB_TOL or d_exact > APPROX_TOL or not alpha \
-            or not alpha16:
+    if max(d_lut, d_hsv, d_lut16, *d_mxu.values()) > LSB_TOL or d_exact > APPROX_TOL \
+            or max(d_mxu_exact.values()) > MXU_EXACT_TOL or not alpha or not alpha16:
         raise AssertionError("the effects on the card and on the CPU disagree")
 
 
@@ -924,7 +1016,10 @@ def effects_timing(card_line, grade):
         print(f"pipeline {label}, {HD_W}x{HD_H}: {TIMING_FRAMES} frames in {secs:.3f} s, "
               f"{TIMING_FRAMES / secs:.1f} frames/s end to end (set-up {t1 - t0:.3f} s) "
               f"[{card_line}]")
-        device_ms, upload_ms, top = profile_device(make(grade, EFFECT_FRAMES))
+        p = make(grade, EFFECT_FRAMES)
+        p.set_state(State.PLAYING)
+        device_ms, upload_ms, top = profile_device(p.run)
+        p.set_state(State.NULL)
         per_frame = device_ms / EFFECT_FRAMES
         was = f"glue in torch around B3: {before[label]} ms; " if label in before else ""
         print(f"pipeline {label}: device busy {per_frame:.4f} ms per frame ({was}torch.profiler, "
@@ -933,22 +1028,56 @@ def effects_timing(card_line, grade):
               f"{100 * per_frame * TIMING_FRAMES / (secs * 1e3):.1f}% of the unprofiled wall "
               f"time; ms per frame by device op: "
               + ", ".join(f"{name} {ms / EFFECT_FRAMES:.4f}" for name, ms in top))
+    mxu_timing(card_line, grade)
 
 
-def profile_device(pipeline, top: int = 6):
+# device ms per frame of lut3d_apply_mxu on an RGBA 1080p frame when its
+# glue ran as torch ops around B5 (the parent tree, utils/lut_timing.py, on
+# an NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 5)
+MXU_APPLY_BEFORE_MS = None
+
+
+def mxu_timing(card_line, grade):
+    """Device ms per frame of lut3d_apply_mxu over EFFECT_FRAMES 1080p
+    frames (torch.profiler), on the packed route (RGBA) and on the TPU
+    signature's route with its glue in torch (BGRA)."""
+    from gst_plugins_rs_tpu_torch.ops import colorlut_mxu
+    from gst_plugins_rs_tpu_torch.ops.colorlut import CubeLut
+
+    lut = CubeLut.parse_file(str(grade))
+    t2 = torch.from_numpy(colorlut_mxu.pack_matmul_table(lut.table, LUT_SIZE)).to(
+        "cuda", torch.bfloat16)
+    rgba = mxu_frames(EFFECT_FRAMES)
+    for label, frames, offsets in (("RGBA (packed)", rgba, (0, 1, 2)),
+                                   ("BGRA (TPU signature + torch glue)",
+                                    [f[..., [2, 1, 0, 3]].contiguous() for f in rgba],
+                                    (2, 1, 0))):
+        def run():
+            for f in frames:
+                colorlut_mxu.lut3d_apply_mxu(f, t2, *MXU_DOMAIN, size=LUT_SIZE, offsets=offsets)
+
+        run()  # warm-up
+        device_ms, upload_ms, top = profile_device(run)
+        per_frame = device_ms / EFFECT_FRAMES
+        was = (f"; the parent's glue route: {MXU_APPLY_BEFORE_MS} ms"
+               if MXU_APPLY_BEFORE_MS is not None and label.startswith("RGBA") else "")
+        print(f"lut3d_apply_mxu {label} 1080p: device {per_frame:.4f} ms per frame{was} "
+              f"(torch.profiler, {EFFECT_FRAMES} frames, host-to-device copies left out: "
+              f"{upload_ms:.4f} ms in all); ms per frame by device op: "
+              + ", ".join(f"{name} {ms / EFFECT_FRAMES:.4f}" for name, ms in top)
+              + f" [{card_line}]")
+
+
+def profile_device(run, top: int = 6):
     """(device ms, host-to-device copy ms, [(op, device ms)] of the `top`
-    largest) over one run of `pipeline` under torch.profiler: the sum of
-    the device events' own times, which is busy time as long as one stream
-    runs at a time, without the host-to-device copies."""
+    largest) over one call of `run` under torch.profiler: the sum of the
+    device events' own times, which is busy time as long as one stream runs
+    at a time, without the host-to-device copies."""
     from torch.profiler import ProfilerActivity, profile
 
-    from gst_plugins_rs_tpu_torch.core import State
-
-    pipeline.set_state(State.PLAYING)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipeline.run()
+        run()
         torch.cuda.synchronize()
-    pipeline.set_state(State.NULL)
     events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
     if not events:
         raise AssertionError("torch.profiler recorded no device events")
@@ -1009,7 +1138,11 @@ def main() -> int:
     b3 = next(e for e in entries if e["name"] == "colorlut_lowrank_fused")
     b3["entries"] = [effect_entry("colorlut_lowrank_packed64", "colorlut_lowrank.cu",
                                   "pallas_colorlut_lowrank.py:63")]
-    if any(e["launches"] < 1 for e in entries + b3["entries"]):
+    # B5's packed entries (its chain on RGBA and RGBA64 pixels) under B5's row
+    b5 = next(e for e in entries if e["name"] == "colorlut_mxu")
+    b5["entries"] = [effect_entry(name, "colorlut_mxu.cu", "pallas_colorlut.py:87")
+                     for name in ("colorlut_mxu_packed", "colorlut_mxu_packed64")]
+    if any(e["launches"] < 1 for e in entries + b3["entries"] + b5["entries"]):
         raise AssertionError("a kernel of the paths was never launched")
     print(json.dumps({"kernels": entries}))
     print(card_line)

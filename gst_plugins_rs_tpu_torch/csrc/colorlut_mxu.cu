@@ -17,17 +17,44 @@
 //
 // bf16 x bf16 products are exact in f32 and the dense sum's other terms are
 // exact zeros, so o equals the dense product up to the order of its four
-// terms (rows ascending here; the TPU's order is the MXU's).  Indices past
-// S-1 carry weight 0 and are read clamped to S-1.
+// terms (rows ascending here: (y0,z0), (y0,z1), (y1,z0), (y1,z1); the TPU's
+// order is the MXU's).  Indices past S-1 carry weight 0 and are read
+// clamped to S-1.
 //
-// What bounds it on an H100 (1080p, P = 2,073,600, S = 33): it reads 12 B
-// and writes 12 B per pixel, 49.8 MB, 14.9 us at 3.35 TB/s (the 295 KB
-// table once, from L2 after that); its ~88 f32 operations per pixel take
-// ~2.7 us at 67 TFLOP/s.  The kernel is bound by bytes.
+// Two entries run that chain:
+//  - colorlut_mxu, the TPU signature: f32 positions in, f32 planes out;
+//  - colorlut_mxu_packed: RGBA pixels (4 x u8 as a 32-bit word, or 4 x u16
+//    as a 64-bit word, R in the low bits) in and out, with the
+//    normalisation (scale, offset, maxval from params[8]), the rounding
+//    (half to even) and the repacking in the kernel; alpha rides through.
+//    The JAX package runs that glue as XLA ops around its pallas_call.
 //
-// Design.  One thread owns one pixel and reads 24 table entries (4 rows x
-// 3 channels x 2 lanes); the table stays resident in the 50 MB L2.  No
-// shared memory: neighbouring pixels read neighbouring entries.
+// What bounds it on an H100 (1080p, P = 2,073,600, S = 33).  Not the HBM
+// bytes: 24 B a pixel for the TPU signature (14.9 us at 3.35 TB/s), 8 B for
+// RGBA (5.0 us), 16 B for RGBA64 (9.9 us); nor its ~88 f32 operations a
+// pixel (2.7 us at 67 TFLOP/s).  The first design read T2 itself: 24
+// separate 2-byte loads a pixel (4 rows x 3 channels x lanes x0, x0+1), the
+// channels' lanes 2S = 66 bytes apart, so about 12.75 different 32-byte
+// sectors a pixel.  The table (295 KB) does not fit in L1, so on random
+// pixels those sectors came from L2: ~845 MB a frame, ~7.7 TB/s at the
+// 0.1097 ms it took, about what the H100's L2 delivers.  It was bound by
+// the L2 sectors it pulled.
+//
+// Design.  Each call first builds a cell table from T2 (build_cells, ~0.3
+// MB read, 1.2 MB written, resident in the 50 MB L2):
+//
+//     cell (y, z, x) = 16 bf16, 32 bytes, one sector, 32-byte aligned:
+//       for c = 0..2:  T2[(y,z), c*S+x], T2[(y,z), c*S+x1],
+//                      T2[(y,z1), c*S+x], T2[(y,z1), c*S+x1]
+//       then 4 zeros;  x1 = min(x+1, S-1), z1 = min(z+1, S-1)
+//
+// so cell (y0, z0, x0) holds everything a pixel needs from rows (y0,z0) and
+// (y0,z1), and cell (y1, z0, x0) everything from (y1,z0) and (y1,z1): two
+// sectors a pixel, read as four 16-byte loads through the read-only path,
+// instead of ~12.75.  The clamped edges (x0 = S-1, z0 = S-1, y1 = S-1) hold
+// the values the first design read there, with weight 0, so the four row
+// terms and their order are unchanged and the result is the same bit for
+// bit.  One thread owns one pixel; no shared memory.
 // Built with -fmad=false: the plain PyTorch version rounds every product and
 // sum on its own, and so does this kernel.
 #include <cuda_bf16.h>
@@ -37,6 +64,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kLanes = 128;
+constexpr int kCellWords = 2;  // uint4 words a cell: 16 bf16, 32 bytes
 
 __device__ __forceinline__ void hat(float x, int S, int& i0, int& i1, float& h0, float& h1) {
   const float f = floorf(x);
@@ -46,55 +74,218 @@ __device__ __forceinline__ void hat(float x, int S, int& i0, int& i1, float& h0,
   h1 = fmaxf(0.0f, 1.0f - fabsf(x - (f + 1.0f)));
 }
 
+__device__ __forceinline__ unsigned int bf16_bits(const __nv_bfloat16* t, int i) {
+  return static_cast<unsigned int>(__bfloat16_as_ushort(t[i]));
+}
+
+// One cell per thread: two rows of T2, lanes x and x1, three channels.
 __global__ void __launch_bounds__(kThreads)
-lut_mxu_kernel(const float* __restrict__ xp, const float* __restrict__ yp,
-               const float* __restrict__ zp, const __nv_bfloat16* __restrict__ t2,
-               float* __restrict__ ro, float* __restrict__ go, float* __restrict__ bo,
-               long long P, int S) {
-  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= P) return;
+build_cells(const __nv_bfloat16* __restrict__ t2, uint4* __restrict__ cells, int S) {
+  const int n = S * S * S;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int x = idx % S, z = (idx / S) % S, y = idx / (S * S);
+  const int x1 = min(x + 1, S - 1), z1 = min(z + 1, S - 1);
+  const __nv_bfloat16* r0 = t2 + (y * S + z) * kLanes;
+  const __nv_bfloat16* r1 = t2 + (y * S + z1) * kLanes;
+  unsigned int w[8];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const int l0 = c * S + x, l1 = c * S + x1;
+    w[2 * c] = bf16_bits(r0, l0) | (bf16_bits(r0, l1) << 16);
+    w[2 * c + 1] = bf16_bits(r1, l0) | (bf16_bits(r1, l1) << 16);
+  }
+  w[6] = w[7] = 0u;
+  cells[kCellWords * idx] = make_uint4(w[0], w[1], w[2], w[3]);
+  cells[kCellWords * idx + 1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// bf16 pair word -> its low and high value as f32 (exact)
+__device__ __forceinline__ float lo(unsigned int w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi(unsigned int w) { return __uint_as_float(w & 0xffff0000u); }
+
+// Cell `idx` of this thread's pixel as its two 16-byte halves.  PAIRED:
+// lanes 2k and 2k+1 load each of their two cells in one instruction, lane
+// h taking half h, so a warp's load asks for 16 whole sectors, not 32
+// halves; then they swap the halves with shuffles.  Every lane of the warp
+// must take part.
+template <bool PAIRED>
+__device__ __forceinline__ void load_cell(const uint4* __restrict__ cells, int idx, uint4& lo,
+                                          uint4& hi) {
+  if constexpr (!PAIRED) {
+    lo = __ldg(cells + kCellWords * idx);
+    hi = __ldg(cells + kCellWords * idx + 1);
+  } else {
+    const int h = threadIdx.x & 1;
+    const int other = __shfl_xor_sync(0xffffffffu, idx, 1);
+    const uint4 ev = __ldg(cells + kCellWords * (h ? other : idx) + h);  // the even lane's cell
+    const uint4 od = __ldg(cells + kCellWords * (h ? idx : other) + h);  // the odd lane's cell
+    const uint4 send = h ? ev : od;
+    uint4 got;
+    got.x = __shfl_xor_sync(0xffffffffu, send.x, 1);
+    got.y = __shfl_xor_sync(0xffffffffu, send.y, 1);
+    got.z = __shfl_xor_sync(0xffffffffu, send.z, 1);
+    got.w = __shfl_xor_sync(0xffffffffu, send.w, 1);
+    lo = h ? got : ev;
+    hi = h ? od : got;
+  }
+}
+
+// The per-pixel chain of both entries.
+template <bool PAIRED>
+__device__ __forceinline__ void sample(const uint4* __restrict__ cells, float x, float y, float z,
+                                       int S, float (&out)[3]) {
   int x0, x1, y0, y1, z0, z1;
   float wx0, wx1, wy0, wy1, wz0, wz1;
-  hat(xp[p], S, x0, x1, wx0, wx1);
-  hat(yp[p], S, y0, y1, wy0, wy1);
-  hat(zp[p], S, z0, z1, wz0, wz1);
-  // the 4 (y,z) rows, ascending, and their weights bf16(wy*wz)
-  const __nv_bfloat16* rows[4] = {t2 + (y0 * S + z0) * kLanes, t2 + (y0 * S + z1) * kLanes,
-                                  t2 + (y1 * S + z0) * kLanes, t2 + (y1 * S + z1) * kLanes};
+  hat(x, S, x0, x1, wx0, wx1);
+  hat(y, S, y0, y1, wy0, wy1);
+  hat(z, S, z0, z1, wz0, wz1);
+  uint4 a0, a1, b0, b1;
+  load_cell<PAIRED>(cells, (y0 * S + z0) * S + x0, a0, a1);  // rows (y0,z0), (y0,z1)
+  load_cell<PAIRED>(cells, (y1 * S + z0) * S + x0, b0, b1);  // rows (y1,z0), (y1,z1)
+  // the 4 (y,z) rows' weights bf16(wy*wz), ascending
   const float w[4] = {__bfloat162float(__float2bfloat16_rn(wy0 * wz0)),
                       __bfloat162float(__float2bfloat16_rn(wy0 * wz1)),
                       __bfloat162float(__float2bfloat16_rn(wy1 * wz0)),
                       __bfloat162float(__float2bfloat16_rn(wy1 * wz1))};
-  float out[3];
+  // per channel, the rows' (x0, x1) pairs in row order
+  const unsigned int rows[3][4] = {{a0.x, a0.y, b0.x, b0.y},
+                                   {a0.z, a0.w, b0.z, b0.w},
+                                   {a1.x, a1.y, b1.x, b1.y}};
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const int l0 = c * S + x0, l1 = c * S + x1;
     float o0 = 0.0f, o1 = 0.0f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      o0 = o0 + w[j] * __bfloat162float(rows[j][l0]);
-      o1 = o1 + w[j] * __bfloat162float(rows[j][l1]);
+      o0 = o0 + w[j] * lo(rows[c][j]);
+      o1 = o1 + w[j] * hi(rows[c][j]);
     }
     out[c] = o0 * wx0 + o1 * wx1;
   }
+}
+
+// Threads past the last pixel sample the last one and store nothing: the
+// paired loads need every lane.
+template <bool PAIRED>
+__global__ void __launch_bounds__(kThreads)
+lut_mxu_kernel(const float* __restrict__ xp, const float* __restrict__ yp,
+               const float* __restrict__ zp, const uint4* __restrict__ cells,
+               float* __restrict__ ro, float* __restrict__ go, float* __restrict__ bo,
+               long long P, int S) {
+  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long q = p < P ? p : P - 1;
+  float out[3];
+  sample<PAIRED>(cells, xp[q], yp[q], zp[q], S, out);
+  if (p >= P) return;
   ro[p] = out[0];
   go[p] = out[1];
   bo[p] = out[2];
 }
 
+// The element's normalisation: clip(v / maxval * scale + offset, 0, 1) * (S-1),
+// the division taken as a product with the f32 reciprocal, as XLA takes the
+// JAX package's division by a constant (ops/pixels.py).
+__device__ __forceinline__ float grid_coord(unsigned int v, float inv_maxval, float scale,
+                                            float offset, float smax) {
+  const float t = static_cast<float>(v) * inv_maxval;
+  return fminf(fmaxf(t * scale + offset, 0.0f), 1.0f) * smax;
+}
+
+__device__ __forceinline__ unsigned int quantize(float y, float maxval) {
+  return static_cast<unsigned int>(rintf(fminf(fmaxf(y, 0.0f), 1.0f) * maxval));
+}
+
+// Pixels of four components of B bits, R in the low bits: B = 8 (RGBA u8 as
+// a 32-bit word) or 16 (RGBA64 as a 64-bit word).  Component 3 (alpha)
+// rides through.
+template <bool PAIRED, typename Word>
+__global__ void __launch_bounds__(kThreads)
+lut_mxu_packed_kernel(const Word* __restrict__ px, const float* __restrict__ params,
+                      const uint4* __restrict__ cells, Word* __restrict__ out, long long P,
+                      int S) {
+  constexpr int B = 2 * sizeof(Word);
+  constexpr Word kMask = (Word(1) << B) - 1;
+  constexpr Word kAlpha = ~((Word(1) << (3 * B)) - 1);
+  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const float maxval = params[6];
+  const float inv_maxval = 1.0f / maxval;
+  const float smax = static_cast<float>(S - 1);
+  const Word v = px[p < P ? p : P - 1];
+  float o[3];
+  sample<PAIRED>(cells,
+         grid_coord(static_cast<unsigned int>(v & kMask), inv_maxval, params[0], params[3], smax),
+         grid_coord(static_cast<unsigned int>((v >> B) & kMask), inv_maxval, params[1], params[4],
+                    smax),
+         grid_coord(static_cast<unsigned int>((v >> (2 * B)) & kMask), inv_maxval, params[2],
+                    params[5], smax),
+         S, o);
+  if (p >= P) return;
+  out[p] = static_cast<Word>(quantize(o[0], maxval)) |
+           (static_cast<Word>(quantize(o[1], maxval)) << B) |
+           (static_cast<Word>(quantize(o[2], maxval)) << (2 * B)) | (v & kAlpha);
+}
+
+unsigned int blocks_for(long long n) {
+  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
+}
+
+// Launches build_cells into `cells` ([S,S,S,16] bf16) on the stream.
+int launch_cells(const void* t2, void* cells, int S, cudaStream_t stream) {
+  build_cells<<<blocks_for(static_cast<long long>(S) * S * S), kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(t2), static_cast<uint4*>(cells), S);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Plain C entry point (bound with ctypes): every pointer and the stream are
+// Plain C entry points (bound with ctypes): every pointer and the stream are
 // void*; the return value is the launch's cudaError_t (0 = launched).
+// Each builds the cell table from t2 into `cells` (scratch of S^3 * 32
+// bytes, 32-byte aligned, from the caller), then samples it.
+
+// The cell table alone (a test hook).
+extern "C" int colorlut_mxu_cells(const void* t2, void* cells, int S, void* stream) {
+  return launch_cells(t2, cells, S, static_cast<cudaStream_t>(stream));
+}
+
 extern "C" int colorlut_mxu(const void* x, const void* y, const void* z, const void* t2,
-                            void* r, void* g, void* b, long long P, int S, void* stream) {
+                            void* cells, void* r, void* g, void* b, long long P, int S,
+                            int paired, void* stream) {
   if (P == 0) return 0;
-  const long long blocks = (P + kThreads - 1) / kThreads;
-  lut_mxu_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = launch_cells(t2, cells, S, s);
+  if (err != 0) return err;
+  auto kernel = paired ? lut_mxu_kernel<true> : lut_mxu_kernel<false>;
+  kernel<<<blocks_for(P), kThreads, 0, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(y), static_cast<const float*>(z),
-      static_cast<const __nv_bfloat16*>(t2), static_cast<float*>(r), static_cast<float*>(g),
+      static_cast<const uint4*>(cells), static_cast<float*>(r), static_cast<float*>(g),
       static_cast<float*>(b), P, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bits: 8 (px/out as 32-bit words) or 16 (64-bit words); params [8] f32:
+// scale0..2, offset0..2, maxval, 0.
+extern "C" int colorlut_mxu_packed(const void* px, const void* params, const void* t2,
+                                   void* cells, void* out, long long P, int S, int bits,
+                                   int paired, void* stream) {
+  if (bits != 8 && bits != 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (P == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = launch_cells(t2, cells, S, s);
+  if (err != 0) return err;
+  const uint4* c = static_cast<const uint4*>(cells);
+  const float* prm = static_cast<const float*>(params);
+  if (bits == 8) {
+    auto kernel = paired ? lut_mxu_packed_kernel<true, unsigned int>
+                         : lut_mxu_packed_kernel<false, unsigned int>;
+    kernel<<<blocks_for(P), kThreads, 0, s>>>(static_cast<const unsigned int*>(px), prm, c,
+                                              static_cast<unsigned int*>(out), P, S);
+  } else {
+    auto kernel = paired ? lut_mxu_packed_kernel<true, unsigned long long>
+                         : lut_mxu_packed_kernel<false, unsigned long long>;
+    kernel<<<blocks_for(P), kThreads, 0, s>>>(static_cast<const unsigned long long*>(px), prm,
+                                              c, static_cast<unsigned long long*>(out), P, S);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,13 +7,27 @@ takes trilinear sampling as a dense matmul on the MXU:
 
 then reduces each channel's 128 lanes against the x hat weights.  T2
 (`pack_matmul_table`) packs, per (y,z) pair, the S x-entries of all 3
-channels.  `lut3d_positions_mxu` is the kernel: for a CUDA tensor it
-launches csrc/colorlut_mxu.cu, which computes only the product's nonzero
-terms (design and bound noted there), or raises; for a CPU tensor it runs
-`lut3d_positions_mxu_plain`, the same sparse sum in plain PyTorch.
-`lut3d_apply_mxu` is the public function; as in the JAX package, no
+channels.  csrc/colorlut_mxu.cu computes only the product's nonzero terms
+from a table of 32-byte cells it builds from T2 in each call (`pack_cells`
+is that layout in plain PyTorch; design and bound noted in the source).
+Two entries launch it:
+
+- `lut3d_positions_mxu`, the TPU kernel's signature: f32 positions in,
+  f32 planes out;
+- `lut3d_sample_mxu_packed` (RGBA u8 pixels as int32) and
+  `lut3d_sample_mxu_packed64` (RGBA64 pixels as int64, 4 x u16): the
+  normalisation, the rounding and the repacking inside the kernel, alpha
+  riding through.  The JAX package runs that glue as XLA ops.
+
+For a CUDA tensor each launches the kernel or raises; for a CPU tensor it
+runs its `_plain` twin, the same sparse sum in plain PyTorch.
+`lut3d_apply_mxu` is the public function: it bit-casts a contiguous RGBA
+u8 or RGBA64 u16 frame (offsets (0, 1, 2)) to the packed entries and runs
+every other layout through `lut3d_positions_mxu` with the glue in torch;
+the two routes give the same frame bit for bit.  As in the JAX package, no
 element calls it.  Only sizes with 3*size <= 128 lanes (size <= 42) are
-supported.  `launches` counts kernel launches.
+supported.  `launches` counts launches of the TPU signature's kernel,
+`packed_launches` those of the packed entries (both widths).
 
 Reference math: video/colorlut/src/colorlut/imp.rs:493-526 (trilinear
 with x1 = min(x0+1, size-1) clamping — the hat formulation reproduces
@@ -30,8 +44,11 @@ from .colorlut import grid_coord, quantize
 from .pixels import restack
 
 LANES = 128
+CELL = 16  # bf16 values a cell: 3 channels x 4, then 4 zeros (32 bytes)
 
-launches = 0
+_PAIRED = True  # A/B of the cell loads (temporary)
+launches = 0         # lut3d_positions_mxu
+packed_launches = 0  # lut3d_sample_mxu_packed and lut3d_sample_mxu_packed64
 
 
 def pack_matmul_table(table: np.ndarray, size: int) -> np.ndarray:
@@ -48,6 +65,24 @@ def pack_matmul_table(table: np.ndarray, size: int) -> np.ndarray:
         block = np.transpose(t[:, :, :, c], (1, 0, 2)).reshape(yz, size)  # [y*z, x]
         t2[:yz, c * size:(c + 1) * size] = block
     return t2
+
+
+def pack_cells(t2_bf16, size: int):
+    """The kernel's cell table, [size, size, size, 16] bf16 indexed (y, z, x):
+    for c = 0..2 the values T2[(y,z), c*S+x], T2[(y,z), c*S+x1],
+    T2[(y,z1), c*S+x], T2[(y,z1), c*S+x1] with x1 = min(x+1, S-1) and
+    z1 = min(z+1, S-1), then 4 zeros.  The kernel builds the same table on
+    the card in each call."""
+    s = size
+    i = torch.arange(s, device=t2_bf16.device)
+    i1 = torch.clamp(i + 1, max=s - 1)
+    y, z, x = (a.reshape(-1) for a in torch.meshgrid(i, i, i, indexing="ij"))
+    z1, x1 = i1[z], i1[x]
+    flat = t2_bf16.reshape(-1)
+    vals = [flat[(y * s + zz) * LANES + c * s + xx]
+            for c in range(3) for zz in (z, z1) for xx in (x, x1)]
+    vals += [torch.zeros_like(vals[0])] * (CELL - len(vals))
+    return torch.stack(vals, dim=-1).reshape(s, s, s, CELL)
 
 
 def _hat(x, size: int):
@@ -81,18 +116,72 @@ def lut3d_positions_mxu_plain(xpos, ypos, zpos, t2_bf16, *, size: int):
     return tuple(outs)
 
 
+def lut3d_sample_mxu_packed_plain(px, params, t2_bf16, *, size: int, bits: int = 8):
+    """The packed entries' function in plain PyTorch (bits 8: px int32 RGBA
+    u8 bit patterns; 16: px int64 RGBA64 bit patterns, 4 x u16), R in the
+    low bits, any shape; params [8] f32 = (scale0..2, offset0..2, maxval,
+    0).  The chain of colorlut_lowrank_fused.lowrank_sample_packed_plain
+    with B5's sample in place of the low-rank one."""
+    flat = px.reshape(-1)
+    maxval = params[6]
+    coords = []
+    for comp in range(3):
+        v = torch.bitwise_and(torch.bitwise_right_shift(flat, bits * comp), (1 << bits) - 1)
+        v = v.to(torch.float32) * (1.0 / maxval)  # as ops/pixels.to_unit
+        coords.append(torch.clamp(v * params[comp] + params[3 + comp], 0.0, 1.0)
+                      * (size - 1.0))
+    out = lut3d_positions_mxu_plain(*coords, t2_bf16, size=size)
+    q = [torch.round(torch.clamp(o, 0.0, 1.0) * maxval).to(flat.dtype) for o in out]
+    # alpha: the top component of the input, as the two's-complement mask
+    # ~(2^(3 bits) - 1)
+    packed = (q[0] | torch.bitwise_left_shift(q[1], bits)
+              | torch.bitwise_left_shift(q[2], 2 * bits)
+              | torch.bitwise_and(flat, -(1 << 3 * bits)))
+    return packed.reshape(px.shape)
+
+
 def _lib():
     from ..utils.build import load
 
     lib = load("colorlut_mxu")
     if not getattr(lib, "_argtypes_set", False):
-        ptr = ctypes.c_void_p
-        lib.colorlut_mxu.argtypes = [ptr] * 7 + [ctypes.c_longlong, ctypes.c_int, ptr]
-        lib.colorlut_mxu.restype = ctypes.c_int
-        lib.colorlut_mxu_error_string.argtypes = [ctypes.c_int]
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.colorlut_mxu.argtypes = [ptr] * 8 + [i64, i32, i32, ptr]
+        lib.colorlut_mxu.restype = i32
+        lib.colorlut_mxu_packed.argtypes = [ptr] * 5 + [i64, i32, i32, i32, ptr]
+        lib.colorlut_mxu_packed.restype = i32
+        lib.colorlut_mxu_cells.argtypes = [ptr, ptr, i32, ptr]
+        lib.colorlut_mxu_cells.restype = i32
+        lib.colorlut_mxu_error_string.argtypes = [i32]
         lib.colorlut_mxu_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
+
+
+def _check_table(name, t2_bf16, size, device):
+    if not 2 <= size <= LANES // 3:
+        raise ValueError(f"{name}: size must be in 2..{LANES // 3}, got {size}")
+    if (t2_bf16.dim() != 2 or t2_bf16.shape[1] != LANES or t2_bf16.shape[0] < size * size
+            or t2_bf16.dtype != torch.bfloat16 or t2_bf16.device != device
+            or not t2_bf16.is_contiguous()):
+        raise ValueError(f"{name}: t2 must be a contiguous [>={size * size}, {LANES}] "
+                         f"bfloat16 on {device}, got {t2_bf16.dtype} {tuple(t2_bf16.shape)} "
+                         f"on {t2_bf16.device}")
+
+
+def _launch(name, device, entry, *args):
+    """Calls a C entry point on the current stream of `device`; the cell
+    table (scratch) is allocated here and passed after the table."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.colorlut_mxu_error_string(err).decode()}")
+
+
+def _cells(size, device):
+    return torch.empty((size, size, size, CELL), dtype=torch.bfloat16, device=device)
 
 
 def lut3d_positions_mxu(xpos, ypos, zpos, t2_bf16, *, size: int):
@@ -103,39 +192,85 @@ def lut3d_positions_mxu(xpos, ypos, zpos, t2_bf16, *, size: int):
         return lut3d_positions_mxu_plain(xpos, ypos, zpos, t2_bf16, size=size)
     if xpos.device.type != "cuda":
         raise ValueError(f"lut3d_positions_mxu: unsupported device {xpos.device}")
-    if not 2 <= size <= LANES // 3:
-        raise ValueError(f"lut3d_positions_mxu: size must be in 2..{LANES // 3}, got {size}")
     for name, t in (("xpos", xpos), ("ypos", ypos), ("zpos", zpos)):
         if (t.dim() != 1 or t.shape != xpos.shape or t.dtype != torch.float32
                 or t.device != xpos.device or not t.is_contiguous()):
             raise ValueError(f"lut3d_positions_mxu: {name} must be a contiguous [P] float32 "
                              f"on {xpos.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if (t2_bf16.dim() != 2 or t2_bf16.shape[1] != LANES or t2_bf16.shape[0] < size * size
-            or t2_bf16.dtype != torch.bfloat16 or t2_bf16.device != xpos.device
-            or not t2_bf16.is_contiguous()):
-        raise ValueError(f"lut3d_positions_mxu: t2 must be a contiguous [>={size * size}, "
-                         f"{LANES}] bfloat16 on {xpos.device}, got {t2_bf16.dtype} "
-                         f"{tuple(t2_bf16.shape)}")
+    _check_table("lut3d_positions_mxu", t2_bf16, size, xpos.device)
     outs = [torch.empty_like(xpos) for _ in range(3)]
-    lib = _lib()
-    with torch.cuda.device(xpos.device):
-        stream = torch.cuda.current_stream(xpos.device).cuda_stream
-        err = lib.colorlut_mxu(xpos.data_ptr(), ypos.data_ptr(), zpos.data_ptr(),
-                               t2_bf16.data_ptr(), *(o.data_ptr() for o in outs),
-                               xpos.numel(), size, stream)
-    if err != 0:
-        raise RuntimeError(f"lut3d_positions_mxu launch failed: "
-                           f"{lib.colorlut_mxu_error_string(err).decode()}")
+    _launch("lut3d_positions_mxu", xpos.device, "colorlut_mxu", xpos.data_ptr(),
+            ypos.data_ptr(), zpos.data_ptr(), t2_bf16.data_ptr(),
+            _cells(size, xpos.device).data_ptr(), *(o.data_ptr() for o in outs),
+            xpos.numel(), size, int(_PAIRED))
     launches += 1
     return tuple(outs)
+
+
+def _sample_packed(name, bits, px, params, t2_bf16, size):
+    """Checks the operands of a CUDA packed entry and launches its kernel;
+    the caller counts the launch."""
+    if px.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {px.device}")
+    word = torch.int32 if bits == 8 else torch.int64
+    if px.dtype != word or not px.is_contiguous():
+        raise ValueError(f"{name}: px must be contiguous {word}, got {px.dtype}")
+    if (tuple(params.shape) != (8,) or params.dtype != torch.float32
+            or params.device != px.device):
+        raise ValueError(f"{name}: params must be [8] float32 on px's device")
+    _check_table(name, t2_bf16, size, px.device)
+    out = torch.empty_like(px)
+    _launch(name, px.device, "colorlut_mxu_packed", px.data_ptr(), params.data_ptr(),
+            t2_bf16.data_ptr(), _cells(size, px.device).data_ptr(), out.data_ptr(), px.numel(),
+            size, bits, int(_PAIRED))
+    return out
+
+
+def lut3d_sample_mxu_packed(px, params, t2_bf16, *, size: int):
+    """px int32 RGBA u8 bit patterns (R in the low bits), any shape; params
+    [8] f32 = (scale0..2, offset0..2, maxval 255, 0); t2_bf16 from
+    pack_matmul_table.  Returns int32 of px's shape, alpha unchanged."""
+    global packed_launches
+    if px.device.type == "cpu":
+        return lut3d_sample_mxu_packed_plain(px, params, t2_bf16, size=size)
+    out = _sample_packed("lut3d_sample_mxu_packed", 8, px, params, t2_bf16, size)
+    packed_launches += 1
+    return out
+
+
+def lut3d_sample_mxu_packed64(px, params, t2_bf16, *, size: int):
+    """The same on RGBA64 pixels: px int64 bit patterns of 4 x u16 (R in the
+    low bits); params' maxval 65535.  Returns int64 of px's shape."""
+    global packed_launches
+    if px.device.type == "cpu":
+        return lut3d_sample_mxu_packed_plain(px, params, t2_bf16, size=size, bits=16)
+    out = _sample_packed("lut3d_sample_mxu_packed64", 16, px, params, t2_bf16, size)
+    packed_launches += 1
+    return out
+
+
+# frame type and pixel word of each bit depth the packed entries take
+_PACKED = {8: (torch.uint8, torch.int32), 16: (torch.uint16, torch.int64)}
 
 
 def lut3d_apply_mxu(frame, t2_bf16, scale, offset, *, size: int,
                     offsets=(0, 1, 2), bits: int = 8):
     """Drop-in fast-path peer of ops/colorlut.lut3d_apply_packed.
 
-    frame [..., C] uint; t2_bf16 from pack_matmul_table (cast to bf16)."""
+    frame [..., C] uint; t2_bf16 from pack_matmul_table (cast to bf16).  A
+    contiguous RGBA u8 (bits 8) or RGBA64 u16 (bits 16) frame with offsets
+    (0, 1, 2) goes to the packed entry, bit-cast to its pixel words; any
+    other layout through lut3d_positions_mxu with the glue in torch."""
     maxval = float(2 ** bits - 1)
+    kind = _PACKED.get(bits)
+    if (kind is not None and frame.dtype == kind[0] and frame.shape[-1] == 4
+            and tuple(offsets) == (0, 1, 2) and frame.is_contiguous()):
+        dtype, word = kind
+        sample = lut3d_sample_mxu_packed if bits == 8 else lut3d_sample_mxu_packed64
+        params = torch.tensor([float(v) for v in scale] + [float(v) for v in offset]
+                              + [maxval, 0.0], dtype=torch.float32).to(frame.device)
+        out = sample(frame.view(word), params, t2_bf16, size=size)
+        return out.view(dtype).reshape(frame.shape)
     fi = frame.to(torch.int32)
     shape = fi.shape[:-1]
     pos = [grid_coord(fi, off, scale[comp], offset[comp], size, maxval).reshape(-1)
@@ -145,5 +280,7 @@ def lut3d_apply_mxu(frame, t2_bf16, scale, offset, *, size: int,
                    frame.dtype)
 
 
-__all__ = ["LANES", "launches", "lut3d_apply_mxu", "lut3d_positions_mxu",
-           "lut3d_positions_mxu_plain", "pack_matmul_table"]
+__all__ = ["CELL", "LANES", "launches", "lut3d_apply_mxu", "lut3d_positions_mxu",
+           "lut3d_positions_mxu_plain", "lut3d_sample_mxu_packed", "lut3d_sample_mxu_packed64",
+           "lut3d_sample_mxu_packed_plain", "pack_cells", "pack_matmul_table",
+           "packed_launches"]

@@ -15,7 +15,10 @@ Tolerances:
   outputs within 1e-5: the rank sum is taken in another order, which
   matters only at rounding ties (PERF_NOTES.md "colorlut gather analysis");
 - B5 through lut3d_apply_mxu: <= 1 LSB (the four bf16 products of a lane
-  are summed in another order than the MXU's);
+  are summed in another order than the MXU's), RGBA64 with a domain other
+  than [0, 1] one u8 LSB (XLA's fma grid coordinates, as for packed64);
+- B5's packed entries against its TPU signature with the glue in torch:
+  bit-equal (the same chain and roundings);
 - B2 against B3 in the port: bit-equal (one shared chain), as
   tests/test_colorlut.py::test_packed_kernel_matches_fused holds the TPU
   kernels;
@@ -47,6 +50,7 @@ from gst_plugins_rs_tpu_torch.ops import colorlut as tcl
 from gst_plugins_rs_tpu_torch.ops import colorlut_lowrank as tlr
 from gst_plugins_rs_tpu_torch.ops import colorlut_lowrank_fused as tfused
 from gst_plugins_rs_tpu_torch.ops import colorlut_mxu as tmxu
+from gst_plugins_rs_tpu_torch.ops.pixels import restack
 from test_colorlut import IDENTITY_2, SWAP_RB_2, _smooth_grade_lut_text, oracle_3d
 
 
@@ -504,6 +508,189 @@ def test_b5_plain_matches_jax_kernel(size):
 def test_b5_rejects_large_lut():
     with pytest.raises(ValueError, match="size <= 42"):
         tmxu.pack_matmul_table(np.zeros((43**3, 3), np.float32), 43)
+
+
+def _mxu_glue(frame, t2, scale, offset, *, size, offsets, bits):
+    """lut3d_apply_mxu's TPU-signature route built from public pieces: grid
+    coordinates in torch, lut3d_positions_mxu, quantize and restack."""
+    maxval = float(2**bits - 1)
+    fi = frame.to(torch.int32)
+    pos = [tcl.grid_coord(fi, off, scale[c], offset[c], size, maxval).reshape(-1)
+           for c, off in enumerate(offsets)]
+    rgb = tmxu.lut3d_positions_mxu(*pos, t2, size=size)
+    return restack(fi, offsets, [tcl.quantize(c.reshape(fi.shape[:-1]), maxval) for c in rgb],
+                   frame.dtype)
+
+
+def _jax_mxu(frame, t2, scale, offset, **kw):
+    # the Pallas kernel's lane sums come out f64 under jax_enable_x64, which
+    # its interpreter refuses: run it in 32 bits (test_b5_plain_matches_jax_kernel)
+    with jax.enable_x64(False):
+        return np.asarray(jmxu.lut3d_apply_mxu(
+            jnp.asarray(frame), jnp.asarray(t2).astype(jnp.bfloat16),
+            jnp.asarray(scale, jnp.float32), jnp.asarray(offset, jnp.float32), interpret=True,
+            **kw))
+
+
+@pytest.mark.parametrize("bits,size,domain", [
+    (8, 9, "graded"), (8, 17, "graded"), (8, 33, "graded"), (16, 17, "identity"),
+    (16, 17, "graded")])
+def test_b5_packed_plain_matches_jax_kernel(bits, size, domain):
+    """The packed entries' plain twin, through lut3d_apply_mxu's packed
+    route on the CPU, against the JAX lut3d_apply_mxu (Pallas in interpret
+    mode, glue as XLA ops): <= 1 LSB of the frame's type, alpha equal,
+    except RGBA64 with a domain other than [0, 1], where XLA's fma grid
+    coordinates meet B5's bf16 weights (128 u16 LSB seen at S = 17): there
+    the gate is one u8 LSB (257), as for packed64
+    (test_b5_packed64_jax_gap_is_its_coordinates shows the cause)."""
+    table = _grade_table(size, boost=1.3, tint=0.05)
+    t2 = jmxu.pack_matmul_table(table, size)
+    if bits == 8:
+        frame = np.random.RandomState(size).randint(0, 256, (48, 64, 4)).astype(np.uint8)
+        frame[0, :3, :3] = [[0, 0, 0], [255, 255, 255], [255, 0, 128]]  # the LUT's edges
+    else:
+        frame = _frame16(size)
+    scale, offset = (_SCALE, _OFFSET) if domain == "graded" else ([1.0] * 3, [0.0] * 3)
+    kw = dict(size=size, offsets=(0, 1, 2), bits=bits)
+    ref = _jax_mxu(frame, t2, scale, offset, **kw)
+    before = (tmxu.launches, tmxu.packed_launches)
+    got = tmxu.lut3d_apply_mxu(torch.from_numpy(frame), torch.from_numpy(t2).to(torch.bfloat16),
+                               scale, offset, **kw)
+    assert (tmxu.launches, tmxu.packed_launches) == before  # plain on the CPU
+    assert got.dtype == torch.from_numpy(frame).dtype and tuple(got.shape) == frame.shape
+    got = got.numpy()
+    tol = 257 if (bits, domain) == (16, "graded") else 1
+    assert _max_lsb(ref, got) <= tol and np.array_equal(got[..., 3], frame[..., 3])
+
+
+@pytest.mark.parametrize("size", [17, 33])
+def test_b5_packed64_jax_gap_is_its_coordinates(size):
+    """Why the RGBA64 graded case above needs its wider gate: the JAX
+    element's grid coordinates on the CPU are fma(v, f32(scale *
+    f32(1/maxval)), offset) (test_packed64_jax_gap_is_its_coordinates).  B5's
+    plain chain at JAX's coordinates matches the JAX output within 1 u16
+    LSB; at the port's own it does not."""
+    table = _grade_table(size, boost=1.3, tint=0.05)
+    t2 = jmxu.pack_matmul_table(table, size)
+    frame = _frame16(size)
+    ref = _jax_mxu(frame, t2, _SCALE, _OFFSET, size=size, offsets=(0, 1, 2), bits=16)
+    v = frame[..., :3].reshape(-1, 3).astype(np.float32)
+    scale, offset = np.float32(_SCALE), np.float32(_OFFSET)
+    inv = np.float32(1.0) / np.float32(65535.0)
+    coords = {"jax": (v.astype(np.float64) * (scale * inv).astype(np.float64)
+                      + offset.astype(np.float64)).astype(np.float32),
+              "port": v * inv * scale + offset}
+    t2 = torch.from_numpy(t2).to(torch.bfloat16)
+    lsb = {}
+    for name, t in coords.items():
+        pos = [torch.from_numpy(np.ascontiguousarray(np.clip(t[:, c], 0.0, 1.0)
+                                                     * np.float32(size - 1)))
+               for c in range(3)]
+        out = tmxu.lut3d_positions_mxu_plain(*pos, t2, size=size)
+        q = torch.stack([tcl.quantize(o, 65535.0) for o in out], -1).numpy()
+        lsb[name] = _max_lsb(ref[..., :3], q.reshape(frame.shape[:-1] + (3,)))
+    assert lsb["jax"] <= 1 < lsb["port"], lsb
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("size", [2, 9, 33])
+def test_b5_packed_route_bit_equal_glue(size, bits):
+    """On the same frame the packed entries (plain twins here) equal the
+    TPU-signature route with its glue in torch, bit for bit, codes 0 and
+    max included; lut3d_apply_mxu's packed route is the direct call."""
+    rng = np.random.RandomState(size + bits)
+    table = rng.uniform(0, 1, (size**3, 3)).astype(np.float32)
+    t2 = torch.from_numpy(tmxu.pack_matmul_table(table, size)).to(torch.bfloat16)
+    if bits == 8:
+        frame = torch.from_numpy(rng.randint(0, 256, (37, 53, 4)).astype(np.uint8))
+        entry, word = tmxu.lut3d_sample_mxu_packed, torch.int32
+    else:
+        frame = torch.from_numpy(_frame16(size, 37, 53))
+        entry, word = tmxu.lut3d_sample_mxu_packed64, torch.int64
+    top = 2**bits - 1
+    frame[1, :3, :3] = torch.tensor([[0, 0, 0], [top, top, top], [top, 0, top]])
+    kw = dict(size=size, offsets=(0, 1, 2), bits=bits)
+    glue = _mxu_glue(frame, t2, _SCALE, _OFFSET, **kw)
+    got = tmxu.lut3d_apply_mxu(frame, t2, _SCALE, _OFFSET, **kw)
+    assert got.dtype == frame.dtype and torch.equal(got, glue)
+    params = torch.tensor(_SCALE + _OFFSET + [float(top), 0.0])
+    direct = entry(frame.view(word), params, t2, size=size)
+    assert torch.equal(direct.view(frame.dtype).reshape(frame.shape), glue)
+
+
+@pytest.mark.parametrize("size", [2, 5, 33])
+def test_b5_cells_are_a_gather_of_t2(size):
+    """pack_cells, the kernel's table of 32-byte cells, against a gather of
+    the LUT (T2's entries): cell (y, z, x) holds, per channel, (z, x),
+    (z, x1), (z1, x), (z1, x1) of row y, clamped at S-1, then 4 zeros."""
+    table = np.random.RandomState(size).uniform(0, 1, (size**3, 3)).astype(np.float32)
+    t2 = torch.from_numpy(jmxu.pack_matmul_table(table, size)).to(torch.bfloat16)
+    cells = tmxu.pack_cells(t2, size)
+    assert cells.dtype == torch.bfloat16 and tuple(cells.shape) == (size,) * 3 + (tmxu.CELL,)
+    lut = torch.from_numpy(table.reshape(size, size, size, 3)).to(torch.bfloat16).float().numpy()
+    ar = np.arange(size)
+    nxt = np.minimum(ar + 1, size - 1)
+    Y, Z, X = np.meshgrid(ar, ar, ar, indexing="ij")
+    want = np.zeros((size, size, size, 16), np.float32)
+    for c in range(3):
+        for k, (zz, xx) in enumerate(((Z, X), (Z, nxt[X]), (nxt[Z], X), (nxt[Z], nxt[X]))):
+            want[..., 4 * c + k] = lut[zz, Y, xx, c]  # lut is [z, y, x, c]
+    got = cells.float().numpy()
+    assert np.array_equal(got, want)
+    # the clamped edges: at x = S-1 lane x1 is lane x, at z = S-1 row z1 is row z
+    for c in range(3):
+        assert np.array_equal(got[:, :, -1, 4 * c + 1], got[:, :, -1, 4 * c])
+        assert np.array_equal(got[:, -1, :, 4 * c + 2], got[:, -1, :, 4 * c])
+    assert not got[..., 12:].any()
+
+
+@pytest.mark.parametrize("case,route", [
+    ("rgba", "packed"), ("rgba64", "packed64"), ("bgra", "positions"),
+    ("argb", "positions"), ("rgb", "positions"), ("strided", "positions"),
+    ("rgba64 at 8 bits", "positions")])
+def test_b5_route_by_layout(monkeypatch, case, route):
+    """lut3d_apply_mxu sends contiguous RGBA u8 / RGBA64 u16 frames with
+    offsets (0, 1, 2) to the packed entries and every other layout through
+    lut3d_positions_mxu; both routes give the glue's frame."""
+    rng = np.random.RandomState(0)
+    u8 = torch.from_numpy(rng.randint(0, 256, (6, 10, 4)).astype(np.uint8))
+    u16 = torch.from_numpy(_frame16(1, 6, 10))
+    frame, offsets, bits = {
+        "rgba": (u8, (0, 1, 2), 8), "rgba64": (u16, (0, 1, 2), 16),
+        "bgra": (u8, (2, 1, 0), 8), "argb": (u8, (1, 2, 3), 8),
+        "rgb": (u8[..., :3].contiguous(), (0, 1, 2), 8),
+        "strided": (u8[:, ::2], (0, 1, 2), 8), "rgba64 at 8 bits": (u16, (0, 1, 2), 8)}[case]
+    t2 = torch.from_numpy(tmxu.pack_matmul_table(_grade_table(9), 9)).to(torch.bfloat16)
+    calls = []
+    for name in ("lut3d_sample_mxu_packed", "lut3d_sample_mxu_packed64", "lut3d_positions_mxu"):
+        fn = getattr(tmxu, name)
+        monkeypatch.setattr(tmxu, name, lambda *a, _fn=fn, _name=name, **k:
+                            calls.append(_name) or _fn(*a, **k))
+    kw = dict(size=9, offsets=offsets, bits=bits)
+    got = tmxu.lut3d_apply_mxu(frame, t2, _SCALE, _OFFSET, **kw)
+    want = {"packed": "lut3d_sample_mxu_packed", "packed64": "lut3d_sample_mxu_packed64",
+            "positions": "lut3d_positions_mxu"}[route]
+    assert calls == [want]
+    calls.clear()
+    assert torch.equal(got, _mxu_glue(frame, t2, _SCALE, _OFFSET, **kw))
+
+
+def test_b5_wrappers_reject_other_devices():
+    """The packed entries, like the TPU signature, take the plain version
+    only for CPU tensors and raise on any other non-CUDA device."""
+    t2 = torch.empty(128, 128, dtype=torch.bfloat16, device="meta")
+    params = torch.empty(8, device="meta")
+    for entry, word in ((tmxu.lut3d_sample_mxu_packed, torch.int32),
+                        (tmxu.lut3d_sample_mxu_packed64, torch.int64)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            entry(torch.empty(8, dtype=word, device="meta"), params, t2, size=9)
+    before = (tmxu.launches, tmxu.packed_launches)
+    for dtype, offsets, bits in ((torch.uint8, (0, 1, 2), 8), (torch.uint16, (0, 1, 2), 16),
+                                 (torch.uint8, (2, 1, 0), 8)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            tmxu.lut3d_apply_mxu(torch.empty(2, 3, 4, dtype=dtype, device="meta"), t2, _SCALE,
+                                 _OFFSET, size=9, offsets=offsets, bits=bits)
+    assert (tmxu.launches, tmxu.packed_launches) == before
 
 
 def test_wrappers_reject_other_devices():

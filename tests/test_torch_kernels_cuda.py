@@ -110,11 +110,11 @@ def test_c3_dense_entry_matches_compact(cuda):
 #
 # Tolerances: the kernels are built with -fmad=false and round every product
 # and sum where their plain versions do, so they are expected to agree bit
-# for bit; the gates are those of chip_smoke.py: B2/B3 and B5 within 1 u8
-# LSB after quantization (raw f32 within 1e-5), B4 planes within 1e-5 and
-# 1 LSB after quantization.  B2, B3 and packed64 (B3's chain on RGBA64
-# pixels) share one per-pixel chain: they are held to their plain versions
-# and to each other bit for bit.
+# for bit; the gates are those of chip_smoke.py: B4 planes within 1e-5 and
+# 1 LSB after quantization, the others bit-equal.  B2, B3 and packed64
+# (B3's chain on RGBA64 pixels) share one per-pixel chain, and so do B5's
+# TPU signature and its packed entries: each group is held to its plain
+# versions and to itself bit for bit.
 
 def _factors(S, K, seed, dev):
     """Synthetic CP factors in the kernel layout: ut/vt/wt [K,48] with rows
@@ -331,8 +331,116 @@ def test_mxu_kernel_matches_plain(cuda, S):
     assert colorlut_mxu.launches == before + 1
     ref = colorlut_mxu.lut3d_positions_mxu_plain(*pos, t2, size=S)
     for g, r in zip(got, ref):
-        assert float((g - r).abs().max()) <= 1e-5
-        assert float((_quantized(g) - _quantized(r)).abs().max()) <= 1
+        assert g.shape == (P,) and torch.equal(g, r)
+
+
+def _mxu_table(S, dev):
+    rng = np.random.RandomState(S)
+    return torch.from_numpy(colorlut_mxu.pack_matmul_table(
+        rng.uniform(0, 1, (S**3, 3)).astype(np.float32), S)).to(dev, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 33, 42])
+def test_mxu_cells_kernel_matches_pack_cells(cuda, S):
+    """The cell table B5 builds on the card in each call (through its C
+    test hook) equals pack_cells, pad zeros included."""
+    t2 = _mxu_table(S, cuda)
+    cells = torch.full((S, S, S, colorlut_mxu.CELL), float("nan"), dtype=torch.bfloat16,
+                       device=cuda)
+    lib = colorlut_mxu._lib()
+    err = lib.colorlut_mxu_cells(t2.data_ptr(), cells.data_ptr(), S,
+                                 torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(cells.view(torch.int16), colorlut_mxu.pack_cells(t2, S).view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("S", [2, 33, 42])
+def test_mxu_packed_kernels_match_plain(cuda, S, bits):
+    """B5's packed entries against their plain twin and against quantize
+    and repack of lut3d_positions_mxu on the same pixels, bit for bit, at an
+    odd P with the codes 0 and maxval."""
+    P = 70_001
+    t2 = _mxu_table(S, cuda)
+    _, px, px64 = _lowrank_inputs(S, P, S + bits, cuda)
+    t = px if bits == 8 else px64
+    entry = (colorlut_mxu.lut3d_sample_mxu_packed if bits == 8
+             else colorlut_mxu.lut3d_sample_mxu_packed64)
+    maxval = float(2**bits - 1)
+    params = torch.tensor([1.05, 1.0, 0.95, 0.01, 0.0, -0.02, maxval, 0.0], device=cuda)
+    before = (colorlut_mxu.launches, colorlut_mxu.packed_launches)
+    got = entry(t, params, t2, size=S)
+    torch.cuda.synchronize()
+    assert (colorlut_mxu.launches, colorlut_mxu.packed_launches) == (before[0], before[1] + 1)
+    assert got.dtype == t.dtype and got.shape == (P,)
+    assert torch.equal(got, colorlut_mxu.lut3d_sample_mxu_packed_plain(t, params, t2, size=S,
+                                                                        bits=bits))
+    lanes = t.view(torch.uint8 if bits == 8 else torch.uint16).view(P, 4).to(torch.int32)
+    pos = [grid_coord(lanes, c, [1.05, 1.0, 0.95][c], [0.01, 0.0, -0.02][c], S, maxval)
+           for c in range(3)]
+    q = [quantize(o, maxval).to(t.dtype)
+         for o in colorlut_mxu.lut3d_positions_mxu(*pos, t2, size=S)]
+    want = q[0] | (q[1] << bits) | (q[2] << 2 * bits) | torch.bitwise_and(t, -(1 << 3 * bits))
+    assert torch.equal(got, want)
+    assert torch.equal(_alpha(got, bits), _alpha(t, bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 16])
+def test_mxu_apply_routes(cuda, bits):
+    """lut3d_apply_mxu on the card: an RGBA / RGBA64 frame takes one packed
+    launch, BGRA offsets one launch of the TPU signature, and the two routes
+    give the same frame on the same pixels."""
+    S = 33
+    t2 = _mxu_table(S, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(bits)
+    top = 2**bits - 1
+    frame = torch.randint(0, top + 1, (37, 531, 4), generator=gen, device=cuda,
+                          dtype=torch.int32).to(torch.uint8 if bits == 8 else torch.uint16)
+    args = (t2, [1.05, 1.0, 0.95], [0.01, 0.0, -0.02])
+    # CUDA has no uint16 indexing or comparison kernels: permute and compare
+    # the same bits as signed integers
+    signed = torch.int8 if bits == 8 else torch.int16
+    before = (colorlut_mxu.launches, colorlut_mxu.packed_launches)
+    packed = colorlut_mxu.lut3d_apply_mxu(frame, *args, size=S, bits=bits)
+    torch.cuda.synchronize()
+    assert (colorlut_mxu.launches, colorlut_mxu.packed_launches) == (before[0], before[1] + 1)
+    bgra = frame.view(signed)[..., [2, 1, 0, 3]].contiguous().view(frame.dtype)
+    swapped = colorlut_mxu.lut3d_apply_mxu(bgra, *args, size=S, offsets=(2, 1, 0), bits=bits)
+    torch.cuda.synchronize()
+    assert (colorlut_mxu.launches, colorlut_mxu.packed_launches) == (before[0] + 1, before[1] + 1)
+    assert packed.dtype == swapped.dtype == frame.dtype
+    assert torch.equal(swapped.view(signed)[..., [2, 1, 0, 3]], packed.view(signed))
+
+
+@pytest.mark.cuda
+def test_mxu_packed_rejects_bad_operands(cuda):
+    t2 = _mxu_table(9, cuda)
+    px = torch.zeros(64, dtype=torch.int32, device=cuda)
+    p8 = _params(255.0)
+    before = (colorlut_mxu.launches, colorlut_mxu.packed_launches)
+    with pytest.raises(ValueError, match="int32"):
+        colorlut_mxu.lut3d_sample_mxu_packed(px.long(), p8, t2, size=9)
+    with pytest.raises(ValueError, match="int64"):
+        colorlut_mxu.lut3d_sample_mxu_packed64(px, p8, t2, size=9)
+    with pytest.raises(ValueError, match="int32"):
+        colorlut_mxu.lut3d_sample_mxu_packed(px.view(8, 8).t(), p8, t2, size=9)
+    with pytest.raises(ValueError, match="params"):
+        colorlut_mxu.lut3d_sample_mxu_packed(px, p8[:6], t2, size=9)
+    with pytest.raises(ValueError, match="params"):
+        colorlut_mxu.lut3d_sample_mxu_packed(px, p8.cpu(), t2, size=9)
+    with pytest.raises(ValueError, match="size"):
+        colorlut_mxu.lut3d_sample_mxu_packed(px, p8, t2, size=43)
+    with pytest.raises(ValueError, match="t2"):
+        colorlut_mxu.lut3d_sample_mxu_packed(px, p8, t2.float(), size=9)
+    with pytest.raises(ValueError, match="t2"):
+        colorlut_mxu.lut3d_sample_mxu_packed(px, p8, t2[:64], size=9)
+    with pytest.raises(ValueError, match="t2"):
+        colorlut_mxu.lut3d_sample_mxu_packed(px, p8, t2.cpu(), size=9)
+    assert before == (colorlut_mxu.launches, colorlut_mxu.packed_launches)
 
 
 @pytest.mark.cuda
