@@ -773,9 +773,13 @@ def lowrank_f32(card_line, runs, params, S):
             raise AssertionError(f"B2/B3/packed64 float32 at rank {K} differ from their plain "
                                  f"versions")
         ms = [cuda_ms(fn) for fn, _ in cases]
-        rows.append(dict(K=K, b2_ms=ms[0], b3_ms=ms[1], packed64_ms=ms[2]))
+        plain_ms = [cuda_ms(plain, iters=2, warmup=1) for _, plain in cases]
+        rows.append(dict(K=K, b2_ms=ms[0], b3_ms=ms[1], packed64_ms=ms[2],
+                         b2_plain_ms=plain_ms[0], b3_plain_ms=plain_ms[1],
+                         packed64_plain_ms=plain_ms[2]))
         print(f"float32 rank {K}, {SWEEP_FRAMES} frames: B2 {ms[0]:.4f} ms, B3 {ms[1]:.4f} ms, "
-              f"packed64 {ms[2]:.4f} ms, bit-equal to plain [{card_line}]")
+              f"packed64 {ms[2]:.4f} ms, bit-equal to plain; plain "
+              + " / ".join(f"{t:.2f}" for t in plain_ms) + f" ms [{card_line}]")
     return rows
 
 
@@ -1032,9 +1036,10 @@ def effects_timing(card_line, grade):
 
 
 # device ms per frame of lut3d_apply_mxu on an RGBA 1080p frame when its
-# glue ran as torch ops around B5 (the parent tree, utils/lut_timing.py, on
-# an NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 5)
-MXU_APPLY_BEFORE_MS = None
+# glue ran as torch ops around the first B5 (the tree before the packed
+# entries, timed by utils/lut_timing.py on an NVIDIA H100 80GB HBM3 at
+# 700 W; PERF.md section 5)
+MXU_APPLY_BEFORE_MS = 0.3846
 
 
 def mxu_timing(card_line, grade):
@@ -1059,8 +1064,8 @@ def mxu_timing(card_line, grade):
         run()  # warm-up
         device_ms, upload_ms, top = profile_device(run)
         per_frame = device_ms / EFFECT_FRAMES
-        was = (f"; the parent's glue route: {MXU_APPLY_BEFORE_MS} ms"
-               if MXU_APPLY_BEFORE_MS is not None and label.startswith("RGBA") else "")
+        was = (f"; glue in torch around the first B5: {MXU_APPLY_BEFORE_MS} ms"
+               if label.startswith("RGBA") else "")
         print(f"lut3d_apply_mxu {label} 1080p: device {per_frame:.4f} ms per frame{was} "
               f"(torch.profiler, {EFFECT_FRAMES} frames, host-to-device copies left out: "
               f"{upload_ms:.4f} ms in all); ms per frame by device op: "

@@ -29,19 +29,17 @@
 //    (half to even) and the repacking in the kernel; alpha rides through.
 //    The JAX package runs that glue as XLA ops around its pallas_call.
 //
-// What bounds it on an H100 (1080p, P = 2,073,600, S = 33).  Not the HBM
-// bytes: 24 B a pixel for the TPU signature (14.9 us at 3.35 TB/s), 8 B for
-// RGBA (5.0 us), 16 B for RGBA64 (9.9 us); nor its ~88 f32 operations a
-// pixel (2.7 us at 67 TFLOP/s).  The first design read T2 itself: 24
-// separate 2-byte loads a pixel (4 rows x 3 channels x lanes x0, x0+1), the
-// channels' lanes 2S = 66 bytes apart, so about 12.75 different 32-byte
-// sectors a pixel.  The table (295 KB) does not fit in L1, so on random
-// pixels those sectors came from L2: ~845 MB a frame, ~7.7 TB/s at the
-// 0.1097 ms it took, about what the H100's L2 delivers.  It was bound by
-// the L2 sectors it pulled.
+// What bounds it on an H100 (1080p, P = 2,073,600, S = 33, random pixels).
+// Not the HBM bytes: 24 B a pixel for the TPU signature (14.9 us at 3.35
+// TB/s), 8 B for RGBA (5.0 us), 16 B for RGBA64 (9.9 us); nor its ~88 f32
+// operations a pixel (2.7 us at 67 TFLOP/s).  The first design read T2
+// itself: 24 separate 2-byte loads a pixel (4 rows x 3 channels x lanes x0,
+// x0+1), the channels' lanes 2S = 66 bytes apart, about 12.75 different
+// 32-byte sectors a pixel (~845 MB a frame), and took 0.1097 ms: it was
+// bound by the table sectors it pulled through the caches.
 //
 // Design.  Each call first builds a cell table from T2 (build_cells, ~0.3
-// MB read, 1.2 MB written, resident in the 50 MB L2):
+// MB read, 1.2 MB written, resident in the 50 MB L2; ~2 us):
 //
 //     cell (y, z, x) = 16 bf16, 32 bytes, one sector, 32-byte aligned:
 //       for c = 0..2:  T2[(y,z), c*S+x], T2[(y,z), c*S+x1],
@@ -55,6 +53,15 @@
 // the values the first design read there, with weight 0, so the four row
 // terms and their order are unchanged and the result is the same bit for
 // bit.  One thread owns one pixel; no shared memory.
+//
+// Outcome (NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py phase 3b): the TPU
+// signature 0.046 ms (was 0.1097), RGBA 0.040, RGBA64 0.043, the cell build
+// included.  The cells cut the sectors 6x but the time only 2.4x: at ~2
+// sectors a pixel the kernel moves ~4 TB/s of cells, under the ~7.7 TB/s
+// the first design drew.  Lane pairs loading whole cells (one request a
+// sector instead of two halves) gained 1-2%, so the request count is not
+// the limit either; the 1.15 MB cell table overflows the ~256 KB L1 where
+// the 295 KB T2 nearly fit, and what limits the misses in flight is open.
 // Built with -fmad=false: the plain PyTorch version rounds every product and
 // sum on its own, and so does this kernel.
 #include <cuda_bf16.h>
@@ -100,39 +107,28 @@ build_cells(const __nv_bfloat16* __restrict__ t2, uint4* __restrict__ cells, int
   cells[kCellWords * idx + 1] = make_uint4(w[4], w[5], w[6], w[7]);
 }
 
+// A/B (temporary): 16-byte row cells, (y, z, x) -> per channel the pair
+// (x, x1) of row (y, z), then a zero word.
+__global__ void __launch_bounds__(kThreads)
+build_rows(const __nv_bfloat16* __restrict__ t2, uint4* __restrict__ rows, int S) {
+  const int n = S * S * S;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int x = idx % S, z = (idx / S) % S, y = idx / (S * S);
+  const int x1 = min(x + 1, S - 1);
+  const __nv_bfloat16* r0 = t2 + (y * S + z) * kLanes;
+  unsigned int w[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) w[c] = bf16_bits(r0, c * S + x) | (bf16_bits(r0, c * S + x1) << 16);
+  rows[idx] = make_uint4(w[0], w[1], w[2], 0u);
+}
+
 // bf16 pair word -> its low and high value as f32 (exact)
 __device__ __forceinline__ float lo(unsigned int w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float hi(unsigned int w) { return __uint_as_float(w & 0xffff0000u); }
 
-// Cell `idx` of this thread's pixel as its two 16-byte halves.  PAIRED:
-// lanes 2k and 2k+1 load each of their two cells in one instruction, lane
-// h taking half h, so a warp's load asks for 16 whole sectors, not 32
-// halves; then they swap the halves with shuffles.  Every lane of the warp
-// must take part.
-template <bool PAIRED>
-__device__ __forceinline__ void load_cell(const uint4* __restrict__ cells, int idx, uint4& lo,
-                                          uint4& hi) {
-  if constexpr (!PAIRED) {
-    lo = __ldg(cells + kCellWords * idx);
-    hi = __ldg(cells + kCellWords * idx + 1);
-  } else {
-    const int h = threadIdx.x & 1;
-    const int other = __shfl_xor_sync(0xffffffffu, idx, 1);
-    const uint4 ev = __ldg(cells + kCellWords * (h ? other : idx) + h);  // the even lane's cell
-    const uint4 od = __ldg(cells + kCellWords * (h ? idx : other) + h);  // the odd lane's cell
-    const uint4 send = h ? ev : od;
-    uint4 got;
-    got.x = __shfl_xor_sync(0xffffffffu, send.x, 1);
-    got.y = __shfl_xor_sync(0xffffffffu, send.y, 1);
-    got.z = __shfl_xor_sync(0xffffffffu, send.z, 1);
-    got.w = __shfl_xor_sync(0xffffffffu, send.w, 1);
-    lo = h ? got : ev;
-    hi = h ? od : got;
-  }
-}
-
 // The per-pixel chain of both entries.
-template <bool PAIRED>
+template <int MODE>
 __device__ __forceinline__ void sample(const uint4* __restrict__ cells, float x, float y, float z,
                                        int S, float (&out)[3]) {
   int x0, x1, y0, y1, z0, z1;
@@ -141,8 +137,22 @@ __device__ __forceinline__ void sample(const uint4* __restrict__ cells, float x,
   hat(y, S, y0, y1, wy0, wy1);
   hat(z, S, z0, z1, wz0, wz1);
   uint4 a0, a1, b0, b1;
-  load_cell<PAIRED>(cells, (y0 * S + z0) * S + x0, a0, a1);  // rows (y0,z0), (y0,z1)
-  load_cell<PAIRED>(cells, (y1 * S + z0) * S + x0, b0, b1);  // rows (y1,z0), (y1,z1)
+  if constexpr (MODE == 2) {
+    const uint4 r00 = __ldg(cells + (y0 * S + z0) * S + x0), r01 = __ldg(cells + (y0 * S + z1) * S + x0);
+    const uint4 r10 = __ldg(cells + (y1 * S + z0) * S + x0), r11 = __ldg(cells + (y1 * S + z1) * S + x0);
+    a0 = make_uint4(r00.x, r01.x, r00.y, r01.y);
+    a1 = make_uint4(r00.z, r01.z, 0u, 0u);
+    b0 = make_uint4(r10.x, r11.x, r10.y, r11.y);
+    b1 = make_uint4(r10.z, r11.z, 0u, 0u);
+  } else {
+  const uint4* a = cells + kCellWords * ((y0 * S + z0) * S + x0);  // rows (y0,z0), (y0,z1)
+  const uint4* b = cells + kCellWords * ((y1 * S + z0) * S + x0);  // rows (y1,z0), (y1,z1)
+  if constexpr (MODE == 1) {
+    a0 = __ldcg(a); a1 = __ldcg(a + 1); b0 = __ldcg(b); b1 = __ldcg(b + 1);
+  } else {
+    a0 = __ldg(a); a1 = __ldg(a + 1); b0 = __ldg(b); b1 = __ldg(b + 1);
+  }
+  }
   // the 4 (y,z) rows' weights bf16(wy*wz), ascending
   const float w[4] = {__bfloat162float(__float2bfloat16_rn(wy0 * wz0)),
                       __bfloat162float(__float2bfloat16_rn(wy0 * wz1)),
@@ -164,19 +174,16 @@ __device__ __forceinline__ void sample(const uint4* __restrict__ cells, float x,
   }
 }
 
-// Threads past the last pixel sample the last one and store nothing: the
-// paired loads need every lane.
-template <bool PAIRED>
+template <int MODE>
 __global__ void __launch_bounds__(kThreads)
 lut_mxu_kernel(const float* __restrict__ xp, const float* __restrict__ yp,
                const float* __restrict__ zp, const uint4* __restrict__ cells,
                float* __restrict__ ro, float* __restrict__ go, float* __restrict__ bo,
                long long P, int S) {
   const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long q = p < P ? p : P - 1;
-  float out[3];
-  sample<PAIRED>(cells, xp[q], yp[q], zp[q], S, out);
   if (p >= P) return;
+  float out[3];
+  sample<MODE>(cells, xp[p], yp[p], zp[p], S, out);
   ro[p] = out[0];
   go[p] = out[1];
   bo[p] = out[2];
@@ -198,7 +205,7 @@ __device__ __forceinline__ unsigned int quantize(float y, float maxval) {
 // Pixels of four components of B bits, R in the low bits: B = 8 (RGBA u8 as
 // a 32-bit word) or 16 (RGBA64 as a 64-bit word).  Component 3 (alpha)
 // rides through.
-template <bool PAIRED, typename Word>
+template <int MODE, typename Word>
 __global__ void __launch_bounds__(kThreads)
 lut_mxu_packed_kernel(const Word* __restrict__ px, const float* __restrict__ params,
                       const uint4* __restrict__ cells, Word* __restrict__ out, long long P,
@@ -207,19 +214,19 @@ lut_mxu_packed_kernel(const Word* __restrict__ px, const float* __restrict__ par
   constexpr Word kMask = (Word(1) << B) - 1;
   constexpr Word kAlpha = ~((Word(1) << (3 * B)) - 1);
   const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (p >= P) return;
   const float maxval = params[6];
   const float inv_maxval = 1.0f / maxval;
   const float smax = static_cast<float>(S - 1);
-  const Word v = px[p < P ? p : P - 1];
+  const Word v = px[p];
   float o[3];
-  sample<PAIRED>(cells,
+  sample<MODE>(cells,
          grid_coord(static_cast<unsigned int>(v & kMask), inv_maxval, params[0], params[3], smax),
          grid_coord(static_cast<unsigned int>((v >> B) & kMask), inv_maxval, params[1], params[4],
                     smax),
          grid_coord(static_cast<unsigned int>((v >> (2 * B)) & kMask), inv_maxval, params[2],
                     params[5], smax),
          S, o);
-  if (p >= P) return;
   out[p] = static_cast<Word>(quantize(o[0], maxval)) |
            (static_cast<Word>(quantize(o[1], maxval)) << B) |
            (static_cast<Word>(quantize(o[2], maxval)) << (2 * B)) | (v & kAlpha);
@@ -230,8 +237,9 @@ unsigned int blocks_for(long long n) {
 }
 
 // Launches build_cells into `cells` ([S,S,S,16] bf16) on the stream.
-int launch_cells(const void* t2, void* cells, int S, cudaStream_t stream) {
-  build_cells<<<blocks_for(static_cast<long long>(S) * S * S), kThreads, 0, stream>>>(
+int launch_cells(const void* t2, void* cells, int S, cudaStream_t stream, int mode = 0) {
+  auto builder = mode == 2 ? build_rows : build_cells;
+  builder<<<blocks_for(static_cast<long long>(S) * S * S), kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(t2), static_cast<uint4*>(cells), S);
   return static_cast<int>(cudaGetLastError());
 }
@@ -250,12 +258,12 @@ extern "C" int colorlut_mxu_cells(const void* t2, void* cells, int S, void* stre
 
 extern "C" int colorlut_mxu(const void* x, const void* y, const void* z, const void* t2,
                             void* cells, void* r, void* g, void* b, long long P, int S,
-                            int paired, void* stream) {
+                            int mode, void* stream) {
   if (P == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = launch_cells(t2, cells, S, s);
+  const int err = launch_cells(t2, cells, S, s, mode);
   if (err != 0) return err;
-  auto kernel = paired ? lut_mxu_kernel<true> : lut_mxu_kernel<false>;
+  auto kernel = mode == 2 ? lut_mxu_kernel<2> : mode == 1 ? lut_mxu_kernel<1> : lut_mxu_kernel<0>;
   kernel<<<blocks_for(P), kThreads, 0, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(y), static_cast<const float*>(z),
       static_cast<const uint4*>(cells), static_cast<float*>(r), static_cast<float*>(g),
@@ -267,24 +275,27 @@ extern "C" int colorlut_mxu(const void* x, const void* y, const void* z, const v
 // scale0..2, offset0..2, maxval, 0.
 extern "C" int colorlut_mxu_packed(const void* px, const void* params, const void* t2,
                                    void* cells, void* out, long long P, int S, int bits,
-                                   int paired, void* stream) {
+                                   int mode, void* stream) {
   if (bits != 8 && bits != 16) return static_cast<int>(cudaErrorInvalidValue);
   if (P == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = launch_cells(t2, cells, S, s);
+  const int err = launch_cells(t2, cells, S, s, mode);
   if (err != 0) return err;
   const uint4* c = static_cast<const uint4*>(cells);
   const float* prm = static_cast<const float*>(params);
   if (bits == 8) {
-    auto kernel = paired ? lut_mxu_packed_kernel<true, unsigned int>
-                         : lut_mxu_packed_kernel<false, unsigned int>;
-    kernel<<<blocks_for(P), kThreads, 0, s>>>(static_cast<const unsigned int*>(px), prm, c,
-                                              static_cast<unsigned int*>(out), P, S);
+    auto kernel = mode == 2 ? lut_mxu_packed_kernel<2, unsigned int>
+                  : mode == 1 ? lut_mxu_packed_kernel<1, unsigned int>
+                              : lut_mxu_packed_kernel<0, unsigned int>;
+    kernel<<<blocks_for(P), kThreads, 0, s>>>(
+        static_cast<const unsigned int*>(px), prm, c, static_cast<unsigned int*>(out), P, S);
   } else {
-    auto kernel = paired ? lut_mxu_packed_kernel<true, unsigned long long>
-                         : lut_mxu_packed_kernel<false, unsigned long long>;
-    kernel<<<blocks_for(P), kThreads, 0, s>>>(static_cast<const unsigned long long*>(px), prm,
-                                              c, static_cast<unsigned long long*>(out), P, S);
+    auto kernel = mode == 2 ? lut_mxu_packed_kernel<2, unsigned long long>
+                  : mode == 1 ? lut_mxu_packed_kernel<1, unsigned long long>
+                              : lut_mxu_packed_kernel<0, unsigned long long>;
+    kernel<<<blocks_for(P), kThreads, 0, s>>>(
+        static_cast<const unsigned long long*>(px), prm, c,
+        static_cast<unsigned long long*>(out), P, S);
   }
   return static_cast<int>(cudaGetLastError());
 }

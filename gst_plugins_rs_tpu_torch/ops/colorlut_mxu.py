@@ -46,7 +46,7 @@ from .pixels import restack
 LANES = 128
 CELL = 16  # bf16 values a cell: 3 channels x 4, then 4 zeros (32 bytes)
 
-_PAIRED = True  # A/B of the cell loads (temporary)
+_MODE = 0  # A/B of the cell layout and loads (temporary): 0 cells, 1 cells via L2 only, 2 row cells
 launches = 0         # lut3d_positions_mxu
 packed_launches = 0  # lut3d_sample_mxu_packed and lut3d_sample_mxu_packed64
 
@@ -202,7 +202,7 @@ def lut3d_positions_mxu(xpos, ypos, zpos, t2_bf16, *, size: int):
     _launch("lut3d_positions_mxu", xpos.device, "colorlut_mxu", xpos.data_ptr(),
             ypos.data_ptr(), zpos.data_ptr(), t2_bf16.data_ptr(),
             _cells(size, xpos.device).data_ptr(), *(o.data_ptr() for o in outs),
-            xpos.numel(), size, int(_PAIRED))
+            xpos.numel(), size, _MODE)
     launches += 1
     return tuple(outs)
 
@@ -222,7 +222,7 @@ def _sample_packed(name, bits, px, params, t2_bf16, size):
     out = torch.empty_like(px)
     _launch(name, px.device, "colorlut_mxu_packed", px.data_ptr(), params.data_ptr(),
             t2_bf16.data_ptr(), _cells(size, px.device).data_ptr(), out.data_ptr(), px.numel(),
-            size, bits, int(_PAIRED))
+            size, bits, _MODE)
     return out
 
 

@@ -1,12 +1,14 @@
-"""A/B of B5's cell loads: each thread loads its cells' halves (single) or
-lane pairs load whole cells and swap halves (paired).
+"""A/B of B5's table layout and load path: 32-byte cells through the
+read-only path (mode 0), the same cells cached in L2 only (mode 1), and
+16-byte row cells, four a pixel (mode 2).
 
     python -m gst_plugins_rs_tpu_torch.utils.mxu_ab
 
-On 1 and 8 frames of 1080p random RGBA / RGBA64 pixels and a random 33^3
-table it checks both variants bit-equal to the plain versions, then prints
-one JSON line with the card and the median CUDA-event ms of each entry,
-variants in turns single, paired, paired, single.  Needs a card.
+On 1 and 8 frames of 1080p random RGBA pixels, on random grid coordinates,
+and on a smooth gradient frame, with a random 33^3 table, it checks each
+mode bit-equal to the plain versions, then prints one JSON line with the
+card and the median CUDA-event ms of each entry, modes in turns 0, 1, 2,
+2, 1, 0.  Needs a card.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from ..ops import colorlut_mxu as mxu
 from .lut_timing import cuda_ms
 
 S, H, W = 33, 1080, 1920
+TURNS = (0, 1, 2, 2, 1, 0)
 
 
 def main() -> int:
@@ -31,37 +34,43 @@ def main() -> int:
     table = np.random.RandomState(S).uniform(0.0, 1.0, (S**3, 3)).astype(np.float32)
     t2 = torch.from_numpy(mxu.pack_matmul_table(table, S)).to(dev, torch.bfloat16)
     p8 = torch.tensor([1.0] * 3 + [0.0] * 3 + [255.0, 0.0], device=dev)
-    p16 = torch.tensor([1.0] * 3 + [0.0] * 3 + [65535.0, 0.0], device=dev)
+    # a smooth frame: R along x, G along y, B a diagonal, as camera content
+    # is locally smooth
+    yy, xx = torch.meshgrid(torch.arange(H, device=dev), torch.arange(W, device=dev),
+                            indexing="ij")
+    smooth = torch.stack([xx * 255 // (W - 1), yy * 255 // (H - 1),
+                          (xx + yy) * 255 // (W + H - 2), torch.full_like(xx, 255)],
+                         -1).to(torch.uint8).contiguous().view(torch.int32).reshape(-1)
     rows = []
-    for frames in (1, 8):
+    for label, frames in (("random", 1), ("random", 8), ("smooth", 1)):
         P = frames * H * W
-        px = torch.randint(-2**31, 2**31 - 1, (P,), generator=gen, device=dev,
-                           dtype=torch.int32)
-        px64 = torch.randint(0, 65536, (P, 4), generator=gen, device=dev,
-                             dtype=torch.int32).to(torch.uint16).view(torch.int64).reshape(P)
-        pos = [torch.rand(P, generator=gen, device=dev) * (S - 1) for _ in range(3)]
+        if label == "random":
+            px = torch.randint(-2**31, 2**31 - 1, (P,), generator=gen, device=dev,
+                               dtype=torch.int32)
+            pos = [torch.rand(P, generator=gen, device=dev) * (S - 1) for _ in range(3)]
+        else:
+            px = smooth
+            lanes = px.view(torch.uint8).view(P, 4).float()
+            pos = [(lanes[:, c] * (1.0 / 255.0) * (S - 1)).contiguous() for c in range(3)]
         cases = {
             "positions": (lambda: mxu.lut3d_positions_mxu(*pos, t2, size=S),
                           lambda: mxu.lut3d_positions_mxu_plain(*pos, t2, size=S)),
             "packed": (lambda: mxu.lut3d_sample_mxu_packed(px, p8, t2, size=S),
-                       lambda: mxu.lut3d_sample_mxu_packed_plain(px, p8, t2, size=S)),
-            "packed64": (lambda: mxu.lut3d_sample_mxu_packed64(px64, p16, t2, size=S),
-                         lambda: mxu.lut3d_sample_mxu_packed_plain(px64, p16, t2, size=S,
-                                                                   bits=16))}
+                       lambda: mxu.lut3d_sample_mxu_packed_plain(px, p8, t2, size=S))}
         for name, (fn, plain) in cases.items():
             ref = plain()
-            row = dict(frames=frames, entry=name)
-            for turn, paired in enumerate((False, True, True, False)):
-                mxu._PAIRED = paired
+            row = dict(pixels=label, frames=frames, entry=name)
+            for turn, mode in enumerate(TURNS):
+                mxu._MODE = mode
                 got = fn()
                 same = (all(torch.equal(g, r) for g, r in zip(got, ref))
                         if isinstance(got, tuple) else torch.equal(got, ref))
                 if not same:
-                    raise AssertionError(f"{name} paired={paired} differs from its plain version")
-                row[f"{'paired' if paired else 'single'}_{turn}"] = cuda_ms(torch, fn)
+                    raise AssertionError(f"{name} mode {mode} differs from its plain version")
+                row[f"mode{mode}_{turn}"] = cuda_ms(torch, fn)
             rows.append(row)
             del ref
-    mxu._PAIRED = True
+    mxu._MODE = 0
     print(json.dumps({"card": card, "rows": rows}))
     return 0
 
