@@ -58,10 +58,13 @@
 // signature 0.046 ms (was 0.1097), RGBA 0.040, RGBA64 0.043, the cell build
 // included.  The cells cut the sectors 6x but the time only 2.4x: at ~2
 // sectors a pixel the kernel moves ~4 TB/s of cells, under the ~7.7 TB/s
-// the first design drew.  Lane pairs loading whole cells (one request a
-// sector instead of two halves) gained 1-2%, so the request count is not
-// the limit either; the 1.15 MB cell table overflows the ~256 KB L1 where
-// the 295 KB T2 nearly fit, and what limits the misses in flight is open.
+// the first design drew.  A/Bs on the same card: lane pairs loading whole
+// cells (one request a sector, not two halves) gained 1-2%; the same cells
+// read through L2 only (__ldcg) ran 1.5x slower, and 16-byte row cells (four
+// a pixel, a 0.58 MB table) 1.6x slower, so L1 hits carry much of the
+// speed and the 1.15 MB table, which overflows the ~256 KB L1, is what
+// random pixels pay for.  On a smooth frame (neighbours alike) every variant
+// ran RGBA in 0.023 ms.
 // Built with -fmad=false: the plain PyTorch version rounds every product and
 // sum on its own, and so does this kernel.
 #include <cuda_bf16.h>
@@ -107,28 +110,11 @@ build_cells(const __nv_bfloat16* __restrict__ t2, uint4* __restrict__ cells, int
   cells[kCellWords * idx + 1] = make_uint4(w[4], w[5], w[6], w[7]);
 }
 
-// A/B (temporary): 16-byte row cells, (y, z, x) -> per channel the pair
-// (x, x1) of row (y, z), then a zero word.
-__global__ void __launch_bounds__(kThreads)
-build_rows(const __nv_bfloat16* __restrict__ t2, uint4* __restrict__ rows, int S) {
-  const int n = S * S * S;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int x = idx % S, z = (idx / S) % S, y = idx / (S * S);
-  const int x1 = min(x + 1, S - 1);
-  const __nv_bfloat16* r0 = t2 + (y * S + z) * kLanes;
-  unsigned int w[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) w[c] = bf16_bits(r0, c * S + x) | (bf16_bits(r0, c * S + x1) << 16);
-  rows[idx] = make_uint4(w[0], w[1], w[2], 0u);
-}
-
 // bf16 pair word -> its low and high value as f32 (exact)
 __device__ __forceinline__ float lo(unsigned int w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float hi(unsigned int w) { return __uint_as_float(w & 0xffff0000u); }
 
 // The per-pixel chain of both entries.
-template <int MODE>
 __device__ __forceinline__ void sample(const uint4* __restrict__ cells, float x, float y, float z,
                                        int S, float (&out)[3]) {
   int x0, x1, y0, y1, z0, z1;
@@ -136,23 +122,9 @@ __device__ __forceinline__ void sample(const uint4* __restrict__ cells, float x,
   hat(x, S, x0, x1, wx0, wx1);
   hat(y, S, y0, y1, wy0, wy1);
   hat(z, S, z0, z1, wz0, wz1);
-  uint4 a0, a1, b0, b1;
-  if constexpr (MODE == 2) {
-    const uint4 r00 = __ldg(cells + (y0 * S + z0) * S + x0), r01 = __ldg(cells + (y0 * S + z1) * S + x0);
-    const uint4 r10 = __ldg(cells + (y1 * S + z0) * S + x0), r11 = __ldg(cells + (y1 * S + z1) * S + x0);
-    a0 = make_uint4(r00.x, r01.x, r00.y, r01.y);
-    a1 = make_uint4(r00.z, r01.z, 0u, 0u);
-    b0 = make_uint4(r10.x, r11.x, r10.y, r11.y);
-    b1 = make_uint4(r10.z, r11.z, 0u, 0u);
-  } else {
   const uint4* a = cells + kCellWords * ((y0 * S + z0) * S + x0);  // rows (y0,z0), (y0,z1)
   const uint4* b = cells + kCellWords * ((y1 * S + z0) * S + x0);  // rows (y1,z0), (y1,z1)
-  if constexpr (MODE == 1) {
-    a0 = __ldcg(a); a1 = __ldcg(a + 1); b0 = __ldcg(b); b1 = __ldcg(b + 1);
-  } else {
-    a0 = __ldg(a); a1 = __ldg(a + 1); b0 = __ldg(b); b1 = __ldg(b + 1);
-  }
-  }
+  const uint4 a0 = __ldg(a), a1 = __ldg(a + 1), b0 = __ldg(b), b1 = __ldg(b + 1);
   // the 4 (y,z) rows' weights bf16(wy*wz), ascending
   const float w[4] = {__bfloat162float(__float2bfloat16_rn(wy0 * wz0)),
                       __bfloat162float(__float2bfloat16_rn(wy0 * wz1)),
@@ -174,7 +146,6 @@ __device__ __forceinline__ void sample(const uint4* __restrict__ cells, float x,
   }
 }
 
-template <int MODE>
 __global__ void __launch_bounds__(kThreads)
 lut_mxu_kernel(const float* __restrict__ xp, const float* __restrict__ yp,
                const float* __restrict__ zp, const uint4* __restrict__ cells,
@@ -183,7 +154,7 @@ lut_mxu_kernel(const float* __restrict__ xp, const float* __restrict__ yp,
   const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (p >= P) return;
   float out[3];
-  sample<MODE>(cells, xp[p], yp[p], zp[p], S, out);
+  sample(cells, xp[p], yp[p], zp[p], S, out);
   ro[p] = out[0];
   go[p] = out[1];
   bo[p] = out[2];
@@ -205,7 +176,7 @@ __device__ __forceinline__ unsigned int quantize(float y, float maxval) {
 // Pixels of four components of B bits, R in the low bits: B = 8 (RGBA u8 as
 // a 32-bit word) or 16 (RGBA64 as a 64-bit word).  Component 3 (alpha)
 // rides through.
-template <int MODE, typename Word>
+template <typename Word>
 __global__ void __launch_bounds__(kThreads)
 lut_mxu_packed_kernel(const Word* __restrict__ px, const float* __restrict__ params,
                       const uint4* __restrict__ cells, Word* __restrict__ out, long long P,
@@ -220,7 +191,7 @@ lut_mxu_packed_kernel(const Word* __restrict__ px, const float* __restrict__ par
   const float smax = static_cast<float>(S - 1);
   const Word v = px[p];
   float o[3];
-  sample<MODE>(cells,
+  sample(cells,
          grid_coord(static_cast<unsigned int>(v & kMask), inv_maxval, params[0], params[3], smax),
          grid_coord(static_cast<unsigned int>((v >> B) & kMask), inv_maxval, params[1], params[4],
                     smax),
@@ -237,9 +208,8 @@ unsigned int blocks_for(long long n) {
 }
 
 // Launches build_cells into `cells` ([S,S,S,16] bf16) on the stream.
-int launch_cells(const void* t2, void* cells, int S, cudaStream_t stream, int mode = 0) {
-  auto builder = mode == 2 ? build_rows : build_cells;
-  builder<<<blocks_for(static_cast<long long>(S) * S * S), kThreads, 0, stream>>>(
+int launch_cells(const void* t2, void* cells, int S, cudaStream_t stream) {
+  build_cells<<<blocks_for(static_cast<long long>(S) * S * S), kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(t2), static_cast<uint4*>(cells), S);
   return static_cast<int>(cudaGetLastError());
 }
@@ -258,13 +228,12 @@ extern "C" int colorlut_mxu_cells(const void* t2, void* cells, int S, void* stre
 
 extern "C" int colorlut_mxu(const void* x, const void* y, const void* z, const void* t2,
                             void* cells, void* r, void* g, void* b, long long P, int S,
-                            int mode, void* stream) {
+                            void* stream) {
   if (P == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = launch_cells(t2, cells, S, s, mode);
+  const int err = launch_cells(t2, cells, S, s);
   if (err != 0) return err;
-  auto kernel = mode == 2 ? lut_mxu_kernel<2> : mode == 1 ? lut_mxu_kernel<1> : lut_mxu_kernel<0>;
-  kernel<<<blocks_for(P), kThreads, 0, s>>>(
+  lut_mxu_kernel<<<blocks_for(P), kThreads, 0, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(y), static_cast<const float*>(z),
       static_cast<const uint4*>(cells), static_cast<float*>(r), static_cast<float*>(g),
       static_cast<float*>(b), P, S);
@@ -275,28 +244,21 @@ extern "C" int colorlut_mxu(const void* x, const void* y, const void* z, const v
 // scale0..2, offset0..2, maxval, 0.
 extern "C" int colorlut_mxu_packed(const void* px, const void* params, const void* t2,
                                    void* cells, void* out, long long P, int S, int bits,
-                                   int mode, void* stream) {
+                                   void* stream) {
   if (bits != 8 && bits != 16) return static_cast<int>(cudaErrorInvalidValue);
   if (P == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = launch_cells(t2, cells, S, s, mode);
+  const int err = launch_cells(t2, cells, S, s);
   if (err != 0) return err;
   const uint4* c = static_cast<const uint4*>(cells);
   const float* prm = static_cast<const float*>(params);
-  if (bits == 8) {
-    auto kernel = mode == 2 ? lut_mxu_packed_kernel<2, unsigned int>
-                  : mode == 1 ? lut_mxu_packed_kernel<1, unsigned int>
-                              : lut_mxu_packed_kernel<0, unsigned int>;
-    kernel<<<blocks_for(P), kThreads, 0, s>>>(
+  if (bits == 8)
+    lut_mxu_packed_kernel<unsigned int><<<blocks_for(P), kThreads, 0, s>>>(
         static_cast<const unsigned int*>(px), prm, c, static_cast<unsigned int*>(out), P, S);
-  } else {
-    auto kernel = mode == 2 ? lut_mxu_packed_kernel<2, unsigned long long>
-                  : mode == 1 ? lut_mxu_packed_kernel<1, unsigned long long>
-                              : lut_mxu_packed_kernel<0, unsigned long long>;
-    kernel<<<blocks_for(P), kThreads, 0, s>>>(
+  else
+    lut_mxu_packed_kernel<unsigned long long><<<blocks_for(P), kThreads, 0, s>>>(
         static_cast<const unsigned long long*>(px), prm, c,
         static_cast<unsigned long long*>(out), P, S);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 

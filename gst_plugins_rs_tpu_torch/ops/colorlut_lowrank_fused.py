@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from .colorlut import grid_coord, quantize
-from .pixels import restack
+from .pixels import repack_quantized, restack, unpack_grid_coords
 from .colorlut_lowrank import compute_type
 
 # basis rows of the padded factor layout: hat weights for rows >= S are
@@ -110,22 +110,9 @@ def lowrank_sample_packed_plain(px, params, ut, vt, wt, c, *, size: int,
     patterns) and packed64's (bits 16: px int64 RGBA64 bit patterns, 4 x
     u16), R in the low bits, any shape; params [8] f32 = (scale0..2,
     offset0..2, maxval, 0)."""
-    flat = px.reshape(-1)
-    maxval = params[6]
-    coords = []
-    for comp in range(3):
-        v = torch.bitwise_and(torch.bitwise_right_shift(flat, bits * comp), (1 << bits) - 1)
-        v = v.to(torch.float32) * (1.0 / maxval)  # as ops/pixels.to_unit
-        coords.append(torch.clamp(v * params[comp] + params[3 + comp], 0.0, 1.0)
-                      * (size - 1.0))
-    out = _chain_plain(*coords, ut, vt, wt, c, compute_dtype)
-    q = torch.round(torch.clamp(out, 0.0, 1.0) * maxval).to(flat.dtype)
-    # alpha: the top component of the input, as the two's-complement mask
-    # ~(2^(3 bits) - 1)
-    packed = (q[0] | torch.bitwise_left_shift(q[1], bits)
-              | torch.bitwise_left_shift(q[2], 2 * bits)
-              | torch.bitwise_and(flat, -(1 << 3 * bits)))
-    return packed.reshape(px.shape)
+    coords = unpack_grid_coords(px, params, size, bits)
+    return repack_quantized(_chain_plain(*coords, ut, vt, wt, c, compute_dtype), px, params,
+                            bits)
 
 
 # ---------------------------------------------------------------------------

@@ -41,12 +41,11 @@ import numpy as np
 import torch
 
 from .colorlut import grid_coord, quantize
-from .pixels import restack
+from .pixels import repack_quantized, restack, unpack_grid_coords
 
 LANES = 128
 CELL = 16  # bf16 values a cell: 3 channels x 4, then 4 zeros (32 bytes)
 
-_MODE = 0  # A/B of the cell layout and loads (temporary): 0 cells, 1 cells via L2 only, 2 row cells
 launches = 0         # lut3d_positions_mxu
 packed_launches = 0  # lut3d_sample_mxu_packed and lut3d_sample_mxu_packed64
 
@@ -122,22 +121,9 @@ def lut3d_sample_mxu_packed_plain(px, params, t2_bf16, *, size: int, bits: int =
     low bits, any shape; params [8] f32 = (scale0..2, offset0..2, maxval,
     0).  The chain of colorlut_lowrank_fused.lowrank_sample_packed_plain
     with B5's sample in place of the low-rank one."""
-    flat = px.reshape(-1)
-    maxval = params[6]
-    coords = []
-    for comp in range(3):
-        v = torch.bitwise_and(torch.bitwise_right_shift(flat, bits * comp), (1 << bits) - 1)
-        v = v.to(torch.float32) * (1.0 / maxval)  # as ops/pixels.to_unit
-        coords.append(torch.clamp(v * params[comp] + params[3 + comp], 0.0, 1.0)
-                      * (size - 1.0))
-    out = lut3d_positions_mxu_plain(*coords, t2_bf16, size=size)
-    q = [torch.round(torch.clamp(o, 0.0, 1.0) * maxval).to(flat.dtype) for o in out]
-    # alpha: the top component of the input, as the two's-complement mask
-    # ~(2^(3 bits) - 1)
-    packed = (q[0] | torch.bitwise_left_shift(q[1], bits)
-              | torch.bitwise_left_shift(q[2], 2 * bits)
-              | torch.bitwise_and(flat, -(1 << 3 * bits)))
-    return packed.reshape(px.shape)
+    coords = unpack_grid_coords(px, params, size, bits)
+    return repack_quantized(lut3d_positions_mxu_plain(*coords, t2_bf16, size=size), px, params,
+                            bits)
 
 
 def _lib():
@@ -146,9 +132,9 @@ def _lib():
     lib = load("colorlut_mxu")
     if not getattr(lib, "_argtypes_set", False):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.colorlut_mxu.argtypes = [ptr] * 8 + [i64, i32, i32, ptr]
+        lib.colorlut_mxu.argtypes = [ptr] * 8 + [i64, i32, ptr]
         lib.colorlut_mxu.restype = i32
-        lib.colorlut_mxu_packed.argtypes = [ptr] * 5 + [i64, i32, i32, i32, ptr]
+        lib.colorlut_mxu_packed.argtypes = [ptr] * 5 + [i64, i32, i32, ptr]
         lib.colorlut_mxu_packed.restype = i32
         lib.colorlut_mxu_cells.argtypes = [ptr, ptr, i32, ptr]
         lib.colorlut_mxu_cells.restype = i32
@@ -170,8 +156,8 @@ def _check_table(name, t2_bf16, size, device):
 
 
 def _launch(name, device, entry, *args):
-    """Calls a C entry point on the current stream of `device`; the cell
-    table (scratch) is allocated here and passed after the table."""
+    """Calls the C entry point `entry` on the current stream of `device` and
+    raises if the launch failed."""
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -202,7 +188,7 @@ def lut3d_positions_mxu(xpos, ypos, zpos, t2_bf16, *, size: int):
     _launch("lut3d_positions_mxu", xpos.device, "colorlut_mxu", xpos.data_ptr(),
             ypos.data_ptr(), zpos.data_ptr(), t2_bf16.data_ptr(),
             _cells(size, xpos.device).data_ptr(), *(o.data_ptr() for o in outs),
-            xpos.numel(), size, _MODE)
+            xpos.numel(), size)
     launches += 1
     return tuple(outs)
 
@@ -222,7 +208,7 @@ def _sample_packed(name, bits, px, params, t2_bf16, size):
     out = torch.empty_like(px)
     _launch(name, px.device, "colorlut_mxu_packed", px.data_ptr(), params.data_ptr(),
             t2_bf16.data_ptr(), _cells(size, px.device).data_ptr(), out.data_ptr(), px.numel(),
-            size, bits, _MODE)
+            size, bits)
     return out
 
 
@@ -265,12 +251,11 @@ def lut3d_apply_mxu(frame, t2_bf16, scale, offset, *, size: int,
     kind = _PACKED.get(bits)
     if (kind is not None and frame.dtype == kind[0] and frame.shape[-1] == 4
             and tuple(offsets) == (0, 1, 2) and frame.is_contiguous()):
-        dtype, word = kind
         sample = lut3d_sample_mxu_packed if bits == 8 else lut3d_sample_mxu_packed64
         params = torch.tensor([float(v) for v in scale] + [float(v) for v in offset]
                               + [maxval, 0.0], dtype=torch.float32).to(frame.device)
-        out = sample(frame.view(word), params, t2_bf16, size=size)
-        return out.view(dtype).reshape(frame.shape)
+        out = sample(frame.view(kind[1]), params, t2_bf16, size=size)
+        return out.view(frame.dtype).reshape(frame.shape)
     fi = frame.to(torch.int32)
     shape = fi.shape[:-1]
     pos = [grid_coord(fi, off, scale[comp], offset[comp], size, maxval).reshape(-1)

@@ -5,7 +5,7 @@
 Imports gst_plugins_rs_tpu_torch from DIR (default: the checkout this file
 lies in) and calls only public functions, so the same script times an older
 checkout of the port: unpack it with `git archive` and run parent and
-change in turn in one session on the card.  On 8 frames of 1080p (random
+change in turn in one run on the card.  On 8 frames of 1080p (random
 pixels; synthetic factors for B2/B3, as chip_smoke.py phase 3b) it checks
 each kernel bit-equal to its plain version, then prints one JSON line with
 the card and

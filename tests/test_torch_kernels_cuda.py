@@ -401,7 +401,7 @@ def test_mxu_apply_routes(cuda, bits):
     frame = torch.randint(0, top + 1, (37, 531, 4), generator=gen, device=cuda,
                           dtype=torch.int32).to(torch.uint8 if bits == 8 else torch.uint16)
     args = (t2, [1.05, 1.0, 0.95], [0.01, 0.0, -0.02])
-    # CUDA has no uint16 indexing or comparison kernels: permute and compare
+    # PyTorch's CUDA backend lacks some uint16 kernels: permute and compare
     # the same bits as signed integers
     signed = torch.int8 if bits == 8 else torch.int16
     before = (colorlut_mxu.launches, colorlut_mxu.packed_launches)
