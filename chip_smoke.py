@@ -1094,6 +1094,376 @@ def profile_device(run, top: int = 6):
     return total, upload, [(e.key[:48], e.self_device_time_total / 1e3) for e in events[:top]]
 
 
+# ---------------------------------------------------------------------------
+# The EBU R-128 audio path: audioloudnorm (the limiter kernel), ebur128level,
+# rsaudioecho, and the plumbing in front of them
+# ---------------------------------------------------------------------------
+AUDIO_SECONDS = 60           # the full-width audioloudnorm run: 600 frames of 100 ms
+AUDIO_CPU_SECONDS = 6        # card against CPU
+AUDIO_SPB = 4800             # samples per 48 kHz source buffer (100 ms)
+LN_FRAME = 19_200            # audioloudnorm's frame at 192 kHz
+LN_SAMPLE_TOL = 1e-9         # F64 samples, card vs CPU on the same input
+LN_LOUDNESS_TOL = 1e-6       # LU, card vs CPU
+RESAMPLE_TOL = 1e-5          # f32 resampler, card vs CPU (cuDNN sums in another order)
+ECHO_TOL = 1e-6              # f32 echo, card vs CPU
+# the path's output loudness: the reference's bar is +-1 LU of -24 LUFS on its
+# test signals (tests/test_torch_loudnorm.py holds the port to it); on the
+# tick signal below the limiter clamps every tick to -2 dBTP and takes 1.25
+# LU off (-25.25 LUFS on the CPU at 6 and 20 s), so the smoke allows 2
+LN_LOUDNESS_BAR = 2.0
+# the test signal: one-period 440 Hz ticks every 0.5 s at full-scale 0.8, the
+# reference's limiter signal (audio/audiofx/tests/audioloudnorm.rs) without
+# its quiet sine: normalised to -24 LUFS the ticks cross -2 dBTP, so every
+# tick's frames run the limiter and the frames between them are idle
+TICKS = "wave=ticks volume=0.8 sine-periods-per-tick=1 tick-interval=500000000"
+# the limiter's serial floor: the loop-carried chain of one FSM step (state
+# compare, select and the envelope count's add, ~3 dependent integer ops of
+# ~4 cycles) at the SM's maximum clock
+LIMITER_STEP_CYCLES = 12
+DEV = "cuda"  # the audio phases' device (a CPU rehearsal sets "cpu")
+
+
+def loudnorm_launch(seconds: int, tail: str = "audioloudnorm ! appsink name=sink") -> str:
+    """The full-width path: 48 kHz F32 stereo test source, resampled to 192
+    kHz and converted to F64, into audioloudnorm.  (audioresample takes F32
+    only, so it comes before audioconvert: `audioconvert ! audioresample !
+    F64` fails to negotiate in both packages.)"""
+    return (f"audiotestsrc {TICKS} num-buffers={seconds * 10} samplesperbuffer={AUDIO_SPB} "
+            f"! audio/x-raw,format=F32,rate=48000,channels=2 ! audioresample "
+            f"! audio/x-raw,rate=192000 ! audioconvert "
+            f"! audio/x-raw,format=F64,rate=192000,channels=2 ! {tail}")
+
+
+def _sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         check=True, capture_output=True, text=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def limiter_window(peaky: bool, dtype, dev):
+    """A [40320, 2] 192 kHz limiter window of the path's signal: quiet noise,
+    with (peaky) a tick burst and a pair of close peaks, or (idle) nothing
+    above -2 dBTP."""
+    rng = np.random.RandomState(7)
+    x = rng.uniform(-0.3, 0.3, (40320, 2))
+    if peaky:
+        t = np.arange(2000) / 192000
+        x[4000:6000] = 1.2 * np.sin(2 * np.pi * 440 * t)[:, None]
+        x[12000, 0], x[13700, 1] = 0.95, 1.0
+    return torch.from_numpy(x).to(dev, dtype).contiguous()
+
+
+def limiter_kernel(card_line):
+    """Phase 3c: the limiter kernel against its plain version at 192 kHz
+    stereo, bit for bit in f64 and f32, on a peaky and an idle frame from
+    four carries; then timed (f64, the path's type) beside its two bounds."""
+    phase("3c audio: the limiter kernel against its plain version")
+    from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
+
+    dev = torch.device(DEV)
+    carries = [(0, 0, -1, 0.0, 0.0), (1, 500, -1, 0.9, 0.6), (2, 0, 100, 0.7, 0.5),
+               (3, 3000, -1, 0.5, 1.0)]
+    cases, max_err = {}, 0.0
+    for dtype, np_dtype in ((torch.float64, np.float64), (torch.float32, np.float32)):
+        tp = float(np_dtype(10 ** (-2 / 20)))
+        for peaky in (True, False):
+            w = limiter_window(peaky, dtype, dev)
+            pk, pv, fut = lim.precompute_peaks(w, tp)
+            for carry in carries:
+                ci = torch.tensor(carry[:3], dtype=torch.int32, device=dev)
+                cf = torch.tensor(carry[3:], dtype=dtype, device=dev)
+                out, ni, nf = lim.limiter_frame(w, ci, cf, tp, pk, pv, fut)
+                torch.cuda.synchronize()
+                ref, ri, rf = lim.limiter_frame_plain(w.cpu(), ci.cpu(), cf.cpu(), tp, pk.cpu(),
+                                                      pv.cpu(), fut.cpu())
+                err = float((out.cpu() - ref).abs().max())
+                max_err = max(max_err, err)
+                same = torch.equal(out.cpu(), ref) and torch.equal(ni.cpu(), ri) \
+                    and torch.equal(nf.cpu(), rf)
+                if not same or not torch.isfinite(out).all():
+                    raise AssertionError(f"limiter {dtype} peaky={peaky} carry={carry}: kernel "
+                                         f"!= plain (max abs err {err:.3e})")
+            label = f"{'f64' if dtype == torch.float64 else 'f32'} {'peaky' if peaky else 'idle'}"
+            print(f"limiter {label}: {int(pk.sum())} peaks, bit-equal to plain from "
+                  f"{len(carries)} carries")
+            cases[label] = (w, pk, pv, fut, tp)
+    # timed on the path's type (F64) from the Out carry
+    w, pk, pv, fut, tp = cases["f64 peaky"]
+    ci = torch.tensor([0, 0, -1], dtype=torch.int32, device=dev)
+    cf = torch.zeros(2, dtype=torch.float64, device=dev)
+    ms = cuda_ms(lambda: lim.limiter_frame(w, ci, cf, tp, pk, pv, fut))
+    wi, pki, pvi, futi, _ = cases["f64 idle"]
+    idle_ms = cuda_ms(lambda: lim.limiter_frame(wi, ci, cf, tp, pki, pvi, futi))
+    args = [t.cpu() for t in (w, ci, cf)] + [tp] + [t.cpu() for t in (pk, pv, fut)]
+    t0 = time.perf_counter()
+    for _ in range(3):
+        lim.limiter_frame_plain(*args)
+    plain_ms = (time.perf_counter() - t0) / 3 * 1e3
+    ch, isz = 2, 8
+    nbytes = LN_FRAME * ch * isz * 2 + LN_FRAME * (1 + isz + 1) + 3 * 4 * 2 + 2 * isz * 2
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    serial_ms = LN_FRAME * LIMITER_STEP_CYCLES / _sm_clock_hz() * 1e3
+    print(f"limiter f64 stereo frame: kernel {ms:.4f} ms peaky, {idle_ms:.4f} ms idle; plain "
+          f"(host loop, CPU) {plain_ms:.2f} ms; bound {bound_ms:.5f} ms (bytes, "
+          f"{nbytes / 1e6:.3f} MB); serial floor {serial_ms:.4f} ms ({LN_FRAME} steps x "
+          f"{LIMITER_STEP_CYCLES} cycles at the max SM clock) [{card_line}]")
+    return dict(case="192 kHz stereo f64, peaky frame", ms=ms, idle_ms=idle_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                serial_floor_ms=serial_ms, max_abs_err=max_err, library_ms=None, bytes=nbytes)
+
+
+def _r128_of(data, channels, rate):
+    """(integrated loudness, sample peaks) of host samples, on the card."""
+    from gst_plugins_rs_tpu_torch.ops.ebur128 import EbuR128
+
+    r = EbuR128(channels, rate, device=DEV)
+    r.add_frames(torch.from_numpy(np.ascontiguousarray(data)))
+    return r.loudness_global(), [r.sample_peak(c) for c in range(channels)]
+
+
+def audio_pipelines():
+    """Phase 4c: the full-width audioloudnorm path over AUDIO_SECONDS with the
+    limiter's counter set to 0 just before and read just after, checked
+    against the reference's bar; then ebur128level and rsaudioecho at 48 kHz
+    and videotestsrc ! videoconvert I420 <-> RGBA at 1080p."""
+    phase("4c audio pipelines on the card")
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.core import MessageType
+    from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
+
+    p = g.parse_launch(loudnorm_launch(AUDIO_SECONDS))
+    lim.launches = 0
+    p.play_until_eos()
+    torch.cuda.synchronize()
+    counted = lim.launches
+    samples = p.by_name("sink").samples
+    if any(s.buffer.data.device.type != DEV or s.buffer.data.dtype != torch.float64
+           for s in samples):
+        raise AssertionError("audioloudnorm output is not F64 on the card")
+    out = p.by_name("sink").concat_audio()
+    frames = -(-out.shape[0] // LN_FRAME)
+    loud, peaks = _r128_of(out, 2, 192000)
+    pts_ok = all(abs(b.buffer.pts - a.buffer.pts - a.buffer.data.shape[0] * 10**9 // 192000) <= 1
+                 for a, b in zip(samples, samples[1:]))
+    print(f"audioloudnorm {AUDIO_SECONDS} s, 192 kHz stereo F64: {out.shape[0]} samples "
+          f"({frames} frames of 100 ms), limiter launches {counted}; output {loud:.3f} LUFS, "
+          f"sample peaks {[round(20 * np.log10(v), 3) for v in peaks]} dBFS; PTS continuous: "
+          f"{pts_ok}")
+    if not (np.isfinite(out).all() and abs(out.shape[0] - AUDIO_SECONDS * 192000) < 192000):
+        raise AssertionError("audioloudnorm output not finite or of the wrong length")
+    if counted != frames:
+        raise AssertionError("limiter launches != 100 ms output frames")
+    if abs(loud + 24.0) >= LN_LOUDNESS_BAR or max(peaks) > 10 ** (-2 / 20) + 1e-9 \
+            or not pts_ok:
+        raise AssertionError(f"audioloudnorm misses its bar (+-{LN_LOUDNESS_BAR} LU of -24, "
+                             f"peak <= -2 dBFS, PTS within 1 ns)")
+    launches = {"loudnorm_limiter": counted}
+
+    # ebur128level at 48 kHz stereo (the 4x true peak on)
+    p = g.parse_launch(f"audiotestsrc wave=white-noise volume=0.3 num-buffers=100 "
+                       f"samplesperbuffer={AUDIO_SPB} ! audio/x-raw,format=F32,rate=48000,"
+                       f"channels=2 ! ebur128level ! fakesink")
+    p.play_until_eos()
+    msgs = [m.structure for m in p.bus.messages(MessageType.ELEMENT)
+            if m.structure is not None and m.structure.name == "ebur128-level"]
+    last = msgs[-1] if msgs else None
+    print(f"ebur128level 10 s 48 kHz stereo: {len(msgs)} messages, last: M "
+          f"{last['momentary-loudness']:.3f}, I {last['global-loudness']:.3f} LUFS, true peak "
+          f"{[round(v, 4) for v in last['true-peak']]}" if last else "no messages")
+    if len(msgs) != 10 or not all(np.isfinite(last[k]) for k in ("momentary-loudness",
+                                                                 "global-loudness")):
+        raise AssertionError("ebur128level did not post 10 finite messages")
+
+    # rsaudioecho at 48 kHz stereo
+    p = g.parse_launch(f"audiotestsrc wave=ticks num-buffers=20 samplesperbuffer={AUDIO_SPB} "
+                       f"! audio/x-raw,format=F32,rate=48000,channels=2 ! rsaudioecho "
+                       f"delay=250000000 intensity=0.6 feedback=0.3 ! appsink name=sink")
+    p.play_until_eos()
+    echo = p.by_name("sink").concat_audio()
+    print(f"rsaudioecho 2 s 48 kHz stereo: {echo.shape}, max |x| {np.abs(echo).max():.3f}")
+    if echo.shape != (20 * AUDIO_SPB, 2) or not np.isfinite(echo).all():
+        raise AssertionError("rsaudioecho output")
+
+    # videotestsrc ! videoconvert: RGBA -> I420 -> RGBA at 1080p
+    p = g.parse_launch(video_convert_launch(4))
+    p.play_until_eos()
+    frames_out = p.by_name("sink").samples
+    if len(frames_out) != 4 or any(s.buffer.data.device.type != DEV or
+                                   tuple(s.buffer.data.shape) != (HD_H, HD_W, 4)
+                                   for s in frames_out):
+        raise AssertionError("videoconvert I420 round trip: frames")
+    print(f"videotestsrc RGBA 1080p ! videoconvert ! I420 ! videoconvert ! RGBA: 4 frames on "
+          f"the card")
+    return launches
+
+
+def video_convert_launch(frames: int) -> str:
+    return (f"videotestsrc pattern=gradient num-buffers={frames} "
+            f"! video/x-raw,format=RGBA,width={HD_W},height={HD_H},framerate=30/1 "
+            f"! videoconvert ! video/x-raw,format=I420 ! videoconvert "
+            f"! video/x-raw,format=RGBA ! appsink name=sink")
+
+
+def _on(dev, fn):
+    import gst_plugins_rs_tpu_torch as g
+
+    g.set_device(dev)
+    try:
+        return fn()
+    finally:
+        g.set_device(DEV)
+
+
+def _capture_loudnorm_input(seconds):
+    """The F64 192 kHz input of audioloudnorm in the path (tee'd off) and its
+    output, on the current device."""
+    import gst_plugins_rs_tpu_torch as g
+
+    p = g.parse_launch(loudnorm_launch(
+        seconds, "tee name=t t. ! queue ! audioloudnorm ! appsink name=out "
+                 "t. ! queue ! appsink name=in"))
+    p.play_until_eos()
+    return p.by_name("in").samples, p.by_name("out").concat_audio()
+
+
+def _loudnorm_from(samples):
+    """audioloudnorm over the given buffers, pushed through appsrc on the
+    current device."""
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.core import Buffer
+
+    p = g.parse_launch("appsrc name=src ! audioloudnorm ! appsink name=sink")
+    src = p.by_name("src")
+    src.set_property("caps", samples[0].caps)
+    for s in samples:
+        b = s.buffer
+        src.push_buffer(Buffer(b.data.cpu(), pts=b.pts, duration=b.duration, offset=b.offset))
+    src.end_of_stream()
+    p.play_until_eos()
+    return p.by_name("sink").concat_audio()
+
+
+def audio_card_vs_cpu():
+    """Phase 5c: on AUDIO_CPU_SECONDS of the path, the card against the CPU:
+    audioloudnorm on the same F64 input (the card's, tee'd off) within 1e-9
+    a sample and 1e-6 LU; the F32 resampler front within 1e-5; ebur128level's
+    values, rsaudioecho and the I420 round trip."""
+    phase("5c audio, card against CPU")
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.core import MessageType
+
+    ins, card_out = _capture_loudnorm_input(AUDIO_CPU_SECONDS)
+    host_out = _on("cpu", lambda: _loudnorm_from(ins))
+    d = float(np.abs(card_out - host_out).max())
+    l_card, _ = _r128_of(card_out, 2, 192000)
+    l_host, _ = _r128_of(host_out, 2, 192000)
+    host_in = _on("cpu", lambda: _capture_loudnorm_input(AUDIO_CPU_SECONDS)[0])
+    card_in = np.concatenate([s.buffer.data.cpu().numpy() for s in ins])
+    d_in = float(np.abs(card_in - np.concatenate([s.buffer.data.numpy() for s in host_in])).max())
+    print(f"audioloudnorm {AUDIO_CPU_SECONDS} s, card (kernel) vs CPU (plain) on the same F64 "
+          f"input: max abs {d:.3e} (gate {LN_SAMPLE_TOL}), loudness {l_card:.9f} vs "
+          f"{l_host:.9f} LUFS (gate {LN_LOUDNESS_TOL} LU); resampled F32 front, card vs CPU: "
+          f"max abs {d_in:.3e} (gate {RESAMPLE_TOL})")
+    if card_out.shape != host_out.shape or d > LN_SAMPLE_TOL \
+            or abs(l_card - l_host) > LN_LOUDNESS_TOL or d_in > RESAMPLE_TOL:
+        raise AssertionError("audioloudnorm or the resampler: card and CPU disagree")
+
+    def level():
+        p = g.parse_launch(f"audiotestsrc wave=white-noise volume=0.3 num-buffers=30 "
+                           f"samplesperbuffer={AUDIO_SPB} ! audio/x-raw,format=F32,rate=48000,"
+                           f"channels=2 ! ebur128level ! fakesink")
+        p.play_until_eos()
+        m = [x.structure for x in p.bus.messages(MessageType.ELEMENT)
+             if x.structure is not None and x.structure.name == "ebur128-level"][-1]
+        return np.array([m["momentary-loudness"], m["shortterm-loudness"],
+                         m["global-loudness"], *m["true-peak"]])
+
+    def echo():
+        p = g.parse_launch(f"audiotestsrc wave=ticks num-buffers=20 samplesperbuffer={AUDIO_SPB} "
+                           f"! audio/x-raw,format=F32,rate=48000,channels=2 ! rsaudioecho "
+                           f"delay=250000000 intensity=0.6 feedback=0.3 ! appsink name=sink")
+        p.play_until_eos()
+        return p.by_name("sink").concat_audio()
+
+    def video():
+        p = g.parse_launch(video_convert_launch(1))
+        p.play_until_eos()
+        return p.by_name("sink").samples[0].buffer.data.cpu().numpy()
+
+    d_level = float(np.abs(level() - _on("cpu", level)).max())
+    d_echo = float(np.abs(echo() - _on("cpu", echo)).max())
+    same_video = np.array_equal(video(), _on("cpu", video))
+    # a seeded random frame through the I420 and NV12 round trips
+    from gst_plugins_rs_tpu_torch.core.video import VideoInfo
+    from gst_plugins_rs_tpu_torch.elements.generic.convert import build_format_converter
+
+    frame = torch.from_numpy(hd_frame(3))
+    rgba = VideoInfo("RGBA", HD_W, HD_H)
+    same_rand = True
+    for fmt in ("I420", "NV12"):
+        to_yuv = build_format_converter(rgba, VideoInfo(fmt, HD_W, HD_H))
+        back = build_format_converter(VideoInfo(fmt, HD_W, HD_H), rgba)
+        card_planes, host_planes = to_yuv(frame.to(DEV)), to_yuv(frame)
+        same_rand &= all(torch.equal(a.cpu(), b) for a, b in zip(card_planes, host_planes))
+        same_rand &= torch.equal(back(card_planes).cpu(), back(host_planes))
+    print(f"ebur128level 3 s 48 kHz, card vs CPU: max |d| {d_level:.3e} (LU and true peak; "
+          f"gate {LN_LOUDNESS_TOL}); rsaudioecho: max abs {d_echo:.3e} (gate {ECHO_TOL}); "
+          f"videoconvert RGBA -> I420 -> RGBA 1080p bit-equal: {same_video}; a random 1080p frame "
+          f"through I420 and NV12 and back bit-equal: {same_rand}")
+    if d_level > LN_LOUDNESS_TOL or d_echo > ECHO_TOL or not (same_video and same_rand):
+        raise AssertionError("ebur128level, rsaudioecho or videoconvert: card and CPU disagree")
+
+
+def audio_timing(card_line):
+    """Phase 6c: seconds of audio per wall second of the full-width
+    audioloudnorm path over AUDIO_SECONDS (after a warm-up run), device busy
+    time and kernel launches per frame from torch.profiler over 6 s, and the
+    same for ebur128level and rsaudioecho at 48 kHz."""
+    phase("6c audio timing")
+    import gst_plugins_rs_tpu_torch as g
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(launch):
+        p = g.parse_launch(launch)
+        p.play_until_eos()
+        torch.cuda.synchronize()
+
+    level = (f"audiotestsrc wave=white-noise volume=0.3 num-buffers={{n}} "
+             f"samplesperbuffer={AUDIO_SPB} ! audio/x-raw,format=F32,rate=48000,channels=2 "
+             f"! ebur128level ! fakesink")
+    echo = (f"audiotestsrc wave=ticks num-buffers={{n}} samplesperbuffer={AUDIO_SPB} "
+            f"! audio/x-raw,format=F32,rate=48000,channels=2 ! rsaudioecho delay=250000000 "
+            f"intensity=0.6 feedback=0.3 ! fakesink")
+    rows = {}
+    for label, make in (("audioloudnorm 192 kHz stereo F64 (with its source, resampler and "
+                         "converter)", lambda n: loudnorm_launch(n // 10, "audioloudnorm ! "
+                                                                        "fakesink")),
+                        ("ebur128level 48 kHz stereo", lambda n: level.format(n=n)),
+                        ("rsaudioecho 48 kHz stereo", lambda n: echo.format(n=n))):
+        run(make(60))  # warm-up: builds, caches
+        t0 = time.perf_counter()
+        run(make(AUDIO_SECONDS * 10))
+        secs = time.perf_counter() - t0
+        n_prof = 60  # 6 s, 60 frames of 100 ms
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(make(n_prof))
+        events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        if not events:
+            raise AssertionError("torch.profiler recorded no device events")
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        kernels = sum(e.count for e in events if not e.key.startswith("Memcpy"))
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+        rows[label] = dict(audio_s_per_s=AUDIO_SECONDS / secs, busy_ms_per_frame=busy / n_prof,
+                           launches_per_frame=kernels / n_prof)
+        print(f"{label}: {AUDIO_SECONDS} s of audio in {secs:.3f} s, "
+              f"{AUDIO_SECONDS / secs:.2f} s of audio per second; device busy "
+              f"{busy / n_prof:.4f} ms and {kernels / n_prof:.1f} device ops per 100 ms frame "
+              f"(torch.profiler, {n_prof} frames); ms per frame by op: "
+              + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3 / n_prof:.4f}"
+                          for e in top) + f" [{card_line}]")
+    return rows
+
+
 def main() -> int:
     card_line = card()
     sys.path.insert(0, str(ROOT))
@@ -1108,8 +1478,12 @@ def main() -> int:
     effect_launches = effect_pipelines(grade, path_ops)
     card_vs_cpu()
     effects_card_vs_cpu(grade)
+    limiter_case = limiter_kernel(card_line)
+    audio_launches = audio_pipelines()
+    audio_card_vs_cpu()
     timing(card_line)
     effects_timing(card_line, grade)
+    audio_timing(card_line)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "library_ms")
     main_case = next(c for c in cases if c["dtype"] == "f32" and c["batch"] == 1)
     entries = [{
@@ -1147,6 +1521,15 @@ def main() -> int:
     b5 = next(e for e in entries if e["name"] == "colorlut_mxu")
     b5["entries"] = [effect_entry(name, "colorlut_mxu.cu", "pallas_colorlut.py:87")
                      for name in ("colorlut_mxu_packed", "colorlut_mxu_packed64")]
+    entries.append({
+        "name": "loudnorm_limiter",
+        "route": "cuda",
+        "source": "gst_plugins_rs_tpu_torch/csrc/loudnorm_limiter.cu",
+        "replaces": "gst_plugins_rs_tpu/ops/loudnorm.py:175",
+        "launches": audio_launches["loudnorm_limiter"],
+        **{k: limiter_case[k] for k in keys},
+        "cases": [limiter_case],
+    })
     if any(e["launches"] < 1 for e in entries + b3["entries"] + b5["entries"]):
         raise AssertionError("a kernel of the paths was never launched")
     print(json.dumps({"kernels": entries}))

@@ -1,7 +1,11 @@
 """Element library of the port.  Importing this package registers the
-factories ported so far: the YOLOX detection slice and its plumbing, and the
-per-pixel video effects (colorlut, hsvfilter, hsvdetector)."""
+factories ported so far: the core plumbing (sources, sinks, capsfilter,
+identity, queue, tee, audioconvert, audioresample, videoconvert), the YOLOX
+detection slice, the per-pixel video effects (colorlut, hsvfilter,
+hsvdetector) and the EBU R-128 audio path (audioloudnorm, ebur128level,
+rsaudioecho)."""
 from . import sinks, sources  # noqa: F401
 from .analytics import combiner, meta, yoloxinference, yoloxtensordec  # noqa: F401
-from .generic import basic  # noqa: F401
+from .audiofx import audioecho, audioloudnorm, ebur128level  # noqa: F401
+from .generic import basic, convert  # noqa: F401
 from .video import colorlut, hsv  # noqa: F401

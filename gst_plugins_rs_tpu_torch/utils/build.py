@@ -28,10 +28,12 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-# The per-pixel kernels round every product and sum on its own, as their
-# plain PyTorch versions do: no a*b+c contracted into one FMA rounding.
+# The per-pixel kernels and the limiter round every product and sum on its
+# own, as their plain PyTorch versions do: no a*b+c contracted into one FMA
+# rounding (the limiter's explicit fma calls stay).
 EXTRA_FLAGS: Dict[str, List[str]] = {
-    name: ["-fmad=false"] for name in ("colorlut_lowrank", "colorlut_mxu", "hsv_planes")
+    name: ["-fmad=false"]
+    for name in ("colorlut_lowrank", "colorlut_mxu", "hsv_planes", "loudnorm_limiter")
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -463,3 +463,84 @@ def test_effect_kernels_reject_bad_operands(cuda):
                                          torch.zeros(64, 128, device=cuda), size=9)
     assert before == (lowrank.fused_launches, lowrank.packed_launches, hsv_planes.launches,
                       colorlut_mxu.launches)
+
+
+# The limiter (csrc/loudnorm_limiter.cu) against its plain version, bit for
+# bit in f64 and f32: the kernel is built with -fmad=false and evaluates the
+# same roundings, explicit FMAs included (ops/loudnorm_limiter.py).
+
+
+def _limiter_window(seed, dtype, dev):
+    """[40320, 2] 192 kHz window: quiet noise with bursts and close peak pairs
+    (restarts and steepened attacks), the limiter's window length."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-0.3, 0.3, (40320, 2))
+    for _ in range(12):
+        p = rng.randint(0, 40270)
+        x[p:p + rng.randint(1, 40), rng.randint(0, 2)] *= rng.uniform(0.7, 1.5) / 0.3
+    for p, gap, a, b in ((3000, 1700, 0.95, 1.0), (9000, 1500, 0.9, 0.95)):
+        x[p, 0], x[p + gap, 1] = a, b
+    return torch.from_numpy(x).to(dev, dtype).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("carry", [(0, 0, -1, 0.0, 0.0), (1, 500, -1, 0.9, 0.6),
+                                   (2, 0, 100, 0.7, 0.5), (3, 3000, -1, 0.5, 1.0)])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_limiter_kernel_bit_equal_plain(cuda, seed, carry, dtype):
+    from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
+
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    tp = float(np_dtype(10 ** (-2 / 20)))
+    w = _limiter_window(seed, dtype, cuda)
+    ci = torch.tensor(carry[:3], dtype=torch.int32, device=cuda)
+    cf = torch.tensor(carry[3:], dtype=dtype, device=cuda)
+    pk, pv, fut = lim.precompute_peaks(w, tp)
+    before = lim.launches
+    out, ni, nf = lim.limiter_frame(w, ci, cf, tp, pk, pv, fut)
+    torch.cuda.synchronize()
+    assert lim.launches == before + 1
+    ref, ri, rf = lim.limiter_frame_plain(w.cpu(), ci.cpu(), cf.cpu(), tp, pk.cpu(), pv.cpu(),
+                                          fut.cpu())
+    assert out.device.type == "cuda" and ni.device.type == "cuda"
+    assert torch.equal(out.cpu(), ref)
+    assert torch.equal(ni.cpu(), ri) and torch.equal(nf.cpu(), rf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_limiter_kernel_idle_frame(cuda, dtype):
+    """State Out and no peak: the kernel copies the clamped frame and keeps
+    the carry, with no host branch."""
+    from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
+
+    w = torch.from_numpy(np.random.RandomState(4).uniform(-0.5, 0.5, (40320, 2))).to(cuda, dtype)
+    ci = torch.tensor([0, 7, -1], dtype=torch.int32, device=cuda)
+    cf = torch.tensor([0.25, 0.5], dtype=dtype, device=cuda)
+    pk, pv, fut = lim.precompute_peaks(w, 0.79)
+    out, ni, nf = lim.limiter_frame(w, ci, cf, 0.79, pk, pv, fut)
+    torch.cuda.synchronize()
+    assert torch.equal(out, w[:lim.FRAME]) and torch.equal(ni, ci) and torch.equal(nf, cf)
+
+
+@pytest.mark.cuda
+def test_limiter_kernel_rejects_bad_operands(cuda):
+    from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
+
+    w = torch.zeros(40320, 2, dtype=torch.float64, device=cuda)
+    ci = torch.tensor([0, 0, -1], dtype=torch.int32, device=cuda)
+    cf = torch.zeros(2, dtype=torch.float64, device=cuda)
+    pk, pv, fut = lim.precompute_peaks(w, 0.79)
+    before = lim.launches
+    with pytest.raises(ValueError):
+        lim.limiter_frame(w[:1000], ci, cf, 0.79, pk[:0], pv, fut)
+    with pytest.raises(ValueError):
+        lim.limiter_frame(w, ci.long(), cf, 0.79, pk, pv, fut)
+    with pytest.raises(ValueError):
+        lim.limiter_frame(w, ci, cf.float(), 0.79, pk, pv, fut)
+    with pytest.raises(ValueError):
+        lim.limiter_frame(w, ci, cf, 0.79, pk, pv.float(), fut)
+    with pytest.raises(ValueError):
+        lim.limiter_frame(w, ci.cpu(), cf, 0.79, pk, pv, fut)
+    assert lim.launches == before

@@ -253,7 +253,8 @@ def test_factories_mirror_jax():
     assert {"yoloxinference", "burn-yoloxinference", "yoloxtensordec", "analyticscombiner",
             "analyticssplitter", "videotestsrc", "appsrc", "appsink", "fakesink",
             "capsfilter", "identity", "queue", "colorlut", "hsvfilter",
-            "hsvdetector"} == set(names)
+            "hsvdetector", "audiotestsrc", "tee", "audioconvert", "audioresample",
+            "videoconvert", "audioloudnorm", "ebur128level", "rsaudioecho"} == set(names)
     for name in names:
         jc, tc = jfactory(name), tfactory(name)
         assert [(p.name, repr(p.default), p.type, p.choices) for p in jc.PROPERTIES] == \
@@ -278,6 +279,13 @@ def _imports(path):
 def test_port_imports_no_jax():
     files = sorted((ROOT / "gst_plugins_rs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
+    names = {str(f.relative_to(ROOT)) for f in files}
+    # the audio slice's modules are among them
+    for mod in ("ops/ebur128.py", "ops/loudnorm.py", "ops/loudnorm_limiter.py", "ops/echo.py",
+                "ops/resample.py", "ops/yuv.py", "elements/generic/convert.py",
+                "elements/audiofx/audioloudnorm.py", "elements/audiofx/ebur128level.py",
+                "elements/audiofx/audioecho.py"):
+        assert f"gst_plugins_rs_tpu_torch/{mod}" in names, mod
     banned = ("jax", "jaxlib", "flax", "gst_plugins_rs_tpu")
     for f in files:
         for mod in _imports(f):
