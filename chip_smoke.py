@@ -60,6 +60,7 @@ ROOT = Path(__file__).resolve().parent
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 PEAK_F32 = 67e12      # FLOP/s, CUDA cores: the kernel's f32 path may not use TF32
+PEAK_F64 = 34e12      # FLOP/s, CUDA cores
 PEAK_BF16 = 989e12    # FLOP/s, tensor cores
 PEAK_BYTES = 3.35e12  # B/s, HBM3
 
@@ -1106,21 +1107,22 @@ LN_SAMPLE_TOL = 1e-9         # F64 samples, card vs CPU on the same input
 LN_LOUDNESS_TOL = 1e-6       # LU, card vs CPU
 RESAMPLE_TOL = 1e-5          # f32 resampler, card vs CPU (cuDNN sums in another order)
 ECHO_TOL = 1e-6              # f32 echo, card vs CPU
-# the path's output loudness: the reference's bar is +-1 LU of -24 LUFS on its
-# test signals (tests/test_torch_loudnorm.py holds the port to it); on the
-# tick signal below the limiter clamps every tick to -2 dBTP and takes 1.25
-# LU off (-25.25 LUFS on the CPU at 6 and 20 s), so the smoke allows 2
+# the path's output loudness, the smoke's own bar: the reference's is +-1 LU
+# of -24 LUFS on its test signals (tests/test_torch_loudnorm.py holds the
+# port to it); on the tick signal below the limiter clamps every tick to -2
+# dBTP, and the JAX element reads -25.25 LUFS on 6 s of it, as the port does
+# (tests/test_torch_audio.py, the test named for the smoke signal)
 LN_LOUDNESS_BAR = 2.0
 # the test signal: one-period 440 Hz ticks every 0.5 s at full-scale 0.8, the
 # reference's limiter signal (audio/audiofx/tests/audioloudnorm.rs) without
 # its quiet sine: normalised to -24 LUFS the ticks cross -2 dBTP, so every
 # tick's frames run the limiter and the frames between them are idle
 TICKS = "wave=ticks volume=0.8 sine-periods-per-tick=1 tick-interval=500000000"
-# the limiter's serial floor: the loop-carried chain of one FSM step (state
-# compare, select and the envelope count's add, ~3 dependent integer ops of
-# ~4 cycles) at the SM's maximum clock
+# an estimate, not a measurement, of the limiter's serial floor: the
+# loop-carried chain of one FSM step (state compare, select and the envelope
+# count's add, ~3 dependent integer ops of ~4 cycles) at the SM's maximum
+# clock; printed beside the kernel's time, not in the kernels line
 LIMITER_STEP_CYCLES = 12
-DEV = "cuda"  # the audio phases' device (a CPU rehearsal sets "cpu")
 
 
 def loudnorm_launch(seconds: int, tail: str = "audioloudnorm ! appsink name=sink") -> str:
@@ -1160,7 +1162,7 @@ def limiter_kernel(card_line):
     phase("3c audio: the limiter kernel against its plain version")
     from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
 
-    dev = torch.device(DEV)
+    dev = torch.device("cuda")
     carries = [(0, 0, -1, 0.0, 0.0), (1, 500, -1, 0.9, 0.6), (2, 0, 100, 0.7, 0.5),
                (3, 3000, -1, 0.5, 1.0)]
     cases, max_err = {}, 0.0
@@ -1199,24 +1201,31 @@ def limiter_kernel(card_line):
     for _ in range(3):
         lim.limiter_frame_plain(*args)
     plain_ms = (time.perf_counter() - t0) / 3 * 1e3
-    ch, isz = 2, 8
-    nbytes = LN_FRAME * ch * isz * 2 + LN_FRAME * (1 + isz + 1) + 3 * 4 * 2 + 2 * isz * 2
-    bound_ms = nbytes / PEAK_BYTES * 1e3
+    # what the function needs on this frame: the frame's window samples read
+    # and its output written, pk and future (a byte each), pv only at the
+    # peaks (the FSM reads it nowhere else), the carry read and written; the
+    # operations: each output sample's scale and two-sided clamp, and at each
+    # peak the gain's division and its compare (f64)
+    ch, isz, npk = w.shape[1], w.element_size(), int(pk.sum())
+    nbytes = LN_FRAME * ch * isz * 2 + LN_FRAME * 2 + npk * isz + (3 * 4 + 2 * isz) * 2
+    flop = LN_FRAME * ch * 3 + npk * 2
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flop / PEAK_F64 * 1e3
+    bound_ms, bound_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
     serial_ms = LN_FRAME * LIMITER_STEP_CYCLES / _sm_clock_hz() * 1e3
-    print(f"limiter f64 stereo frame: kernel {ms:.4f} ms peaky, {idle_ms:.4f} ms idle; plain "
-          f"(host loop, CPU) {plain_ms:.2f} ms; bound {bound_ms:.5f} ms (bytes, "
-          f"{nbytes / 1e6:.3f} MB); serial floor {serial_ms:.4f} ms ({LN_FRAME} steps x "
-          f"{LIMITER_STEP_CYCLES} cycles at the max SM clock) [{card_line}]")
+    print(f"limiter f64 stereo frame: kernel {ms:.4f} ms peaky ({npk} peaks), {idle_ms:.4f} ms "
+          f"idle; plain (host loop, CPU) {plain_ms:.2f} ms; bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{nbytes} B, {flop} f64 operations); serial floor, estimated: {serial_ms:.4f} ms "
+          f"({LN_FRAME} steps x ~{LIMITER_STEP_CYCLES} cycles at the max SM clock) [{card_line}]")
     return dict(case="192 kHz stereo f64, peaky frame", ms=ms, idle_ms=idle_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-                serial_floor_ms=serial_ms, max_abs_err=max_err, library_ms=None, bytes=nbytes)
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
+                library_ms=None, flop=flop, bytes=nbytes)
 
 
 def _r128_of(data, channels, rate):
     """(integrated loudness, sample peaks) of host samples, on the card."""
     from gst_plugins_rs_tpu_torch.ops.ebur128 import EbuR128
 
-    r = EbuR128(channels, rate, device=DEV)
+    r = EbuR128(channels, rate, device="cuda")
     r.add_frames(torch.from_numpy(np.ascontiguousarray(data)))
     return r.loudness_global(), [r.sample_peak(c) for c in range(channels)]
 
@@ -1224,8 +1233,9 @@ def _r128_of(data, channels, rate):
 def audio_pipelines():
     """Phase 4c: the full-width audioloudnorm path over AUDIO_SECONDS with the
     limiter's counter set to 0 just before and read just after, checked
-    against the reference's bar; then ebur128level and rsaudioecho at 48 kHz
-    and videotestsrc ! videoconvert I420 <-> RGBA at 1080p."""
+    against the smoke's bar (LN_LOUDNESS_BAR); then ebur128level and
+    rsaudioecho at 48 kHz and videotestsrc ! videoconvert I420 <-> RGBA at
+    1080p."""
     phase("4c audio pipelines on the card")
     import gst_plugins_rs_tpu_torch as g
     from gst_plugins_rs_tpu_torch.core import MessageType
@@ -1237,7 +1247,7 @@ def audio_pipelines():
     torch.cuda.synchronize()
     counted = lim.launches
     samples = p.by_name("sink").samples
-    if any(s.buffer.data.device.type != DEV or s.buffer.data.dtype != torch.float64
+    if any(s.buffer.data.device.type != "cuda" or s.buffer.data.dtype != torch.float64
            for s in samples):
         raise AssertionError("audioloudnorm output is not F64 on the card")
     out = p.by_name("sink").concat_audio()
@@ -1255,8 +1265,8 @@ def audio_pipelines():
         raise AssertionError("limiter launches != 100 ms output frames")
     if abs(loud + 24.0) >= LN_LOUDNESS_BAR or max(peaks) > 10 ** (-2 / 20) + 1e-9 \
             or not pts_ok:
-        raise AssertionError(f"audioloudnorm misses its bar (+-{LN_LOUDNESS_BAR} LU of -24, "
-                             f"peak <= -2 dBFS, PTS within 1 ns)")
+        raise AssertionError(f"audioloudnorm misses the smoke's bar (+-{LN_LOUDNESS_BAR} LU of "
+                             f"-24, peak <= -2 dBFS, PTS within 1 ns)")
     launches = {"loudnorm_limiter": counted}
 
     # ebur128level at 48 kHz stereo (the 4x true peak on)
@@ -1288,7 +1298,7 @@ def audio_pipelines():
     p = g.parse_launch(video_convert_launch(4))
     p.play_until_eos()
     frames_out = p.by_name("sink").samples
-    if len(frames_out) != 4 or any(s.buffer.data.device.type != DEV or
+    if len(frames_out) != 4 or any(s.buffer.data.device.type != "cuda" or
                                    tuple(s.buffer.data.shape) != (HD_H, HD_W, 4)
                                    for s in frames_out):
         raise AssertionError("videoconvert I420 round trip: frames")
@@ -1311,7 +1321,7 @@ def _on(dev, fn):
     try:
         return fn()
     finally:
-        g.set_device(DEV)
+        g.set_device("cuda")
 
 
 def _capture_loudnorm_input(seconds):
@@ -1403,7 +1413,7 @@ def audio_card_vs_cpu():
     for fmt in ("I420", "NV12"):
         to_yuv = build_format_converter(rgba, VideoInfo(fmt, HD_W, HD_H))
         back = build_format_converter(VideoInfo(fmt, HD_W, HD_H), rgba)
-        card_planes, host_planes = to_yuv(frame.to(DEV)), to_yuv(frame)
+        card_planes, host_planes = to_yuv(frame.to("cuda")), to_yuv(frame)
         same_rand &= all(torch.equal(a.cpu(), b) for a, b in zip(card_planes, host_planes))
         same_rand &= torch.equal(back(card_planes).cpu(), back(host_planes))
     print(f"ebur128level 3 s 48 kHz, card vs CPU: max |d| {d_level:.3e} (LU and true peak; "

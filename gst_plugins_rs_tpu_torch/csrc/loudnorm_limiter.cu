@@ -9,12 +9,12 @@
 // before the launch (ops/loudnorm_limiter.py::precompute_peaks).
 //
 // What bounds it on an H100.  Bytes: a stereo f64 frame reads 19,200 x 2 x 8
-// B of window, 19,200 x (1 + 8 + 1) B of pk/pv/future and writes 19,200 x 2
-// x 8 B of output, ~0.81 MB, 0.24 us at 3.35 TB/s.  But the FSM is a serial
-// recurrence: each sample's state depends on the previous one, so the
-// floor is 19,200 steps x the loop-carried chain of one step (the state
-// compare, its select and the envelope count's add, ~12 cycles; 0.12 ms at
-// 1.98 GHz).  The gain of a sample (an f64 multiply and an FMA) is off that
+// B of window and 19,200 x 2 B of pk/future flags, pv only at the peaks, and
+// writes 19,200 x 2 x 8 B of output, ~0.65 MB, 0.19 us at 3.35 TB/s.  But the
+// FSM is a serial recurrence: each sample's state depends on the previous
+// one, so the floor is 19,200 steps x the loop-carried chain of one step
+// (the state compare, its select and the envelope count's add, ~12 cycles
+// by estimate; 0.12 ms at 1.98 GHz).  The gain of a sample (an f64 multiply and an FMA) is off that
 // chain.  This simple form runs each step's compares, branches and gain in
 // order on one thread, far above that floor (PERF.md has its time).
 //

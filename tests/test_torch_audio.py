@@ -21,6 +21,7 @@ from gst_plugins_rs_tpu.ops import resample as jresample
 from gst_plugins_rs_tpu_torch.core import MessageType as TMessageType
 from gst_plugins_rs_tpu_torch.ops import echo as techo
 from gst_plugins_rs_tpu_torch.ops import resample as tresample
+from torch_parity_helpers import port_on_cpu
 
 ECHO_F32_TOL = 1e-6
 ECHO_F64_TOL = 1e-12
@@ -31,10 +32,8 @@ PEAK_TOL = 1e-12
 
 @pytest.fixture(autouse=True)
 def _on_cpu():
-    prev = tfx.requested_device()
-    tfx.set_device("cpu")
-    yield
-    tfx.set_device(prev)
+    with port_on_cpu():
+        yield
 
 
 def _both(launch, sink="sink"):
@@ -263,3 +262,55 @@ def test_ebur128level_modes_reset_and_passthrough():
     level = tfx.element_factory_make("ebur128level")
     level.reset()
     assert level._reset_pending
+
+
+# chip_smoke.py's audioloudnorm path: ticks (one 440 Hz period at 0.8 every
+# 0.5 s) at 48 kHz F32, resampled to 192 kHz F64.  Normalised to -24 LUFS
+# every tick crosses -2 dBTP, and the limiter's clamping leaves the output
+# below the target: on 6 s the JAX element reads -25.25 LUFS, and so does
+# the port, outside the reference's +-1 LU (which holds on the reference's
+# own signals, tests/test_torch_loudnorm.py).  The smoke's 2 LU bar on this
+# signal rests on this reading.
+SMOKE_TICKS = "wave=ticks volume=0.8 sine-periods-per-tick=1 tick-interval=500000000"
+SMOKE_LOUDNESS_BAR = 2.0
+LN_SAMPLE_TOL = 1e-9
+
+
+def test_audioloudnorm_on_the_smoke_signal_reads_as_the_jax_element():
+    from gst_plugins_rs_tpu.core import Buffer as JBuffer, Caps as JCaps
+    from gst_plugins_rs_tpu_torch.core import Buffer as TBuffer, Caps as TCaps
+    from gst_plugins_rs_tpu_torch.ops.ebur128 import EbuR128
+
+    front = jfx.parse_launch(
+        f"audiotestsrc {SMOKE_TICKS} num-buffers=60 samplesperbuffer=4800 "
+        f"! audio/x-raw,format=F32,rate=48000,channels=2 ! audioresample "
+        f"! audio/x-raw,rate=192000 ! audioconvert "
+        f"! audio/x-raw,format=F64,rate=192000,channels=2 ! appsink name=sink")
+    front.play_until_eos()
+    ins = [s.buffer for s in front.by_name("sink").samples]  # fed to both normalisers
+    outs, pts, loud = [], [], []
+    for pkg, buffer_cls, caps_cls in ((jfx, JBuffer, JCaps), (tfx, TBuffer, TCaps)):
+        p = pkg.parse_launch("appsrc name=src ! audioloudnorm ! appsink name=sink")
+        src = p.by_name("src")
+        src.set_property("caps", caps_cls.builder("audio/x-raw", format="F64", rate=192000,
+                                                  channels=2, layout="interleaved"))
+        for b in ins:
+            data = np.asarray(b.data)
+            if buffer_cls is TBuffer:
+                data = torch.from_numpy(data.copy())
+            src.push_buffer(buffer_cls(data, pts=b.pts, duration=b.duration, offset=b.offset))
+        src.end_of_stream()
+        p.play_until_eos()
+        samples = p.by_name("sink").samples
+        out = _concat(samples)
+        r = EbuR128(2, 192000)
+        r.add_frames(torch.from_numpy(out))
+        assert max(r.sample_peak(c) for c in range(2)) <= 10 ** (-2 / 20) + 1e-9
+        outs.append(out)
+        pts.append([s.buffer.pts for s in samples])
+        loud.append(r.loudness_global())
+    n_in = sum(np.asarray(b.data).shape[0] for b in ins)  # 6 s and the resampler's tail
+    assert pts[0] == pts[1] and outs[0].shape == outs[1].shape == (n_in, 2)
+    assert np.abs(outs[0] - outs[1]).max() <= LN_SAMPLE_TOL
+    assert abs(loud[0] - loud[1]) <= LU_TOL
+    assert 1.0 < abs(loud[0] + 24.0) < SMOKE_LOUDNESS_BAR, loud[0]

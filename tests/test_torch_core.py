@@ -21,6 +21,7 @@ import gst_plugins_rs_tpu as jfx
 import gst_plugins_rs_tpu.core as jcore
 import gst_plugins_rs_tpu_torch as tfx
 import gst_plugins_rs_tpu_torch.core as tcore
+from torch_parity_helpers import port_on_cpu
 
 PKGS = [(jfx, jcore), (tfx, tcore)]
 YUV_LSB = 1
@@ -28,10 +29,8 @@ YUV_LSB = 1
 
 @pytest.fixture(autouse=True)
 def _on_cpu():
-    prev = tfx.requested_device()
-    tfx.set_device("cpu")
-    yield
-    tfx.set_device(prev)
+    with port_on_cpu():
+        yield
 
 
 def _host(data):

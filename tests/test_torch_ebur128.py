@@ -16,6 +16,7 @@ import torch
 import gst_plugins_rs_tpu_torch as tfx
 from gst_plugins_rs_tpu.ops import ebur128 as J
 from gst_plugins_rs_tpu_torch.ops import ebur128 as T
+from torch_parity_helpers import port_on_cpu
 
 LU_TOL = 1e-9
 PEAK_TOL = 1e-12
@@ -23,10 +24,8 @@ PEAK_TOL = 1e-12
 
 @pytest.fixture(autouse=True)
 def _on_cpu():
-    prev = tfx.requested_device()
-    tfx.set_device("cpu")
-    yield
-    tfx.set_device(prev)
+    with port_on_cpu():
+        yield
 
 
 def _signal(rate, seconds, channels, seed):

@@ -27,6 +27,7 @@ from gst_plugins_rs_tpu_torch.core import SECOND, Buffer as TBuffer, Caps as TCa
 from gst_plugins_rs_tpu_torch.ops import loudnorm as TLN
 from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as TL
 from gst_plugins_rs_tpu_torch.ops.ebur128 import EbuR128
+from torch_parity_helpers import port_on_cpu
 
 RATE = 192_000
 N_LONG = 500 * 1920  # 5 s
@@ -35,10 +36,8 @@ SAMPLE_TOL = 1e-9
 
 @pytest.fixture(autouse=True)
 def _on_cpu():
-    prev = tfx.requested_device()
-    tfx.set_device("cpu")
-    yield
-    tfx.set_device(prev)
+    with port_on_cpu():
+        yield
 
 
 def _run(pkg, buffer_cls, caps_cls, signal, spb, fmt="F64"):

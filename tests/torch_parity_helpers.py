@@ -1,6 +1,7 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
-package (tests/test_torch_*.py): seeded weights that both packages load, and
-an official-style YOLOX checkpoint."""
+package (tests/test_torch_*.py): seeded weights that both packages load,
+an official-style YOLOX checkpoint, and the CPU setting of the audio tests."""
+import contextlib
 import re
 
 import jax
@@ -10,6 +11,23 @@ import torch
 
 from gst_plugins_rs_tpu_torch.models.convert import variables_from_jax, variables_to_numpy
 from gst_plugins_rs_tpu_torch.models.yolox import Yolox
+
+
+@contextlib.contextmanager
+def port_on_cpu():
+    """The port's entry points on the CPU with one intra-op thread, restored
+    after.  The audio tests' frames are small: torch's thread pool costs them
+    more than it saves, and takes the cores of the other test workers."""
+    import gst_plugins_rs_tpu_torch as tfx
+
+    prev, threads = tfx.requested_device(), torch.get_num_threads()
+    tfx.set_device("cpu")
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+        tfx.set_device(prev)
 
 
 def to_numpy(tree):
