@@ -9,8 +9,10 @@ precision=approx (B2 for RGBA, packed64, B3's chain with the glue in the
 kernel, for RGBA64LE), hsvfilter (B4), and the public functions that no
 element calls: lut3d_apply_lowrank_fused (B3 with its TPU signature) and
 lut3d_apply_mxu (B5: its packed entries for RGBA and RGBA64 frames, its
-TPU signature with the glue in torch for other layouts).  Run from the
-repository root:
+TPU signature with the glue in torch for other layouts); the EBU R-128
+audio path (audioloudnorm, kernel L1); and the denoising and spatial audio
+path (audiomixer ! audiornnoise, the GRU stack as kernel R1; hrtfrender,
+agingradio, sofalizer's UPOLS step).  Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -39,6 +41,12 @@ Phases (any failure ends the run with a non-zero exit):
   6. timing: apply_fast frames per second at batch 1 and 8, and the element
      pipelines end to end, with their device time per frame, and
      lut3d_apply_mxu's device time per frame on both of its routes.
+The audio phases follow the same steps: 3c/4c/5c/6c the R-128 path (L1),
+3d/4d/5d/6d the denoising and spatial path: R1 against its plain version on
+100 frames x 2 channels and on the path's 10-frame buffer; 60 s of two
+sources through audiomixer into audiornnoise (R1 launches = buffers), 10 s
+of hrtfrender (a synthetic HRIR sphere) and agingradio; card against CPU;
+audio seconds per wall second with device busy time per 100 ms.
 Prints a JSON line of the kernels, the card's name and power limit, then,
 last, {"ok": true, "device": ...}.  It imports nothing of JAX and nothing of
 the JAX package.
@@ -1474,6 +1482,350 @@ def audio_timing(card_line):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Denoising and spatial audio: audiornnoise (kernel R1, the GRU stack),
+# audiomixer in front of it, hrtfrender, sofalizer's UPOLS step, agingradio
+# ---------------------------------------------------------------------------
+RNN_SECONDS = 60           # the main path: 600 buffers of 4800 samples (100 ms)
+RNN_CPU_SECONDS = 6        # card against CPU
+RNN_FRAMES = 100           # R1's buffer in phase 3d: 100 frames of 10 ms
+RNN_CHANNELS = 2
+# R1 against its plain version (the frame loop of rnn_frame, on the card):
+# the same products summed in another order, expf / tanhf against torch's
+# sigmoid and tanh; gains and VAD (in [0, 1]) absolutely, the states
+# relative to 1 + |ref| (the ReLU GRUs' states are not bounded by 1)
+R1_TOL = 1e-5
+# the denoised path, card (cuFFT, R1) against CPU (pocketfft, the plain
+# frame loop), a sample in float units (1e-4 = 3.3 s16 units): the gains
+# move by ~1e-5, which a full-scale spectrum carries into the output
+RNN_PATH_TOL = 1e-4
+VAD_PATH_TOL = 1e-4
+# hrtf_convolve_blocks, upols_block and agingradio's op, card against CPU:
+# f32 FFTs of two libraries (cuFFT, pocketfft), relative to max(1, scale)
+SPATIAL_CPU_TOL = 1e-5
+AGING_CPU_TOL = 1e-6
+# multiply-adds of the GRU stack a frame and channel: dense 42x24, the GRUs'
+# W and U (24x72 + 24x72, 90x144 + 48x144, 114x288 + 96x288), the outputs
+# 96x22 + 24x1
+R1_MACS = 86_952
+R1_WEIGHTS = 87_503        # f32 parameters
+# an estimate, not a measurement, of R1's serial chain a frame: five
+# dependent stages each waiting on an L2 round trip (~260 cycles) for its
+# first weights after a barrier, the longest dot products' FMA chains with
+# four partial sums ((42 + 24 + 90 + 114 + 96) / 4 x 4 cycles), eight
+# barriers and the gate math; printed beside the kernel's time only
+R1_FRAME_CYCLES = 5 * 260 + 366 + 8 * 30 + 3 * 60
+# the mix into audiornnoise: a 180 Hz tone and white noise at 48 kHz stereo
+RNN_SINE = "wave=sine freq=180 volume=0.3"
+RNN_NOISE = "wave=white-noise volume=0.08"
+
+
+def rnnoise_launch(seconds: int, sink: str = "appsink name=sink") -> str:
+    """The main path of the denoising slice: two 48 kHz F32 stereo sources
+    summed by audiomixer into 100 ms buffers, then audiornnoise (the
+    packaged weights)."""
+    caps = "audio/x-raw,format=F32,rate=48000,channels=2"
+    n = seconds * 10
+    return (f"audiotestsrc {RNN_SINE} num-buffers={n} samplesperbuffer={AUDIO_SPB} ! {caps} "
+            f"! audiomixer name=mix output-buffer-duration=100000000 ! audiornnoise ! {sink} "
+            f"audiotestsrc {RNN_NOISE} num-buffers={n} samplesperbuffer={AUDIO_SPB} ! {caps} "
+            f"! mix.")
+
+
+def hrtf_launch(seconds: int, sink: str = "appsink name=sink") -> str:
+    return (f"audiotestsrc {RNN_SINE} num-buffers={seconds * 10} samplesperbuffer={AUDIO_SPB} "
+            f"! audio/x-raw,format=F32,rate=48000,channels=2 ! hrtfrender name=h ! {sink}")
+
+
+def aging_launch(seconds: int, sink: str = "appsink name=sink") -> str:
+    return (f"audiotestsrc {RNN_SINE} num-buffers={seconds * 10} samplesperbuffer={AUDIO_SPB} "
+            f"! audio/x-raw,format=F32,rate=48000,channels=2 ! agingradio ! {sink}")
+
+
+def hrir_sphere(rate: int = 48000, length: int = 128) -> bytes:
+    """A synthetic HRIR sphere file: an icosahedron (faces = the triples of
+    mutually adjacent vertices), each vertex's left/right IRs a panned
+    impulse with a decaying seeded tail, as tests/test_hrtfrender.py builds
+    its sphere (128 taps here, an HRIR's usual length)."""
+    import struct
+
+    phi = (1 + 5 ** 0.5) / 2
+    verts = [(0, a, b) for a in (-1, 1) for b in (-phi, phi)] + \
+        [(a, b, 0) for a in (-1, 1) for b in (-phi, phi)] + \
+        [(b, 0, a) for a in (-1, 1) for b in (-phi, phi)]
+    v = np.asarray(verts, np.float64)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    d = np.linalg.norm(v[:, None] - v[None], axis=-1)
+    adj = np.abs(d - d[d > 1e-9].min()) < 1e-6
+    faces = np.asarray([(i, j, k) for i in range(12) for j in range(i + 1, 12)
+                        for k in range(j + 1, 12) if adj[i, j] and adj[j, k] and adj[i, k]],
+                       np.uint32)
+    rng = np.random.RandomState(5)
+    tail = rng.uniform(-1, 1, (12, 2, length)) * 0.05 * 0.97 ** np.arange(length)
+    out = b"HRIR" + struct.pack("<IIII", rate, length, 12, faces.size) + faces.tobytes()
+    for i, (x, _, _) in enumerate(v.astype(np.float32)):
+        lr = tail[i].astype(np.float32)
+        lr[0, 0], lr[1, 0] = 0.5 * (1.0 - x), 0.5 * (1.0 + x)
+        out += struct.pack("<fff", *v[i].astype(np.float32)) + lr[0].tobytes() + lr[1].tobytes()
+    return out
+
+
+def _play(launch, props=None):
+    """Run a launch line to EOS; props {element name: {property: value}} are
+    set first.  Returns the pipeline."""
+    import gst_plugins_rs_tpu_torch as g
+
+    p = g.parse_launch(launch)
+    for name, kv in (props or {}).items():
+        for k, v in kv.items():
+            p.by_name(name).set_property(k, v)
+    p.play_until_eos()
+    return p
+
+
+def _rnn_buffer(dev, seed: int = 11):
+    """R1's inputs at the path's shapes from the port's front end: 100 frames
+    of a stereo harmonic-plus-noise signal (5 silent frames among them)."""
+    from gst_plugins_rs_tpu_torch.ops import rnnoise as rn
+
+    rng = np.random.RandomState(seed)
+    n = RNN_FRAMES * rn.FRAME_SIZE
+    t = np.arange(n) / 48000.0
+    sig = np.stack([0.3 * np.sin(2 * np.pi * 150 * t) + 0.1 * np.sin(2 * np.pi * 300 * t)
+                    + 0.05 * rng.randn(n),
+                    0.2 * np.sin(2 * np.pi * 233 * t) + 0.1 * rng.randn(n)])
+    sig[:, 40 * rn.FRAME_SIZE:45 * rn.FRAME_SIZE] = 0.0
+    frames = (sig * 32767).astype(np.float32).reshape(RNN_CHANNELS, RNN_FRAMES, -1)
+    frames = torch.from_numpy(frames.transpose(1, 0, 2).copy()).to(dev)
+    state = rn.denoise_init(RNN_CHANNELS, dev)
+    _, feats, _, _, _, sil = rn.analysis_frames_batch(state, frames)
+    return feats, sil, state.rnn
+
+
+def _r1_errs(got, ref):
+    (g, v, s), (rg, rv, rs) = got, ref
+    state = max(float(((a - b) / (1 + b.abs())).abs().max()) for a, b in zip(s, rs))
+    return max(float((g - rg).abs().max()), float((v - rv).abs().max()), state)
+
+
+def rnnoise_kernel(card_line):
+    """Phase 3d: R1 against its plain version (the frame loop of rnn_frame,
+    on the card) on 100 frames x 2 channels of front-end features from a
+    harmonic-plus-noise signal and of random features, and on the main
+    path's buffer (10 frames x 2), then timed beside its bound and its
+    serial-chain estimate.  Returns the 100-frame case and the path's."""
+    phase("3d denoising: the GRU-stack kernel R1 against its plain version")
+    from gst_plugins_rs_tpu_torch.ops import rnnoise as rn
+    from gst_plugins_rs_tpu_torch.ops import rnnoise_gru as gru
+
+    dev = torch.device("cuda")
+    w = rn.weights_to(rn.default_weights(), dev)
+    rng = np.random.RandomState(3)
+    feats, sil, rnn = _rnn_buffer(dev)
+    h = [torch.from_numpy(np.abs(rng.uniform(-1, 1, (RNN_CHANNELS, n))).astype(np.float32))
+         .to(dev) for n in (24, 48, 96)]
+    cases = {
+        "front end": (feats, sil, rnn),
+        "random": (torch.from_numpy(rng.randn(RNN_FRAMES, RNN_CHANNELS, rn.NB_FEATURES)
+                                    .astype(np.float32) * 2).to(dev),
+                   torch.from_numpy(rng.rand(RNN_FRAMES, RNN_CHANNELS) < 0.1).to(dev),
+                   rn.RnnState(*h)),
+        "front end (the path's buffer)": (feats[:10], sil[:10], rnn),
+    }
+    max_err = 0.0
+    for label, (f, s, r) in cases.items():
+        got = gru.rnn_frames(f, s, r, w)
+        torch.cuda.synchronize()
+        ref = gru.rnn_frames_plain(f, s, r, w)
+        err = _r1_errs(got, ref)
+        max_err = max(max_err, err)
+        print(f"R1 {label} features, {f.shape[0]} frames x {f.shape[1]} channels "
+              f"({int(s.sum())} silent): max error {err:.3e} (gate {R1_TOL})")
+        if err > R1_TOL or not all(bool(torch.isfinite(t).all()) for t in (*got[:2], *got[2])):
+            raise AssertionError(f"R1 against its plain version on {label} features: {err:.3e}")
+    timed = []
+    for f, s in ((feats, sil), (feats[:10], sil[:10])):
+        ms = cuda_ms(lambda: gru.rnn_frames(f, s, rnn, w))
+        plain_ms = cuda_ms(lambda: gru.rnn_frames_plain(f, s, rnn, w), iters=5, warmup=1)
+        # one buffer a launch: the weights read once, the features and
+        # silence flags, the gains and VADs written, the states read and
+        # written; the operations of the frames and channels not silent
+        K, C = f.shape[0], f.shape[1]
+        active = K * C - int(s.sum())
+        nbytes = R1_WEIGHTS * 4 + K * C * (rn.NB_FEATURES * 4 + 1 + rn.NB_BANDS * 4 + 4) \
+            + 2 * C * (24 + 48 + 96) * 4
+        flop = 2 * R1_MACS * active
+        bound_ms, bound_by = bound(flop, nbytes)
+        chain_ms = K * R1_FRAME_CYCLES / _sm_clock_hz() * 1e3
+        print(f"R1 {K} frames x {C} channels ({active} not silent): kernel {ms:.4f} ms, plain "
+              f"(torch ops on the card) {plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
+              f"{nbytes} B, {flop} f32 operations) [{card_line}]")
+        print(f"R1 serial chain, estimated: {chain_ms:.4f} ms ({K} frames x ~{R1_FRAME_CYCLES} "
+              f"cycles at the max SM clock)")
+        timed.append(dict(case=f"{K} frames x {C} channels of front-end features", ms=ms,
+                          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          max_abs_err=max_err, library_ms=None, flop=flop, bytes=nbytes))
+    return timed
+
+
+def denoise_pipelines():
+    """Phase 4d: the main path (two sources, audiomixer, audiornnoise) over
+    RNN_SECONDS with R1's counter set to 0 just before and read just after:
+    one launch per buffer, the exact sample count and PTS, finite output;
+    then hrtfrender (a synthetic sphere) and agingradio over 10 s."""
+    phase("4d denoising and spatial audio pipelines on the card")
+    from gst_plugins_rs_tpu_torch.elements.audiofx.audiornnoise import AudioLevelMeta
+    from gst_plugins_rs_tpu_torch.ops import rnnoise_gru as gru
+
+    gru.launches = 0
+    p = _play(rnnoise_launch(RNN_SECONDS))
+    torch.cuda.synchronize()
+    counted = gru.launches
+    samples = p.by_name("sink").samples
+    out = p.by_name("sink").concat_audio()
+    n_buf = len(samples)
+    pts = [s.buffer.pts for s in samples]
+    want_pts = [i * AUDIO_SPB * 10**9 // 48000 for i in range(n_buf)]
+    metas = [s.buffer.get_meta(AudioLevelMeta) for s in samples]
+    voiced = sum(m.voice_activity for m in metas if m is not None)
+    print(f"audiomixer ! audiornnoise {RNN_SECONDS} s 48 kHz stereo: {n_buf} buffers, "
+          f"{out.shape[0]} samples, R1 launches {counted}; PTS exact: {pts == want_pts}; "
+          f"levels {min(m.level for m in metas)}..{max(m.level for m in metas)} dB, "
+          f"{voiced} buffers with voice; output rms {float(np.sqrt((out ** 2).mean())):.4f}")
+    if any(s.buffer.data.device.type != "cuda" for s in samples):
+        raise AssertionError("audiornnoise output is not on the card")
+    if out.shape != (RNN_SECONDS * 48000, 2) or not np.isfinite(out).all() or pts != want_pts \
+            or any(m is None for m in metas):
+        raise AssertionError("audiornnoise: sample count, PTS, level meta or finiteness")
+    if counted != n_buf:
+        raise AssertionError("R1 launches != buffers processed")
+    launches = {"rnnoise_gru": counted}
+
+    sphere = hrir_sphere()
+    p = _play(hrtf_launch(10), {"h": {"hrir-raw": sphere}})
+    hout = p.by_name("sink").concat_audio()
+    hs = p.by_name("sink").samples
+    print(f"hrtfrender 10 s 48 kHz stereo -> binaural (12-vertex sphere, 128 taps): "
+          f"{len(hs)} buffers, {hout.shape[0]} samples, rms L/R "
+          f"{[round(float(v), 4) for v in np.sqrt((hout ** 2).mean(0))]}")
+    if hout.shape != (480_000, 2) or not np.isfinite(hout).all() \
+            or any(s.buffer.data.device.type != "cuda" for s in hs):
+        raise AssertionError("hrtfrender output")
+    p = _play(aging_launch(10))
+    aout = p.by_name("sink").concat_audio()
+    print(f"agingradio 10 s 48 kHz stereo: {aout.shape[0]} samples, max |x| "
+          f"{float(np.abs(aout).max()):.4f}")
+    if aout.shape != (480_000, 2) or not np.isfinite(aout).all() \
+            or np.abs(aout).max() > 1.0:
+        raise AssertionError("agingradio output")
+    return launches
+
+
+def _close_err(got, ref):
+    return float((got.cpu() - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def denoise_card_vs_cpu():
+    """Phase 5d: the RNNoise path over RNN_CPU_SECONDS on the card and on the
+    CPU; hrtf_convolve_blocks and upols_block on synthetic filters;
+    agingradio's op with injected noise and clicks."""
+    phase("5d denoising and spatial audio, card against CPU")
+    from gst_plugins_rs_tpu_torch.elements.audiofx.audiornnoise import AudioLevelMeta
+    from gst_plugins_rs_tpu_torch.ops import agingradio as ag
+    from gst_plugins_rs_tpu_torch.ops import hrtf, sofa
+
+    def path():
+        s = _play(rnnoise_launch(RNN_CPU_SECONDS)).by_name("sink").samples
+        return (np.concatenate([x.buffer.data.cpu().numpy() for x in s]),
+                [x.buffer.get_meta(AudioLevelMeta).level for x in s])
+
+    (card_out, card_lv), (host_out, host_lv) = path(), _on("cpu", path)
+    d = float(np.abs(card_out - host_out).max())
+    d_lv = max(abs(a - b) for a, b in zip(card_lv, host_lv))
+    print(f"audiomixer ! audiornnoise {RNN_CPU_SECONDS} s, card (R1, cuFFT) vs CPU (plain): "
+          f"max abs {d:.3e} a sample (gate {RNN_PATH_TOL}), level meta within {d_lv} dB")
+    if card_out.shape != host_out.shape or d > RNN_PATH_TOL or d_lv > 1:
+        raise AssertionError("audiornnoise: card and CPU disagree")
+
+    rng = np.random.RandomState(9)
+    C, K, steps, blk, L = 2, 3, 8, 512, 128
+    x = torch.from_numpy(rng.uniform(-0.5, 0.5, (C, K, steps * blk)).astype(np.float32))
+    hr = torch.from_numpy(rng.uniform(-0.5, 0.5, (C, steps, 2, L)).astype(np.float32))
+    gains = torch.from_numpy(rng.uniform(0.5, 1.0, (C, steps)).astype(np.float32))
+    tails = torch.from_numpy(rng.uniform(-0.1, 0.1, (C, 2, L - 1)).astype(np.float32))
+    hc = hrtf.hrtf_convolve_blocks(*(t.cuda() for t in (x, hr, gains, tails)), block_len=blk,
+                                   steps=steps)
+    hh = hrtf.hrtf_convolve_blocks(x, hr, gains, tails, block_len=blk, steps=steps)
+    d_h = max(_close_err(a, b) for a, b in zip(hc, hh))
+    P, PL = 8, 64
+    Hr, Hi = sofa.partition_filter(rng.uniform(-1, 1, (2, P * PL - 5)).astype(np.float32), PL)
+    H = [torch.from_numpy(np.broadcast_to(m, (C,) + m.shape).copy()) for m in (Hr, Hi)]
+    st_c = [torch.zeros(C, P, PL + 1, device="cuda")] * 2 + [torch.zeros(C, PL, device="cuda")]
+    st_h = [torch.zeros(C, P, PL + 1)] * 2 + [torch.zeros(C, PL)]
+    d_s = 0.0
+    for i in range(12):
+        xb = torch.from_numpy(rng.uniform(-1, 1, (C, PL)).astype(np.float32))
+        *st_c, yc = sofa.upols_block(*st_c, xb.cuda(), *(m.cuda() for m in H))
+        *st_h, yh = sofa.upols_block(*st_h, xb, *H)
+        d_s = max(d_s, _close_err(yc, yh))
+    N = 48_000
+    xa = torch.from_numpy(rng.uniform(-0.7, 0.7, (N, 2)).astype(np.float32))
+    clicks = torch.from_numpy(rng.rand(N // 2) < 0.001)
+    noise = torch.from_numpy(rng.uniform(-1, 1, (N, 2)).astype(np.float32))
+    f0 = torch.zeros(2)
+    args = (0.011, ag.lowpass_alpha(48000, 2000), 4.0, 1.0)
+    ac, sc_ = ag.agingradio_process(xa.cuda(), clicks.cuda(), noise.cuda(), f0.cuda(), *args,
+                                    passes=3, use_lowpass=True)
+    ah, sh_ = ag.agingradio_process(xa, clicks, noise, f0, *args, passes=3, use_lowpass=True)
+    d_a = max(float((ac.cpu() - ah).abs().max()), float((sc_.cpu() - sh_).abs().max()))
+    print(f"hrtf_convolve_blocks ({C} channels, {K} blocks of {steps}x{blk}, {L} taps): "
+          f"{d_h:.3e} of scale; upols_block ({P} partitions of {PL}, 12 blocks): {d_s:.3e} of "
+          f"scale (gate {SPATIAL_CPU_TOL}); agingradio op, 1 s, injected draws: max abs "
+          f"{d_a:.3e} (gate {AGING_CPU_TOL})")
+    if d_h > SPATIAL_CPU_TOL or d_s > SPATIAL_CPU_TOL or d_a > AGING_CPU_TOL:
+        raise AssertionError("hrtf, upols or agingradio: card and CPU disagree")
+
+
+def denoise_timing(card_line):
+    """Phase 6d: seconds of audio per wall second of the 4d paths over 60 s
+    (after a warm-up run), device busy time, device ops per 100 ms of audio
+    and the top device ops (torch.profiler over 6 s)."""
+    phase("6d denoising and spatial audio timing")
+    from torch.profiler import ProfilerActivity, profile
+
+    sphere = {"h": {"hrir-raw": hrir_sphere()}}
+    rows = {}
+    for label, make, props in (
+            ("audiomixer ! audiornnoise 48 kHz stereo (with its two sources)",
+             lambda s: rnnoise_launch(s, "fakesink"), None),
+            ("hrtfrender 48 kHz stereo -> binaural", lambda s: hrtf_launch(s, "fakesink"), sphere),
+            ("agingradio 48 kHz stereo", lambda s: aging_launch(s, "fakesink"), None)):
+        _play(make(6), props)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _play(make(RNN_SECONDS), props)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n_prof = 60  # 100 ms buffers in 6 s
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _play(make(n_prof // 10), props)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        if not events:
+            raise AssertionError("torch.profiler recorded no device events")
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        ops = sum(e.count for e in events if not e.key.startswith("Memcpy"))
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+        rows[label] = dict(audio_s_per_s=RNN_SECONDS / secs, busy_ms_per_100ms=busy / n_prof,
+                           ops_per_100ms=ops / n_prof)
+        print(f"{label}: {RNN_SECONDS} s of audio in {secs:.3f} s, {RNN_SECONDS / secs:.2f} s of "
+              f"audio per second; device busy {busy / n_prof:.4f} ms and {ops / n_prof:.1f} "
+              f"device ops per 100 ms of audio (torch.profiler, {n_prof} buffers); ms per 100 ms "
+              f"by op: " + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3 / n_prof:.4f}"
+                                     for e in top) + f" [{card_line}]")
+    return rows
+
+
 def main() -> int:
     card_line = card()
     sys.path.insert(0, str(ROOT))
@@ -1489,11 +1841,15 @@ def main() -> int:
     card_vs_cpu()
     effects_card_vs_cpu(grade)
     limiter_case = limiter_kernel(card_line)
+    rnn_cases = rnnoise_kernel(card_line)
     audio_launches = audio_pipelines()
+    audio_launches.update(denoise_pipelines())
     audio_card_vs_cpu()
+    denoise_card_vs_cpu()
     timing(card_line)
     effects_timing(card_line, grade)
     audio_timing(card_line)
+    denoise_timing(card_line)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "library_ms")
     main_case = next(c for c in cases if c["dtype"] == "f32" and c["batch"] == 1)
     entries = [{
@@ -1539,6 +1895,15 @@ def main() -> int:
         "launches": audio_launches["loudnorm_limiter"],
         **{k: limiter_case[k] for k in keys},
         "cases": [limiter_case],
+    })
+    entries.append({
+        "name": "rnnoise_gru",
+        "route": "cuda",
+        "source": "gst_plugins_rs_tpu_torch/csrc/rnnoise_gru.cu",
+        "replaces": "gst_plugins_rs_tpu/ops/rnnoise.py:309",
+        "launches": audio_launches["rnnoise_gru"],
+        **{k: rnn_cases[0][k] for k in keys},  # 100 frames, as phase 3d states
+        "cases": rnn_cases,
     })
     if any(e["launches"] < 1 for e in entries + b3["entries"] + b5["entries"]):
         raise AssertionError("a kernel of the paths was never launched")

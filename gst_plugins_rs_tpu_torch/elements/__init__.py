@@ -2,10 +2,20 @@
 factories ported so far: the core plumbing (sources, sinks, capsfilter,
 identity, queue, tee, audioconvert, audioresample, videoconvert), the YOLOX
 detection slice, the per-pixel video effects (colorlut, hsvfilter,
-hsvdetector) and the EBU R-128 audio path (audioloudnorm, ebur128level,
-rsaudioecho)."""
+hsvdetector), the EBU R-128 audio path (audioloudnorm, ebur128level,
+rsaudioecho), the RNNoise denoiser (audiornnoise), the spatial renderers
+(hrtfrender, sofalizer), agingradio and audiomixer."""
 from . import sinks, sources  # noqa: F401
 from .analytics import combiner, meta, yoloxinference, yoloxtensordec  # noqa: F401
-from .audiofx import audioecho, audioloudnorm, ebur128level  # noqa: F401
+from .audiofx import (  # noqa: F401
+    agingradio,
+    audioecho,
+    audioloudnorm,
+    audiomixer,
+    audiornnoise,
+    ebur128level,
+    hrtfrender,
+    sofalizer,
+)
 from .generic import basic, convert  # noqa: F401
 from .video import colorlut, hsv  # noqa: F401

@@ -544,3 +544,111 @@ def test_limiter_kernel_rejects_bad_operands(cuda):
     with pytest.raises(ValueError):
         lim.limiter_frame(w, ci.cpu(), cf, 0.79, pk, pv, fut)
     assert lim.launches == before
+
+
+# Kernel R1, the RNNoise GRU stack over a buffer's frames
+# (csrc/rnnoise_gru.cu), against its plain version (a frame loop of the
+# port's rnn_frame): the same products summed in another order and expf /
+# tanhf against torch's sigmoid and tanh, so within R1_TOL, not bit-equal:
+# gains and VAD (in [0, 1]) absolutely, the states relative to 1 + |ref|.
+R1_TOL = 1e-5
+
+
+def _r1_inputs(kind, K, C, seed, dev):
+    from gst_plugins_rs_tpu_torch.ops import rnnoise as rn
+
+    rng = np.random.RandomState(seed)
+    w = rn.random_weights(seed) if kind == "random" else rn.default_weights()
+    feats = torch.from_numpy(rng.randn(K, C, rn.NB_FEATURES).astype(np.float32) * 2.0).to(dev)
+    sil = torch.from_numpy(rng.rand(K, C) < 0.2).to(dev)
+    h = [torch.from_numpy(np.abs(rng.uniform(-0.5, 0.5, (C, n))).astype(np.float32)).to(dev)
+         for n in (24, 48, 96)]
+    return feats, sil, rn.RnnState(*h), rn.weights_to(w, dev)
+
+
+def _r1_errors(got, ref):
+    (g, v, s), (rg, rv, rs) = got, ref
+    state = max(float(((a.cpu() - b) / (1 + b.abs())).abs().max()) for a, b in zip(s, rs))
+    return float((g.cpu() - rg).abs().max()), float((v.cpu() - rv).abs().max()), state
+
+
+def _r1_check(feats, sil, rnn, w):
+    from gst_plugins_rs_tpu_torch.ops import rnnoise_gru as gru
+
+    before = gru.launches
+    got = gru.rnn_frames(feats, sil, rnn, w)
+    torch.cuda.synchronize()
+    assert gru.launches == before + 1
+    assert all(t.device.type == "cuda" for t in (got[0], got[1], *got[2]))
+    ref = gru.rnn_frames_plain(feats.cpu(), sil.cpu(), type(rnn)(*(h.cpu() for h in rnn)),
+                               {k: t.cpu() for k, t in w.items()})
+    assert torch.equal(got[0].cpu()[sil.cpu()], torch.ones_like(ref[0][sil.cpu()]))
+    assert torch.equal(got[1].cpu()[sil.cpu()], torch.zeros_like(ref[1][sil.cpu()]))
+    errs = _r1_errors(got, ref)
+    assert max(errs) <= R1_TOL, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "packaged"])
+@pytest.mark.parametrize("K,C", [(1, 1), (10, 2), (100, 2), (37, 5)])
+def test_rnnoise_gru_kernel_matches_plain(cuda, kind, K, C):
+    _r1_check(*_r1_inputs(kind, K, C, K + C, cuda))
+
+
+@pytest.mark.cuda
+def test_rnnoise_gru_kernel_on_front_end_features(cuda):
+    """100 frames of a harmonic-plus-noise stereo signal through the port's
+    batched front end on the card, then R1 against its plain version."""
+    from gst_plugins_rs_tpu_torch.ops import rnnoise as rn
+
+    rng = np.random.RandomState(11)
+    t = np.arange(100 * rn.FRAME_SIZE) / 48000.0
+    sig = np.stack([0.3 * np.sin(2 * np.pi * 150 * t) + 0.05 * rng.randn(t.size),
+                    0.2 * np.sin(2 * np.pi * 233 * t) + 0.1 * rng.randn(t.size)])
+    sig[:, 20 * rn.FRAME_SIZE:25 * rn.FRAME_SIZE] = 0.0  # silent frames
+    frames = torch.from_numpy((sig * 32767).astype(np.float32).reshape(2, 100, -1)
+                              .transpose(1, 0, 2).copy()).to(cuda)
+    state = rn.denoise_init(2, cuda)
+    _, feats, _, _, _, sil = rn.analysis_frames_batch(state, frames)
+    assert bool(sil.any()) and not bool(sil.all())
+    _r1_check(feats, sil, state.rnn, rn.weights_to(rn.default_weights(), cuda))
+
+
+@pytest.mark.cuda
+def test_rnnoise_gru_kernel_rejects_bad_operands(cuda):
+    from gst_plugins_rs_tpu_torch.ops import rnnoise_gru as gru
+
+    feats, sil, rnn, w = _r1_inputs("random", 4, 2, 0, cuda)
+    before = gru.launches
+    with pytest.raises(ValueError):
+        gru.rnn_frames(feats.double(), sil, rnn, w)
+    with pytest.raises(ValueError):
+        gru.rnn_frames(feats, sil.cpu(), rnn, w)
+    with pytest.raises(ValueError):
+        gru.rnn_frames(feats, sil, rnn, {**w, "vad_gru_u": w["vad_gru_u"].cpu()})
+    with pytest.raises(ValueError):
+        gru.rnn_frames(feats, sil, rnn._replace(vad_h=rnn.vad_h[:1]), w)
+    assert gru.launches == before
+
+
+@pytest.mark.cuda
+def test_denoise_frames_fast_card_vs_cpu(cuda):
+    """The batched denoiser (front end, R1, synthesis) on the card against
+    the same function on the CPU, over two buffers: within 0.25 s16 units
+    (cuFFT against pocketfft, cuBLAS sums, R1's roundings)."""
+    from gst_plugins_rs_tpu_torch.ops import rnnoise as rn
+    from gst_plugins_rs_tpu_torch.ops import rnnoise_gru as gru
+
+    rng = np.random.RandomState(12)
+    x = (rng.uniform(-0.4, 0.4, (20, 2, rn.FRAME_SIZE)) * 32767).astype(np.float32)
+    x[13] = 0.0
+    w = rn.default_weights()
+    sc, sh = rn.denoise_init(2, cuda), rn.denoise_init(2, "cpu")
+    wc, wh = rn.weights_to(w, cuda), rn.weights_to(w, "cpu")
+    before = gru.launches
+    for chunk in (x[:10], x[10:]):
+        sc, oc, vc = rn.denoise_frames_fast(sc, wc, torch.from_numpy(chunk).to(cuda))
+        sh, oh, vh = rn.denoise_frames_fast(sh, wh, torch.from_numpy(chunk))
+        assert float((oc.cpu() - oh).abs().max()) <= 0.25
+        assert float((vc.cpu() - vh).abs().max()) <= 1e-4
+    assert gru.launches == before + 2

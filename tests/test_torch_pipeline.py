@@ -254,12 +254,13 @@ def test_factories_mirror_jax():
             "analyticssplitter", "videotestsrc", "appsrc", "appsink", "fakesink",
             "capsfilter", "identity", "queue", "colorlut", "hsvfilter",
             "hsvdetector", "audiotestsrc", "tee", "audioconvert", "audioresample",
-            "videoconvert", "audioloudnorm", "ebur128level", "rsaudioecho"} == set(names)
+            "videoconvert", "audioloudnorm", "ebur128level", "rsaudioecho", "audiornnoise",
+            "agingradio", "hrtfrender", "sofalizer", "audiomixer"} == set(names)
     for name in names:
         jc, tc = jfactory(name), tfactory(name)
         assert [(p.name, repr(p.default), p.type, p.choices) for p in jc.PROPERTIES] == \
             [(p.name, repr(p.default), p.type, p.choices) for p in tc.PROPERTIES], name
-        for attr in ("SINK_CAPS", "SRC_CAPS", "SRC_TEMPLATE_CAPS"):
+        for attr in ("SINK_CAPS", "SRC_CAPS", "SRC_TEMPLATE_CAPS", "SINK_TEMPLATE_CAPS"):
             assert repr(getattr(jc, attr, None)) == repr(getattr(tc, attr, None)), (name, attr)
 
 
@@ -280,11 +281,15 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "gst_plugins_rs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
     names = {str(f.relative_to(ROOT)) for f in files}
-    # the audio slice's modules are among them
+    # the audio slices' modules are among them
     for mod in ("ops/ebur128.py", "ops/loudnorm.py", "ops/loudnorm_limiter.py", "ops/echo.py",
                 "ops/resample.py", "ops/yuv.py", "elements/generic/convert.py",
                 "elements/audiofx/audioloudnorm.py", "elements/audiofx/ebur128level.py",
-                "elements/audiofx/audioecho.py"):
+                "elements/audiofx/audioecho.py", "ops/rfft.py", "ops/rnnoise.py",
+                "ops/rnnoise_gru.py", "ops/agingradio.py", "ops/hrtf.py", "ops/sofa.py",
+                "elements/audiofx/audiornnoise.py", "elements/audiofx/agingradio.py",
+                "elements/audiofx/hrtfrender.py", "elements/audiofx/sofalizer.py",
+                "elements/audiofx/audiomixer.py"):
         assert f"gst_plugins_rs_tpu_torch/{mod}" in names, mod
     banned = ("jax", "jaxlib", "flax", "gst_plugins_rs_tpu")
     for f in files:
