@@ -12,7 +12,11 @@ lut3d_apply_mxu (B5: its packed entries for RGBA and RGBA64 frames, its
 TPU signature with the glue in torch for other layouts); the EBU R-128
 audio path (audioloudnorm, kernel L1); and the denoising and spatial audio
 path (audiomixer ! audiornnoise, the GRU stack as kernel R1; hrtfrender,
-agingradio, sofalizer's UPOLS step).  Run from the repository root:
+agingradio, sofalizer's UPOLS step); the 1080p video composition path
+(videoscale, skiacompositor, roundedcorners, colordetect, videocompare,
+videoconvertscale) and Demucs at its published width (model-name=demucs,
+265 646 728 parameters), which run no hand kernel.  Run from the repository
+root:
 
     python3 chip_smoke.py
 
@@ -47,6 +51,17 @@ The audio phases follow the same steps: 3c/4c/5c/6c the R-128 path (L1),
 sources through audiomixer into audiornnoise (R1 launches = buffers), 10 s
 of hrtfrender (a synthetic HRIR sphere) and agingradio; card against CPU;
 audio seconds per wall second with device busy time per 100 ms.
+4e/5e/6e the composition path: three 1080p sources into skiacompositor (one
+through videoscale to 720p and placed at 480x270 with alpha 0.7, one partly
+out of bounds), tee'd into videoconvert ! I420 ! roundedcorners, colordetect
+! videocompare and an appsink, and a second videocompare on identical input;
+a videoconvertscale chain I420 1080p -> RGB 720p; frame counts, PTS, caps,
+the A420 alpha plane, the messages; card against CPU within 1 LSB; frames per
+second and device ms a frame.  4f/5f/6f Demucs: 30 s of 48 kHz stereo through
+model-name=demucs in 1 s segments (four stems each, the parameter count),
+demucs-lite with the packaged weights (an 80 Hz sine routes to src_bass);
+one full-width segment card against CPU; seconds of audio per second and
+device ms a segment.
 Prints a JSON line of the kernels, the card's name and power limit, then,
 last, {"ok": true, "device": ...}.  It imports nothing of JAX and nothing of
 the JAX package.
@@ -1826,6 +1841,368 @@ def denoise_timing(card_line):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Video composition at 1080p: videoscale, skiacompositor, roundedcorners,
+# colordetect, videocompare, and a videoconvertscale chain
+# ---------------------------------------------------------------------------
+
+COMP_FRAMES = 30           # frames of the composition path in phase 4e
+COMP_TIMING_FRAMES = 120   # ... timed in phase 6e
+COMP_PROFILE_FRAMES = 10   # ... under torch.profiler
+SCALED_W, SCALED_H = 1280, 720  # videoscale's output in front of the compositor
+PAD_W, PAD_H = 480, 270         # that pad's placement size: the antialiased downscale
+CORNER_RADIUS = 48
+
+
+def compose_launch(frames: int) -> str:
+    """Path 1: three 30 fps sources into skiacompositor (sink_0 the 1080p
+    SMPTE frame, sink_1 a checkers frame scaled to 720p by videoscale, sink_2
+    a white 640x360 frame partly out of bounds); the composite tee'd into
+    videoconvert ! I420 ! roundedcorners, into colordetect ! videocompare
+    (against the unmodified SMPTE source) and into an appsink; a second
+    videocompare gets the unmodified source on both pads.  No
+    `queue`: the aggregators take no lock, and queue threads feeding one
+    from two sides reorder its output (ROADMAP section C); the tees push in
+    order on the sources' thread."""
+    hd = f"video/x-raw,format=RGBA,width={HD_W},height={HD_H},framerate=30/1"
+    return (
+        f"videotestsrc pattern=smpte num-buffers={frames} ! {hd} ! tee name=ta "
+        f"ta. ! comp. ta. ! cmp. ta. ! same. ta. ! same. "
+        f"videotestsrc pattern=checkers-8 num-buffers={frames} ! {hd} "
+        f"! videoscale ! video/x-raw,width={SCALED_W},height={SCALED_H} ! comp. "
+        f"videotestsrc pattern=white num-buffers={frames} "
+        f"! video/x-raw,format=RGBA,width=640,height=360,framerate=30/1 ! comp. "
+        f"skiacompositor name=comp ! tee name=tc "
+        f"tc. ! videoconvert ! video/x-raw,format=I420 "
+        f"! roundedcorners border-radius-px={CORNER_RADIUS} ! appsink name=rounded "
+        f"tc. ! colordetect ! cmp. "
+        f"tc. ! appsink name=canvas "
+        f"videocompare name=cmp ! appsink name=cmpsink "
+        f"videocompare name=same ! appsink name=samesink")
+
+
+# the pads' placement: sink_1 at (960, 270) over the SMPTE bars near the
+# blockhash median, so the composite's hash differs from the source's; sink_2
+# at (1600, -100), 640x360, cropped to its lower left 320x260
+PAD_PROPS = {
+    "sink_1": {"xpos": 960.0, "ypos": 270.0, "width": float(PAD_W), "height": float(PAD_H),
+               "alpha": 0.7, "operator": "over", "anti-alias": True},
+    "sink_2": {"xpos": 1600.0, "ypos": -100.0},
+}
+
+
+def compose_pipeline(frames: int):
+    import gst_plugins_rs_tpu_torch as g
+
+    p = g.parse_launch(compose_launch(frames))
+    pads = {pad.name: pad for pad in p.by_name("comp").agg_pads()}
+    for name, props in PAD_PROPS.items():
+        for k, v in props.items():
+            pads[name].set_property(k, v)
+    return p
+
+
+def convertscale_pipeline(frames: int):
+    import gst_plugins_rs_tpu_torch as g
+
+    return g.parse_launch(convertscale_launch(frames))
+
+
+def convertscale_launch(frames: int) -> str:
+    return (f"videotestsrc pattern=smpte num-buffers={frames} "
+            f"! video/x-raw,format=RGBA,width={HD_W},height={HD_H},framerate=30/1 "
+            f"! videoconvert ! video/x-raw,format=I420 ! videoconvertscale "
+            f"! video/x-raw,format=RGB,width={SCALED_W},height={SCALED_H} ! appsink name=sink")
+
+
+def _element_messages(msgs, name, src=None):
+    """The structures of the element messages called `name` among `msgs`
+    (posted by the element called `src`, when given)."""
+    return [m.structure for m in msgs
+            if m.structure is not None and m.structure.name == name
+            and (src is None or getattr(m.src, "name", None) == src)]
+
+
+def compose_pipelines():
+    """Phase 4e: path 1 over COMP_FRAMES frames and the videoconvertscale
+    chain: frame counts, PTS and caps on every sink, the A420 alpha plane,
+    colordetect's palette message, videocompare's matches (every frame for
+    identical input, none for the composite); everything on the card."""
+    phase("4e video composition pipelines on the card")
+    from gst_plugins_rs_tpu_torch.elements.video.roundedcorners import rounded_alpha_mask
+
+    p = compose_pipeline(COMP_FRAMES)
+    t0 = time.perf_counter()
+    p.play_until_eos()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want_pts = [i * (10**9 // 30) for i in range(COMP_FRAMES)]  # videotestsrc: n x duration
+    sinks = {n: p.by_name(n) for n in ("rounded", "canvas", "cmpsink", "samesink")}
+    for name, s in sinks.items():
+        pts = [x.buffer.pts for x in s.samples]
+        if len(s.samples) != COMP_FRAMES or pts != want_pts:
+            raise AssertionError(f"{name}: {len(s.samples)} frames, PTS {pts[:3]}...")
+        data = s.samples[0].buffer.data
+        if any(t.device.type != "cuda" for t in (data if isinstance(data, tuple) else (data,))):
+            raise AssertionError(f"{name}: output is not on the card")
+    # videocompare sends no caps event downstream, in both packages
+    caps = {n: sinks[n].caps.structure(0) for n in ("rounded", "canvas")}
+    if (caps["rounded"]["format"], caps["canvas"]["format"]) != ("A420", "RGBA") or any(
+            (c["width"], c["height"]) != (HD_W, HD_H) for c in caps.values()) \
+            or any(tuple(sinks[n].samples[0].buffer.data.shape) != (HD_H, HD_W, 4)
+                   for n in ("canvas", "cmpsink", "samesink")):
+        raise AssertionError(f"caps {caps} or frame shapes")
+    y, u, v, a = sinks["rounded"].samples[-1].buffer.data
+    shapes = [tuple(t.shape) for t in (y, u, v, a)]
+    mask = rounded_alpha_mask(h=HD_H, w=HD_W, radius=CORNER_RADIUS, dev=torch.device("cpu"))
+    if shapes != [(HD_H, HD_W), (HD_H // 2, HD_W // 2), (HD_H // 2, HD_W // 2), (HD_H, HD_W)] \
+            or not torch.equal(a.cpu(), mask) or int(a[0, 0]) != 0 or int(a[540, 960]) != 255:
+        raise AssertionError(f"A420 planes {shapes} or the alpha plane")
+    canvas = sinks["canvas"].samples[0].buffer.data
+    msgs = list(p.bus.messages())  # the bus hands each message out once
+    detect = _element_messages(msgs, "colordetect")
+    same = [m for m in _element_messages(msgs, "videocompare", "same")
+            if m["pad-distances"][0]["distance"] == 0]
+    cmp_msgs = len(_element_messages(msgs, "videocompare", "cmp"))
+    print(f"composition path {HD_W}x{HD_H}, {COMP_FRAMES} frames in {secs:.3f} s (first run, "
+          f"set-up included): every sink {COMP_FRAMES} frames with PTS i x 33333333 ns on the card; "
+          f"A420 planes {shapes}, alpha plane equal to the CPU mask (radius {CORNER_RADIUS}); "
+          f"canvas mean {float(canvas.float().mean()):.3f}; colordetect "
+          f"{[(m['dominant-color'], [hex(c) for c in m['palette']]) for m in detect]}; "
+          f"videocompare: {len(same)} matches for identical input, {cmp_msgs} for the composite")
+    if not detect or not all(m["palette"] for m in detect):
+        raise AssertionError("colordetect posted no palette")
+    if len(same) != COMP_FRAMES or cmp_msgs != 0:
+        raise AssertionError("videocompare: expected a match a frame for identical input and "
+                             "none for the composite")
+    p = _play(convertscale_launch(COMP_FRAMES))
+    s = p.by_name("sink").samples
+    if len(s) != COMP_FRAMES or tuple(s[0].buffer.data.shape) != (SCALED_H, SCALED_W, 3) \
+            or s[0].buffer.data.device.type != "cuda" \
+            or [x.buffer.pts for x in s] != want_pts:
+        raise AssertionError("videoconvertscale I420 1080p -> RGB 720p")
+    print(f"videoconvertscale I420 {HD_W}x{HD_H} -> RGB {SCALED_W}x{SCALED_H}: {len(s)} frames, "
+          f"PTS exact, on the card")
+
+
+def _composition_outputs(frames: int = 1):
+    """The composite, the A420 planes, the messages and the
+    videoconvertscale frame of one run on the current device, on the host."""
+    p = compose_pipeline(frames)
+    p.play_until_eos()
+    rounded = p.by_name("rounded").samples[-1].buffer.data
+    msgs = list(p.bus.messages())
+    msgs = [repr(m) for m in _element_messages(msgs, "colordetect")
+            + _element_messages(msgs, "videocompare")]
+    scaled = _play(convertscale_launch(1)).by_name("sink").samples[0].buffer.data
+    return (p.by_name("canvas").samples[-1].buffer.data.cpu(),
+            tuple(t.cpu() for t in rounded), msgs, scaled.cpu())
+
+
+def compose_card_vs_cpu():
+    """Phase 5e: one frame of path 1 and of the videoconvertscale chain on
+    the card and on the CPU: the composite, the A420 planes and the scaled
+    frame within LSB_TOL, the same messages."""
+    phase("5e video composition, card against CPU")
+    card_out, host_out = _composition_outputs(), _on("cpu", _composition_outputs)
+    d_canvas = _lsb(card_out[0].numpy(), host_out[0].numpy())
+    d_planes = max(_lsb(a.numpy(), b.numpy()) for a, b in zip(card_out[1], host_out[1]))
+    d_scaled = _lsb(card_out[3].numpy(), host_out[3].numpy())
+    print(f"composition {HD_W}x{HD_H}, card vs CPU: composite {d_canvas} LSB, A420 planes "
+          f"{d_planes} LSB, videoconvertscale frame {d_scaled} LSB (gate {LSB_TOL}); "
+          f"messages equal: {card_out[2] == host_out[2]}")
+    if max(d_canvas, d_planes, d_scaled) > LSB_TOL or card_out[2] != host_out[2]:
+        raise AssertionError("composition: card and CPU disagree")
+
+
+def compose_timing(card_line):
+    """Phase 6e: path 1 and the videoconvertscale chain, wall-clock frames
+    per second over COMP_TIMING_FRAMES (after a warm-up run), device busy
+    ms per frame and the top device ops (torch.profiler)."""
+    phase("6e video composition timing")
+    from gst_plugins_rs_tpu_torch.core import State
+    from gst_plugins_rs_tpu_torch.elements.video.compositor import composite
+    from gst_plugins_rs_tpu_torch.ops.resize import resize_matrices, resize_u8
+
+    # the path's two device steps alone, CUDA events: videoscale's 1080p ->
+    # 720p resize and one composite of the three pads at the path's placement
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    frames = [torch.randint(0, 256, shape, generator=gen, device="cuda", dtype=torch.uint8)
+              for shape in ((HD_H, HD_W, 4), (SCALED_H, SCALED_W, 4), (260, 320, 4))]
+    ah, aw = resize_matrices(HD_H, HD_W, SCALED_H, SCALED_W, "bilinear", "cuda")
+    resize_ms = cuda_ms(lambda: resize_u8(frames[0], ah, aw))
+    placements = [(0, 0, HD_W, HD_H), (960, 270, PAD_W, PAD_H), (1600, 0, 320, 260)]
+    comp_ms = cuda_ms(lambda: composite(frames, [1.0, 0.7, 1.0], placements, out_h=HD_H,
+                                        out_w=HD_W, channels=4, operators=["over"] * 3,
+                                        methods=["linear"] * 3))
+    print(f"videoscale RGBA {HD_W}x{HD_H} -> {SCALED_W}x{SCALED_H} (resize_u8): {resize_ms:.4f} ms; "
+          f"skiacompositor's composite of the path's three pads: {comp_ms:.4f} ms (CUDA events, "
+          f"median) [{card_line}]")
+    rows = {"resize_ms": resize_ms, "composite_ms": comp_ms}
+    for label, make in (("composition path (3 sources, videoscale, skiacompositor, "
+                         "roundedcorners, colordetect, 2 videocompare)", compose_pipeline),
+                        ("videoconvertscale I420 1080p -> RGB 720p (with its source)",
+                         convertscale_pipeline)):
+        make(COMP_PROFILE_FRAMES).play_until_eos()  # warm-up
+        torch.cuda.synchronize()
+        p = make(COMP_TIMING_FRAMES)
+        p.set_state(State.PLAYING)
+        t0 = time.perf_counter()
+        p.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        p.set_state(State.NULL)
+        p = make(COMP_PROFILE_FRAMES)
+        p.set_state(State.PLAYING)
+        device_ms, upload_ms, top = profile_device(p.run)
+        p.set_state(State.NULL)
+        per_frame = device_ms / COMP_PROFILE_FRAMES
+        rows[label] = dict(fps=COMP_TIMING_FRAMES / secs, device_ms=per_frame)
+        print(f"{label}, {HD_W}x{HD_H}: {COMP_TIMING_FRAMES} frames in {secs:.3f} s, "
+              f"{COMP_TIMING_FRAMES / secs:.2f} frames/s end to end; device busy "
+              f"{per_frame:.4f} ms per frame (torch.profiler, {COMP_PROFILE_FRAMES} frames, "
+              f"host-to-device copies left out: {upload_ms:.4f} ms in all), "
+              f"{100 * per_frame * COMP_TIMING_FRAMES / (secs * 1e3):.1f}% of the wall time; "
+              f"ms per frame by device op: "
+              + ", ".join(f"{name} {ms / COMP_PROFILE_FRAMES:.4f}" for name, ms in top)
+              + f" [{card_line}]")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Demucs at its published width (model-name=demucs) and demucs-lite
+# ---------------------------------------------------------------------------
+
+DEMUCS_SECONDS = 30        # of 48 kHz stereo audio through model-name=demucs in 4f and 6f
+DEMUCS_PARAMS = 265_646_728  # channels 64, depth 6, two BiLSTM layers (flax's tree)
+# one 1 s segment at full width, card (cuDNN convs and LSTM, cuBLAS, TF32
+# off) against CPU: max |d| over max |ref| a stem tensor
+DEMUCS_CPU_TOL = 1e-3
+STEMS = ("drums", "bass", "other", "vocals")
+
+
+def demucs_launch(seconds: int, model: str = "demucs", rate: int = 48000, wave: str = "saw",
+                  freq: float = 220.0, segment: int = 10**9) -> str:
+    spb = rate // 10
+    return (f"audiotestsrc wave={wave} freq={freq} num-buffers={seconds * 10} "
+            f"samplesperbuffer={spb} ! audio/x-raw,format=F32,rate={rate},channels=2 "
+            f"! demucs name=d model-name={model} segment-duration={segment} "
+            + " ".join(f"d.src_{s} ! appsink name={s}" for s in STEMS))
+
+
+def demucs_pipelines():
+    """Phase 4f: DEMUCS_SECONDS of 48 kHz stereo through model-name=demucs
+    (weights from the port's torch.Generator initialiser, seed 0): four stems
+    a 1 s segment, 48 000 samples each, finite, PTS i s, on the card, and the
+    published parameter count; then demucs-lite with the packaged weights: an
+    80 Hz sine routes mostly to src_bass."""
+    phase("4f Demucs pipelines on the card")
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.core import State
+
+    p = g.parse_launch(demucs_launch(DEMUCS_SECONDS))
+    t0 = time.perf_counter()
+    p.set_state(State.PAUSED)
+    model = p.by_name("d")._model
+    n_params = sum(t.numel() for n, t in model.named_parameters() if "bias_ih" not in n)
+    setup = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    p.play_until_eos()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    for s in STEMS:
+        samples = p.by_name(s).samples
+        pts = [x.buffer.pts for x in samples]
+        if len(samples) != DEMUCS_SECONDS or pts != [i * 10**9 for i in range(DEMUCS_SECONDS)] \
+                or any(tuple(x.buffer.data.shape) != (48000, 2) for x in samples) \
+                or any(x.buffer.data.device.type != "cuda" for x in samples) \
+                or not all(bool(torch.isfinite(x.buffer.data).all()) for x in samples):
+            raise AssertionError(f"demucs src_{s}: segments, PTS, shape, device or finiteness")
+    rms = {s: float(np.sqrt((p.by_name(s).concat_audio() ** 2).mean())) for s in STEMS}
+    print(f"demucs model-name=demucs: {n_params} parameters (flax's count; the torch LSTMs' "
+          f"zero bias_ih not counted), set-up {setup:.3f} s (the draws, on the card); "
+          f"{DEMUCS_SECONDS} s of 48 kHz stereo in {secs:.3f} s: {DEMUCS_SECONDS} "
+          f"segments of 48000 samples on each of 4 stems, PTS exact, finite; rms {rms}")
+    if n_params != DEMUCS_PARAMS:
+        raise AssertionError(f"demucs: {n_params} parameters, expected {DEMUCS_PARAMS}")
+    p = _play(demucs_launch(1, "demucs-lite", rate=44100, wave="sine", freq=80.0,
+                            segment=500_000_000))
+    powers = {s: float((p.by_name(s).concat_audio() ** 2).mean()) for s in STEMS}
+    print(f"demucs-lite, packaged weights, 1 s of an 80 Hz sine at 44.1 kHz: stem powers {powers}")
+    if powers["bass"] != max(powers.values()) or not powers["bass"] > 3 * powers["drums"]:
+        raise AssertionError("demucs-lite: the bass-band input did not route to src_bass")
+
+
+def demucs_card_vs_cpu():
+    """Phase 5f: one 1 s segment at full width (the element's seed-0 weights,
+    drawn on the card and copied to the host) through the model on the card
+    and on the CPU."""
+    phase("5f Demucs, card against CPU")
+    from gst_plugins_rs_tpu_torch.models import demucs as dm
+
+    cfg = dm.DemucsConfig()
+    state = dm.init_weights(cfg, 0, "cuda")  # the element's draws on the card, seed 0
+    card_model = dm.build(cfg, state, "cuda")
+    host_model = dm.build(cfg, {k: v.cpu() for k, v in state.items()}, "cpu")
+    t = np.arange(48000) / 48000.0
+    seg = np.stack([np.sin(2 * np.pi * 220 * t), np.sign(np.sin(2 * np.pi * 330 * t))], -1)
+    mix = torch.zeros((1, cfg.valid_length(48000), 2))
+    mix[0, :48000] = torch.from_numpy(0.5 * seg.astype(np.float32))
+    with torch.no_grad():
+        got = card_model(mix.cuda()).cpu()[0, :, :48000]
+        ref = host_model(mix)[0, :, :48000]
+    rel = [float((got[i] - ref[i]).abs().max() / ref[i].abs().max()) for i in range(4)]
+    print(f"demucs 1 s segment at full width, card vs CPU: max |d| / max |ref| per stem "
+          f"{['%.3e' % r for r in rel]} (gate {DEMUCS_CPU_TOL})")
+    if not torch.isfinite(got).all() or max(rel) > DEMUCS_CPU_TOL:
+        raise AssertionError("demucs: card and CPU disagree")
+
+
+def demucs_timing(card_line):
+    """Phase 6f: model-name=demucs over DEMUCS_SECONDS (after a warm-up run,
+    set-up left out): seconds of audio per wall second, device busy ms per
+    1 s segment and the top device ops (torch.profiler over 3 segments)."""
+    phase("6f Demucs timing")
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.core import State
+    from gst_plugins_rs_tpu_torch.models import demucs as dm
+
+    cfg = dm.DemucsConfig()
+    model = dm.build(cfg, dm.init_weights(cfg, 0, "cuda"), "cuda")
+    x = torch.randn((1, cfg.valid_length(48000), 2), generator=torch.Generator(
+        device="cuda").manual_seed(6), device="cuda")
+    with torch.no_grad():
+        seg_ms = cuda_ms(lambda: model(x), iters=10)
+    del model
+    print(f"demucs forward at full width, one 1 s segment ({cfg.valid_length(48000)} samples "
+          f"with the padding): {seg_ms:.4f} ms (CUDA events, median) [{card_line}]")
+    rows = {"segment_ms": seg_ms}
+    for model in ("demucs", "demucs-lite"):
+        _play(demucs_launch(2, model))  # warm-up: cuDNN plans
+        torch.cuda.synchronize()
+        p = g.parse_launch(demucs_launch(DEMUCS_SECONDS, model))
+        p.set_state(State.PLAYING)  # the weights: drawn or loaded, copied to the card
+        t0 = time.perf_counter()
+        p.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        p.set_state(State.NULL)
+        n_prof = 3
+        p = g.parse_launch(demucs_launch(n_prof, model))
+        p.set_state(State.PLAYING)
+        device_ms, upload_ms, top = profile_device(p.run)
+        p.set_state(State.NULL)
+        rows[model] = dict(audio_s_per_s=DEMUCS_SECONDS / secs, device_ms=device_ms / n_prof)
+        print(f"demucs model-name={model}, 48 kHz stereo in 1 s segments: {DEMUCS_SECONDS} s of "
+              f"audio in {secs:.3f} s, {DEMUCS_SECONDS / secs:.2f} s of audio per second; "
+              f"device busy {device_ms / n_prof:.4f} ms per segment (torch.profiler, {n_prof} "
+              f"segments, host-to-device copies left out: {upload_ms:.4f} ms in all), "
+              f"{100 * (device_ms / n_prof) * DEMUCS_SECONDS / (secs * 1e3):.1f}% of the wall "
+              f"time; ms per segment by device op: "
+              + ", ".join(f"{name} {ms / n_prof:.4f}" for name, ms in top) + f" [{card_line}]")
+    return rows
+
+
 def main() -> int:
     card_line = card()
     sys.path.insert(0, str(ROOT))
@@ -1846,10 +2223,16 @@ def main() -> int:
     audio_launches.update(denoise_pipelines())
     audio_card_vs_cpu()
     denoise_card_vs_cpu()
+    compose_pipelines()
+    demucs_pipelines()
+    compose_card_vs_cpu()
+    demucs_card_vs_cpu()
     timing(card_line)
     effects_timing(card_line, grade)
     audio_timing(card_line)
     denoise_timing(card_line)
+    compose_timing(card_line)
+    demucs_timing(card_line)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "library_ms")
     main_case = next(c for c in cases if c["dtype"] == "f32" and c["batch"] == 1)
     entries = [{

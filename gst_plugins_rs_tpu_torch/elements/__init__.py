@@ -2,9 +2,12 @@
 factories ported so far: the core plumbing (sources, sinks, capsfilter,
 identity, queue, tee, audioconvert, audioresample, videoconvert), the YOLOX
 detection slice, the per-pixel video effects (colorlut, hsvfilter,
-hsvdetector), the EBU R-128 audio path (audioloudnorm, ebur128level,
+hsvdetector), the scalers, compositor and frame analysis (videoscale,
+videoconvertscale, skiacompositor, roundedcorners, colordetect,
+videocompare), the EBU R-128 audio path (audioloudnorm, ebur128level,
 rsaudioecho), the RNNoise denoiser (audiornnoise), the spatial renderers
-(hrtfrender, sofalizer), agingradio and audiomixer."""
+(hrtfrender, sofalizer), agingradio, audiomixer and the Demucs source
+separator (demucs)."""
 from . import sinks, sources  # noqa: F401
 from .analytics import combiner, meta, yoloxinference, yoloxtensordec  # noqa: F401
 from .audiofx import (  # noqa: F401
@@ -13,9 +16,18 @@ from .audiofx import (  # noqa: F401
     audioloudnorm,
     audiomixer,
     audiornnoise,
+    demucs,
     ebur128level,
     hrtfrender,
     sofalizer,
 )
 from .generic import basic, convert  # noqa: F401
-from .video import colorlut, hsv  # noqa: F401
+from .video import (  # noqa: F401
+    colordetect,
+    colorlut,
+    compositor,
+    hsv,
+    roundedcorners,
+    videocompare,
+    videoscale,
+)

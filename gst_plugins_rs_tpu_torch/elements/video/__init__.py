@@ -1,1 +1,2 @@
-"""Video effect elements of the port: colorlut, hsvfilter, hsvdetector."""
+"""Video elements of the port: colorlut, hsvfilter, hsvdetector, videoscale,
+videoconvertscale, skiacompositor, roundedcorners, colordetect, videocompare."""

@@ -1,1 +1,1 @@
-"""Models of the port: the YOLOX zoo, its s2d engine and the weight carrier."""
+"""Models of the port: the YOLOX zoo, its s2d engine, Demucs and the weight carrier."""

@@ -12,6 +12,20 @@ The JAX package keeps YOLOX weights as flax variables {"params",
 It takes nested dicts of numpy arrays, not JAX arrays, so the port needs no
 JAX import to carry weights across (the parity tests call it with
 `jax.tree_util.tree_map(np.asarray, variables)`).
+
+Demucs (models/demucs.py) has its own pair, `demucs_state_dict` and its
+inverse `demucs_flax_tree`:
+
+    Conv_i/kernel           [k, I, O]   -> Conv_i.weight [O, I, k]
+    ConvTranspose_i/kernel  [k, I, O]   -> ConvTranspose_i.weight [I, O, k],
+        flipped along k: flax keeps the kernel unflipped
+        (transpose_kernel=False), torch's transposed convolution flips it
+    _BiLSTM_0/Dense_0/kernel [I, O]     -> _BiLSTM_0.Dense_0.weight [O, I]
+    _BiLSTM_0/LSTMCell_j    (j = 2l forward, 2l + 1 backward of layer l)
+        ii/if/ig/io kernels [I, H]      -> LSTM_l.weight_ih_l0[_reverse]
+                                           [4H, I], gates in the order i, f, g, o
+        hi/hf/hg/ho kernels [H, H]      -> ...weight_hh_l0[_reverse] [4H, H]
+        hi/hf/hg/ho biases              -> ...bias_hh_l0[_reverse]; bias_ih = 0
 """
 from __future__ import annotations
 
@@ -81,4 +95,81 @@ def variables_to_numpy(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict[st
     return out
 
 
-__all__ = ["variables_from_jax", "variables_to_numpy"]
+_GATES_I = ("ii", "if", "ig", "io")
+_GATES_H = ("hi", "hf", "hg", "ho")
+
+
+def demucs_state_dict(flax_tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A Demucs flax tree ({"params": ...} or the params themselves; numpy
+    arrays, or torch tensors, which stay on their device) -> the state_dict
+    of the port's models.demucs.Demucs."""
+    params = flax_tree.get("params", flax_tree)
+
+    def t(arr):
+        return torch.as_tensor(arr, dtype=torch.float32)
+
+    sd: Dict[str, torch.Tensor] = {}
+    for name, mod in params.items():
+        if name.startswith("ConvTranspose_"):
+            sd[f"{name}.weight"] = t(mod["kernel"]).permute(1, 2, 0).flip(-1).contiguous()
+            sd[f"{name}.bias"] = t(mod["bias"]).clone()
+        elif name.startswith("Conv_"):
+            sd[f"{name}.weight"] = t(mod["kernel"]).permute(2, 1, 0).contiguous()
+            sd[f"{name}.bias"] = t(mod["bias"]).clone()
+        elif name.startswith("_BiLSTM_"):
+            for sub, leaves in mod.items():
+                if sub.startswith("Dense_"):
+                    sd[f"{name}.{sub}.weight"] = t(leaves["kernel"]).T.contiguous()
+                    sd[f"{name}.{sub}.bias"] = t(leaves["bias"]).clone()
+                elif sub.startswith("LSTMCell_"):
+                    j = int(sub.split("_")[1])
+                    base = f"{name}.LSTM_{j // 2}."
+                    sfx = "_l0" + ("_reverse" if j % 2 else "")
+                    sd[base + "weight_ih" + sfx] = torch.cat(
+                        [t(leaves[g]["kernel"]).T for g in _GATES_I])
+                    sd[base + "weight_hh" + sfx] = torch.cat(
+                        [t(leaves[g]["kernel"]).T for g in _GATES_H])
+                    bias = torch.cat([t(leaves[g]["bias"]) for g in _GATES_H])
+                    sd[base + "bias_ih" + sfx] = torch.zeros_like(bias)
+                    sd[base + "bias_hh" + sfx] = bias
+                else:
+                    raise KeyError(f"unhandled flax module {name}/{sub}")
+        else:
+            raise KeyError(f"unhandled flax module {name}")
+    return sd
+
+
+def demucs_flax_tree(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict[str, Any]]:
+    """The inverse of demucs_state_dict: {"params": ...} of numpy arrays.  An
+    LSTM's two biases become flax's one (bias_ih + bias_hh)."""
+    params: Dict[str, Any] = {}
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    for key, arr in sd.items():
+        *mods, leaf = key.split(".")
+        if mods[0].startswith("ConvTranspose_"):
+            params.setdefault(mods[0], {})["kernel" if leaf == "weight" else "bias"] = (
+                np.ascontiguousarray(arr[:, :, ::-1].transpose(2, 0, 1)) if leaf == "weight"
+                else arr)
+        elif mods[0].startswith("Conv_"):
+            params.setdefault(mods[0], {})["kernel" if leaf == "weight" else "bias"] = (
+                np.ascontiguousarray(arr.transpose(2, 1, 0)) if leaf == "weight" else arr)
+        elif mods[1].startswith("Dense_"):
+            params.setdefault(mods[0], {}).setdefault(mods[1], {})[
+                "kernel" if leaf == "weight" else "bias"] = (
+                np.ascontiguousarray(arr.T) if leaf == "weight" else arr)
+        elif leaf.startswith(("weight_", "bias_hh")):
+            layer = int(mods[1].split("_")[1])
+            cell = f"LSTMCell_{2 * layer + (1 if leaf.endswith('_reverse') else 0)}"
+            tree = params.setdefault(mods[0], {}).setdefault(cell, {})
+            gates = _GATES_I if leaf.startswith("weight_ih") else _GATES_H
+            if leaf.startswith("bias_hh"):
+                bias = arr + sd[key.replace("bias_hh", "bias_ih")]
+                for g, part in zip(gates, np.split(bias, 4)):
+                    tree.setdefault(g, {})["bias"] = part
+            else:
+                for g, part in zip(gates, np.split(arr, 4)):
+                    tree.setdefault(g, {})["kernel"] = np.ascontiguousarray(part.T)
+    return {"params": params}
+
+
+__all__ = ["variables_from_jax", "variables_to_numpy", "demucs_state_dict", "demucs_flax_tree"]

@@ -652,3 +652,34 @@ def test_denoise_frames_fast_card_vs_cpu(cuda):
         assert float((oc.cpu() - oh).abs().max()) <= 0.25
         assert float((vc.cpu() - vh).abs().max()) <= 1e-4
     assert gru.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["linear", "nearest"])
+def test_compositor_operators_card_vs_cpu(cuda, method):
+    """skiacompositor's Porter-Duff closed forms (no hand kernel: torch ops on
+    [H, W*C] f32 canvases) on the card against the CPU: each operator's
+    canvas within 1e-5 of 255, and the composited u8 frame (a downscaled pad
+    with alpha 0.7, a cropped pad, jax.image.resize's weights) within 1 LSB."""
+    from gst_plugins_rs_tpu_torch.elements.video import compositor as comp
+
+    rng = np.random.RandomState(13)
+    H, W = 270, 480
+    base = torch.from_numpy(rng.randint(0, 256, (H, W, 4)).astype(np.uint8))
+    pad = torch.from_numpy(rng.randint(0, 256, (180, 320, 4)).astype(np.uint8))
+    crop = torch.from_numpy(rng.randint(0, 256, (60, 90, 3)).astype(np.uint8))
+    dst = torch.from_numpy(rng.uniform(0, 255, (64, 96)).astype(np.float32))
+    img = torch.from_numpy(rng.uniform(0, 255, (64, 96)).astype(np.float32))
+    for op in comp.OPERATORS:
+        for a in (0.0, 0.3, 0.7, 1.0):
+            got = comp.blend(op, dst.to(cuda), img.to(cuda), a).cpu()
+            assert float((got - comp.blend(op, dst, img, a)).abs().max()) <= 1e-5 * 255, op
+        args = dict(out_h=H, out_w=W, channels=4, background="checker",
+                    operators=("over", op, "add"), methods=("nearest", method, method))
+        placements = ((0, 0, W, H), (40, 30, 120, 68), (420, 0, 60, 40))
+        alphas = (1.0, 0.7, 0.45)
+        got = comp.composite([t.to(cuda) for t in (base, pad, crop)], alphas, placements,
+                             **args)
+        want = comp.composite([base, pad, crop], alphas, placements, **args)
+        assert got.device.type == "cuda"
+        assert int((got.cpu().to(torch.int32) - want.to(torch.int32)).abs().max()) <= 1, op

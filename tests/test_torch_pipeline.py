@@ -255,7 +255,9 @@ def test_factories_mirror_jax():
             "capsfilter", "identity", "queue", "colorlut", "hsvfilter",
             "hsvdetector", "audiotestsrc", "tee", "audioconvert", "audioresample",
             "videoconvert", "audioloudnorm", "ebur128level", "rsaudioecho", "audiornnoise",
-            "agingradio", "hrtfrender", "sofalizer", "audiomixer"} == set(names)
+            "agingradio", "hrtfrender", "sofalizer", "audiomixer", "videoscale",
+            "videoconvertscale", "skiacompositor", "roundedcorners", "colordetect",
+            "videocompare", "demucs"} == set(names)
     for name in names:
         jc, tc = jfactory(name), tfactory(name)
         assert [(p.name, repr(p.default), p.type, p.choices) for p in jc.PROPERTIES] == \
@@ -289,7 +291,11 @@ def test_port_imports_no_jax():
                 "ops/rnnoise_gru.py", "ops/agingradio.py", "ops/hrtf.py", "ops/sofa.py",
                 "elements/audiofx/audiornnoise.py", "elements/audiofx/agingradio.py",
                 "elements/audiofx/hrtfrender.py", "elements/audiofx/sofalizer.py",
-                "elements/audiofx/audiomixer.py"):
+                "elements/audiofx/audiomixer.py", "ops/resize.py", "ops/image_resize.py",
+                "ops/palette.py", "ops/imagehash.py", "elements/video/videoscale.py",
+                "elements/video/compositor.py", "elements/video/roundedcorners.py",
+                "elements/video/colordetect.py", "elements/video/videocompare.py",
+                "models/demucs.py", "elements/audiofx/demucs.py"):
         assert f"gst_plugins_rs_tpu_torch/{mod}" in names, mod
     banned = ("jax", "jaxlib", "flax", "gst_plugins_rs_tpu")
     for f in files:
