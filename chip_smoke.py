@@ -61,7 +61,16 @@ second and device ms a frame.  4f/5f/6f Demucs: 30 s of 48 kHz stereo through
 model-name=demucs in 1 s segments (four stems each, the parameter count),
 demucs-lite with the packaged weights (an 80 Hz sine routes to src_bass);
 one full-width segment card against CPU; seconds of audio per second and
-device ms a segment.
+device ms a segment.  3g/4g/5g/6g speech transcription: T1 (asr-lite's BiGRU
+recurrence) against its plain version at T = 500; 30 s of synthesised
+speech through appsrc ! whispertranscriber chunk-duration=5 s (T1 launches =
+2 x chunks, every chunk's words); card against CPU (transcripts, logits);
+seconds of audio per second and device ms a chunk.  3h/4h/5h/6h the stream
+bank: L1 over 16 streams a launch against its plain twin and timed beside
+one stream; 16 streams x 30 s of 192 kHz stereo F32 (8 ticks, 8 sines)
+through loudnormbank (L1 launches = ticks, every stream at -24 LUFS, peaks
+<= -2 dBFS); card against CPU; stream-seconds per second, device ms and ops
+a tick, and parallel/benchmark.py --chain echo,loudnorm.
 Prints a JSON line of the kernels, the card's name and power limit, then,
 last, {"ok": true, "device": ...}.  It imports nothing of JAX and nothing of
 the JAX package.
@@ -2203,6 +2212,428 @@ def demucs_timing(card_line):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Speech transcription: whispertranscriber's builtin asr-lite model (log-mel,
+# two BiGRU layers of 96 as kernel T1, a CTC head) at its only width
+# ---------------------------------------------------------------------------
+SPEECH_RATE = 16000
+SPEECH_CHUNK = 5 * SPEECH_RATE  # chunk-duration 5 s: 498 frames, padded to 500
+SPEECH_SPB = 1600               # appsrc buffers of 100 ms
+# Six 5 s chunks, 30 s of speech: each one synthesised sentence (the words of
+# one of the five fixed commands of tests/test_asr_quality.py, then words drawn
+# from the lexicon with the chunk's seed; the sixth all drawn), as many words
+# as fit, the rest of the chunk the sentence's own noise level (30 dB SNR).
+# Every chunk ends at a sentence boundary.  The model reads whole chunks: its
+# word accuracy on such 8-10 word sentences is ~0.9, so the seeds are the
+# first of each chunk's range whose chunk the JAX package's model transcribes
+# word for word (selected on the CPU with the JAX package); the port must
+# give the same words on the card and on the CPU.
+SPEECH_CHUNKS = ((["open", "door"], 70_000_000), (["volume", "up"], 70_001_000),
+                 (["seven", "three", "zero"], 70_002_000), (["hello", "world"], 70_003_005),
+                 (["stop"], 70_004_001), ([], 70_005_004))
+T1_TOL = 1e-5          # T1 vs plain: |d| / (1 + |ref|) on the hidden states
+ASR_LOGIT_TOL = 1e-4   # the model's logits, card vs CPU
+ASR_HIDDEN = 96
+ASR_T = 500            # frames of a padded 5 s chunk
+# an estimate, not a measurement, of T1's serial chain a step: the z/r dot
+# product (96 terms in four partial sums: 24 dependent FMAs of 4 cycles plus
+# ~30 cycles of shared loads), a sigmoid (~40), a barrier (~20), the
+# candidate's dot product with its r*h products (~130), a tanh (~40), the
+# blend and a barrier (~40); printed beside the kernel's time only
+T1_STEP_CYCLES = 96 + 30 + 40 + 20 + 130 + 40 + 40
+
+
+def speech_chunks():
+    """[(audio [SPEECH_CHUNK] f32, words)] of the speech path."""
+    from gst_plugins_rs_tpu_torch.ops.speechsynth import LEXICON, synth_sentence
+
+    vocab = sorted(LEXICON)
+    out = []
+    for prefix, seed in SPEECH_CHUNKS:
+        rng = np.random.default_rng(seed)
+        words = prefix + [vocab[int(rng.integers(len(vocab)))] for _ in range(16)]
+        best = None
+        for n in range(max(1, len(prefix)), len(words) + 1):
+            a = synth_sentence(words[:n], seed=seed, noise_snr_db=30)
+            if a.size > SPEECH_CHUNK:
+                break
+            best = (a, words[:n])
+        a, ws = best
+        level = np.sqrt(float((a ** 2).mean()) / 10 ** 3)
+        pad = np.random.default_rng(seed + 1).standard_normal(SPEECH_CHUNK - a.size) * level
+        out.append((np.concatenate([a, pad.astype(np.float32)]), " ".join(ws)))
+    return out
+
+
+def _transcribe_path(audio, chunk_ns=5 * 10**9):
+    """appsrc (100 ms F32 16 kHz mono buffers) ! whispertranscriber ! appsink
+    on the selected device: the output samples."""
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.core import Buffer
+
+    p = g.parse_launch(f"appsrc name=src caps=audio/x-raw,format=F32,rate={SPEECH_RATE},"
+                       f"channels=1 ! whispertranscriber chunk-duration={chunk_ns} "
+                       f"! appsink name=sink")
+    src = p.by_name("src")
+    for i in range(0, audio.size, SPEECH_SPB):
+        src.push_buffer(Buffer(torch.from_numpy(audio[i:i + SPEECH_SPB, None]),
+                               pts=i * 10**9 // SPEECH_RATE,
+                               duration=SPEECH_SPB * 10**9 // SPEECH_RATE))
+    src.end_of_stream()
+    p.play_until_eos()
+    return p.by_name("sink").samples
+
+
+def asr_kernel(card_line):
+    """Phase 3g: T1 against its plain version (a step loop of torch ops on the
+    card) for both layers and both directions at T = 500, on the log-mel
+    features of the path's first chunk (layer 1 on the plain layer 0's
+    states) and on seeded random ones; then timed beside its bounds and its
+    serial-chain estimate."""
+    phase("3g speech: the BiGRU kernel T1 against its plain version")
+    from gst_plugins_rs_tpu_torch.ops import asr, asr_gru
+
+    dev = torch.device("cuda")
+    w = asr.load_weights(dev=dev)
+    audio, _ = speech_chunks()[0]
+    feats, t = asr.padded_features(torch.from_numpy(audio).to(dev))
+    if feats.shape[0] != ASR_T:
+        raise AssertionError(f"a 5 s chunk gives {feats.shape[0]} padded frames, not {ASR_T}")
+    rand = torch.from_numpy(np.random.RandomState(8).randn(1, ASR_T, asr.N_MEL)
+                            .astype(np.float32)).to(dev)
+    max_err, inputs = 0.0, {}
+    for label, x in (("log-mel", feats[None]), ("random", rand)):
+        for layer in range(2):
+            Wx, b, U = asr.layer_mats(w, layer)
+            X = asr.input_projections(x, Wx, b)
+            got = asr_gru.bigru(X, U)
+            torch.cuda.synchronize()
+            ref = asr_gru.bigru_plain(X, U)
+            err = float(((got - ref).abs() / (1 + ref.abs())).max())
+            max_err = max(max_err, err)
+            print(f"T1 {label} features, layer {layer} (input {x.shape[-1]} wide)"
+                  f", both directions, T = {ASR_T}: max error {err:.3e} (gate {T1_TOL})")
+            if err > T1_TOL or not torch.isfinite(got).all():
+                raise AssertionError(f"T1 against its plain version, {label} layer {layer}")
+            inputs[label, layer] = (X, U)
+            x = torch.cat([ref[:, 0], ref[:, 1]], -1)
+    X, U = inputs["log-mel", 0]
+    ms = cuda_ms(lambda: asr_gru.bigru(X, U))
+    plain_ms = cuda_ms(lambda: asr_gru.bigru_plain(X, U), iters=3, warmup=1)
+    # one layer of one utterance: X read once, U read once, the states written
+    # once; the recurrent products and the gate math of both directions
+    H = ASR_HIDDEN
+    nbytes = 4 * (X.numel() + U.numel() + 2 * ASR_T * H)
+    flop = 2 * ASR_T * (2 * 3 * H * H + 12 * H)
+    bound_ms, bound_by = bound(flop, nbytes)
+    chain_ms = ASR_T * T1_STEP_CYCLES / _sm_clock_hz() * 1e3
+    print(f"T1 one layer, 2 directions x {ASR_T} steps: kernel {ms:.4f} ms, plain (torch ops on "
+          f"the card) {plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {flop} "
+          f"f32 operations); no library call computes it (cuDNN's GRU applies r after the "
+          f"product) [{card_line}]")
+    print(f"T1 serial chain, estimated: {chain_ms:.4f} ms ({ASR_T} steps x ~{T1_STEP_CYCLES} "
+          f"cycles at the max SM clock)")
+    return dict(case=f"one layer of a 5 s chunk, T = {ASR_T}, both directions", ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
+                library_ms=None, flop=flop, bytes=nbytes, serial_chain_ms_estimated=chain_ms)
+
+
+def speech_pipeline():
+    """Phase 4g: 30 s of speech through appsrc ! whispertranscriber
+    chunk-duration=5 s ! appsink with T1's counter set to 0 just before and
+    read just after: two launches a chunk, the spoken words of every chunk,
+    PTS and durations spanning the chunks, str payloads."""
+    phase("4g speech transcription on the card")
+    from gst_plugins_rs_tpu_torch.ops import asr_gru
+
+    chunks = speech_chunks()
+    audio = np.concatenate([a for a, _ in chunks])
+    asr_gru.launches = 0
+    samples = _transcribe_path(audio)
+    torch.cuda.synchronize()
+    counted = asr_gru.launches
+    texts = [s.buffer.data for s in samples]
+    want = [words for _, words in chunks]
+    for i, (got, words) in enumerate(zip(texts, want)):
+        print(f"chunk {i} ({samples[i].buffer.pts / 1e9:.1f} s): {got!r}")
+    print(f"whispertranscriber {audio.size / SPEECH_RATE:.0f} s of 16 kHz speech, 5 s chunks: "
+          f"{len(samples)} transcripts, T1 launches {counted}")
+    spans = [(s.buffer.pts, s.buffer.duration) for s in samples]
+    if texts != want or not all(isinstance(t, str) for t in texts):
+        raise AssertionError(f"transcripts differ from the spoken words: {texts} != {want}")
+    if spans != [(k * 5 * 10**9, 5 * 10**9) for k in range(len(chunks))]:
+        raise AssertionError(f"transcript PTS / durations: {spans}")
+    if counted != 2 * len(chunks):
+        raise AssertionError(f"T1 launches {counted} != 2 x {len(chunks)} chunks")
+    return {"asr_gru": counted}
+
+
+def speech_card_vs_cpu():
+    """Phase 5g: the speech path on the CPU (the plain recurrence): the same
+    transcripts; each chunk's logits, card against CPU, within
+    ASR_LOGIT_TOL."""
+    phase("5g speech, card against CPU")
+    from gst_plugins_rs_tpu_torch.ops import asr
+
+    chunks = speech_chunks()
+    audio = np.concatenate([a for a, _ in chunks])
+    card = [s.buffer.data for s in _transcribe_path(audio)]
+    host = [s.buffer.data for s in _on("cpu", lambda: _transcribe_path(audio))]
+    wc, wh = asr.load_weights(dev="cuda"), asr.load_weights(dev="cpu")
+    d = 0.0
+    for a, _ in chunks:
+        feats, _ = asr.padded_features(torch.from_numpy(a))
+        d = max(d, float((asr.forward(wc, feats.cuda()).cpu() - asr.forward(wh, feats))
+                         .abs().max()))
+    print(f"speech path: transcripts card == CPU: {card == host}; logits of the 6 chunks, card "
+          f"vs CPU: max abs {d:.3e} (gate {ASR_LOGIT_TOL})")
+    if card != host or d > ASR_LOGIT_TOL:
+        raise AssertionError("speech path: card and CPU disagree")
+
+
+def speech_timing(card_line):
+    """Phase 6g: seconds of audio per wall second of the speech path (after a
+    warm-up run) and device ms per chunk (torch.profiler over the path)."""
+    phase("6g speech timing")
+    chunks = speech_chunks()
+    audio = np.concatenate([a for a, _ in chunks])
+    _transcribe_path(audio[:SPEECH_CHUNK])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _transcribe_path(audio)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = len(chunks)
+    device_ms, upload_ms, top = profile_device(lambda: _transcribe_path(audio))
+    print(f"whispertranscriber (asr-lite): {audio.size / SPEECH_RATE:.0f} s of speech in "
+          f"{secs:.3f} s, {audio.size / SPEECH_RATE / secs:.2f} s of audio per second; device "
+          f"busy {device_ms / n:.4f} ms per 5 s chunk (torch.profiler, {n} chunks; host-to-device "
+          f"copies left out: {upload_ms:.4f} ms in all), ms per chunk by device op: "
+          + ", ".join(f"{k} {v / n:.4f}" for k, v in top) + f" [{card_line}]")
+    return dict(audio_s_per_s=audio.size / SPEECH_RATE / secs, device_ms_per_chunk=device_ms / n)
+
+
+# ---------------------------------------------------------------------------
+# The stream bank: 16 streams through loudnormbank (one L1 launch a tick for
+# all streams), 192 kHz stereo F32
+# ---------------------------------------------------------------------------
+BANK_STREAMS = 16
+BANK_SECONDS = 30           # a stream: 300 buffers of 100 ms
+BANK_CPU_SECONDS = 4        # card against CPU
+BANK_PROFILE_SECONDS = 5
+# half the streams peaky (the path's tick signal: L1 walks its FSM at every
+# tick), half sines at volumes 0.05 .. 0.5 (the limiter idle after the first
+# frame): a broadcast playout or a podcast platform normalising many
+# programmes at once
+BANK_SINE_VOLUMES = tuple(0.05 + i * (0.45 / 7) for i in range(8))
+# the reference's oracle (tests/test_loudnormbank.py): +-1 LU of -24 LUFS on
+# the sines; the ticks take the smoke's bar of phase 4c (LN_LOUDNESS_BAR)
+BANK_LOUDNESS_BAR = 1.0
+# bank samples, card vs CPU, F32: the same operations on both devices, the
+# K-weighting products summed in another order by cuBLAS than on the host
+BANK_CPU_TOL = 1e-6
+
+
+def bank_pipeline(seconds: int):
+    """audiotestsrc x BANK_STREAMS (192 kHz stereo F32, 100 ms buffers) !
+    capsfilter ! loudnormbank ! appsink x BANK_STREAMS.  Returns (pipeline,
+    sinks)."""
+    import gst_plugins_rs_tpu_torch as g
+
+    p = g.Pipeline()
+    bank = g.element_factory_make("loudnormbank")
+    p.add(bank)
+    sinks = []
+    streams = BANK_STREAMS
+    for i in range(streams):
+        if i < streams // 2:
+            props = {"wave": "ticks", "volume": 0.8, "sine-periods-per-tick": 1,
+                     "tick-interval": 500_000_000 + 10_000_000 * i}
+        else:
+            props = {"wave": "sine", "freq": 220.0 + 55 * i,
+                     "volume": BANK_SINE_VOLUMES[(i - streams // 2) % 8]}
+        src = g.element_factory_make("audiotestsrc")
+        for k, v in {**props, "samplesperbuffer": LN_FRAME, "num-buffers": seconds * 10}.items():
+            src.set_property(k, v)
+        cf = g.element_factory_make("capsfilter")
+        cf.set_property("caps", g.parse_caps("audio/x-raw,format=F32,rate=192000,channels=2"))
+        sink = g.element_factory_make("appsink")
+        for e in (src, cf, sink):
+            p.add(e)
+        src.link(cf)
+        cf.pad("src").link(bank.request_sink_pad())
+        bank.pad(f"src_{i}").link(sink.pad("sink"))
+        sinks.append(sink)
+    return p, sinks
+
+
+def bank_kernel(card_line):
+    """Phase 3h: L1 over N = 16 streams in one launch (8 peaky windows from
+    mixed carries, 8 idle) against its plain twin (the per-stream host loop),
+    bit for bit, F32 (the bank's type); then the N = 16 launch timed beside
+    one peaky single-stream launch."""
+    phase("3h bank: L1 over 16 streams a launch against its plain twin")
+    from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
+
+    dev = torch.device("cuda")
+    tp = float(np.float32(10 ** (-2 / 20)))
+    carries = [(0, 0, -1, 0.0, 0.0), (1, 500, -1, 0.9, 0.6), (2, 0, 100, 0.7, 0.5),
+               (3, 3000, -1, 0.5, 1.0)]
+    quiet = np.random.RandomState(40).uniform(-0.5, 0.5, (BANK_STREAMS, 40320, 2))
+    rows, ci, cf = [], [], []
+    for n in range(BANK_STREAMS):
+        peaky = n < BANK_STREAMS // 2
+        rows.append(limiter_window(True, torch.float32, dev) if peaky
+                    else torch.from_numpy(quiet[n]).to(dev, torch.float32))
+        c = carries[n % 4] if peaky else carries[0]
+        ci.append(c[:3])
+        cf.append(c[3:])
+    w = torch.stack(rows).contiguous()
+    ci = torch.tensor(ci, dtype=torch.int32, device=dev)
+    cf = torch.tensor(cf, dtype=torch.float32, device=dev)
+    pk, pv, fut = lim.precompute_peaks(w, tp)
+    out, ni, nf = lim.limiter_frames(w, ci, cf, tp, pk, pv, fut)
+    torch.cuda.synchronize()
+    args = [t.cpu() for t in (w, ci, cf)] + [tp] + [t.cpu() for t in (pk, pv, fut)]
+    t0 = time.perf_counter()
+    ref, ri, rf = lim.limiter_frames_plain(*args)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float((out.cpu() - ref).abs().max())
+    if not (torch.equal(out.cpu(), ref) and torch.equal(ni.cpu(), ri)
+            and torch.equal(nf.cpu(), rf)) or not torch.isfinite(out).all():
+        raise AssertionError(f"L1 over {BANK_STREAMS} streams != its plain twin ({err:.3e})")
+    npk = [int(v) for v in pk.sum(1).tolist()]
+    print(f"L1 {BANK_STREAMS} streams in one launch, F32 stereo: bit-equal to the plain twin "
+          f"(peaks a stream: {npk})")
+    ms = cuda_ms(lambda: lim.limiter_frames(w, ci, cf, tp, pk, pv, fut))
+    one = [t[:1].contiguous() for t in (w, ci, cf, pk, pv, fut)]
+    single_ms = cuda_ms(lambda: lim.limiter_frames(one[0], one[1], one[2], tp, *one[3:]))
+    idle = [t[BANK_STREAMS // 2:].contiguous() for t in (w, ci, cf, pk, pv, fut)]
+    idle_ms = cuda_ms(lambda: lim.limiter_frames(idle[0], idle[1], idle[2], tp, *idle[3:]))
+    ch, isz, peaks = 2, 4, sum(npk)
+    nbytes = BANK_STREAMS * (LN_FRAME * ch * isz * 2 + LN_FRAME * 2 + (3 * 4 + 2 * isz) * 2) \
+        + peaks * isz
+    flop = BANK_STREAMS * LN_FRAME * ch * 3 + peaks * 2
+    bound_ms, bound_by = bound(flop, nbytes)
+    serial_ms = LN_FRAME * LIMITER_STEP_CYCLES / _sm_clock_hz() * 1e3
+    print(f"L1 {BANK_STREAMS} streams (8 peaky, 8 idle) in one launch: {ms:.4f} ms; one peaky "
+          f"stream alone {single_ms:.4f} ms ({ms / single_ms:.2f}x); the 8 idle streams alone "
+          f"{idle_ms:.4f} ms; plain twin (host loop, CPU) {plain_ms:.1f} ms; bound "
+          f"{bound_ms:.6f} ms ({bound_by}: {nbytes} B, {flop} f32 operations); serial floor, "
+          f"estimated: {serial_ms:.4f} ms [{card_line}]")
+    return dict(case=f"{BANK_STREAMS} streams a launch, 192 kHz stereo f32, 8 peaky, 8 idle",
+                ms=ms, single_peaky_ms=single_ms, idle_ms=idle_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, library_ms=None,
+                flop=flop, bytes=nbytes)
+
+
+def _bank_outputs(sinks):
+    return [s.concat_audio() for s in sinks]
+
+
+def bank_pipelines():
+    """Phase 4h: BANK_STREAMS streams of BANK_SECONDS through loudnormbank
+    with L1's counter set to 0 just before and read just after: one launch a
+    tick (the 3 s first frame, the 100 ms inner ticks, the drain steps),
+    every sample out, PTS k x 100 ms, every stream re-measured within the bar
+    of -24 LUFS with its sample peak <= -2 dBFS, the r128-bank-level message."""
+    phase("4h the stream bank on the card")
+    from gst_plugins_rs_tpu_torch.core import MessageType
+    from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
+
+    p, sinks = bank_pipeline(BANK_SECONDS)
+    lim.launches = 0
+    p.play_until_eos()
+    torch.cuda.synchronize()
+    counted = lim.launches
+    ticks = 1 + (BANK_SECONDS * 10 - 30) + 29  # first frame, inner ticks, drain steps
+    outs = _bank_outputs(sinks)
+    frame_ns = LN_FRAME * 10**9 // 192000
+    fails = []
+    for i, (s, out) in enumerate(zip(sinks, outs)):
+        loud, peaks = _r128_of(out, 2, 192000)
+        bar = LN_LOUDNESS_BAR if i < BANK_STREAMS // 2 else BANK_LOUDNESS_BAR
+        pts = [x.buffer.pts for x in s.samples]
+        ok = (out.shape == (BANK_SECONDS * 192000, 2) and np.isfinite(out).all()
+              and abs(loud + 24.0) < bar and max(peaks) <= 10 ** (-2 / 20) + 1e-7
+              and pts == [k * frame_ns for k in range(len(pts))]
+              and all(x.buffer.data.device.type == "cuda" for x in s.samples))
+        print(f"stream {i} ({'ticks' if i < BANK_STREAMS // 2 else 'sine'}): {out.shape[0]} "
+              f"samples, {loud:.3f} LUFS (bar +-{bar} LU), sample peak "
+              f"{20 * np.log10(max(peaks)):.3f} dBFS, {len(pts)} buffers: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(i)
+    msgs = [m.structure for m in p.bus.messages(MessageType.ELEMENT)
+            if m.structure is not None and m.structure.name == "r128-bank-level"]
+    print(f"loudnormbank {BANK_STREAMS} x {BANK_SECONDS} s, 192 kHz stereo F32: L1 launches "
+          f"{counted} (ticks {ticks}); r128-bank-level messages {len(msgs)}")
+    if fails:
+        raise AssertionError(f"loudnormbank streams {fails} miss the bar")
+    if counted != ticks or len(msgs) != 1:
+        raise AssertionError(f"L1 launches {counted} != ticks {ticks}, or no bank message")
+    return {"loudnorm_limiter_bank": counted}
+
+
+def bank_card_vs_cpu():
+    """Phase 5h: a BANK_CPU_SECONDS bank run on the card against the same run
+    on the CPU (the plain twin): every stream's samples within BANK_CPU_TOL."""
+    phase("5h the stream bank, card against CPU")
+
+    def run():
+        p, sinks = bank_pipeline(BANK_CPU_SECONDS)
+        p.play_until_eos()
+        return _bank_outputs(sinks)
+
+    card = run()
+    host = _on("cpu", run)
+    d = max(float(np.abs(a - b).max()) for a, b in zip(card, host))
+    same = all(a.shape == b.shape for a, b in zip(card, host))
+    print(f"loudnormbank {BANK_STREAMS} x {BANK_CPU_SECONDS} s, card (L1) vs CPU (plain twin): "
+          f"max abs {d:.3e} a sample (gate {BANK_CPU_TOL}), shapes equal: {same}")
+    if not same or d > BANK_CPU_TOL:
+        raise AssertionError("loudnormbank: card and CPU disagree")
+
+
+def bank_timing(card_line):
+    """Phase 6h: stream-seconds per wall second of the bank path (after a
+    warm-up run), device ms and device ops a tick (torch.profiler), and
+    parallel/benchmark.py --chain echo,loudnorm --streams 16 for 3 s."""
+    phase("6h stream bank timing")
+    from gst_plugins_rs_tpu_torch.parallel import benchmark
+
+    p, _ = bank_pipeline(4)
+    p.play_until_eos()  # warm-up
+    torch.cuda.synchronize()
+    p, _ = bank_pipeline(BANK_SECONDS)
+    t0 = time.perf_counter()
+    p.play_until_eos()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rate = BANK_STREAMS * BANK_SECONDS / secs
+    from torch.profiler import ProfilerActivity, profile
+
+    p, _ = bank_pipeline(BANK_PROFILE_SECONDS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        p.play_until_eos()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    if not events:
+        raise AssertionError("torch.profiler recorded no device events")
+    ticks = 1 + (BANK_PROFILE_SECONDS * 10 - 30) + 29
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    ops = sum(e.count for e in events if not e.key.startswith("Memcpy"))
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    print(f"loudnormbank {BANK_STREAMS} streams x {BANK_SECONDS} s in {secs:.3f} s: "
+          f"{rate:.2f} stream-seconds per second ({rate / BANK_STREAMS:.2f} s of audio per "
+          f"second a stream); device busy {busy / ticks:.4f} ms and {ops / ticks:.1f} device ops "
+          f"a tick (torch.profiler, {BANK_PROFILE_SECONDS} s: {ticks} ticks), ms a tick by op: "
+          + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3 / ticks:.4f}" for e in top)
+          + f" [{card_line}]")
+    rows = benchmark.run(BANK_STREAMS, "echo,loudnorm", seconds=3.0, window=1.0, use_mesh=False)
+    return dict(stream_s_per_s=rate, device_ms_per_tick=busy / ticks, ops_per_tick=ops / ticks,
+                benchmark=rows)
+
+
 def main() -> int:
     card_line = card()
     sys.path.insert(0, str(ROOT))
@@ -2219,20 +2650,28 @@ def main() -> int:
     effects_card_vs_cpu(grade)
     limiter_case = limiter_kernel(card_line)
     rnn_cases = rnnoise_kernel(card_line)
+    asr_case = asr_kernel(card_line)
+    bank_case = bank_kernel(card_line)
     audio_launches = audio_pipelines()
     audio_launches.update(denoise_pipelines())
     audio_card_vs_cpu()
     denoise_card_vs_cpu()
     compose_pipelines()
     demucs_pipelines()
+    audio_launches.update(speech_pipeline())
+    audio_launches.update(bank_pipelines())
     compose_card_vs_cpu()
     demucs_card_vs_cpu()
+    speech_card_vs_cpu()
+    bank_card_vs_cpu()
     timing(card_line)
     effects_timing(card_line, grade)
     audio_timing(card_line)
     denoise_timing(card_line)
     compose_timing(card_line)
     demucs_timing(card_line)
+    speech_timing(card_line)
+    bank_timing(card_line)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "library_ms")
     main_case = next(c for c in cases if c["dtype"] == "f32" and c["batch"] == 1)
     entries = [{
@@ -2270,6 +2709,15 @@ def main() -> int:
     b5 = next(e for e in entries if e["name"] == "colorlut_mxu")
     b5["entries"] = [effect_entry(name, "colorlut_mxu.cu", "pallas_colorlut.py:87")
                      for name in ("colorlut_mxu_packed", "colorlut_mxu_packed64")]
+    l1_bank = {
+        "name": "loudnorm_limiter_bank",
+        "route": "cuda",
+        "source": "gst_plugins_rs_tpu_torch/csrc/loudnorm_limiter.cu",
+        "replaces": "gst_plugins_rs_tpu/ops/loudnorm.py:286",
+        "launches": audio_launches["loudnorm_limiter_bank"],
+        **{k: bank_case[k] for k in keys},
+        "cases": [bank_case],
+    }
     entries.append({
         "name": "loudnorm_limiter",
         "route": "cuda",
@@ -2278,6 +2726,7 @@ def main() -> int:
         "launches": audio_launches["loudnorm_limiter"],
         **{k: limiter_case[k] for k in keys},
         "cases": [limiter_case],
+        "entries": [l1_bank],  # N streams a launch: loudnormbank's tick
     })
     entries.append({
         "name": "rnnoise_gru",
@@ -2288,7 +2737,16 @@ def main() -> int:
         **{k: rnn_cases[0][k] for k in keys},  # 100 frames, as phase 3d states
         "cases": rnn_cases,
     })
-    if any(e["launches"] < 1 for e in entries + b3["entries"] + b5["entries"]):
+    entries.append({
+        "name": "asr_gru",
+        "route": "cuda",
+        "source": "gst_plugins_rs_tpu_torch/csrc/asr_gru.cu",
+        "replaces": "gst_plugins_rs_tpu/ops/asr.py:124",
+        "launches": audio_launches["asr_gru"],
+        **{k: asr_case[k] for k in keys},
+        "cases": [asr_case],
+    })
+    if any(e["launches"] < 1 for e in entries + b3["entries"] + b5["entries"] + [l1_bank]):
         raise AssertionError("a kernel of the paths was never launched")
     print(json.dumps({"kernels": entries}))
     print(card_line)

@@ -5,9 +5,18 @@ Rebuild of gst_base::Aggregator as used by the reference's videocompare
 (analytics/analytics/src/combiner/imp.rs).  Synchronous model: aggregate()
 fires whenever every non-EOS sink pad has at least one queued buffer (or on
 EOS drain).
+
+Buffers may arrive from several threads at once (a `queue` in front of each
+sink pad runs its own).  One reentrant lock per aggregator is held around a
+pad's queue append and the whole aggregation loop, and around the sink
+events (EOS and flush touch the pad queues), so two threads never pop and
+push at once and the output keeps its order.  It is reentrant because
+aggregate() pushes downstream in the same thread, and a downstream element
+may come back into this one.
 """
 from __future__ import annotations
 
+import threading
 from collections import deque
 from typing import List, Optional
 
@@ -63,6 +72,7 @@ class Aggregator(Element):
         self._sink_template = PadTemplate(
             "sink_%u", PadDirection.SINK, PadPresence.REQUEST, self.SINK_TEMPLATE_CAPS
         )
+        self._agg_lock = threading.RLock()
 
     # -- pads -----------------------------------------------------------------
     def request_sink_pad(self, name: Optional[str] = None) -> AggregatorPad:
@@ -119,54 +129,57 @@ class Aggregator(Element):
 
     def _sink_chain(self, pad: Pad, buf: Buffer) -> FlowReturn:
         assert isinstance(pad, AggregatorPad)
-        pad.queue.append(buf)
-        return self._try_aggregate()
+        with self._agg_lock:
+            pad.queue.append(buf)
+            return self._try_aggregate()
 
     def _try_aggregate(self) -> FlowReturn:
         ret = FlowReturn.OK
-        while True:
-            pads = self.agg_pads()
-            if not pads:
-                return ret
-            active = [p for p in pads if not p.is_inactive()]
-            if not active:
-                # everything EOS and drained
-                if not self._eos_sent:
-                    self._eos_sent = True
-                    self.drain()
-                    self.srcpad.push_event(Event.new_eos())
-                return ret
-            if all(p.has_buffer() for p in active):
-                ret = self.aggregate(timeout=False)
-                if ret not in (FlowReturn.OK,):
+        with self._agg_lock:
+            while True:
+                pads = self.agg_pads()
+                if not pads:
                     return ret
-            else:
-                return ret
+                active = [p for p in pads if not p.is_inactive()]
+                if not active:
+                    # everything EOS and drained
+                    if not self._eos_sent:
+                        self._eos_sent = True
+                        self.drain()
+                        self.srcpad.push_event(Event.new_eos())
+                    return ret
+                if all(p.has_buffer() for p in active):
+                    ret = self.aggregate(timeout=False)
+                    if ret not in (FlowReturn.OK,):
+                        return ret
+                else:
+                    return ret
 
     def _sink_event(self, pad: Pad, event: Event) -> bool:
         assert isinstance(pad, AggregatorPad)
-        if event.type == EventType.STREAM_START:
-            pad.stream_id = event.get("stream_id")
-            self._maybe_forward_stream_start(pad, event)
-            return True
-        if event.type == EventType.CAPS:
-            pad.current_caps = event.get("caps")
-            self.sink_event(pad, event)
-            return True
-        if event.type == EventType.SEGMENT:
-            pad.segment = event.get("segment")
-            if self.FORWARD_SINK_SEGMENT and pad is self.agg_pads()[0]:
-                return self.srcpad.push_event(event)
-            return True
-        if event.type == EventType.EOS:
-            pad.eos = True
-            self.sink_event(pad, event)
-            self._try_aggregate()
-            if not self._eos_sent and all(p.is_inactive() for p in self.agg_pads()):
-                self._eos_sent = True
-                return self.srcpad.push_event(event)
-            return True
-        return self.sink_event(pad, event)
+        with self._agg_lock:
+            if event.type == EventType.STREAM_START:
+                pad.stream_id = event.get("stream_id")
+                self._maybe_forward_stream_start(pad, event)
+                return True
+            if event.type == EventType.CAPS:
+                pad.current_caps = event.get("caps")
+                self.sink_event(pad, event)
+                return True
+            if event.type == EventType.SEGMENT:
+                pad.segment = event.get("segment")
+                if self.FORWARD_SINK_SEGMENT and pad is self.agg_pads()[0]:
+                    return self.srcpad.push_event(event)
+                return True
+            if event.type == EventType.EOS:
+                pad.eos = True
+                self.sink_event(pad, event)
+                self._try_aggregate()
+                if not self._eos_sent and all(p.is_inactive() for p in self.agg_pads()):
+                    self._eos_sent = True
+                    return self.srcpad.push_event(event)
+                return True
+            return self.sink_event(pad, event)
 
 
 __all__ = ["Aggregator", "AggregatorPad"]

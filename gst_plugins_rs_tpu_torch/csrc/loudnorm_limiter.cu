@@ -1,11 +1,12 @@
-// audioloudnorm's true-peak limiter over one 100 ms frame, for Hopper.
+// audioloudnorm's true-peak limiter over one 100 ms frame of N streams, for Hopper.
 //
 // Replaces the limiter scan of the JAX package:
 // gst_plugins_rs_tpu/ops/loudnorm.py::_make_limiter_step (the per-sample
 // FSM Out / Attack / Sustain / Release, reference imp.rs:1377-1430) scanned
 // by ::_limiter_scan over the first FRAME = 19,200 samples of the limiter
-// window, with its idle fast path and the final clamp to +-target_tp.  The
-// peak detection (pk, pv, future per output sample) is vectorised torch
+// window, with its idle fast path and the final clamp to +-target_tp, and
+// by ::_limiter_scan_batched (:286) over N streams of a loudnormbank tick.
+// The peak detection (pk, pv, future per output sample) is vectorised torch
 // before the launch (ops/loudnorm_limiter.py::precompute_peaks).
 //
 // What bounds it on an H100.  Bytes: a stereo f64 frame reads 19,200 x 2 x 8
@@ -18,9 +19,14 @@
 // chain.  This simple form runs each step's compares, branches and gain in
 // order on one thread, far above that floor (PERF.md has its time).
 //
-// Design (a simple correct kernel; later work: several streams a launch for
-// loudnormbank, or the serial walk skipping the spans between peaks).
-//  - One block per stream (one here).  All threads first stage the frame's
+// Design (a simple correct kernel; later work: the serial walk skipping the
+// spans between peaks).
+//  - One block per stream, N streams a launch: audioloudnorm launches one,
+//    loudnormbank one block per stream of the bank.  Each block decides the
+//    idle case for its own stream, so idle streams leave after the scaling
+//    pass and one peaky stream holds only its own block (the JAX bank's
+//    per-block conds, without the other streams waiting in lockstep).
+//  - All threads of a block first stage the frame's
 //    peak flags (pk | future << 1) in shared memory, 19.2 KB, so the serial
 //    thread reads each in ~30 cycles instead of a device-memory round trip.
 //  - Thread 0 decides the idle case (state Out and no peak in the frame):
@@ -62,13 +68,27 @@ __device__ __forceinline__ T clamp_tp(T y, T tp) {
   return y > tp ? tp : y;
 }
 
+// Stream n = blockIdx.x reads window + n * win_stride ([W, ch] rows), the
+// [FRAME] rows n of pk, pv, fut and mult, carries n ([3] ints, [2] T) and
+// writes [FRAME, ch] row n of out.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-limiter_kernel(const T* __restrict__ window, const uint8_t* __restrict__ pk,
+limiter_kernel(const T* __restrict__ window, long long win_stride, const uint8_t* __restrict__ pk,
                const T* __restrict__ pv, const uint8_t* __restrict__ fut,
                const int* __restrict__ carry_i, const T* __restrict__ carry_f,
                int* __restrict__ new_i, T* __restrict__ new_f, T* __restrict__ mult,
                T tp, int ch, T* __restrict__ out) {
+  const long long n_s = blockIdx.x;
+  window += n_s * win_stride;
+  pk += n_s * kFrame;
+  pv += n_s * kFrame;
+  fut += n_s * kFrame;
+  mult += n_s * kFrame;
+  carry_i += 3 * n_s;
+  new_i += 3 * n_s;
+  carry_f += 2 * n_s;
+  new_f += 2 * n_s;
+  out += n_s * kFrame * ch;
   __shared__ uint8_t flags[kFrame];
   __shared__ int idle;
   for (int n = threadIdx.x; n < kFrame; n += blockDim.x)
@@ -161,25 +181,28 @@ limiter_kernel(const T* __restrict__ window, const uint8_t* __restrict__ pk,
 }  // namespace
 
 // Plain C entry point (bound with ctypes): every pointer and the stream are
-// void*; f64 != 0 selects double, else float.  Returns the launch's
-// cudaError_t (0 = launched).
-extern "C" int loudnorm_limiter(const void* window, const void* pk, const void* pv,
-                                const void* fut, const void* carry_i, const void* carry_f,
-                                void* new_i, void* new_f, void* mult, double tp, int ch,
-                                int f64, void* out, void* stream) {
+// void*; n streams, each window win_stride elements after the previous one;
+// f64 != 0 selects double, else float.  Returns the launch's cudaError_t
+// (0 = launched).
+extern "C" int loudnorm_limiter(const void* window, long long win_stride, const void* pk,
+                                const void* pv, const void* fut, const void* carry_i,
+                                const void* carry_f, void* new_i, void* new_f, void* mult,
+                                double tp, int ch, int f64, int n, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* pk8 = static_cast<const uint8_t*>(pk);
   const uint8_t* fut8 = static_cast<const uint8_t*>(fut);
   const int* ci = static_cast<const int*>(carry_i);
   int* ni = static_cast<int*>(new_i);
   if (f64) {
-    limiter_kernel<double><<<1, kThreads, 0, s>>>(
-        static_cast<const double*>(window), pk8, static_cast<const double*>(pv), fut8, ci,
+    limiter_kernel<double><<<n, kThreads, 0, s>>>(
+        static_cast<const double*>(window), win_stride, pk8, static_cast<const double*>(pv),
+        fut8, ci,
         static_cast<const double*>(carry_f), ni, static_cast<double*>(new_f),
         static_cast<double*>(mult), tp, ch, static_cast<double*>(out));
   } else {
-    limiter_kernel<float><<<1, kThreads, 0, s>>>(
-        static_cast<const float*>(window), pk8, static_cast<const float*>(pv), fut8, ci,
+    limiter_kernel<float><<<n, kThreads, 0, s>>>(
+        static_cast<const float*>(window), win_stride, pk8, static_cast<const float*>(pv),
+        fut8, ci,
         static_cast<const float*>(carry_f), ni, static_cast<float*>(new_f),
         static_cast<float*>(mult), static_cast<float>(tp), ch, static_cast<float*>(out));
   }

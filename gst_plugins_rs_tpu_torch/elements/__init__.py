@@ -6,10 +6,12 @@ hsvdetector), the scalers, compositor and frame analysis (videoscale,
 videoconvertscale, skiacompositor, roundedcorners, colordetect,
 videocompare), the EBU R-128 audio path (audioloudnorm, ebur128level,
 rsaudioecho), the RNNoise denoiser (audiornnoise), the spatial renderers
-(hrtfrender, sofalizer), agingradio, audiomixer and the Demucs source
-separator (demucs)."""
+(hrtfrender, sofalizer), agingradio, audiomixer, the Demucs source
+separator (demucs), speech transcription (whispertranscriber), the palm
+detection decoder (handdetectiontensordec) and the stream bank
+(loudnormbank)."""
 from . import sinks, sources  # noqa: F401
-from .analytics import combiner, meta, yoloxinference, yoloxtensordec  # noqa: F401
+from .analytics import combiner, handdetection, meta, yoloxinference, yoloxtensordec  # noqa: F401
 from .audiofx import (  # noqa: F401
     agingradio,
     audioecho,
@@ -19,7 +21,9 @@ from .audiofx import (  # noqa: F401
     demucs,
     ebur128level,
     hrtfrender,
+    loudnormbank,
     sofalizer,
+    whisper,
 )
 from .generic import basic, convert  # noqa: F401
 from .video import (  # noqa: F401

@@ -26,6 +26,10 @@ inverse `demucs_flax_tree`:
                                            [4H, I], gates in the order i, f, g, o
         hi/hf/hg/ho kernels [H, H]      -> ...weight_hh_l0[_reverse] [4H, H]
         hi/hf/hg/ho biases              -> ...bias_hh_l0[_reverse]; bias_ih = 0
+
+asr-lite (ops/asr.py) keeps the JAX package's flat names and layouts:
+`asr_weights` carries gru{0,1}{f,b}_{wz,wr,wh} [D + H, H],
+gru..._{bz,br,bh} [H], out_w [2H, 28] and out_b [28] as float32 tensors.
 """
 from __future__ import annotations
 
@@ -172,4 +176,24 @@ def demucs_flax_tree(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict[str,
     return {"params": params}
 
 
-__all__ = ["variables_from_jax", "variables_to_numpy", "demucs_state_dict", "demucs_flax_tree"]
+
+ASR_KEYS = tuple(f"gru{layer}{d}_{kind}{g}" for layer in (0, 1) for d in ("f", "b")
+                 for kind in ("w", "b") for g in ("z", "r", "h")) + ("out_w", "out_b")
+
+
+def asr_weights(np_tree: Dict[str, Any], dev=None) -> Dict[str, torch.Tensor]:
+    """asr-lite's weights (a dict of numpy arrays under the JAX package's
+    names) -> contiguous float32 tensors on dev (default: the selected
+    device)."""
+    from .._device import device
+
+    dev = device() if dev is None else torch.device(dev)
+    missing = [k for k in ASR_KEYS if k not in np_tree]
+    if missing:
+        raise KeyError(f"asr_weights: missing {missing}")
+    return {k: torch.as_tensor(np.asarray(np_tree[k], np.float32)).to(dev).contiguous()
+            for k in ASR_KEYS}
+
+
+__all__ = ["ASR_KEYS", "asr_weights", "demucs_flax_tree", "demucs_state_dict", "variables_from_jax",
+           "variables_to_numpy"]

@@ -300,15 +300,11 @@ def r128_update_peaks(state: R128State, params: R128Params, x, first: bool = Tru
                           prev_true_peak=prev_tp, tp_tail=tail)
 
 
-def _ingest_subblock_energies(state: R128State, params: R128Params, e) -> R128State:
-    """The JAX package's per-subblock scan over e [B], all subblocks at once:
-    the ring after subblock i is seq[i+1 : i+31] of seq = (ring, e)."""
-    B = int(e.shape[0])
-    n100 = params.n100
-    seq = torch.cat([state.subblocks, e])
-    me = seq.unfold(0, 4, 1)[27:27 + B].sum(-1) / (4.0 * n100)
-    se = seq.unfold(0, 30, 1)[1:1 + B].sum(-1) / (30.0 * n100)
-    # the counters are host ints: which steps count is known without the data
+def _counter_steps(state: R128State, B: int):
+    """The subblock counters after B subblocks, and for each step whether a
+    momentary block (from the 4th subblock on) and a short-term block (every
+    10th step after the 30th) count.  The counters are host ints: which
+    steps count is known without the data."""
     sb, st = state.sb_count, state.st_counter
     m_on, s_on = [], []
     for _ in range(B):
@@ -319,6 +315,18 @@ def _ingest_subblock_energies(state: R128State, params: R128Params, e) -> R128St
         s_on.append(fire)
         if fire:
             st = 20
+    return sb, st, m_on, s_on
+
+
+def _ingest_subblock_energies(state: R128State, params: R128Params, e) -> R128State:
+    """The JAX package's per-subblock scan over e [B], all subblocks at once:
+    the ring after subblock i is seq[i+1 : i+31] of seq = (ring, e)."""
+    B = int(e.shape[0])
+    n100 = params.n100
+    seq = torch.cat([state.subblocks, e])
+    me = seq.unfold(0, 4, 1)[27:27 + B].sum(-1) / (4.0 * n100)
+    se = seq.unfold(0, 30, 1)[1:1 + B].sum(-1) / (30.0 * n100)
+    sb, st, m_on, s_on = _counter_steps(state, B)
     floor = params.boundaries[0]
     block_hist, st_hist = state.block_hist, state.st_hist
     # momentary blocks count from the 4th subblock on (a suffix of the steps);
@@ -415,6 +423,105 @@ def queries(state: R128State, params: R128Params):
 
 
 # ---------------------------------------------------------------------------
+# N streams at once (the stream bank): every state leaf but the two counters
+# carries a leading [N] axis; the counters are shared, since a bank's streams
+# advance in lockstep.  The K-filter runs all N x ch columns through one set
+# of block products; the histograms take one index_add over all streams.
+# ---------------------------------------------------------------------------
+def r128_init_batched(params: R128Params, channels: int, n: int) -> R128State:
+    one = r128_init(params, channels)
+    return one._replace(**{f: getattr(one, f).expand((n,) + getattr(one, f).shape).clone()
+                           for f in R128State._fields if f not in ("sb_count", "st_counter")})
+
+
+def r128_update_peaks_batched(state: R128State, params: R128Params, x) -> R128State:
+    """Sample and true peaks of x [N, L, ch] (the first chunk of an add)."""
+    sp = x.abs().amax(1)
+    if params.tp_factor == 1:
+        tp, tail = sp, state.tp_tail
+    else:
+        hist_len = state.tp_tail.shape[1]
+        ext = torch.cat([state.tp_tail, x], 1)
+        windows = ext.unfold(1, hist_len + 1, 1)  # [N, L, ch, taps_pp]: ext[:, l + j]
+        with no_tf32():
+            ups = torch.einsum("pj,nlcj->nlpc", params.tp_filter.flip(1), windows)
+        tp = ups.abs().amax((1, 2))
+        tail = ext[:, ext.shape[1] - hist_len:]
+    return state._replace(sample_peak=torch.maximum(state.sample_peak, sp), prev_sample_peak=sp,
+                          true_peak=torch.maximum(state.true_peak, tp), prev_true_peak=tp,
+                          tp_tail=tail)
+
+
+def r128_add_full_subblocks_batched(state: R128State, params: R128Params, x) -> R128State:
+    """`r128_add_full_subblocks` for N streams: x [N, B * n100, ch]."""
+    n100 = params.n100
+    N, L, ch = x.shape
+    B = L // n100
+    state = r128_update_peaks_batched(state, params, x)
+    cols = x.permute(1, 0, 2).reshape(L, N * ch)  # stream-major columns
+    zi = state.filt_z.permute(1, 2, 0, 3).reshape(2, 2, N * ch)
+    y, zf = k_filter_apply(cols, params.coeffs_b, params.coeffs_a, zi)
+    filt_z = zf.reshape(2, 2, N, ch).permute(2, 0, 1, 3).contiguous()
+    wsq = (y * y).reshape(L, N, ch) @ params.weights  # [L, N]
+    e = wsq.reshape(B, n100, N).sum(1).t()  # [N, B]
+
+    seq = torch.cat([state.subblocks, e], 1)
+    me = seq.unfold(1, 4, 1)[:, 27:27 + B].sum(-1) / (4.0 * n100)
+    se = seq.unfold(1, 30, 1)[:, 1:1 + B].sum(-1) / (30.0 * n100)
+    sb, st, m_on, s_on = _counter_steps(state, B)
+    floor = params.boundaries[0]
+    rows = torch.arange(N, device=x.device)[:, None] * HIST_BINS
+    block_hist, st_hist = state.block_hist, state.st_hist
+    if any(m_on):
+        m = me[:, m_on.index(True):]
+        block_hist = block_hist.reshape(-1).index_add(
+            0, (rows + _hist_index(m)).reshape(-1), (m >= floor).to(m.dtype).reshape(-1)
+        ).reshape(N, HIST_BINS)
+    for i in (i for i, on in enumerate(s_on) if on):  # slices, no index upload
+        s_ = se[:, i:i + 1]
+        st_hist = st_hist.reshape(-1).index_add(
+            0, (rows + _hist_index(s_)).reshape(-1), (s_ >= floor).to(s_.dtype).reshape(-1)
+        ).reshape(N, HIST_BINS)
+    return state._replace(filt_z=filt_z, subblocks=seq[:, B:], sb_count=sb, st_counter=st,
+                          block_hist=block_hist, st_hist=st_hist)
+
+
+def loudness_shortterm_batched(state: R128State, params: R128Params):
+    """[N] short-term loudness."""
+    return energy_to_loudness(state.subblocks.sum(-1) / (30.0 * params.n100))
+
+
+def relative_threshold_energy_batched(state: R128State, params: R128Params):
+    total = state.block_hist.sum(-1)
+    mean_e = torch.where(total > 0,
+                         (state.block_hist * params.energies).sum(-1) / torch.clamp_min(total, 1.0),
+                         torch.zeros_like(total))
+    return mean_e * 0.1
+
+
+def loudness_global_batched(state: R128State, params: R128Params):
+    """[N] integrated loudness, each stream gated on its own histogram."""
+    rel = relative_threshold_energy_batched(state, params)
+    start = torch.clamp(torch.searchsorted(params.boundaries[:HIST_BINS].contiguous(),
+                                           rel[:, None].contiguous(), right=True) - 1,
+                        0, HIST_BINS - 1)
+    mask = torch.arange(HIST_BINS, device=start.device)[None] >= start
+    hist = state.block_hist * mask
+    cnt = hist.sum(-1)
+    e = (hist * params.energies).sum(-1) / torch.clamp_min(cnt, 1.0)
+    return torch.where(cnt > 0, energy_to_loudness(e), torch.full_like(e, -math.inf))
+
+
+def merged_loudness_global(states_batched: R128State, params: R128Params):
+    """Integrated loudness of N streams measured as one programme: the
+    gated-block histograms summed over the stream axis, then the absolute
+    and relative gating once on the merged histogram (the JAX package's
+    `merged_loudness_global`, a psum when its stream axis is sharded)."""
+    merged = states_batched.block_hist.sum(0)
+    return loudness_global(states_batched._replace(block_hist=merged), params)
+
+
+# ---------------------------------------------------------------------------
 # Host-side streaming wrapper (ebur128level; audioloudnorm composes the
 # functions above)
 # ---------------------------------------------------------------------------
@@ -496,7 +603,9 @@ __all__ = [
     "MODE_M", "MODE_S", "MODE_I", "MODE_LRA", "MODE_SAMPLE_PEAK", "MODE_TRUE_PEAK",
     "MODE_HISTOGRAM", "EbuR128", "R128Params", "R128State", "biquad_apply",
     "channel_weights", "energy_to_loudness", "k_filter_apply", "k_weighting_coeffs",
-    "loudness_global", "loudness_momentary", "loudness_range", "loudness_shortterm",
-    "queries", "r128_add_full_subblocks", "r128_init", "r128_params", "r128_update_peaks",
-    "relative_threshold_energy",
+    "loudness_global", "loudness_global_batched", "loudness_momentary", "loudness_range",
+    "loudness_shortterm", "loudness_shortterm_batched", "merged_loudness_global", "queries",
+    "r128_add_full_subblocks", "r128_add_full_subblocks_batched", "r128_init",
+    "r128_init_batched", "r128_params", "r128_update_peaks", "r128_update_peaks_batched",
+    "relative_threshold_energy", "relative_threshold_energy_batched",
 ]

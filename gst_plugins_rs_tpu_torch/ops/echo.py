@@ -21,21 +21,22 @@ import torch
 
 def echo_apply_flat(x, hist, intensity: float, feedback: float, *, lag: int):
     """Echo over a flat interleaved vector x [N] with history hist [S]
-    (S >= lag >= 1).  Returns (out [N], new_hist [S])."""
-    N = x.shape[0]
-    S = hist.shape[0]
+    (S >= lag >= 1).  Returns (out [N], new_hist [S]).  Leading axes are
+    independent streams (x [B, N], hist [B, S]: the bank's batched step)."""
+    N = x.shape[-1]
+    S = hist.shape[-1]
     if not 1 <= lag <= S:
         raise ValueError(f"echo_apply_flat: need 1 <= lag <= S, got lag {lag}, S {S}")
     chunk = min(lag, N)
     outs = []
     for start in range(0, N, chunk):
-        xc = x[start:start + chunk]
-        c = xc.shape[0]
-        delayed = hist[S - lag:S - lag + c]
+        xc = x[..., start:start + chunk]
+        c = xc.shape[-1]
+        delayed = hist[..., S - lag:S - lag + c]
         outs.append(xc + intensity * delayed)
         wr = xc + feedback * delayed
-        hist = torch.cat([hist[c:], wr]) if c < S else wr[-S:]
-    return (outs[0] if len(outs) == 1 else torch.cat(outs)), hist
+        hist = torch.cat([hist[..., c:], wr], -1) if c < S else wr[..., -S:]
+    return (outs[0] if len(outs) == 1 else torch.cat(outs, -1)), hist
 
 
 def echo_lag_samples(delay_ns: int, max_delay_ns: int, rate: int, channels: int) -> int:

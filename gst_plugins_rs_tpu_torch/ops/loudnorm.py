@@ -15,9 +15,13 @@ read-back: the loudness queries, the gaussian-smoothed gain, the gain ramp,
 the peak detection and the limiter kernel (ops/loudnorm_limiter.py).  The
 JAX package scans K frames a dispatch; here the element loops over frames.
 
-The batched variants (`*_batched`) and `inner_frames_scan_pre` of the JAX
-module serve loudnormbank and the time-shard path; they wait for the
-parallel layer (ROADMAP queue A, item 6).
+The batched variants (`*_batched`) serve loudnormbank (parallel/streams.py):
+the state leaves carry a leading [N] stream axis (the ring index stays one
+host int: a bank's streams advance in lockstep), each stream's math is the
+single-stream step's, and the limiter runs N streams in one launch
+(ops/loudnorm_limiter.py::limiter_frames).  The JAX module's
+`inner_frames_scan_pre` serves the time-shard path, which waits for the
+mesh layer (ROADMAP queue A, item 6).
 """
 from __future__ import annotations
 
@@ -31,11 +35,16 @@ from .ebur128 import (
     R128State,
     energy_to_loudness,
     loudness_global,
+    loudness_global_batched,
     loudness_shortterm,
+    loudness_shortterm_batched,
     r128_add_full_subblocks,
+    r128_add_full_subblocks_batched,
     r128_init,
+    r128_init_batched,
     r128_params,
     relative_threshold_energy,
+    relative_threshold_energy_batched,
 )
 from .loudnorm_limiter import (
     FRAME,
@@ -45,6 +54,7 @@ from .loudnorm_limiter import (
     ST_OUT,
     ST_SUSTAIN,
     limiter_frame,
+    limiter_frames,
     precompute_peaks,
 )
 
@@ -257,9 +267,120 @@ def linear_gain_from_global(state: LoudnormState, params: LoudnormParams):
     return torch.where(peak * offset < params.target_tp, offset, params.target_tp / safe_peak)
 
 
+# ---------------------------------------------------------------------------
+# N streams at once (loudnormbank): leaves [N, ...], the index a host int
+# ---------------------------------------------------------------------------
+def loudnorm_init_batched(params: LoudnormParams, channels: int, offset_db: float,
+                          n: int) -> LoudnormState:
+    one = loudnorm_init(params, channels, offset_db)
+    tensors = {f: getattr(one, f).expand((n,) + getattr(one, f).shape).clone()
+               for f in ("backlog", "tail", "delta", "prev_delta", "above", "offset", "lim_i",
+                         "lim_f")}
+    return one._replace(**tensors, r128_in=r128_init_batched(params.r128, channels, n),
+                        r128_out=r128_init_batched(params.r128, channels, n))
+
+
+def limit_batched(windows, lim_i, lim_f, target_tp: float):
+    """The limiter over windows[:, :FRAME] of N streams (one launch on the
+    card).  Returns (out [N, FRAME, ch], lim_i [N, 3], lim_f [N, 2])."""
+    pk, pv, future = precompute_peaks(windows, target_tp)
+    return limiter_frames(windows, lim_i, lim_f, target_tp, pk, pv, future)
+
+
+def _update_gain_batched(state: LoudnormState, params: LoudnormParams) -> LoudnormState:
+    rp = params.r128
+    global_ = loudness_global_batched(state.r128_in, rp)
+    shortterm = loudness_shortterm_batched(state.r128_in, rp)
+    rel = energy_to_loudness(relative_threshold_energy_batched(state.r128_in, rp))
+
+    above = state.above
+    ramp = (~above) & (shortterm > -70.0)
+    prev_delta = torch.where(ramp, state.prev_delta * 1.0058, state.prev_delta)
+    st_out = loudness_shortterm_batched(state.r128_out, rp)
+    above = above | ((~state.above) & (st_out >= params.target_i))
+
+    env_diff = shortterm - global_
+    one = torch.ones_like(env_diff)
+    env_global = torch.where(env_diff.abs() < params.target_lra / 2.0, env_diff,
+                             torch.where(env_diff < 0.0, -one, one))
+    env_shortterm = params.target_i - shortterm
+    new_delta = 10.0 ** ((env_global + env_shortterm) / 20.0)
+    keep_prev = (shortterm < rel) | (shortterm <= -70.0) | (~above)
+    d = torch.where(keep_prev, prev_delta, new_delta)
+    delta = state.delta.clone()
+    delta[:, state.index] = d
+    return state._replace(delta=delta, prev_delta=d, above=above,
+                          index=(state.index + 1) % 30)
+
+
+def first_frame_step_batched(state: LoudnormState, params: LoudnormParams, src):
+    """`first_frame_step` for N streams: src [N, GAIN_LOOKAHEAD, ch];
+    returns (state, out [N, FRAME, ch])."""
+    rp = params.r128
+    tp = params.target_tp
+    r128_in = r128_add_full_subblocks_batched(state.r128_in, rp, src)
+    shortterm = loudness_shortterm_batched(r128_in, rp)
+    above = shortterm >= -70.0
+    env_shortterm = torch.where(above, params.target_i - shortterm,
+                                torch.zeros_like(shortterm))
+    d0 = 10.0 ** (env_shortterm / 20.0)
+    window = src[:, :FRAME + TAIL] * (d0 * state.offset)[:, None, None]
+
+    mx = window[:, :LIMITER_LOOKAHEAD + 1].abs().amax((1, 2))
+    over = mx > tp
+    lim_i = torch.stack([torch.where(over, ST_SUSTAIN, ST_OUT),
+                         torch.zeros_like(over, dtype=torch.int64),
+                         torch.where(over, LIMITER_LOOKAHEAD, -1)], 1).to(torch.int32)
+    gr1 = torch.where(over, tp / torch.where(mx > 0, mx, torch.ones_like(mx)),
+                      torch.zeros_like(mx))
+    out, lim_i, lim_f = limit_batched(window, lim_i, torch.stack([torch.zeros_like(gr1), gr1], 1),
+                                      tp)
+    r128_out = r128_add_full_subblocks_batched(state.r128_out, rp, out)
+    return state._replace(backlog=src[:, FRAME + TAIL:], tail=window[:, FRAME:],
+                          delta=d0[:, None].expand(-1, 30).clone(), prev_delta=d0, above=above,
+                          lim_i=lim_i, lim_f=lim_f, r128_in=r128_in, r128_out=r128_out), out
+
+
+def _append_limit_update_batched(state: LoudnormState, params: LoudnormParams, src):
+    scale_src = state.backlog[:, :FRAME]
+    state = state._replace(backlog=torch.cat([state.backlog[:, FRAME:], src], 1))
+    w, idx = params.weights, params.gauss_idx
+    gain = (w * state.delta[:, idx[(state.index + 10) % 30]]).sum(-1)
+    gain_next = (w * state.delta[:, idx[(state.index + 11) % 30]]).sum(-1)
+    gains = (gain[:, None] + params.ramp * (gain_next - gain)[:, None]) * state.offset[:, None]
+    window = torch.cat([state.tail, scale_src * gains[:, :, None]], 1)
+    out, lim_i, lim_f = limit_batched(window, state.lim_i, state.lim_f, params.target_tp)
+    state = state._replace(tail=window[:, FRAME:], lim_i=lim_i, lim_f=lim_f,
+                           r128_out=r128_add_full_subblocks_batched(state.r128_out, params.r128,
+                                                                    out))
+    return _update_gain_batched(state, params), out
+
+
+def inner_frame_step_batched(state: LoudnormState, params: LoudnormParams, src):
+    """`inner_frame_step` for N streams: src [N, FRAME, ch]."""
+    state = state._replace(
+        r128_in=r128_add_full_subblocks_batched(state.r128_in, params.r128, src))
+    return _append_limit_update_batched(state, params, src)
+
+
+def drain_batched(state: LoudnormState, params: LoudnormParams, padded_src,
+                  steps: int = DRAIN_FRAMES):
+    """`drain` for N streams: padded_src [N, FRAME, ch]; returns (state,
+    out [N, steps * FRAME, ch]).  One limiter launch a step."""
+    state, out = _append_limit_update_batched(state, params, padded_src)
+    outs = [out]
+    zeros = torch.zeros_like(padded_src)
+    for _ in range(steps - 1):
+        state, out = _append_limit_update_batched(state, params, zeros)
+        outs.append(out)
+    return state, torch.cat(outs, 1)
+
+
 __all__ = [
     "BACKLOG", "DRAIN_FRAMES", "FRAME", "GAIN_LOOKAHEAD", "LIMITER_ATTACK",
     "LIMITER_LOOKAHEAD", "LIMITER_RELEASE", "RATE", "TAIL", "LoudnormParams", "LoudnormState",
-    "drain", "final_append_step", "final_frame_step", "first_frame_step", "gaussian_weights",
-    "inner_frame_step", "limit", "linear_gain_from_global", "loudnorm_init", "loudnorm_params",
+    "drain", "drain_batched", "final_append_step", "final_frame_step", "first_frame_step",
+    "first_frame_step_batched", "gaussian_weights", "inner_frame_step",
+    "inner_frame_step_batched", "limit", "limit_batched", "linear_gain_from_global",
+    "loudnorm_init", "loudnorm_init_batched", "loudnorm_params",
 ]

@@ -1,4 +1,4 @@
-"""audioloudnorm's true-peak limiter over one 100 ms frame: a CUDA kernel.
+"""The true-peak limiter over one 100 ms frame of one or N streams: a CUDA kernel.
 
 The limiter is a per-sample finite-state machine (Out / Attack / Sustain /
 Release, the reference's imp.rs:1377-1430) that the JAX package runs as a
@@ -17,13 +17,20 @@ pk, pv, future)` runs the FSM over the first FRAME samples of the window
 sustain count; -1 = none), carry_f [2] of the window's dtype = (gr0, gr1).
 target_tp is a Python float already rounded to that dtype.
 
+`limiter_frames` takes N streams at once (windows [N, W, ch], carries [N,
+3] and [N, 2], pk, pv, future [N, FRAME]), as loudnormbank's tick and the
+JAX package's `_limiter_scan_batched` (:286) do: on the card one launch of
+N blocks, each stream's idle case decided by its own block.
+`limiter_frame` is its N = 1 case, audioloudnorm's call.
+
 For a CUDA window it launches the kernel, which leaves the output and the
 carry on the device (no host branch, no synchronisation: the kernel decides
 the idle case itself), and counts the launch in `launches`.  For a CPU
 window it runs `limiter_frame_plain`, a per-sample loop over Python floats
 (f64) or numpy.float32 scalars (f32, every operation rounded to f32), with
 the scan's idle fast path: state Out and no peak in the frame -> the
-clamped input, carry unchanged.
+clamped input, carry unchanged; `limiter_frames_plain` runs it stream by
+stream.
 
 Roundings.  XLA's CPU backend compiles the scan's envelope expressions
 `gr0 - (env / (ATTACK - 1)) * (gr0 - gr1)` (and the release's) as a product
@@ -56,18 +63,19 @@ def precompute_peaks(window, target_tp: float):
     """pk [FRAME] bool (a confirmed peak LIMITER_LOOKAHEAD ahead of output
     position n), pv [FRAME] (max |sample| over channels there) and future
     [FRAME] bool (a peak at any position >= n), as `_precompute_peaks`
-    computes them on the window positions the output reads."""
-    if window.shape[0] < WINDOW_MIN:
+    computes them on the window positions the output reads.  A window
+    [N, W, ch] of N streams gives [N, FRAME] each."""
+    if window.shape[-2] < WINDOW_MIN:
         raise ValueError(f"precompute_peaks: window needs >= {WINDOW_MIN} samples")
     L = LIMITER_LOOKAHEAD
-    seg = window[L - 1:L + FRAME + 11].abs()  # positions L-1 .. L+FRAME+10
-    prev, this, nxt = seg[0:FRAME], seg[1:FRAME + 1], seg[2:FRAME + 2]
+    seg = window[..., L - 1:L + FRAME + 11, :].abs()  # positions L-1 .. L+FRAME+10
+    prev, this, nxt = seg[..., 0:FRAME, :], seg[..., 1:FRAME + 1, :], seg[..., 2:FRAME + 2, :]
     # the next 2..11 samples of each position (seg[n+3 : n+13]) none higher
-    follow = seg.unfold(0, 10, 1)[3:3 + FRAME].amax(-1)
+    follow = seg.unfold(-2, 10, 1)[..., 3:3 + FRAME, :, :].amax(-1)
     peak = (prev <= this) & (this >= nxt) & (this > target_tp) & (follow <= this)
-    pk = peak.any(1)
-    pv = this.amax(1)
-    future = torch.flip(torch.cumsum(torch.flip(pk, (0,)), 0), (0,)) > 0
+    pk = peak.any(-1)
+    pv = this.amax(-1)
+    future = torch.flip(torch.cumsum(torch.flip(pk, (-1,)), -1), (-1,)) > 0
     return pk, pv, future
 
 
@@ -193,14 +201,22 @@ def limiter_frame_plain(window, carry_i, carry_f, target_tp: float, pk, pv, futu
             torch.from_numpy(np.asarray([gr0, gr1], np_dtype)))
 
 
+def limiter_frames_plain(windows, carry_i, carry_f, target_tp: float, pk, pv, future):
+    """N streams of `limiter_frame_plain`, one after the other:
+    (out [N, FRAME, ch], carry_i [N, 3], carry_f [N, 2])."""
+    res = [limiter_frame_plain(windows[n], carry_i[n], carry_f[n], target_tp, pk[n], pv[n],
+                               future[n]) for n in range(windows.shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*res))
+
+
 def _lib():
     from ..utils.build import load
 
     lib = load("loudnorm_limiter")
     if not getattr(lib, "_argtypes_set", False):
         ptr = ctypes.c_void_p
-        lib.loudnorm_limiter.argtypes = [ptr] * 9 + [ctypes.c_double, ctypes.c_int,
-                                                    ctypes.c_int, ptr, ptr]
+        lib.loudnorm_limiter.argtypes = [ptr, ctypes.c_longlong] + [ptr] * 8 + [
+            ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr, ptr]
         lib.loudnorm_limiter.restype = ctypes.c_int
         lib.loudnorm_limiter_error_string.argtypes = [ctypes.c_int]
         lib.loudnorm_limiter_error_string.restype = ctypes.c_char_p
@@ -208,45 +224,67 @@ def _lib():
     return lib
 
 
-def limiter_frame(window, carry_i, carry_f, target_tp: float, pk, pv, future):
-    """One frame of the limiter: (out [FRAME, ch], carry_i, carry_f)."""
+def limiter_frames(windows, carry_i, carry_f, target_tp: float, pk, pv, future):
+    """One frame of the limiter for N streams: windows [N, W, ch] (each
+    stream's rows contiguous), carry_i int32 [N, 3], carry_f [N, 2], pk, pv,
+    future [N, FRAME].  Returns (out [N, FRAME, ch], carry_i, carry_f).  On
+    CUDA one launch of N blocks, one per stream."""
     global launches
-    if window.device.type == "cpu":
-        return limiter_frame_plain(window, carry_i, carry_f, target_tp, pk, pv, future)
-    if window.device.type != "cuda":
-        raise ValueError(f"limiter_frame: unsupported device {window.device}")
-    dtype, dev = window.dtype, window.device
+    dev = windows.device
+    if dev.type == "cpu":
+        return limiter_frames_plain(windows, carry_i, carry_f, target_tp, pk, pv, future)
+    if dev.type != "cuda":
+        raise ValueError(f"limiter_frames: unsupported device {dev}")
+    dtype = windows.dtype
     if dtype not in (torch.float64, torch.float32):
-        raise ValueError(f"limiter_frame: window must be float64 or float32, got {dtype}")
-    if window.dim() != 2 or window.shape[0] < WINDOW_MIN or not window.is_contiguous():
-        raise ValueError(f"limiter_frame: window must be a contiguous [>= {WINDOW_MIN}, ch]")
-    _check_carry(carry_i, carry_f, dtype)
+        raise ValueError(f"limiter_frames: windows must be float64 or float32, got {dtype}")
+    if windows.dim() != 3 or windows.shape[1] < WINDOW_MIN or windows.shape[0] < 1 \
+            or not windows[0].is_contiguous() or windows.stride(2) != 1:
+        raise ValueError(f"limiter_frames: windows must be [N >= 1, >= {WINDOW_MIN}, ch] with "
+                         f"each stream's rows contiguous")
+    N, ch = windows.shape[0], windows.shape[2]
+    if carry_i.dtype != torch.int32 or tuple(carry_i.shape) != (N, 3):
+        raise ValueError(f"limiter_frames: carry_i must be int32 [{N}, 3] (state, env, sustain)")
+    if carry_f.dtype != dtype or tuple(carry_f.shape) != (N, 2):
+        raise ValueError(f"limiter_frames: carry_f must be {dtype} [{N}, 2] (gr0, gr1)")
     for name, t, want in (("pk", pk, torch.bool), ("pv", pv, dtype), ("future", future, torch.bool)):
-        if t.dtype != want or tuple(t.shape) != (FRAME,) or not t.is_contiguous():
-            raise ValueError(f"limiter_frame: {name} must be a contiguous [{FRAME}] {want}")
+        if t.dtype != want or tuple(t.shape) != (N, FRAME):
+            raise ValueError(f"limiter_frames: {name} must be a [{N}, {FRAME}] {want}")
     for name, t in (("carry_i", carry_i), ("carry_f", carry_f), ("pk", pk), ("pv", pv),
                     ("future", future)):
         if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"limiter_frame: {name} must be contiguous on {dev}")
-    ch = window.shape[1]
-    out = torch.empty((FRAME, ch), dtype=dtype, device=dev)
+            raise ValueError(f"limiter_frames: {name} must be contiguous on {dev}")
+    out = torch.empty((N, FRAME, ch), dtype=dtype, device=dev)
     new_i, new_f = torch.empty_like(carry_i), torch.empty_like(carry_f)
-    mult = torch.empty(FRAME, dtype=dtype, device=dev)  # scratch: each sample's gain
+    mult = torch.empty((N, FRAME), dtype=dtype, device=dev)  # scratch: each sample's gain
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.loudnorm_limiter(window.data_ptr(), pk.data_ptr(), pv.data_ptr(),
-                                   future.data_ptr(), carry_i.data_ptr(), carry_f.data_ptr(),
-                                   new_i.data_ptr(), new_f.data_ptr(), mult.data_ptr(),
-                                   float(target_tp), ch, 1 if dtype == torch.float64 else 0,
-                                   out.data_ptr(), stream)
+        err = lib.loudnorm_limiter(windows.data_ptr(), windows.stride(0), pk.data_ptr(),
+                                   pv.data_ptr(), future.data_ptr(), carry_i.data_ptr(),
+                                   carry_f.data_ptr(), new_i.data_ptr(), new_f.data_ptr(),
+                                   mult.data_ptr(), float(target_tp), ch,
+                                   1 if dtype == torch.float64 else 0, N, out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"limiter_frame launch failed: "
+        raise RuntimeError(f"limiter_frames launch failed: "
                            f"{lib.loudnorm_limiter_error_string(err).decode()}")
     launches += 1
     return out, new_i, new_f
 
 
+def limiter_frame(window, carry_i, carry_f, target_tp: float, pk, pv, future):
+    """One frame of the limiter for one stream, the N = 1 case of
+    `limiter_frames`: (out [FRAME, ch], carry_i [3], carry_f [2])."""
+    if window.device.type == "cpu":
+        return limiter_frame_plain(window, carry_i, carry_f, target_tp, pk, pv, future)
+    if window.dim() != 2 or not window.is_contiguous():
+        raise ValueError(f"limiter_frame: window must be a contiguous [>= {WINDOW_MIN}, ch]")
+    _check_carry(carry_i, carry_f, window.dtype)
+    out, new_i, new_f = limiter_frames(window[None], carry_i[None], carry_f[None], target_tp,
+                                       pk[None], pv[None], future[None])
+    return out[0], new_i[0], new_f[0]
+
+
 __all__ = ["FRAME", "LIMITER_ATTACK", "LIMITER_LOOKAHEAD", "LIMITER_RELEASE", "ST_ATTACK",
            "ST_OUT", "ST_RELEASE", "ST_SUSTAIN", "launches", "limiter_frame",
-           "limiter_frame_plain", "precompute_peaks"]
+           "limiter_frame_plain", "limiter_frames", "limiter_frames_plain", "precompute_peaks"]

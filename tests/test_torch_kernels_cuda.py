@@ -683,3 +683,150 @@ def test_compositor_operators_card_vs_cpu(cuda, method):
         want = comp.composite([base, pad, crop], alphas, placements, **args)
         assert got.device.type == "cuda"
         assert int((got.cpu().to(torch.int32) - want.to(torch.int32)).abs().max()) <= 1, op
+
+
+# L1 over N streams a launch (loudnormbank's tick): half the streams peaky
+# from mixed carries, half idle (state Out, no peak), against the plain twin
+# (the per-stream host loop), bit for bit; one launch for all N.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("N", [1, 4, 16])
+def test_limiter_kernel_n_streams_bit_equal_plain(cuda, N, dtype):
+    from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
+
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    tp = float(np_dtype(10 ** (-2 / 20)))
+    carries = [(0, 0, -1, 0.0, 0.0), (1, 500, -1, 0.9, 0.6), (2, 0, 100, 0.7, 0.5),
+               (3, 3000, -1, 0.5, 1.0)]
+    quiet = np.random.RandomState(40).uniform(-0.5, 0.5, (N, 40320, 2))
+    rows, ci, cf = [], [], []
+    for n in range(N):
+        peaky = n % 2 == 0 or N == 1
+        rows.append(_limiter_window(n, dtype, cuda) if peaky
+                    else torch.from_numpy(quiet[n]).to(cuda, dtype))
+        c = carries[(n // 2) % 4] if peaky else (0, 0, -1, 0.0, 0.0)
+        ci.append(c[:3])
+        cf.append(c[3:])
+    w = torch.stack(rows).contiguous()
+    ci = torch.tensor(ci, dtype=torch.int32, device=cuda)
+    cf = torch.tensor(cf, dtype=dtype, device=cuda)
+    pk, pv, fut = lim.precompute_peaks(w, tp)
+    before = lim.launches
+    out, ni, nf = lim.limiter_frames(w, ci, cf, tp, pk, pv, fut)
+    torch.cuda.synchronize()
+    assert lim.launches == before + 1
+    ref, ri, rf = lim.limiter_frames_plain(w.cpu(), ci.cpu(), cf.cpu(), tp, pk.cpu(),
+                                           pv.cpu(), fut.cpu())
+    assert out.shape == (N, lim.FRAME, 2)
+    assert torch.equal(out.cpu(), ref)
+    assert torch.equal(ni.cpu(), ri) and torch.equal(nf.cpu(), rf)
+
+
+@pytest.mark.cuda
+def test_limiter_kernel_n_streams_rejects_bad_operands(cuda):
+    from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
+
+    w = torch.zeros(4, 40320, 2, dtype=torch.float32, device=cuda)
+    ci = torch.tensor([[0, 0, -1]] * 4, dtype=torch.int32, device=cuda)
+    cf = torch.zeros(4, 2, dtype=torch.float32, device=cuda)
+    pk, pv, fut = lim.precompute_peaks(w, 0.79)
+    before = lim.launches
+    with pytest.raises(ValueError):
+        lim.limiter_frames(w, ci[:3], cf, 0.79, pk, pv, fut)
+    with pytest.raises(ValueError):
+        lim.limiter_frames(w.transpose(1, 2), ci, cf, 0.79, pk, pv, fut)
+    with pytest.raises(ValueError):
+        lim.limiter_frames(w, ci, cf.double(), 0.79, pk, pv, fut)
+    with pytest.raises(ValueError):
+        lim.limiter_frames(w, ci, cf, 0.79, pk[:, :100], pv, fut)
+    assert lim.launches == before
+
+
+# Kernel T1, asr-lite's BiGRU recurrence (csrc/asr_gru.cu), against its plain
+# version (a step loop of torch ops): the same products summed in another
+# order, expf / tanhf against torch's sigmoid and tanh; the hidden states
+# within T1_TOL of 1 + |ref|.
+T1_TOL = 1e-5
+
+
+def _asr_inputs(source, dev):
+    """(weights on dev, layer-0 features [1, T, 40] on dev): the log-mel
+    features of synthesised speech or of silence padded to a multiple of 50
+    frames, as transcribe runs them, or seeded random features at T = 500."""
+    from gst_plugins_rs_tpu_torch.ops import asr
+    from gst_plugins_rs_tpu_torch.ops.speechsynth import synth_sentence
+
+    w = asr.load_weights(dev=dev)
+    if source == "random":
+        return w, torch.from_numpy(np.random.RandomState(8).randn(1, 500, 40)
+                                   .astype(np.float32)).to(dev)
+    audio = (synth_sentence(["open", "door", "seven", "volume", "up"], seed=5, noise_snr_db=30)
+             if source == "speech" else np.zeros(80000, np.float32))
+    feats, _ = asr.padded_features(torch.from_numpy(audio).to(dev))
+    return w, feats[None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["speech", "silence", "random"])
+def test_asr_gru_kernel_matches_plain(cuda, source):
+    """Both layers and both directions: layer 1 takes the plain layer 0's
+    states, so each layer is held on its own inputs."""
+    from gst_plugins_rs_tpu_torch.ops import asr, asr_gru
+
+    w, x = _asr_inputs(source, cuda)
+    for layer in range(2):
+        Wx, b, U = asr.layer_mats(w, layer)
+        X = asr.input_projections(x, Wx, b)
+        before = asr_gru.launches
+        got = asr_gru.bigru(X, U)
+        torch.cuda.synchronize()
+        assert asr_gru.launches == before + 1
+        ref = asr_gru.bigru_plain(X, U)
+        assert got.shape == ref.shape and torch.isfinite(got).all()
+        err = float(((got - ref).abs() / (1 + ref.abs())).max())
+        assert err <= T1_TOL, (layer, err)
+        x = torch.cat([ref[:, 0], ref[:, 1]], -1)
+
+
+@pytest.mark.cuda
+def test_asr_gru_kernel_batches_utterances(cuda):
+    from gst_plugins_rs_tpu_torch.ops import asr, asr_gru
+
+    w = asr.load_weights(dev=cuda)
+    Wx, b, U = asr.layer_mats(w, 0)
+    x = torch.from_numpy(np.random.RandomState(3).randn(3, 120, 40).astype(np.float32)).to(cuda)
+    X = asr.input_projections(x, Wx, b)
+    both = asr_gru.bigru(X, U)
+    for i in range(3):
+        assert torch.equal(both[i:i + 1], asr_gru.bigru(X[i:i + 1].contiguous(), U))
+
+
+@pytest.mark.cuda
+def test_asr_gru_kernel_rejects_bad_operands(cuda):
+    from gst_plugins_rs_tpu_torch.ops import asr_gru
+
+    X = torch.zeros(1, 2, 50, 288, device=cuda)
+    U = torch.zeros(2, 3, 96, 96, device=cuda)
+    before = asr_gru.launches
+    with pytest.raises(ValueError):
+        asr_gru.bigru(X.double(), U)
+    with pytest.raises(ValueError):
+        asr_gru.bigru(X[..., :96], U)
+    with pytest.raises(ValueError):
+        asr_gru.bigru(X, U.cpu())
+    assert asr_gru.launches == before
+
+
+@pytest.mark.cuda
+def test_transcribe_card_vs_cpu(cuda):
+    """The packaged model on a command: the same transcript on the card (T1)
+    and on the CPU (the plain recurrence), logits within 1e-4."""
+    from gst_plugins_rs_tpu_torch.ops import asr
+    from gst_plugins_rs_tpu_torch.ops.speechsynth import synth_sentence
+
+    audio = synth_sentence(["volume", "up"], seed=77_000_002, noise_snr_db=30)
+    feats, t = asr.padded_features(torch.from_numpy(audio))
+    card = asr.forward(asr.load_weights(dev=cuda), feats.to(cuda)).cpu()
+    host = asr.forward(asr.load_weights(dev="cpu"), feats)
+    assert float((card - host).abs().max()) <= 1e-4
+    assert asr.transcribe(asr.load_weights(dev=cuda), audio) == "volume up"

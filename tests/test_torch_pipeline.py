@@ -257,7 +257,8 @@ def test_factories_mirror_jax():
             "videoconvert", "audioloudnorm", "ebur128level", "rsaudioecho", "audiornnoise",
             "agingradio", "hrtfrender", "sofalizer", "audiomixer", "videoscale",
             "videoconvertscale", "skiacompositor", "roundedcorners", "colordetect",
-            "videocompare", "demucs"} == set(names)
+            "videocompare", "demucs", "whispertranscriber", "handdetectiontensordec",
+            "loudnormbank"} == set(names)
     for name in names:
         jc, tc = jfactory(name), tfactory(name)
         assert [(p.name, repr(p.default), p.type, p.choices) for p in jc.PROPERTIES] == \
