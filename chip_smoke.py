@@ -65,7 +65,10 @@ device ms a segment.  3g/4g/5g/6g speech transcription: T1 (asr-lite's BiGRU
 recurrence) against its plain version at T = 500; 30 s of synthesised
 speech through appsrc ! whispertranscriber chunk-duration=5 s (T1 launches =
 2 x chunks, every chunk's words); card against CPU (transcripts, logits);
-seconds of audio per second and device ms a chunk.  3h/4h/5h/6h the stream
+seconds of audio per second and device ms a chunk.  4i/5i hand detection:
+30 buffers of a 1920x1080 stream through handdetectiontensordec, each with a
+seeded 2 016-row palm-detection-out tensor on the card, the boxes equal to
+the element's decode of the same rows on the CPU.  3h/4h/5h/6h the stream
 bank: L1 over 16 streams a launch against its plain twin and timed beside
 one stream; 16 streams x 30 s of 192 kHz stereo F32 (8 ticks, 8 sines)
 through loudnormbank (L1 launches = ticks, every stream at -24 LUFS, peaks
@@ -2335,7 +2338,7 @@ def asr_kernel(card_line):
           f"cycles at the max SM clock)")
     return dict(case=f"one layer of a 5 s chunk, T = {ASR_T}, both directions", ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
-                library_ms=None, flop=flop, bytes=nbytes, serial_chain_ms_estimated=chain_ms)
+                library_ms=None, flop=flop, bytes=nbytes)
 
 
 def speech_pipeline():
@@ -2411,6 +2414,110 @@ def speech_timing(card_line):
           f"copies left out: {upload_ms:.4f} ms in all), ms per chunk by device op: "
           + ", ".join(f"{k} {v / n:.4f}" for k, v in top) + f" [{card_line}]")
     return dict(audio_s_per_s=audio.size / SPEECH_RATE / secs, device_ms_per_chunk=device_ms / n)
+
+
+# ---------------------------------------------------------------------------
+# Hand detection: handdetectiontensordec on a 1920x1080 stream whose buffers
+# carry a seeded palm-detection-out tensor of 2 016 rows (MediaPipe's anchor
+# count) on the card; the decode is host work (no kernel), one read-back a
+# buffer
+# ---------------------------------------------------------------------------
+HAND_W, HAND_H = 1920, 1080
+HAND_ANCHORS = 2016
+HAND_FRAMES = 30
+HAND_SEED = 600
+
+
+def palm_rows(seed: int) -> np.ndarray:
+    """[HAND_ANCHORS, 8] f32 rows [score, cx, cy, size, kp0, kp2]
+    (normalised): scores mostly under the threshold, 12 rows scored 0.5-0.99,
+    keypoint spans and angles drawn so that some candidates pass the
+    element's geometry checks and NMS has overlaps to resolve."""
+    n = HAND_ANCHORS
+    rng = np.random.RandomState(seed)
+    rows = np.zeros((n, 8), np.float32)
+    rows[:, 0] = rng.uniform(0.0, 0.3, n)
+    rows[:, 1:3] = rng.uniform(0.0, 1.0, (n, 2))
+    rows[:, 3] = rng.uniform(0.02, 0.3, n)
+    ang = rng.uniform(-np.pi, np.pi, n)
+    span = rows[:, 3] * rng.uniform(0.2, 1.4, n)
+    rows[:, 4:6] = rows[:, 1:3]
+    rows[:, 6] = rows[:, 1] + span * np.cos(ang)
+    rows[:, 7] = rows[:, 2] + span * np.sin(ang)
+    hot = rng.choice(n, 12, replace=False)
+    rows[hot, 0] = rng.uniform(0.5, 0.99, hot.size)
+    return rows
+
+
+def _hand_summary(m):
+    """The oriented boxes (id, type, x, y, w, h, rotation, confidence), the
+    classifications and the relations of a buffer's relation meta."""
+    od = [(o.id, o.object_type, o.x, o.y, o.w, o.h, o.rotation, o.loc_conf_lvl) for o in m.od]
+    cls = [sorted((k, repr(v)) for k, v in vars(c).items()) for c in m.cls]
+    rel = [(r.name, a, b) for r, a, b in m.relations]
+    return od, cls, rel
+
+
+def _hand_path(tensors):
+    """appsrc (RGB 1080p frames on the selected device, each buffer carrying
+    its palm-detection-out tensor: a torch tensor or a numpy array) !
+    handdetectiontensordec max-hands=8 ! appsink: [(pts, summary)] a buffer."""
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch._device import device
+    from gst_plugins_rs_tpu_torch.core import Buffer
+    from gst_plugins_rs_tpu_torch.elements.analytics import meta as M
+
+    p = g.parse_launch(f"appsrc name=src caps=video/x-raw,format=RGB,width={HAND_W},"
+                       f"height={HAND_H},framerate=30/1 ! handdetectiontensordec max-hands=8 "
+                       f"! appsink name=sink")
+    src = p.by_name("src")
+    frame = torch.zeros((HAND_H, HAND_W, 3), dtype=torch.uint8, device=device())
+    for i, data in enumerate(tensors):
+        buf = Buffer(frame, pts=i * 10**9 // 30, duration=10**9 // 30)
+        buf.add_meta(M.TensorMeta([M.Tensor("palm-detection-out", M.TensorDataType.FLOAT32,
+                                            tuple(data.shape), M.TensorDimOrder.ROW_MAJOR,
+                                            data)]))
+        src.push_buffer(buf)
+    src.end_of_stream()
+    p.play_until_eos()
+    return [(s.buffer.pts, _hand_summary(s.buffer.get_meta(M.AnalyticsRelationMeta)))
+            for s in p.by_name("sink").samples]
+
+
+def hand_pipelines(card_line):
+    """Phases 4i/5i: HAND_FRAMES buffers of a 1080p stream through
+    handdetectiontensordec with their palm tensors on the card (every buffer
+    decoded, PTS in order, boxes inside the frame), then the same rows as
+    numpy arrays through the element on the CPU (the plain decode): boxes,
+    scores, classifications and relations equal; frames per second on the
+    card."""
+    phase("4i handdetection on the card: 2 016-row palm tensors at 1920x1080")
+    rows = [palm_rows(HAND_SEED + i) for i in range(HAND_FRAMES)]
+    on_card = [torch.from_numpy(r).cuda() for r in rows]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = _hand_path(on_card)
+    secs = time.perf_counter() - t0
+    hands = [len(od) for _, (od, _, _) in card]
+    print(f"handdetectiontensordec: {len(card)} buffers of {HAND_W}x{HAND_H}, "
+          f"{HAND_ANCHORS} rows a tensor on the card, hands a buffer {hands}; "
+          f"{len(card) / secs:.1f} buffers/s (host decode, one read-back a buffer) [{card_line}]")
+    if [pts for pts, _ in card] != [i * 10**9 // 30 for i in range(HAND_FRAMES)]:
+        raise AssertionError("handdetection: buffers lost or out of order")
+    if min(hands) < 1:
+        raise AssertionError(f"handdetection: a buffer without a hand: {hands}")
+    for _, (od, cls, rel) in card:
+        if len(cls) != len(od) or len(rel) != len(od) or any(
+                o[4] <= 0 or o[5] <= 0 or o[2] + o[4] <= 0 or o[3] + o[5] <= 0
+                or o[2] >= HAND_W or o[3] >= HAND_H or not np.isfinite(o[6]) for o in od):
+            raise AssertionError(f"handdetection: malformed boxes {od}")
+    phase("5i handdetection, card against the plain decode on the CPU")
+    host = _on("cpu", lambda: _hand_path(rows))
+    same = card == host
+    print(f"handdetection: oriented boxes, scores, classifications and relations of "
+          f"{HAND_FRAMES} buffers, card tensors vs numpy rows on the CPU: equal {same}")
+    if not same:
+        raise AssertionError("handdetection: the card's decode differs from the CPU's")
 
 
 # ---------------------------------------------------------------------------
@@ -2663,6 +2770,7 @@ def main() -> int:
     compose_card_vs_cpu()
     demucs_card_vs_cpu()
     speech_card_vs_cpu()
+    hand_pipelines(card_line)
     bank_card_vs_cpu()
     timing(card_line)
     effects_timing(card_line, grade)

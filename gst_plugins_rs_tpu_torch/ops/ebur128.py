@@ -273,22 +273,26 @@ def r128_init(params: R128Params, channels: int) -> R128State:
 
 
 # ---------------------------------------------------------------------------
-# Processing
+# Processing.  Every function takes any leading stream axes [...] on the state
+# leaves and the input (none for one analyser, [N] for a bank of N): the two
+# counters are shared, since a bank's streams advance in lockstep.  A bank's
+# K-filter runs all N x ch columns through one set of block products and its
+# histograms take one index_add over all streams.
 # ---------------------------------------------------------------------------
 def r128_update_peaks(state: R128State, params: R128Params, x, first: bool = True) -> R128State:
-    """Sample and true peaks of a chunk x [N, ch].  `first` marks the first
-    chunk of an add: the prev_* peaks restart there."""
-    sp = x.abs().amax(0)
+    """Sample and true peaks of a chunk x [..., L, ch].  `first` marks the
+    first chunk of an add: the prev_* peaks restart there."""
+    sp = x.abs().amax(-2)
     if params.tp_factor == 1:
         tp, tail = sp, state.tp_tail
     else:
-        hist_len = state.tp_tail.shape[0]
-        ext = torch.cat([state.tp_tail, x], 0)
-        windows = ext.unfold(0, hist_len + 1, 1)  # [N, ch, taps_pp]: ext[n + j]
+        hist_len = state.tp_tail.shape[-2]
+        ext = torch.cat([state.tp_tail, x], -2)
+        windows = ext.unfold(-2, hist_len + 1, 1)  # [..., L, ch, taps_pp]: ext[l + j]
         with no_tf32():
-            ups = torch.einsum("pj,ncj->npc", params.tp_filter.flip(1), windows)
-        tp = ups.abs().amax((0, 1))
-        tail = ext[ext.shape[0] - hist_len:]
+            ups = torch.einsum("pj,...ncj->...npc", params.tp_filter.flip(1), windows)
+        tp = ups.abs().amax((-3, -2))
+        tail = ext[..., ext.shape[-2] - hist_len:, :]
     if first:
         prev_sp, prev_tp = sp, tp
     else:
@@ -318,78 +322,95 @@ def _counter_steps(state: R128State, B: int):
     return sb, st, m_on, s_on
 
 
+def _hist_add(hist, e, floor):
+    """hist [..., HIST_BINS] plus one count for each energy of e [..., K]
+    at or above floor: one index_add over all streams."""
+    idx = _hist_index(e)
+    if hist.dim() > 1:
+        lead = hist.shape[:-1]
+        rows = torch.arange(math.prod(lead), device=e.device).reshape(*lead, 1)
+        idx = rows * HIST_BINS + idx
+    return hist.reshape(-1).index_add(0, idx.reshape(-1),
+                                      (e >= floor).to(e.dtype).reshape(-1)).reshape(hist.shape)
+
+
 def _ingest_subblock_energies(state: R128State, params: R128Params, e) -> R128State:
-    """The JAX package's per-subblock scan over e [B], all subblocks at once:
-    the ring after subblock i is seq[i+1 : i+31] of seq = (ring, e)."""
-    B = int(e.shape[0])
+    """The JAX package's per-subblock scan over e [..., B], all subblocks at
+    once: the ring after subblock i is seq[i+1 : i+31] of seq = (ring, e)."""
+    B = int(e.shape[-1])
     n100 = params.n100
-    seq = torch.cat([state.subblocks, e])
-    me = seq.unfold(0, 4, 1)[27:27 + B].sum(-1) / (4.0 * n100)
-    se = seq.unfold(0, 30, 1)[1:1 + B].sum(-1) / (30.0 * n100)
+    seq = torch.cat([state.subblocks, e], -1)
+    me = seq.unfold(-1, 4, 1)[..., 27:27 + B, :].sum(-1) / (4.0 * n100)
+    se = seq.unfold(-1, 30, 1)[..., 1:1 + B, :].sum(-1) / (30.0 * n100)
     sb, st, m_on, s_on = _counter_steps(state, B)
     floor = params.boundaries[0]
     block_hist, st_hist = state.block_hist, state.st_hist
     # momentary blocks count from the 4th subblock on (a suffix of the steps);
     # short-term blocks fire every 10th step: slices, no index upload
     if any(m_on):
-        m = me[m_on.index(True):]
-        block_hist = block_hist.index_add(0, _hist_index(m), (m >= floor).to(m.dtype))
+        block_hist = _hist_add(block_hist, me[..., m_on.index(True):], floor)
     for i in (i for i, on in enumerate(s_on) if on):
-        s = se[i:i + 1]
-        st_hist = st_hist.index_add(0, _hist_index(s), (s >= floor).to(s.dtype))
-    return state._replace(subblocks=seq[B:], sb_count=sb, st_counter=st,
+        st_hist = _hist_add(st_hist, se[..., i:i + 1], floor)
+    return state._replace(subblocks=seq[..., B:], sb_count=sb, st_counter=st,
                           block_hist=block_hist, st_hist=st_hist)
 
 
 def r128_add_full_subblocks(state: R128State, params: R128Params, x) -> R128State:
-    """x [B * n100, ch], a whole number of 100 ms subblocks: K-weighting,
+    """x [..., B * n100, ch], a whole number of 100 ms subblocks: K-weighting,
     subblock energies, gating histograms, sample and true peaks."""
     n100 = params.n100
-    B = x.shape[0] // n100
+    *lead, L, ch = x.shape
+    B = L // n100
     state = r128_update_peaks(state, params, x, first=True)
-    y, filt_z = k_filter_apply(x, params.coeffs_b, params.coeffs_a, state.filt_z)
-    wsq = (y * y) @ params.weights
-    e = wsq.reshape(B, n100).sum(1)
+    cols = x.movedim(-2, 0).reshape(L, -1)  # stream-major columns
+    zi = state.filt_z.movedim((-3, -2), (0, 1)).reshape(2, 2, -1)
+    y, zf = k_filter_apply(cols, params.coeffs_b, params.coeffs_a, zi)
+    filt_z = zf.reshape(2, 2, *lead, ch).movedim((0, 1), (-3, -2))
+    wsq = (y * y).reshape(L, *lead, ch) @ params.weights  # [L, ...]
+    e = wsq.reshape(B, n100, *lead).sum(1).movedim(0, -1)  # [..., B]
     return _ingest_subblock_energies(state._replace(filt_z=filt_z), params, e)
 
 
 # ---------------------------------------------------------------------------
-# Queries (device tensors)
+# Queries (device tensors; one value a stream)
 # ---------------------------------------------------------------------------
 def loudness_momentary(state: R128State, params: R128Params):
-    return energy_to_loudness(state.subblocks[-4:].sum() / (4.0 * params.n100))
+    return energy_to_loudness(state.subblocks[..., -4:].sum(-1) / (4.0 * params.n100))
 
 
 def loudness_shortterm(state: R128State, params: R128Params):
-    return energy_to_loudness(state.subblocks.sum() / (30.0 * params.n100))
+    return energy_to_loudness(state.subblocks.sum(-1) / (30.0 * params.n100))
 
 
 def relative_threshold_energy(state: R128State, params: R128Params):
-    total = state.block_hist.sum()
+    total = state.block_hist.sum(-1)
     mean_e = torch.where(total > 0,
-                         (state.block_hist * params.energies).sum() / torch.clamp_min(total, 1.0),
+                         (state.block_hist * params.energies).sum(-1) / torch.clamp_min(total, 1.0),
                          torch.zeros_like(total))
     return mean_e * 0.1
 
 
 def _gate_start(boundaries, e):
-    start = torch.searchsorted(boundaries[:HIST_BINS].contiguous(), e.reshape(1), right=True) - 1
+    """[..., 1] first histogram bin at or above each energy of e [...]."""
+    start = torch.searchsorted(boundaries[:HIST_BINS].contiguous(), e.unsqueeze(-1).contiguous(),
+                               right=True) - 1
     return torch.clamp(start, 0, HIST_BINS - 1)
 
 
 def loudness_global(state: R128State, params: R128Params):
-    """Integrated loudness, absolute (-70) and relative (-10 LU) gated."""
+    """Integrated loudness, absolute (-70) and relative (-10 LU) gated, each
+    stream on its own histogram."""
     start = _gate_start(params.boundaries, relative_threshold_energy(state, params))
     mask = torch.arange(HIST_BINS, device=start.device) >= start
     hist = state.block_hist * mask
-    cnt = hist.sum()
-    e = (hist * params.energies).sum() / torch.clamp_min(cnt, 1.0)
+    cnt = hist.sum(-1)
+    e = (hist * params.energies).sum(-1) / torch.clamp_min(cnt, 1.0)
     return torch.where(cnt > 0, energy_to_loudness(e), torch.full_like(e, -math.inf))
 
 
 def loudness_range(state: R128State, params: R128Params):
-    """LRA: 10th..95th percentile of the relative-gated (-20 LU) short-term
-    blocks."""
+    """LRA of one analyser: 10th..95th percentile of the relative-gated
+    (-20 LU) short-term blocks."""
     hist = state.st_hist
     total = hist.sum()
     power = (hist * params.energies).sum() / torch.clamp_min(total, 1.0)
@@ -406,9 +427,9 @@ def loudness_range(state: R128State, params: R128Params):
 
 
 def queries(state: R128State, params: R128Params):
-    """All query values as one 1-D tensor (one read-back): momentary,
-    short-term, global, relative threshold, LRA, then per channel the
-    sample peak, true peak (>= sample peak), and the last add's two."""
+    """All query values of one analyser as one 1-D tensor (one read-back):
+    momentary, short-term, global, relative threshold, LRA, then per channel
+    the sample peak, true peak (>= sample peak), and the last add's two."""
     scalars = torch.stack([
         loudness_momentary(state, params),
         loudness_shortterm(state, params),
@@ -423,93 +444,13 @@ def queries(state: R128State, params: R128Params):
 
 
 # ---------------------------------------------------------------------------
-# N streams at once (the stream bank): every state leaf but the two counters
-# carries a leading [N] axis; the counters are shared, since a bank's streams
-# advance in lockstep.  The K-filter runs all N x ch columns through one set
-# of block products; the histograms take one index_add over all streams.
+# A bank of N analysers (the stream bank): every state leaf but the two
+# counters carries a leading [N] axis
 # ---------------------------------------------------------------------------
 def r128_init_batched(params: R128Params, channels: int, n: int) -> R128State:
     one = r128_init(params, channels)
     return one._replace(**{f: getattr(one, f).expand((n,) + getattr(one, f).shape).clone()
                            for f in R128State._fields if f not in ("sb_count", "st_counter")})
-
-
-def r128_update_peaks_batched(state: R128State, params: R128Params, x) -> R128State:
-    """Sample and true peaks of x [N, L, ch] (the first chunk of an add)."""
-    sp = x.abs().amax(1)
-    if params.tp_factor == 1:
-        tp, tail = sp, state.tp_tail
-    else:
-        hist_len = state.tp_tail.shape[1]
-        ext = torch.cat([state.tp_tail, x], 1)
-        windows = ext.unfold(1, hist_len + 1, 1)  # [N, L, ch, taps_pp]: ext[:, l + j]
-        with no_tf32():
-            ups = torch.einsum("pj,nlcj->nlpc", params.tp_filter.flip(1), windows)
-        tp = ups.abs().amax((1, 2))
-        tail = ext[:, ext.shape[1] - hist_len:]
-    return state._replace(sample_peak=torch.maximum(state.sample_peak, sp), prev_sample_peak=sp,
-                          true_peak=torch.maximum(state.true_peak, tp), prev_true_peak=tp,
-                          tp_tail=tail)
-
-
-def r128_add_full_subblocks_batched(state: R128State, params: R128Params, x) -> R128State:
-    """`r128_add_full_subblocks` for N streams: x [N, B * n100, ch]."""
-    n100 = params.n100
-    N, L, ch = x.shape
-    B = L // n100
-    state = r128_update_peaks_batched(state, params, x)
-    cols = x.permute(1, 0, 2).reshape(L, N * ch)  # stream-major columns
-    zi = state.filt_z.permute(1, 2, 0, 3).reshape(2, 2, N * ch)
-    y, zf = k_filter_apply(cols, params.coeffs_b, params.coeffs_a, zi)
-    filt_z = zf.reshape(2, 2, N, ch).permute(2, 0, 1, 3).contiguous()
-    wsq = (y * y).reshape(L, N, ch) @ params.weights  # [L, N]
-    e = wsq.reshape(B, n100, N).sum(1).t()  # [N, B]
-
-    seq = torch.cat([state.subblocks, e], 1)
-    me = seq.unfold(1, 4, 1)[:, 27:27 + B].sum(-1) / (4.0 * n100)
-    se = seq.unfold(1, 30, 1)[:, 1:1 + B].sum(-1) / (30.0 * n100)
-    sb, st, m_on, s_on = _counter_steps(state, B)
-    floor = params.boundaries[0]
-    rows = torch.arange(N, device=x.device)[:, None] * HIST_BINS
-    block_hist, st_hist = state.block_hist, state.st_hist
-    if any(m_on):
-        m = me[:, m_on.index(True):]
-        block_hist = block_hist.reshape(-1).index_add(
-            0, (rows + _hist_index(m)).reshape(-1), (m >= floor).to(m.dtype).reshape(-1)
-        ).reshape(N, HIST_BINS)
-    for i in (i for i, on in enumerate(s_on) if on):  # slices, no index upload
-        s_ = se[:, i:i + 1]
-        st_hist = st_hist.reshape(-1).index_add(
-            0, (rows + _hist_index(s_)).reshape(-1), (s_ >= floor).to(s_.dtype).reshape(-1)
-        ).reshape(N, HIST_BINS)
-    return state._replace(filt_z=filt_z, subblocks=seq[:, B:], sb_count=sb, st_counter=st,
-                          block_hist=block_hist, st_hist=st_hist)
-
-
-def loudness_shortterm_batched(state: R128State, params: R128Params):
-    """[N] short-term loudness."""
-    return energy_to_loudness(state.subblocks.sum(-1) / (30.0 * params.n100))
-
-
-def relative_threshold_energy_batched(state: R128State, params: R128Params):
-    total = state.block_hist.sum(-1)
-    mean_e = torch.where(total > 0,
-                         (state.block_hist * params.energies).sum(-1) / torch.clamp_min(total, 1.0),
-                         torch.zeros_like(total))
-    return mean_e * 0.1
-
-
-def loudness_global_batched(state: R128State, params: R128Params):
-    """[N] integrated loudness, each stream gated on its own histogram."""
-    rel = relative_threshold_energy_batched(state, params)
-    start = torch.clamp(torch.searchsorted(params.boundaries[:HIST_BINS].contiguous(),
-                                           rel[:, None].contiguous(), right=True) - 1,
-                        0, HIST_BINS - 1)
-    mask = torch.arange(HIST_BINS, device=start.device)[None] >= start
-    hist = state.block_hist * mask
-    cnt = hist.sum(-1)
-    e = (hist * params.energies).sum(-1) / torch.clamp_min(cnt, 1.0)
-    return torch.where(cnt > 0, energy_to_loudness(e), torch.full_like(e, -math.inf))
 
 
 def merged_loudness_global(states_batched: R128State, params: R128Params):
@@ -603,9 +544,7 @@ __all__ = [
     "MODE_M", "MODE_S", "MODE_I", "MODE_LRA", "MODE_SAMPLE_PEAK", "MODE_TRUE_PEAK",
     "MODE_HISTOGRAM", "EbuR128", "R128Params", "R128State", "biquad_apply",
     "channel_weights", "energy_to_loudness", "k_filter_apply", "k_weighting_coeffs",
-    "loudness_global", "loudness_global_batched", "loudness_momentary", "loudness_range",
-    "loudness_shortterm", "loudness_shortterm_batched", "merged_loudness_global", "queries",
-    "r128_add_full_subblocks", "r128_add_full_subblocks_batched", "r128_init",
-    "r128_init_batched", "r128_params", "r128_update_peaks", "r128_update_peaks_batched",
-    "relative_threshold_energy", "relative_threshold_energy_batched",
+    "loudness_global", "loudness_momentary", "loudness_range", "loudness_shortterm",
+    "merged_loudness_global", "queries", "r128_add_full_subblocks", "r128_init",
+    "r128_init_batched", "r128_params", "r128_update_peaks", "relative_threshold_energy",
 ]

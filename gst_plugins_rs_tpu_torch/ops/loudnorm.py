@@ -15,11 +15,11 @@ read-back: the loudness queries, the gaussian-smoothed gain, the gain ramp,
 the peak detection and the limiter kernel (ops/loudnorm_limiter.py).  The
 JAX package scans K frames a dispatch; here the element loops over frames.
 
-The batched variants (`*_batched`) serve loudnormbank (parallel/streams.py):
-the state leaves carry a leading [N] stream axis (the ring index stays one
-host int: a bank's streams advance in lockstep), each stream's math is the
-single-stream step's, and the limiter runs N streams in one launch
-(ops/loudnorm_limiter.py::limiter_frames).  The JAX module's
+Every step takes any leading stream axes on the state leaves and the input:
+none for audioloudnorm, [N] for loudnormbank (parallel/streams.py, state
+from `loudnorm_init_batched`; the ring index stays one host int, since a
+bank's streams advance in lockstep).  The limiter then runs the N streams
+in one launch (ops/loudnorm_limiter.py::limiter_frames).  The JAX module's
 `inner_frames_scan_pre` serves the time-shard path, which waits for the
 mesh layer (ROADMAP queue A, item 6).
 """
@@ -35,16 +35,12 @@ from .ebur128 import (
     R128State,
     energy_to_loudness,
     loudness_global,
-    loudness_global_batched,
     loudness_shortterm,
-    loudness_shortterm_batched,
     r128_add_full_subblocks,
-    r128_add_full_subblocks_batched,
     r128_init,
     r128_init_batched,
     r128_params,
     relative_threshold_energy,
-    relative_threshold_energy_batched,
 )
 from .loudnorm_limiter import (
     FRAME,
@@ -140,14 +136,16 @@ def loudnorm_init(params: LoudnormParams, channels: int, offset_db: float) -> Lo
 
 def _gaussian_gain(delta, params: LoudnormParams, i: int):
     """Gaussian-smoothed gain from the delta ring (imp.rs:1529-1541)."""
-    return (params.weights * delta[params.gauss_idx[i]]).sum()
+    return (params.weights * delta[..., params.gauss_idx[i]]).sum(-1)
 
 
 def limit(window, lim_i, lim_f, target_tp: float):
-    """The limiter over window[:FRAME]: peak detection, then the FSM (the
-    kernel on CUDA).  Returns (out [FRAME, ch], lim_i, lim_f)."""
+    """The limiter over window[..., :FRAME, :]: peak detection, then the FSM
+    (on CUDA one kernel launch for one stream or for a bank's N).  Returns
+    (out [..., FRAME, ch], lim_i, lim_f)."""
     pk, pv, future = precompute_peaks(window, target_tp)
-    return limiter_frame(window, lim_i, lim_f, target_tp, pk, pv, future)
+    run = limiter_frame if window.dim() == 2 else limiter_frames
+    return run(window, lim_i, lim_f, target_tp, pk, pv, future)
 
 
 def _update_gain(state: LoudnormState, params: LoudnormParams) -> LoudnormState:
@@ -172,14 +170,14 @@ def _update_gain(state: LoudnormState, params: LoudnormParams) -> LoudnormState:
     keep_prev = (shortterm < rel) | (shortterm <= -70.0) | (~above)
     d = torch.where(keep_prev, prev_delta, new_delta)
     delta = state.delta.clone()
-    delta[state.index] = d
+    delta[..., state.index] = d
     return state._replace(delta=delta, prev_delta=d, above=above,
                           index=(state.index + 1) % 30)
 
 
 def first_frame_step(state: LoudnormState, params: LoudnormParams, src):
-    """The initial 3 s frame (imp.rs:368-442).  src [GAIN_LOOKAHEAD, ch];
-    returns (state, out [FRAME, ch])."""
+    """The initial 3 s frame (imp.rs:368-442).  src [..., GAIN_LOOKAHEAD, ch];
+    returns (state, out [..., FRAME, ch])."""
     rp = params.r128
     tp = params.target_tp
     r128_in = r128_add_full_subblocks(state.r128_in, rp, src)
@@ -188,48 +186,48 @@ def first_frame_step(state: LoudnormState, params: LoudnormParams, src):
     env_shortterm = torch.where(above, params.target_i - shortterm,
                                 torch.zeros_like(shortterm))
     d0 = 10.0 ** (env_shortterm / 20.0)
-    window = src[:FRAME + TAIL] * (d0 * state.offset)
+    window = src[..., :FRAME + TAIL, :] * (d0 * state.offset)[..., None, None]
 
     # if the first 10 ms already exceed the target, start in sustain with
     # the needed reduction (imp.rs:1335-1375)
-    mx = window[:LIMITER_LOOKAHEAD + 1].abs().max()
+    mx = window[..., :LIMITER_LOOKAHEAD + 1, :].abs().amax((-2, -1))
     over = mx > tp
     lim_i = torch.stack([torch.where(over, ST_SUSTAIN, ST_OUT),
                          torch.zeros_like(over, dtype=torch.int64),
-                         torch.where(over, LIMITER_LOOKAHEAD, -1)]).to(torch.int32)
+                         torch.where(over, LIMITER_LOOKAHEAD, -1)], -1).to(torch.int32)
     gr1 = torch.where(over, tp / torch.where(mx > 0, mx, torch.ones_like(mx)),
                       torch.zeros_like(mx))
-    out, lim_i, lim_f = limit(window, lim_i, torch.stack([torch.zeros_like(gr1), gr1]), tp)
+    out, lim_i, lim_f = limit(window, lim_i, torch.stack([torch.zeros_like(gr1), gr1], -1), tp)
 
     r128_out = r128_add_full_subblocks(state.r128_out, rp, out)
-    return state._replace(backlog=src[FRAME + TAIL:], tail=window[FRAME:],
-                          delta=d0.expand(30).clone(), prev_delta=d0, above=above,
-                          lim_i=lim_i, lim_f=lim_f, r128_in=r128_in,
+    return state._replace(backlog=src[..., FRAME + TAIL:, :], tail=window[..., FRAME:, :],
+                          delta=d0[..., None].expand(*d0.shape, 30).clone(), prev_delta=d0,
+                          above=above, lim_i=lim_i, lim_f=lim_f, r128_in=r128_in,
                           r128_out=r128_out), out
 
 
 def _scale_and_limit(state: LoudnormState, params: LoudnormParams, scale_src):
     """Gain-ramp FRAME samples of the backlog, limit tail + scaled."""
-    gain = _gaussian_gain(state.delta, params, (state.index + 10) % 30)
-    gain_next = _gaussian_gain(state.delta, params, (state.index + 11) % 30)
-    gains = (gain + params.ramp * (gain_next - gain)) * state.offset
-    window = torch.cat([state.tail, scale_src * gains[:, None]], 0)
+    gain = _gaussian_gain(state.delta, params, (state.index + 10) % 30)[..., None]
+    gain_next = _gaussian_gain(state.delta, params, (state.index + 11) % 30)[..., None]
+    gains = (gain + params.ramp * (gain_next - gain)) * state.offset[..., None]
+    window = torch.cat([state.tail, scale_src * gains[..., None]], -2)
     out, lim_i, lim_f = limit(window, state.lim_i, state.lim_f, params.target_tp)
-    return state._replace(tail=window[FRAME:], lim_i=lim_i, lim_f=lim_f), out
+    return state._replace(tail=window[..., FRAME:, :], lim_i=lim_i, lim_f=lim_f), out
 
 
 def _append_limit_update(state: LoudnormState, params: LoudnormParams, src):
     """Shift src into the backlog, scale and limit the frame that leaves it,
     feed the output analyser and update the gain."""
-    scale_src = state.backlog[:FRAME]
-    state = state._replace(backlog=torch.cat([state.backlog[FRAME:], src], 0))
+    scale_src = state.backlog[..., :FRAME, :]
+    state = state._replace(backlog=torch.cat([state.backlog[..., FRAME:, :], src], -2))
     state, out = _scale_and_limit(state, params, scale_src)
     state = state._replace(r128_out=r128_add_full_subblocks(state.r128_out, params.r128, out))
     return _update_gain(state, params), out
 
 
 def inner_frame_step(state: LoudnormState, params: LoudnormParams, src):
-    """One 100 ms inner frame (imp.rs:609-647).  src [FRAME, ch]."""
+    """One 100 ms inner frame (imp.rs:609-647).  src [..., FRAME, ch]."""
     state = state._replace(r128_in=r128_add_full_subblocks(state.r128_in, params.r128, src))
     return _append_limit_update(state, params, src)
 
@@ -241,20 +239,21 @@ def final_append_step(state: LoudnormState, params: LoudnormParams, src):
 
 
 def final_frame_step(state: LoudnormState, params: LoudnormParams):
-    return final_append_step(state, params, torch.zeros_like(state.backlog[:FRAME]))
+    return final_append_step(state, params, torch.zeros_like(state.backlog[..., :FRAME, :]))
 
 
 def drain(state: LoudnormState, params: LoudnormParams, padded_src, steps: int = DRAIN_FRAMES):
-    """The final drain: the append step, then steps - 1 zero-input steps.
-    Returns (state, out [steps * FRAME, ch]).  The JAX package always runs
-    30 (`drain_scan`); the element runs 29 when the 30th frame would be cut
+    """The final drain: the append step, then steps - 1 zero-input steps,
+    one limiter launch each.  padded_src [..., FRAME, ch]; returns (state,
+    out [..., steps * FRAME, ch]).  The JAX package always runs 30
+    (`drain_scan`); the element runs 29 when the 30th frame would be cut
     away (no partial input)."""
     state, out = final_append_step(state, params, padded_src)
     outs = [out]
     for _ in range(steps - 1):
         state, out = final_frame_step(state, params)
         outs.append(out)
-    return state, torch.cat(outs, 0)
+    return state, torch.cat(outs, -2)
 
 
 def linear_gain_from_global(state: LoudnormState, params: LoudnormParams):
@@ -280,107 +279,10 @@ def loudnorm_init_batched(params: LoudnormParams, channels: int, offset_db: floa
                         r128_out=r128_init_batched(params.r128, channels, n))
 
 
-def limit_batched(windows, lim_i, lim_f, target_tp: float):
-    """The limiter over windows[:, :FRAME] of N streams (one launch on the
-    card).  Returns (out [N, FRAME, ch], lim_i [N, 3], lim_f [N, 2])."""
-    pk, pv, future = precompute_peaks(windows, target_tp)
-    return limiter_frames(windows, lim_i, lim_f, target_tp, pk, pv, future)
-
-
-def _update_gain_batched(state: LoudnormState, params: LoudnormParams) -> LoudnormState:
-    rp = params.r128
-    global_ = loudness_global_batched(state.r128_in, rp)
-    shortterm = loudness_shortterm_batched(state.r128_in, rp)
-    rel = energy_to_loudness(relative_threshold_energy_batched(state.r128_in, rp))
-
-    above = state.above
-    ramp = (~above) & (shortterm > -70.0)
-    prev_delta = torch.where(ramp, state.prev_delta * 1.0058, state.prev_delta)
-    st_out = loudness_shortterm_batched(state.r128_out, rp)
-    above = above | ((~state.above) & (st_out >= params.target_i))
-
-    env_diff = shortterm - global_
-    one = torch.ones_like(env_diff)
-    env_global = torch.where(env_diff.abs() < params.target_lra / 2.0, env_diff,
-                             torch.where(env_diff < 0.0, -one, one))
-    env_shortterm = params.target_i - shortterm
-    new_delta = 10.0 ** ((env_global + env_shortterm) / 20.0)
-    keep_prev = (shortterm < rel) | (shortterm <= -70.0) | (~above)
-    d = torch.where(keep_prev, prev_delta, new_delta)
-    delta = state.delta.clone()
-    delta[:, state.index] = d
-    return state._replace(delta=delta, prev_delta=d, above=above,
-                          index=(state.index + 1) % 30)
-
-
-def first_frame_step_batched(state: LoudnormState, params: LoudnormParams, src):
-    """`first_frame_step` for N streams: src [N, GAIN_LOOKAHEAD, ch];
-    returns (state, out [N, FRAME, ch])."""
-    rp = params.r128
-    tp = params.target_tp
-    r128_in = r128_add_full_subblocks_batched(state.r128_in, rp, src)
-    shortterm = loudness_shortterm_batched(r128_in, rp)
-    above = shortterm >= -70.0
-    env_shortterm = torch.where(above, params.target_i - shortterm,
-                                torch.zeros_like(shortterm))
-    d0 = 10.0 ** (env_shortterm / 20.0)
-    window = src[:, :FRAME + TAIL] * (d0 * state.offset)[:, None, None]
-
-    mx = window[:, :LIMITER_LOOKAHEAD + 1].abs().amax((1, 2))
-    over = mx > tp
-    lim_i = torch.stack([torch.where(over, ST_SUSTAIN, ST_OUT),
-                         torch.zeros_like(over, dtype=torch.int64),
-                         torch.where(over, LIMITER_LOOKAHEAD, -1)], 1).to(torch.int32)
-    gr1 = torch.where(over, tp / torch.where(mx > 0, mx, torch.ones_like(mx)),
-                      torch.zeros_like(mx))
-    out, lim_i, lim_f = limit_batched(window, lim_i, torch.stack([torch.zeros_like(gr1), gr1], 1),
-                                      tp)
-    r128_out = r128_add_full_subblocks_batched(state.r128_out, rp, out)
-    return state._replace(backlog=src[:, FRAME + TAIL:], tail=window[:, FRAME:],
-                          delta=d0[:, None].expand(-1, 30).clone(), prev_delta=d0, above=above,
-                          lim_i=lim_i, lim_f=lim_f, r128_in=r128_in, r128_out=r128_out), out
-
-
-def _append_limit_update_batched(state: LoudnormState, params: LoudnormParams, src):
-    scale_src = state.backlog[:, :FRAME]
-    state = state._replace(backlog=torch.cat([state.backlog[:, FRAME:], src], 1))
-    w, idx = params.weights, params.gauss_idx
-    gain = (w * state.delta[:, idx[(state.index + 10) % 30]]).sum(-1)
-    gain_next = (w * state.delta[:, idx[(state.index + 11) % 30]]).sum(-1)
-    gains = (gain[:, None] + params.ramp * (gain_next - gain)[:, None]) * state.offset[:, None]
-    window = torch.cat([state.tail, scale_src * gains[:, :, None]], 1)
-    out, lim_i, lim_f = limit_batched(window, state.lim_i, state.lim_f, params.target_tp)
-    state = state._replace(tail=window[:, FRAME:], lim_i=lim_i, lim_f=lim_f,
-                           r128_out=r128_add_full_subblocks_batched(state.r128_out, params.r128,
-                                                                    out))
-    return _update_gain_batched(state, params), out
-
-
-def inner_frame_step_batched(state: LoudnormState, params: LoudnormParams, src):
-    """`inner_frame_step` for N streams: src [N, FRAME, ch]."""
-    state = state._replace(
-        r128_in=r128_add_full_subblocks_batched(state.r128_in, params.r128, src))
-    return _append_limit_update_batched(state, params, src)
-
-
-def drain_batched(state: LoudnormState, params: LoudnormParams, padded_src,
-                  steps: int = DRAIN_FRAMES):
-    """`drain` for N streams: padded_src [N, FRAME, ch]; returns (state,
-    out [N, steps * FRAME, ch]).  One limiter launch a step."""
-    state, out = _append_limit_update_batched(state, params, padded_src)
-    outs = [out]
-    zeros = torch.zeros_like(padded_src)
-    for _ in range(steps - 1):
-        state, out = _append_limit_update_batched(state, params, zeros)
-        outs.append(out)
-    return state, torch.cat(outs, 1)
-
-
 __all__ = [
     "BACKLOG", "DRAIN_FRAMES", "FRAME", "GAIN_LOOKAHEAD", "LIMITER_ATTACK",
     "LIMITER_LOOKAHEAD", "LIMITER_RELEASE", "RATE", "TAIL", "LoudnormParams", "LoudnormState",
-    "drain", "drain_batched", "final_append_step", "final_frame_step", "first_frame_step",
-    "first_frame_step_batched", "gaussian_weights", "inner_frame_step",
-    "inner_frame_step_batched", "limit", "limit_batched", "linear_gain_from_global",
-    "loudnorm_init", "loudnorm_init_batched", "loudnorm_params",
+    "drain", "final_append_step", "final_frame_step", "first_frame_step", "gaussian_weights",
+    "inner_frame_step", "limit", "linear_gain_from_global", "loudnorm_init",
+    "loudnorm_init_batched", "loudnorm_params",
 ]

@@ -72,20 +72,20 @@ def loudnorm_bank(n_streams: int, channels: int = 2, mesh=None, loudness_target:
     _no_mesh(mesh)
     dev = device() if dev is None else torch.device(dev)
     params = LN.loudnorm_params(loudness_target, 7.0, -2.0, channels, dtype, dev)
-    bank = StreamBank(lambda states, frames: LN.inner_frame_step_batched(states, params, frames),
+    bank = StreamBank(lambda states, frames: LN.inner_frame_step(states, params, frames),
                       LN.loudnorm_init_batched(params, channels, 0.0, n_streams), n_streams)
 
     def first_frame(first3s):
         """The 3 s first frame of every stream in one step.
         first3s [n_streams, 3 s, ch] -> [n_streams, 100 ms, ch]."""
-        bank.states, outs = LN.first_frame_step_batched(bank.states, params, first3s)
+        bank.states, outs = LN.first_frame_step(bank.states, params, first3s)
         return outs
 
     def drain(padded, steps: int = LN.DRAIN_FRAMES):
         """The final drain of every stream: padded [n_streams, 100 ms, ch]
         (each stream's partial input, zero-padded) -> [n_streams, steps x
         100 ms, ch]."""
-        bank.states, outs = LN.drain_batched(bank.states, params, padded, steps)
+        bank.states, outs = LN.drain(bank.states, params, padded, steps)
         return outs
 
     bank.first_frame = first_frame  # type: ignore[attr-defined]
@@ -101,9 +101,9 @@ def r128_bank(n_streams: int, channels: int = 2, rate: int = 48000, mesh=None,
     from .._device import device
     from ..core.audio import default_channel_positions
     from ..ops.ebur128 import (
-        loudness_global_batched,
+        loudness_global,
         merged_loudness_global,
-        r128_add_full_subblocks_batched,
+        r128_add_full_subblocks,
         r128_init_batched,
         r128_params,
     )
@@ -111,7 +111,7 @@ def r128_bank(n_streams: int, channels: int = 2, rate: int = 48000, mesh=None,
     _no_mesh(mesh)
     dev = device() if dev is None else torch.device(dev)
     params = r128_params(rate, default_channel_positions(channels), dtype, dev)
-    bank = StreamBank(lambda s, x: (r128_add_full_subblocks_batched(s, params, x), x),
+    bank = StreamBank(lambda s, x: (r128_add_full_subblocks(s, params, x), x),
                       r128_init_batched(params, channels, n_streams), n_streams)
 
     def add_frames(x):
@@ -122,7 +122,7 @@ def r128_bank(n_streams: int, channels: int = 2, rate: int = 48000, mesh=None,
         return float(merged_loudness_global(bank.states, params))
 
     def per_stream_loudness() -> np.ndarray:
-        return loudness_global_batched(bank.states, params).cpu().numpy()
+        return loudness_global(bank.states, params).cpu().numpy()
 
     bank.add_frames = add_frames  # type: ignore[attr-defined]
     bank.merged_loudness = merged_loudness  # type: ignore[attr-defined]
