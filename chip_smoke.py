@@ -73,7 +73,18 @@ bank: L1 over 16 streams a launch against its plain twin and timed beside
 one stream; 16 streams x 30 s of 192 kHz stereo F32 (8 ticks, 8 sines)
 through loudnormbank (L1 launches = ticks, every stream at -24 LUFS, peaks
 <= -2 dBFS); card against CPU; stream-seconds per second, device ms and ops
-a tick, and parallel/benchmark.py --chain echo,loudnorm.
+a tick, and parallel/benchmark.py --chain echo,loudnorm.  3d'/4d'/5d' the
+denoiser over 16 mono streams as the channels of one denoise_frames_fast
+call (bench.py's rnnoise_bank16_realtime_x): R1 at C = 16 x 16 and x 100
+frames against its plain version; 60 calls of 16 frames (R1 launches =
+calls) and one call timed; card against CPU.  4j/5j/6j chain fusion
+(parallel/fuse.py, one CUDA graph a fused run): 32 differing seeded 1080p
+RGBA frames through appsrc ! hsvfilter hue-shift=120 ! colorlut approx, and
+through hsvfilter ! videoscale ! capsfilter (720p) ! videoflip
+method=rotate-180, fused against unfused bit for bit on every buffer (B4
+and B2 launches = frames, graph replays included); card against CPU; frames
+per second (median of 3), device ms, device ops and host launch calls a
+frame, fused against unfused.
 Prints a JSON line of the kernels, the card's name and power limit, then,
 last, {"ok": true, "device": ...}.  It imports nothing of JAX and nothing of
 the JAX package.
@@ -1853,6 +1864,165 @@ def denoise_timing(card_line):
     return rows
 
 
+# The denoiser over 16 mono streams in one call (bench.py's
+# rnnoise_bank16_realtime_x, a jax.vmap of denoise_frames_fast over 16
+# states): the streams are the channels of one denoise_frames_fast call at
+# C = 16, one R1 launch a call, one block a stream
+RNN_BANK_STREAMS = 16
+RNN_BANK_K = 16            # frames a call: bench.py's K_RN
+RNN_BANK_CALLS = 60        # 4d': 60 calls x 16 frames = 9.6 s of each stream
+# card against CPU (5d'): the denoised path's gates of phase 5d, a sample
+# within RNN_PATH_TOL of full scale (3.28 s16 units) and the VADs within
+# VAD_PATH_TOL; a stream's onset after silence is the least-conditioned case
+# (its first frames' spectral-variance feature is large, and the ReLU GRUs
+# carry f32 rounding of either version further), so the line prints that
+# stream's error beside the others'
+RNN_BANK_CPU_TOL = RNN_PATH_TOL * 32767
+
+
+def rnn_bank_frames(K, seed=21):
+    """[K, 16, FRAME] f32 on the host: bench.py's input, uniform in +-0.3
+    times 32767 for each of the 16 streams; stream 5 starts with two silent
+    frames (its silence flag set, the others' not)."""
+    from gst_plugins_rs_tpu_torch.ops import rnnoise as rn
+
+    a = (np.random.RandomState(seed).uniform(-0.3, 0.3, (K, RNN_BANK_STREAMS, rn.FRAME_SIZE))
+         * 32767).astype(np.float32)
+    a[:2, 5] = 0.0
+    return a
+
+
+def rnnoise_bank_kernel(card_line):
+    """Phase 3d': R1 at C = 16 streams on front-end features of bench.py's
+    input, at 16 frames (bench.py's K_RN) and at 100, against its plain
+    version, then timed beside its bound.  Returns the two cases.
+
+    On this input the two f32 versions may disagree by more than R1_TOL: the
+    stream that starts silent has large onset features, and its ReLU GRU
+    states carry each version's rounding.  So both are held to the plain
+    version evaluated in float64 on the same features: the kernel must be
+    within twice the plain f32 version's own error against it (and R1_TOL
+    at least)."""
+    phase("3d' the denoiser over 16 streams: R1 at C = 16 against its plain version")
+    from gst_plugins_rs_tpu_torch.ops import rnnoise as rn
+    from gst_plugins_rs_tpu_torch.ops import rnnoise_gru as gru
+
+    dev = torch.device("cuda")
+    w = rn.weights_to(rn.default_weights(), dev)
+    state = rn.denoise_init(RNN_BANK_STREAMS, dev)
+    _, feats, _, _, _, sil = rn.analysis_frames_batch(
+        state, torch.from_numpy(rnn_bank_frames(100)).to(dev))
+    print(f"front-end features of the 16 streams, 100 frames: max |feature| "
+          f"{float(feats.abs().max()):.2f} (stream 5, silent first: "
+          f"{float(feats[:, 5].abs().max()):.2f})")
+    cases = []
+    for K in (RNN_BANK_K, 100):
+        f, s = feats[:K].contiguous(), sil[:K].contiguous()
+        got = gru.rnn_frames(f, s, state.rnn, w)
+        torch.cuda.synchronize()
+        ref = gru.rnn_frames_plain(f, s, state.rnn, w)
+        ref64 = gru.rnn_frames_plain(f.double(), s, rn.RnnState(*(h.double() for h in state.rnn)),
+                                     {k: v.double() for k, v in w.items()})
+        err, err_k64, err_p64 = _r1_errs(got, ref), _r1_errs(got, ref64), _r1_errs(ref, ref64)
+        gate = max(R1_TOL, 2 * err_p64)
+        print(f"R1 {K} frames x 16 streams: kernel vs plain {err:.3e}; against the plain version "
+              f"in float64: kernel {err_k64:.3e}, plain {err_p64:.3e} (gate {gate:.3e})")
+        if err_k64 > gate or not all(bool(torch.isfinite(t).all())
+                                     for t in (*got[:2], *got[2])):
+            raise AssertionError(f"R1 at C = 16, {K} frames, against float64: {err_k64:.3e}")
+        ms = cuda_ms(lambda: gru.rnn_frames(f, s, state.rnn, w))
+        plain_ms = cuda_ms(lambda: gru.rnn_frames_plain(f, s, state.rnn, w), iters=5, warmup=1)
+        C = RNN_BANK_STREAMS
+        active = K * C - int(s.sum())
+        nbytes = R1_WEIGHTS * 4 + K * C * (rn.NB_FEATURES * 4 + 1 + rn.NB_BANDS * 4 + 4) \
+            + 2 * C * (24 + 48 + 96) * 4
+        flop = 2 * R1_MACS * active
+        bound_ms, bound_by = bound(flop, nbytes)
+        chain_ms = K * R1_FRAME_CYCLES / _sm_clock_hz() * 1e3
+        print(f"R1 {K} frames x {C} streams ({active} not silent): kernel {ms:.4f} ms, plain (torch ops on the card) {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {flop} f32 operations); serial "
+              f"chain estimated {chain_ms:.4f} ms [{card_line}]")
+        cases.append(dict(case=f"{K} frames x {C} streams of front-end features", ms=ms,
+                          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          max_abs_err=err, library_ms=None, flop=flop, bytes=nbytes))
+    return cases
+
+
+def rnnoise_bank_path(card_line):
+    """Phase 4d': the 16-stream denoiser as bench.py drives it, through
+    denoise_frames_fast at C = 16 over RNN_BANK_CALLS calls of 16 frames
+    with R1's counter set to 0 just before and read just after: one launch
+    a call, finite output of the right shape; then one call timed (CUDA
+    events behind a spin) as bench.py's realtime-x of the bank."""
+    phase("4d' the denoiser over 16 streams (denoise_frames_fast at C = 16) on the card")
+    from gst_plugins_rs_tpu_torch.ops import rnnoise as rn
+    from gst_plugins_rs_tpu_torch.ops import rnnoise_gru as gru
+
+    dev = torch.device("cuda")
+    w = rn.weights_to(rn.default_weights(), dev)
+    x = torch.from_numpy(rnn_bank_frames(RNN_BANK_CALLS * RNN_BANK_K, seed=22)).to(dev)
+    state = rn.denoise_init(RNN_BANK_STREAMS, dev)
+    gru.launches = 0
+    outs, vads = [], []
+    for i in range(RNN_BANK_CALLS):
+        state, o, v = rn.denoise_frames_fast(state, w, x[i * RNN_BANK_K:(i + 1) * RNN_BANK_K])
+        outs.append(o)
+        vads.append(v)
+    torch.cuda.synchronize()
+    counted = gru.launches
+    out, vad = torch.cat(outs), torch.cat(vads)
+    seconds = RNN_BANK_CALLS * RNN_BANK_K * rn.FRAME_SIZE / 48000
+    print(f"denoise_frames_fast, {RNN_BANK_STREAMS} streams x {seconds} s in {RNN_BANK_CALLS} "
+          f"calls of {RNN_BANK_K} frames: R1 launches {counted}; output {tuple(out.shape)}, rms "
+          f"{float(out.pow(2).mean().sqrt()):.1f} s16 units; stream 5's first two VADs "
+          f"{[float(v) for v in vad[:2, 5]]}")
+    if counted != RNN_BANK_CALLS:
+        raise AssertionError("R1 launches != denoise_frames_fast calls")
+    if tuple(out.shape) != (RNN_BANK_CALLS * RNN_BANK_K, RNN_BANK_STREAMS, rn.FRAME_SIZE) \
+            or not bool(torch.isfinite(out).all()) or bool((vad[:2, 5] != 0).any()):
+        raise AssertionError("the 16-stream denoiser: shape, finiteness or the silent VADs")
+    chunk = x[:RNN_BANK_K]
+    ms = cuda_ms(lambda: rn.denoise_frames_fast(state, w, chunk))
+    print(f"denoise_frames_fast at C = 16, {RNN_BANK_K} frames: {ms:.4f} ms a call (CUDA events "
+          f"behind a spin, median of 20), realtime-x of the bank "
+          f"{RNN_BANK_STREAMS * RNN_BANK_K * rn.FRAME_SIZE / 48000 / (ms / 1e3):.1f} "
+          f"[{card_line}]")
+    return {"rnnoise_gru_16_streams": counted}
+
+
+def rnnoise_bank_card_vs_cpu():
+    """Phase 5d': denoise_frames_fast at C = 16 over two calls of 16 frames,
+    on the card (R1, cuFFT) and on the CPU (the plain frame loop)."""
+    phase("5d' the denoiser over 16 streams, card against CPU")
+    from gst_plugins_rs_tpu_torch.ops import rnnoise as rn
+
+    x = rnn_bank_frames(2 * RNN_BANK_K, seed=23)
+    w = rn.default_weights()
+    sc, sh = rn.denoise_init(RNN_BANK_STREAMS, "cuda"), rn.denoise_init(RNN_BANK_STREAMS, "cpu")
+    wc, wh = rn.weights_to(w, "cuda"), rn.weights_to(w, "cpu")
+    d_stream = torch.zeros(RNN_BANK_STREAMS, dtype=torch.float64)
+    d_vad, flips = 0.0, 0
+    for chunk in (x[:RNN_BANK_K], x[RNN_BANK_K:]):
+        # the pitch period feature (index 40) of both front ends: a near-tie
+        # of two autocorrelation scores may pick another period
+        _, fc, *_ = rn.analysis_frames_batch(sc, torch.from_numpy(chunk).to("cuda"))
+        _, fh, *_ = rn.analysis_frames_batch(sh, torch.from_numpy(chunk))
+        flips += int((fc[..., 40].cpu() != fh[..., 40]).sum())
+        sc, oc, vc = rn.denoise_frames_fast(sc, wc, torch.from_numpy(chunk).to("cuda"))
+        sh, oh, vh = rn.denoise_frames_fast(sh, wh, torch.from_numpy(chunk))
+        d_stream = torch.maximum(d_stream, (oc.cpu() - oh).abs().amax(dim=(0, 2)).double())
+        d_vad = max(d_vad, float((vc.cpu() - vh).abs().max()))
+    d_out = float(d_stream.max())
+    print(f"denoise_frames_fast, 16 streams x 2 calls of {RNN_BANK_K} frames, card vs CPU: max "
+          f"{d_out:.4f} s16 units (gate {RNN_BANK_CPU_TOL:.2f}) on stream {int(d_stream.argmax())}"
+          f" (stream 5 starts silent: {float(d_stream[5]):.4f}; the others at most "
+          f"{float(torch.cat([d_stream[:5], d_stream[6:]]).max()):.4f}), VAD {d_vad:.3e} (gate "
+          f"{VAD_PATH_TOL}); pitch periods that differ: {flips} of "
+          f"{2 * RNN_BANK_K * RNN_BANK_STREAMS}")
+    if d_out > RNN_BANK_CPU_TOL or d_vad > VAD_PATH_TOL:
+        raise AssertionError("the 16-stream denoiser: card and CPU disagree")
+
+
 # ---------------------------------------------------------------------------
 # Video composition at 1080p: videoscale, skiacompositor, roundedcorners,
 # colordetect, videocompare, and a videoconvertscale chain
@@ -2741,6 +2911,203 @@ def bank_timing(card_line):
                 benchmark=rows)
 
 
+# ---------------------------------------------------------------------------
+# Chain fusion (parallel/fuse.py): the effects chain, and the mixed chain of
+# tests/test_fuse.py, at 1080p as one CUDA graph a fused run
+# ---------------------------------------------------------------------------
+FUSE_FRAMES = 32           # seeded 1080p RGBA frames, each unlike the others (4j)
+FUSE_CPU_FRAMES = 2        # card against CPU (5j)
+FUSE_PROFILE_FRAMES = 16   # under torch.profiler (6j)
+FUSE_TIMING_FRAMES = 64    # timed a repeat (6j) ...
+FUSE_REPEATS = 3           # ... the median of these
+FRAME_NS = 33_333_333
+FUSE_CHAINS = {
+    "effects": ("hsvfilter hue-shift=120 ! colorlut location={grade} precision=approx",
+                ["hsvfilter", "colorlut"]),
+    "mixed": ("hsvfilter hue-shift=90 ! videoscale method=nearest "
+              "! video/x-raw,width=1280,height=720 ! videoflip method=rotate-180",
+              ["hsvfilter", "videoscale", "capsfilter", "videoflip"]),
+}
+# CUDA API calls (cuda* and cu*) that put work on a stream, as torch.profiler
+# names them on the host
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def fuse_frames(n, seed=0):
+    """n seeded random 1080p RGBA u8 frames on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randint(0, 256, (HD_H, HD_W, 4), generator=gen, device="cuda",
+                          dtype=torch.uint8) for _ in range(n)]
+
+
+def fuse_chain(tail, fused, sink="appsink name=sink"):
+    """appsrc ! <tail> ! <sink> for 1080p RGBA, fused or not.  Returns
+    (pipeline, runs fused or None)."""
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.parallel.fuse import fuse_pipeline
+
+    p = g.parse_launch(f"appsrc name=src ! {tail} ! {sink}")
+    n = fuse_pipeline(p) if fused else None
+    p.by_name("src").set_property("caps", g.parse_caps(
+        f"video/x-raw,format=RGBA,width={HD_W},height={HD_H},framerate=30/1"))
+    return p, n
+
+
+def _push_frames(p, frames, start=0):
+    import gst_plugins_rs_tpu_torch as g
+
+    src = p.by_name("src")
+    for i, f in enumerate(frames):
+        src.push_buffer(g.Buffer(f, pts=(start + i) * FRAME_NS, duration=FRAME_NS))
+
+
+def run_chain(tail, frames, fused):
+    """Every frame through the chain to EOS: (runs fused, output payloads)."""
+    p, n = fuse_chain(tail, fused)
+    _push_frames(p, frames)
+    p.by_name("src").end_of_stream()
+    p.play_until_eos()
+    return n, [s.buffer.data for s in p.by_name("sink").samples]
+
+
+def fuse_pipelines(grade):
+    """Phase 4j: each chain unfused, then fused with the counters of B4, B2
+    and the graphs set to 0 just before and read just after: one fused run,
+    its run the JAX package's (tests/test_fuse.py), every buffer bit-equal
+    to the unfused chain's, B4 (and B2) launched once a frame, one graph
+    captured and replayed for every later frame, no two outputs sharing the
+    graph's memory.  Returns the launches."""
+    phase("4j fused effects chains (one CUDA graph a run) on the card")
+    from gst_plugins_rs_tpu_torch.ops import colorlut_lowrank_fused as lowrank
+    from gst_plugins_rs_tpu_torch.ops import hsv_planes
+    from gst_plugins_rs_tpu_torch.parallel import fuse
+
+    frames = fuse_frames(FUSE_FRAMES)
+    launches = {"hsv_planes": 0, "colorlut_lowrank_packed": 0}
+    for label, (tail, names) in FUSE_CHAINS.items():
+        tail = tail.format(grade=grade)
+        run = [e.ELEMENT_NAME for e in fuse.fusable_runs(fuse_chain(tail, False)[0])[0]]
+        _, ref = run_chain(tail, frames, fused=False)
+        hsv_planes.launches = lowrank.packed_launches = 0
+        fuse.captures = fuse.replays = 0
+        n, got = run_chain(tail, frames, fused=True)
+        torch.cuda.synchronize()
+        counted = {"hsv": hsv_planes.launches, "packed": lowrank.packed_launches,
+                   "captures": fuse.captures, "replays": fuse.replays}
+        equal = [bool(torch.equal(a, b)) for a, b in zip(got, ref)]
+        distinct = len({a.data_ptr() for a in got}) == len(got)
+        differ = all(not torch.equal(a, b) for a, b in zip(got, got[1:]))
+        print(f"fused {label} chain ({' ! '.join(run)}), {FUSE_FRAMES} differing {HD_W}x{HD_H} "
+              f"frames: {n} run, output {tuple(got[0].shape)}, bit-equal to the unfused chain on "
+              f"{sum(equal)} of {len(ref)} buffers, outputs distinct {distinct}, consecutive "
+              f"outputs differ {differ}; counts {counted}")
+        want = {"hsv": FUSE_FRAMES, "packed": FUSE_FRAMES if label == "effects" else 0,
+                "captures": 1, "replays": FUSE_FRAMES - 1}
+        if run != names or n != 1 or len(got) != FUSE_FRAMES or len(ref) != FUSE_FRAMES \
+                or not all(equal) or not distinct or not differ or counted != want:
+            raise AssertionError(f"the fused {label} chain: runs, output or counts")
+        if any(a.device.type != "cuda" for a in got):
+            raise AssertionError(f"the fused {label} chain's output is not on the card")
+        launches["hsv_planes"] += counted["hsv"]
+        launches["colorlut_lowrank_packed"] += counted["packed"]
+    return launches
+
+
+def fuse_card_vs_cpu(grade):
+    """Phase 5j: the fused chains on the card (one graph a run, B4, B2)
+    against the same fused chains on the CPU (eager, the plain versions)."""
+    phase("5j fused effects chains, card against CPU")
+    import gst_plugins_rs_tpu_torch as g
+
+    frames = fuse_frames(FUSE_CPU_FRAMES, seed=1)
+    for label, (tail, _) in FUSE_CHAINS.items():
+        tail = tail.format(grade=grade)
+        _, card = run_chain(tail, frames, fused=True)
+        g.set_device("cpu")
+        try:
+            _, host = run_chain(tail, [f.cpu() for f in frames], fused=True)
+        finally:
+            g.set_device("cuda")
+        d = max(_lsb(a.cpu().numpy(), b.numpy()) for a, b in zip(card, host))
+        print(f"fused {label} chain, {FUSE_CPU_FRAMES} frames, card (CUDA graph) vs CPU (eager "
+              f"plain versions): max {d} LSB (gate {LSB_TOL})")
+        if len(card) != FUSE_CPU_FRAMES or len(host) != FUSE_CPU_FRAMES or d > LSB_TOL:
+            raise AssertionError(f"the fused {label} chain: card and CPU disagree")
+
+
+def _profile_counts(run):
+    """(device busy ms, device ops, host launch calls by name) over one call
+    of `run` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    dev = [e for e in avgs if str(e.device_type).endswith("CUDA")]
+    if not dev:
+        raise AssertionError("torch.profiler recorded no device events")
+    host = {e.key: e.count for e in avgs if e.key in HOST_LAUNCH_CALLS}
+    return (sum(e.self_device_time_total for e in dev) / 1e3, sum(e.count for e in dev), host)
+
+
+def fuse_timing(card_line, grade):
+    """Phase 6j: each chain unfused and fused in one pipeline that stays
+    PLAYING: two frames to warm up (the fused run captures its graph at the
+    first), FUSE_PROFILE_FRAMES under torch.profiler (device busy ms, device
+    ops and host launch calls a frame), then FUSE_REPEATS timed passes of
+    FUSE_TIMING_FRAMES frames (host clock to torch.cuda.synchronize; the
+    median)."""
+    phase("6j fused against unfused effects chains, timing")
+    from gst_plugins_rs_tpu_torch.core import State
+
+    frames = fuse_frames(FUSE_FRAMES, seed=2)
+    rows = {}
+    for label, (tail, _) in FUSE_CHAINS.items():
+        tail = tail.format(grade=grade)
+        for fused in (False, True):
+            p, _ = fuse_chain(tail, fused, sink="appsink name=sink max-buffers=2")
+            p.set_state(State.PLAYING)
+            sent = 0
+
+            def feed(n):
+                nonlocal sent
+                _push_frames(p, [frames[(sent + i) % len(frames)] for i in range(n)], sent)
+                sent += n
+                p.run(max_iterations=n)
+
+            feed(2)
+            torch.cuda.synchronize()
+            busy, ops, host = _profile_counts(lambda: feed(FUSE_PROFILE_FRAMES))
+            rates = []
+            for _ in range(FUSE_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                feed(FUSE_TIMING_FRAMES)
+                torch.cuda.synchronize()
+                rates.append(FUSE_TIMING_FRAMES / (time.perf_counter() - t0))
+            p.by_name("src").end_of_stream()
+            p.run()
+            p.set_state(State.NULL)
+            fps = statistics.median(rates)
+            key = f"{label} {'fused' if fused else 'unfused'}"
+            rows[key] = dict(fps=fps, device_ms=busy / FUSE_PROFILE_FRAMES,
+                             ops=ops / FUSE_PROFILE_FRAMES,
+                             host_launches=sum(host.values()) / FUSE_PROFILE_FRAMES)
+            per = ", ".join(f"{k} {v / FUSE_PROFILE_FRAMES:.2f}" for k, v in sorted(host.items()))
+            print(f"{key} chain, {HD_W}x{HD_H}: {fps:.1f} frames/s (median of "
+                  f"{[round(r, 1) for r in rates]}, {FUSE_TIMING_FRAMES} frames each); device "
+                  f"busy {busy / FUSE_PROFILE_FRAMES:.4f} ms and {ops / FUSE_PROFILE_FRAMES:.1f} "
+                  f"device ops a frame, host launch calls a frame {sum(host.values()) / FUSE_PROFILE_FRAMES:.2f} "
+                  f"({per}) (torch.profiler, {FUSE_PROFILE_FRAMES} frames); device busy "
+                  f"{100 * busy / FUSE_PROFILE_FRAMES * fps / 1e3:.1f}% of the wall [{card_line}]")
+        for k in ("device_ms", "fps"):
+            print(f"{label}: fused / unfused {k} "
+                  f"{rows[label + ' fused'][k] / rows[label + ' unfused'][k]:.3f}")
+    return rows
+
+
 def main() -> int:
     card_line = card()
     sys.path.insert(0, str(ROOT))
@@ -2753,16 +3120,22 @@ def main() -> int:
     effect_cases, path_ops = effect_kernels(card_line, grade)
     launches = pipelines()
     effect_launches = effect_pipelines(grade, path_ops)
+    for name, n in fuse_pipelines(grade).items():
+        effect_launches[name] += n  # the fused chains' launches, graph replays included
     card_vs_cpu()
     effects_card_vs_cpu(grade)
+    fuse_card_vs_cpu(grade)
     limiter_case = limiter_kernel(card_line)
     rnn_cases = rnnoise_kernel(card_line)
+    rnn_bank_cases = rnnoise_bank_kernel(card_line)
     asr_case = asr_kernel(card_line)
     bank_case = bank_kernel(card_line)
     audio_launches = audio_pipelines()
     audio_launches.update(denoise_pipelines())
+    audio_launches.update(rnnoise_bank_path(card_line))
     audio_card_vs_cpu()
     denoise_card_vs_cpu()
+    rnnoise_bank_card_vs_cpu()
     compose_pipelines()
     demucs_pipelines()
     audio_launches.update(speech_pipeline())
@@ -2774,6 +3147,7 @@ def main() -> int:
     bank_card_vs_cpu()
     timing(card_line)
     effects_timing(card_line, grade)
+    fuse_timing(card_line, grade)
     audio_timing(card_line)
     denoise_timing(card_line)
     compose_timing(card_line)
@@ -2836,6 +3210,15 @@ def main() -> int:
         "cases": [limiter_case],
         "entries": [l1_bank],  # N streams a launch: loudnormbank's tick
     })
+    r1_bank = {
+        "name": "rnnoise_gru_16_streams",
+        "route": "cuda",
+        "source": "gst_plugins_rs_tpu_torch/csrc/rnnoise_gru.cu",
+        "replaces": "gst_plugins_rs_tpu/ops/rnnoise.py:309",
+        "launches": audio_launches["rnnoise_gru_16_streams"],
+        **{k: rnn_bank_cases[0][k] for k in keys},  # 16 frames, bench.py's K_RN
+        "cases": rnn_bank_cases,
+    }
     entries.append({
         "name": "rnnoise_gru",
         "route": "cuda",
@@ -2844,6 +3227,7 @@ def main() -> int:
         "launches": audio_launches["rnnoise_gru"],
         **{k: rnn_cases[0][k] for k in keys},  # 100 frames, as phase 3d states
         "cases": rnn_cases,
+        "entries": [r1_bank],  # 16 streams a launch: bench.py's denoiser bank
     })
     entries.append({
         "name": "asr_gru",
@@ -2854,7 +3238,8 @@ def main() -> int:
         **{k: asr_case[k] for k in keys},
         "cases": [asr_case],
     })
-    if any(e["launches"] < 1 for e in entries + b3["entries"] + b5["entries"] + [l1_bank]):
+    if any(e["launches"] < 1
+           for e in entries + b3["entries"] + b5["entries"] + [l1_bank, r1_bank]):
         raise AssertionError("a kernel of the paths was never launched")
     print(json.dumps({"kernels": entries}))
     print(card_line)

@@ -1,6 +1,7 @@
 """Element library of the port.  Importing this package registers the
 factories ported so far: the core plumbing (sources, sinks, capsfilter,
-identity, queue, tee, audioconvert, audioresample, videoconvert), the YOLOX
+identity, queue, tee, audioconvert, audioresample, videoconvert; volume,
+videoflip, videocrop, videorate, audiorate), the YOLOX
 detection slice, the per-pixel video effects (colorlut, hsvfilter,
 hsvdetector), the scalers, compositor and frame analysis (videoscale,
 videoconvertscale, skiacompositor, roundedcorners, colordetect,
@@ -25,7 +26,7 @@ from .audiofx import (  # noqa: F401
     sofalizer,
     whisper,
 )
-from .generic import basic, convert  # noqa: F401
+from .generic import basic, convert, corefx  # noqa: F401
 from .video import (  # noqa: F401
     colordetect,
     colorlut,

@@ -263,14 +263,20 @@ class AnalyticsCombiner(Aggregator):
         self._timeout_id = cid
 
         def fired(_cid):
-            with self._lock:
-                self._timeout_id = None
-                if gen != self._timeout_gen:
-                    return  # window advanced since this was armed
-                if any(p.queue for p in self.agg_pads()):
-                    self.aggregate(timeout=True)
-                    self._timeout_gen += 1
-            self._try_aggregate()
+            # on the clock's thread: take the base's aggregator lock first,
+            # as a streaming thread does (Aggregator._sink_chain, then
+            # _try_aggregate's _lock), so no pad queue is appended to while
+            # the timeout reads it, and the two locks are always taken in
+            # one order
+            with self._agg_lock:
+                with self._lock:
+                    self._timeout_id = None
+                    if gen != self._timeout_gen:
+                        return  # window advanced since this was armed
+                    if any(p.queue for p in self.agg_pads()):
+                        self.aggregate(timeout=True)
+                        self._timeout_gen += 1
+                self._try_aggregate()
 
         cid.wait_async(fired)
 

@@ -25,6 +25,7 @@ class CapsFilter(BaseTransform):
     PROPERTIES = [Prop("caps", Caps.new_any(), type="object", doc="allowed caps")]
     PASSTHROUGH_ON_SAME_CAPS = False
     TRANSFORM_IP_ON_PASSTHROUGH = False
+    FUSE_IDENTITY = True
 
     def transform_caps(self, direction: PadDirection, caps: Caps, filter_: Optional[Caps]) -> Caps:
         out = caps.intersect(self.get_property("caps"))
@@ -35,6 +36,11 @@ class CapsFilter(BaseTransform):
     def transform_ip(self, buf: Buffer) -> Buffer:
         return buf
 
+    def pure_kernel(self):
+        """Chain-fusion hook (parallel/fuse.py): capsfilter moves no data, so
+        a fused run may span the caps constraints between its transforms."""
+        return lambda d: d
+
 
 @register
 class Identity(BaseTransform):
@@ -43,9 +49,13 @@ class Identity(BaseTransform):
     ELEMENT_DESCRIPTION = "Pass data through unchanged"
     MODE = TransformMode.ALWAYS_IN_PLACE
     PASSTHROUGH_ON_SAME_CAPS = True
+    FUSE_IDENTITY = True
 
     def transform_ip(self, buf: Buffer) -> Buffer:
         return buf
+
+    def pure_kernel(self):
+        return lambda d: d
 
 
 @register

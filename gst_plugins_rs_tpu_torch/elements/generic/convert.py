@@ -245,6 +245,14 @@ class VideoConvert(VideoFilter):
     def fixate_caps(self, direction, caps, othercaps):
         return othercaps.fixate({"format": caps.structure(0).get("format")})
 
+    def pure_kernel(self):
+        """Chain-fusion hook (parallel/fuse.py): the converter of the
+        negotiated formats, the identity when they match."""
+        in_info, out_info = self.video_info, self.out_video_info
+        if in_info is None or out_info is None or in_info.format == out_info.format:
+            return lambda d: d
+        return build_format_converter(in_info, out_info)
+
     def transform(self, inbuf: Buffer) -> Buffer:
         in_info, out_info = self.video_info, self.out_video_info
         assert in_info is not None and out_info is not None

@@ -125,6 +125,13 @@ class VideoScale(VideoFilter):
                                 out_info.height, out_info.width,
                                 self.get_property("method"), self._device)
 
+    def pure_kernel(self):
+        """Chain-fusion hook (parallel/fuse.py): the payload function built
+        at caps time (the scaler, or videoconvertscale's two stages), the
+        identity when there is none."""
+        fn = self._fn
+        return fn if fn is not None else (lambda d: d)
+
     def transform(self, inbuf: Buffer) -> Buffer:
         if self._fn is None:
             out = Buffer(inbuf.data)

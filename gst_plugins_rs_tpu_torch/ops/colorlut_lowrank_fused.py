@@ -270,14 +270,23 @@ def lut3d_apply_lowrank_fused(frame, ut, vt, wt, c, scale, offset, *,
                    frame.dtype)
 
 
+def packed_params(scale, offset, bits: int, device):
+    """The packed entries' params [8] f32 on `device`: (scale0..2,
+    offset0..2, maxval, 0)."""
+    return torch.tensor([scale[0], scale[1], scale[2], offset[0], offset[1], offset[2],
+                         float(2**bits - 1), 0.0], dtype=torch.float32).to(device)
+
+
 def lut3d_apply_lowrank_packed(frame, ut, vt, wt, c, scale, offset, *,
                                size: int, offsets: Sequence[int], bits: int,
-                               compute_dtype: str = "bfloat16"):
+                               compute_dtype: str = "bfloat16", params=None):
     """Fully-fused path for RGBA frames (offsets (0,1,2)): an RGBA u8 frame
     (bits 8) is bit-cast to int32 pixels and runs B2, an RGBA64 u16 frame
     (bits 16) to int64 pixels and runs packed64; the whole
     unpack/sample/repack runs in the kernel.  Other layouts are the
-    caller's job."""
+    caller's job.  `params` (from `packed_params` on the frame's device)
+    may be built once by the caller: the upload from host memory it
+    otherwise makes on every call cannot be captured in a CUDA graph."""
     kinds = {8: (torch.uint8, torch.int32, lowrank_sample_packed),
              16: (torch.uint16, torch.int64, lowrank_sample_packed64)}
     if bits not in kinds or tuple(offsets) != (0, 1, 2) or frame.shape[-1] != 4 \
@@ -286,8 +295,8 @@ def lut3d_apply_lowrank_packed(frame, ut, vt, wt, c, scale, offset, *,
                          "frames only")
     dtype, word, sample = kinds[bits]
     px = frame.contiguous().view(word)  # [..., 1]
-    params = torch.tensor([scale[0], scale[1], scale[2], offset[0], offset[1], offset[2],
-                           float(2**bits - 1), 0.0], dtype=torch.float32).to(frame.device)
+    if params is None:
+        params = packed_params(scale, offset, bits, frame.device)
     out = sample(px, params, ut, vt, wt, c, size=size, compute_dtype=compute_dtype)
     return out.view(dtype).reshape(frame.shape)
 
@@ -295,4 +304,4 @@ def lut3d_apply_lowrank_packed(frame, ut, vt, wt, c, scale, offset, *,
 __all__ = ["SB", "fused_launches", "lowrank_sample_fused", "lowrank_sample_fused_plain",
            "lowrank_sample_packed", "lowrank_sample_packed64", "lowrank_sample_packed_plain",
            "lut3d_apply_lowrank_fused", "lut3d_apply_lowrank_packed", "pack_factors",
-           "packed64_launches", "packed_launches", "smem_bytes"]
+           "packed64_launches", "packed_launches", "packed_params", "smem_bytes"]

@@ -590,7 +590,7 @@ def _r1_check(feats, sil, rnn, w):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["random", "packaged"])
-@pytest.mark.parametrize("K,C", [(1, 1), (10, 2), (100, 2), (37, 5)])
+@pytest.mark.parametrize("K,C", [(1, 1), (10, 2), (100, 2), (37, 5), (16, 16), (100, 16)])
 def test_rnnoise_gru_kernel_matches_plain(cuda, kind, K, C):
     _r1_check(*_r1_inputs(kind, K, C, K + C, cuda))
 
@@ -830,3 +830,122 @@ def test_transcribe_card_vs_cpu(cuda):
     host = asr.forward(asr.load_weights(dev="cpu"), feats)
     assert float((card - host).abs().max()) <= 1e-4
     assert asr.transcribe(asr.load_weights(dev=cuda), audio) == "volume up"
+
+
+@pytest.mark.cuda
+def test_denoise_16_streams_card_vs_cpu(cuda):
+    """bench.py's denoiser bank: 16 mono streams of uniform +-0.3 full-scale
+    noise as the channels of one denoise_frames_fast call (one R1 launch a
+    call, a block a stream), on the card against the CPU, over two calls:
+    a sample within 1e-4 of full scale (3.28 s16 units, chip_smoke.py's
+    gate of the denoised path), the VADs within 1e-4.  The stream that
+    starts silent is the least-conditioned case at its onset (large
+    spectral-variance features through the ReLU GRUs, where the two f32
+    versions of R1 already differ by more than 1e-5; chip_smoke.py phases
+    3d' and 5d' print it beside the other streams)."""
+    from gst_plugins_rs_tpu_torch.ops import rnnoise as rn
+    from gst_plugins_rs_tpu_torch.ops import rnnoise_gru as gru
+
+    rng = np.random.RandomState(13)
+    x = (rng.uniform(-0.3, 0.3, (32, 16, rn.FRAME_SIZE)) * 32767).astype(np.float32)
+    x[:2, 5] = 0.0  # a stream that starts silent
+    w = rn.default_weights()
+    sc, sh = rn.denoise_init(16, cuda), rn.denoise_init(16, "cpu")
+    wc, wh = rn.weights_to(w, cuda), rn.weights_to(w, "cpu")
+    before = gru.launches
+    for chunk in (x[:16], x[16:]):
+        sc, oc, vc = rn.denoise_frames_fast(sc, wc, torch.from_numpy(chunk).to(cuda))
+        sh, oh, vh = rn.denoise_frames_fast(sh, wh, torch.from_numpy(chunk))
+        assert float((oc.cpu() - oh).abs().max()) <= 1e-4 * 32767
+        assert float((vc.cpu() - vh).abs().max()) <= 1e-4
+    assert gru.launches == before + 2
+
+
+# Chain fusion on the card (parallel/fuse.py): a fused run replays one CUDA
+# graph per input signature, B4 and B2 launched from inside it; its output is
+# held bit for bit against the unfused pipeline's on every buffer of frames
+# that differ from one another.
+
+
+def _write_small_grade(path, size=9):
+    g = np.linspace(0, 1, size)
+    Bz, Gy, Rx = np.meshgrid(g, g, g, indexing="ij")
+    Y = 0.299 * Rx + 0.587 * Gy + 0.114 * Bz
+    table = np.stack([np.clip(Y + 1.05 * (Rx - Y), 0, 1),
+                      np.clip(Y + 1.05 * (Gy - Y) + 0.01, 0, 1),
+                      np.clip(Y + 1.05 * (Bz - Y) + 0.02, 0, 1)], -1).reshape(-1, 3)
+    path.write_text(f"LUT_3D_SIZE {size}\n"
+                    + "\n".join(f"{r:.6f} {gg:.6f} {b:.6f}" for r, gg, b in table) + "\n")
+    return path
+
+
+def _appsrc_frames(desc, frames, fused):
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.parallel.fuse import fuse_pipeline
+
+    p = g.parse_launch(f"appsrc name=src ! {desc} ! appsink name=sink")
+    n = fuse_pipeline(p) if fused else None
+    src = p.by_name("src")
+    h, w = frames[0].shape[:2]
+    src.set_property("caps", g.parse_caps(
+        f"video/x-raw,format=RGBA,width={w},height={h},framerate=30/1"))
+    for i, f in enumerate(frames):
+        src.push_buffer(g.Buffer(f, pts=i * 33_333_333, duration=33_333_333))
+    src.end_of_stream()
+    p.play_until_eos()
+    return n, [s.buffer.data for s in p.by_name("sink").samples]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", ["effects", "mixed"])
+def test_fused_graph_matches_unfused_on_differing_frames(cuda, tmp_path, chain):
+    from gst_plugins_rs_tpu_torch.parallel import fuse
+
+    loc = _write_small_grade(tmp_path / "grade9.cube")
+    desc = {"effects": f"hsvfilter hue-shift=120 ! colorlut location={loc} precision=approx",
+            "mixed": "hsvfilter hue-shift=90 ! videoscale method=nearest "
+                     "! video/x-raw,width=40,height=24 ! videoflip method=rotate-180"}[chain]
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    frames = [torch.randint(0, 256, (48, 80, 4), generator=gen, device=cuda, dtype=torch.uint8)
+              for _ in range(12)]
+    _, ref = _appsrc_frames(desc, frames, fused=False)
+    before = (hsv_planes.launches, lowrank.packed_launches, fuse.captures, fuse.replays)
+    n, got = _appsrc_frames(desc, frames, fused=True)
+    torch.cuda.synchronize()
+    after = (hsv_planes.launches, lowrank.packed_launches, fuse.captures, fuse.replays)
+    assert n == 1 and len(got) == len(ref) == len(frames)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.device.type == "cuda" and torch.equal(a, b), f"buffer {i}"
+    assert len({a.data_ptr() for a in got}) == len(got)  # no two buffers share the graph's output
+    b2 = len(frames) if chain == "effects" else 0
+    assert [a - b for a, b in zip(after, before)] == [len(frames), b2, 1, len(frames) - 1]
+
+
+@pytest.mark.cuda
+def test_fused_capture_failure_raises(cuda):
+    """A kernel that synchronises cannot be captured: the fused run raises
+    (after its eager warm-up on the first buffer) and the card stays usable."""
+    from gst_plugins_rs_tpu_torch.parallel.fuse import FusedRun
+
+    run = FusedRun([lambda x: x + 1, lambda x: x * float(x.sum())], ["add", "sync"], cuda)
+    with pytest.raises(RuntimeError, match="capture failed"):
+        run(torch.ones(8, device=cuda))
+    assert float(torch.ones(4, device=cuda).sum()) == 4.0
+    assert torch.cuda.current_stream(cuda) == torch.cuda.default_stream(cuda)
+
+
+@pytest.mark.cuda
+def test_fused_identity_run_captures_no_graph(cuda):
+    """A run whose kernels all return their input (videoflip method=none and
+    a videoscale to the same size) moves no data: it captures no graph and
+    hands downstream a copy of each frame."""
+    from gst_plugins_rs_tpu_torch.parallel import fuse
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    frames = [torch.randint(0, 256, (24, 40, 4), generator=gen, device=cuda, dtype=torch.uint8)
+              for _ in range(3)]
+    before = (fuse.captures, fuse.replays)
+    n, got = _appsrc_frames("videoflip method=none ! videoscale", frames, fused=True)
+    assert n == 1 and (fuse.captures, fuse.replays) == before
+    for a, f in zip(got, frames):
+        assert torch.equal(a, f) and a.data_ptr() != f.data_ptr()

@@ -258,7 +258,8 @@ def test_factories_mirror_jax():
             "agingradio", "hrtfrender", "sofalizer", "audiomixer", "videoscale",
             "videoconvertscale", "skiacompositor", "roundedcorners", "colordetect",
             "videocompare", "demucs", "whispertranscriber", "handdetectiontensordec",
-            "loudnormbank"} == set(names)
+            "loudnormbank", "volume", "videoflip", "videocrop", "videorate",
+            "audiorate"} == set(names)
     for name in names:
         jc, tc = jfactory(name), tfactory(name)
         assert [(p.name, repr(p.default), p.type, p.choices) for p in jc.PROPERTIES] == \
