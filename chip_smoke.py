@@ -82,7 +82,9 @@ calls) and one call timed; card against CPU.  4j/5j/6j chain fusion
 RGBA frames through appsrc ! hsvfilter hue-shift=120 ! colorlut approx, and
 through hsvfilter ! videoscale ! capsfilter (720p) ! videoflip
 method=rotate-180, fused against unfused bit for bit on every buffer (B4
-and B2 launches = frames, graph replays included); card against CPU; frames
+and B2 launches = frames, graph replays included), and I420 -> NV12 through
+videoscale ! videoconvert (an output plane that is an input plane) equal
+to unfused on every buffer; card against CPU; frames
 per second (median of 3), device ms, device ops and host launch calls a
 frame, fused against unfused.
 Prints a JSON line of the kernels, the card's name and power limit, then,
@@ -2941,8 +2943,8 @@ def fuse_frames(n, seed=0):
                           dtype=torch.uint8) for _ in range(n)]
 
 
-def fuse_chain(tail, fused, sink="appsink name=sink"):
-    """appsrc ! <tail> ! <sink> for 1080p RGBA, fused or not.  Returns
+def fuse_chain(tail, fused, sink="appsink name=sink", fmt="RGBA"):
+    """appsrc ! <tail> ! <sink> for 1080p `fmt`, fused or not.  Returns
     (pipeline, runs fused or None)."""
     import gst_plugins_rs_tpu_torch as g
     from gst_plugins_rs_tpu_torch.parallel.fuse import fuse_pipeline
@@ -2950,7 +2952,7 @@ def fuse_chain(tail, fused, sink="appsink name=sink"):
     p = g.parse_launch(f"appsrc name=src ! {tail} ! {sink}")
     n = fuse_pipeline(p) if fused else None
     p.by_name("src").set_property("caps", g.parse_caps(
-        f"video/x-raw,format=RGBA,width={HD_W},height={HD_H},framerate=30/1"))
+        f"video/x-raw,format={fmt},width={HD_W},height={HD_H},framerate=30/1"))
     return p, n
 
 
@@ -2962,9 +2964,9 @@ def _push_frames(p, frames, start=0):
         src.push_buffer(g.Buffer(f, pts=(start + i) * FRAME_NS, duration=FRAME_NS))
 
 
-def run_chain(tail, frames, fused):
+def run_chain(tail, frames, fused, fmt="RGBA"):
     """Every frame through the chain to EOS: (runs fused, output payloads)."""
-    p, n = fuse_chain(tail, fused)
+    p, n = fuse_chain(tail, fused, fmt=fmt)
     _push_frames(p, frames)
     p.by_name("src").end_of_stream()
     p.play_until_eos()
@@ -3011,7 +3013,38 @@ def fuse_pipelines(grade):
             raise AssertionError(f"the fused {label} chain's output is not on the card")
         launches["hsv_planes"] += counted["hsv"]
         launches["colorlut_lowrank_packed"] += counted["packed"]
+    fuse_planar_passthrough()
     return launches
+
+
+def fuse_planar_passthrough():
+    """I420 -> NV12 at 1080p through `videoscale ! videoconvert`: the scaler
+    is the identity and the converter hands its Y plane on, so one output
+    plane of the fused run is an input plane.  Every buffer, the first
+    included, must still equal the unfused chain's once all have gone
+    through the graph."""
+    from gst_plugins_rs_tpu_torch.parallel import fuse
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def plane(h, w):
+        return torch.randint(0, 256, (h, w), generator=gen, device="cuda", dtype=torch.uint8)
+
+    frames = [(plane(HD_H, HD_W), plane(HD_H // 2, HD_W // 2), plane(HD_H // 2, HD_W // 2))
+              for _ in range(FUSE_FRAMES)]
+    tail = "videoscale ! videoconvert ! video/x-raw,format=NV12"
+    _, ref = run_chain(tail, frames, fused=False, fmt="I420")
+    fuse.captures = fuse.replays = 0
+    n, got = run_chain(tail, frames, fused=True, fmt="I420")
+    torch.cuda.synchronize()
+    equal = [len(a) == len(b) == 2 and all(torch.equal(x, y) for x, y in zip(a, b))
+             for a, b in zip(got, ref)]
+    print(f"fused planar chain (videoscale ! videoconvert, I420 -> NV12), {FUSE_FRAMES} "
+          f"differing {HD_W}x{HD_H} frames: {n} run, planes equal to the unfused chain's on "
+          f"{sum(equal)} of {len(ref)} buffers; captures {fuse.captures}, replays {fuse.replays}")
+    if n != 1 or len(got) != FUSE_FRAMES or len(ref) != FUSE_FRAMES or not all(equal) \
+            or (fuse.captures, fuse.replays) != (1, FUSE_FRAMES - 1):
+        raise AssertionError("the fused planar chain: runs, output or counts")
 
 
 def fuse_card_vs_cpu(grade):

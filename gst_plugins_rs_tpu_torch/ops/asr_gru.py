@@ -29,6 +29,8 @@ import ctypes
 
 import torch
 
+from . import count_launch
+
 HIDDEN = 96
 
 launches = 0
@@ -80,7 +82,6 @@ def _lib():
 
 def bigru(X: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     """The BiGRU recurrence of one layer: hidden states [B, 2, T, H]."""
-    global launches
     _check(X, U)
     dev = X.device
     if dev.type == "cpu":
@@ -96,7 +97,7 @@ def bigru(X: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
         err = lib.asr_gru(X.data_ptr(), U.data_ptr(), B, T, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"bigru launch failed: {lib.asr_gru_error_string(err).decode()}")
-    launches += 1
+    count_launch(__name__, "launches")
     return out
 
 

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .colorlut import grid_coord, quantize
+from . import count_launch
 from .pixels import repack_quantized, restack, unpack_grid_coords
 from .colorlut_lowrank import compute_type
 
@@ -171,7 +172,6 @@ def lowrank_sample_fused(xyz, ut, vt, wt, c, *, compute_dtype="bfloat16"):
     """xyz [3, P] f32 continuous grid coords in [0, S-1]; ut/vt/wt [Kp, SB]
     transposed axis factors (rows >= S zero); c [8, Kp] channel factors
     (rows >= 3 zero).  Returns [3, P] f32 interpolated LUT outputs."""
-    global fused_launches
     if xyz.device.type == "cpu":
         return lowrank_sample_fused_plain(xyz, ut, vt, wt, c, compute_dtype=compute_dtype)
     if xyz.device.type != "cuda":
@@ -191,7 +191,7 @@ def lowrank_sample_fused(xyz, ut, vt, wt, c, *, compute_dtype="bfloat16"):
                                          wt.data_ptr(), c.data_ptr(), out.data_ptr(),
                                          xyz.shape[1], k, bf16, stream)
     _raise_on(lib, err, "lowrank_sample_fused")
-    fused_launches += 1
+    count_launch(__name__, "fused_launches")
     return out
 
 
@@ -226,13 +226,12 @@ def lowrank_sample_packed(px, params, ut, vt, wt, c, *, size: int, compute_dtype
     """px int32 RGBA bit patterns, any shape (the TPU kernel takes
     [Pr, 4096]); params [8] f32 = (scale0..2, offset0..2, maxval, 0).
     Returns int32 of px's shape."""
-    global packed_launches
     if px.device.type == "cpu":
         return lowrank_sample_packed_plain(px, params, ut, vt, wt, c, size=size,
                                            compute_dtype=compute_dtype)
     out = _sample_packed("lowrank_sample_packed", 8, px, params, ut, vt, wt, c, size,
                          compute_dtype)
-    packed_launches += 1
+    count_launch(__name__, "packed_launches")
     return out
 
 
@@ -241,13 +240,12 @@ def lowrank_sample_packed64(px, params, ut, vt, wt, c, *, size: int,
     """B3's chain on RGBA64 pixels: px int64 bit patterns of 4 x u16 (R in
     the low bits), any shape; params [8] f32 = (scale0..2, offset0..2,
     maxval 65535, 0).  Returns int64 of px's shape, alpha unchanged."""
-    global packed64_launches
     if px.device.type == "cpu":
         return lowrank_sample_packed_plain(px, params, ut, vt, wt, c, size=size,
                                            compute_dtype=compute_dtype, bits=16)
     out = _sample_packed("lowrank_sample_packed64", 16, px, params, ut, vt, wt, c, size,
                          compute_dtype)
-    packed64_launches += 1
+    count_launch(__name__, "packed64_launches")
     return out
 
 

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .colorlut import grid_coord, quantize
+from . import count_launch
 from .pixels import repack_quantized, restack, unpack_grid_coords
 
 LANES = 128
@@ -173,7 +174,6 @@ def _cells(size, device):
 def lut3d_positions_mxu(xpos, ypos, zpos, t2_bf16, *, size: int):
     """positions: [P] f32 in [0, size-1]; t2_bf16 [YZPAD, 128] bf16 from
     pack_matmul_table; returns (r, g, b) [P] f32."""
-    global launches
     if xpos.device.type == "cpu":
         return lut3d_positions_mxu_plain(xpos, ypos, zpos, t2_bf16, size=size)
     if xpos.device.type != "cuda":
@@ -189,7 +189,7 @@ def lut3d_positions_mxu(xpos, ypos, zpos, t2_bf16, *, size: int):
             ypos.data_ptr(), zpos.data_ptr(), t2_bf16.data_ptr(),
             _cells(size, xpos.device).data_ptr(), *(o.data_ptr() for o in outs),
             xpos.numel(), size)
-    launches += 1
+    count_launch(__name__, "launches")
     return tuple(outs)
 
 
@@ -216,22 +216,20 @@ def lut3d_sample_mxu_packed(px, params, t2_bf16, *, size: int):
     """px int32 RGBA u8 bit patterns (R in the low bits), any shape; params
     [8] f32 = (scale0..2, offset0..2, maxval 255, 0); t2_bf16 from
     pack_matmul_table.  Returns int32 of px's shape, alpha unchanged."""
-    global packed_launches
     if px.device.type == "cpu":
         return lut3d_sample_mxu_packed_plain(px, params, t2_bf16, size=size)
     out = _sample_packed("lut3d_sample_mxu_packed", 8, px, params, t2_bf16, size)
-    packed_launches += 1
+    count_launch(__name__, "packed_launches")
     return out
 
 
 def lut3d_sample_mxu_packed64(px, params, t2_bf16, *, size: int):
     """The same on RGBA64 pixels: px int64 bit patterns of 4 x u16 (R in the
     low bits); params' maxval 65535.  Returns int64 of px's shape."""
-    global packed_launches
     if px.device.type == "cpu":
         return lut3d_sample_mxu_packed_plain(px, params, t2_bf16, size=size, bits=16)
     out = _sample_packed("lut3d_sample_mxu_packed64", 16, px, params, t2_bf16, size)
-    packed_launches += 1
+    count_launch(__name__, "packed_launches")
     return out
 
 

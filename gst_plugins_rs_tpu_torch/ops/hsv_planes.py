@@ -17,6 +17,7 @@ import ctypes
 import torch
 
 from .hsv import EPSILON
+from . import count_launch
 
 launches = 0
 
@@ -82,7 +83,6 @@ def hsv_filter_planes(r, g, b, params):
 
     params: [hue_shift_deg (pre-reduced mod 360), sat_mul, sat_off,
     val_mul, val_off] f32, on the planes' device."""
-    global launches
     if r.device.type == "cpu":
         return hsv_filter_planes_plain(r, g, b, params)
     if r.device.type != "cuda":
@@ -104,7 +104,7 @@ def hsv_filter_planes(r, g, b, params):
     if err != 0:
         raise RuntimeError(f"hsv_filter_planes launch failed: "
                            f"{lib.hsv_planes_error_string(err).decode()}")
-    launches += 1
+    count_launch(__name__, "launches")
     return tuple(outs)
 
 

@@ -49,6 +49,8 @@ import math
 import numpy as np
 import torch
 
+from . import count_launch
+
 FRAME = 19_200            # 100 ms at 192 kHz
 LIMITER_ATTACK = 1920     # 10 ms
 LIMITER_RELEASE = 19_200  # 100 ms
@@ -229,7 +231,6 @@ def limiter_frames(windows, carry_i, carry_f, target_tp: float, pk, pv, future):
     stream's rows contiguous), carry_i int32 [N, 3], carry_f [N, 2], pk, pv,
     future [N, FRAME].  Returns (out [N, FRAME, ch], carry_i, carry_f).  On
     CUDA one launch of N blocks, one per stream."""
-    global launches
     dev = windows.device
     if dev.type == "cpu":
         return limiter_frames_plain(windows, carry_i, carry_f, target_tp, pk, pv, future)
@@ -268,7 +269,7 @@ def limiter_frames(windows, carry_i, carry_f, target_tp: float, pk, pv, future):
     if err != 0:
         raise RuntimeError(f"limiter_frames launch failed: "
                            f"{lib.loudnorm_limiter_error_string(err).decode()}")
-    launches += 1
+    count_launch(__name__, "launches")
     return out, new_i, new_f
 
 

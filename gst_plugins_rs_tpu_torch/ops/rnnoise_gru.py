@@ -31,6 +31,7 @@ from typing import Dict
 
 import torch
 
+from . import count_launch
 from .rnnoise import (
     DENOISE_GRU_SIZE,
     NB_BANDS,
@@ -96,7 +97,6 @@ def _lib():
 
 def rnn_frames(features, silence, rnn: RnnState, weights: Dict[str, torch.Tensor]):
     """The GRU stack over K frames: (gains [K, C, 22], vads [K, C], rnn')."""
-    global launches
     _check(features, silence, rnn, weights)
     dev = features.device
     if dev.type == "cpu":
@@ -122,7 +122,7 @@ def rnn_frames(features, silence, rnn: RnnState, weights: Dict[str, torch.Tensor
     if err != 0:
         raise RuntimeError(f"rnn_frames launch failed: "
                            f"{lib.rnnoise_gru_error_string(err).decode()}")
-    launches += 1
+    count_launch(__name__, "launches")
     return gains, vads, RnnState(*h1)
 
 

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import no_tf32
+from . import count_launch
 
 launches = 0
 
@@ -219,7 +220,6 @@ def c3_s2d_fused_compact(y, W1, b1, W2, b2, Wa, ba, Wb, bb, W3, b3, *, width: in
     [B,H,W,4C] in y.dtype.  On CUDA the weights must be in y.dtype and the
     biases in float32 (the engine prepares them once), and C and h
     multiples of 8."""
-    global launches
     if y.device.type == "cpu":
         return c3_s2d_fused_plain(y, W1, b1, W2, b2, Wa, ba, Wb, bb, W3, b3,
                                   width=width, n=n)
@@ -240,7 +240,7 @@ def c3_s2d_fused_compact(y, W1, b1, W2, b2, Wa, ba, Wb, bb, W3, b3, *, width: in
                  B, H, Wd, C, h, n, tile, stream)
     if err != 0:
         raise RuntimeError(f"yolox_c3 launch failed: {lib.yolox_c3_error_string(err).decode()}")
-    launches += 1
+    count_launch(__name__, "launches")
     return out
 
 

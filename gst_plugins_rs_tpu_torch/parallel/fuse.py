@@ -16,27 +16,31 @@ output must equal the unfused one bit for bit, which rules out
 - on the CPU the fused callable runs the kernels eagerly, one after another;
 - on CUDA it replays one `torch.cuda.CUDAGraph` per input signature (the
   shapes and dtypes of the payload's planes): at a signature's first buffer
-  the kernels run once eagerly on a side stream (that buffer's output; lazy
-  uploads such as cached resize weights happen here), then the run is
-  captured with `capture_error_mode="thread_local"`, so queues and other
-  branches may keep calling CUDA from their own threads meanwhile.  Each
-  later buffer is copied into the graph's static input, the graph is
-  replayed, and downstream gets a clone of the static output: the next
-  replay overwrites it, and a sink may still hold the previous frame.  A run
-  that fails to capture raises; it never carries on eagerly.
+  the kernels run once eagerly on a side stream, on that buffer's own planes
+  (that buffer's output, which shares memory with its input at most where
+  the unfused chain's would; lazy uploads such as cached resize weights
+  happen here), then the run is captured on static copies of the planes
+  with `capture_error_mode="thread_local"`, so queues and other branches may
+  keep calling CUDA from their own threads meanwhile.  Each later buffer is
+  copied into the graph's static input, the graph is replayed, and
+  downstream gets a clone of every static output plane: the next replay
+  overwrites them, and a sink may still hold the previous frame.  A run that
+  fails to capture raises; it never carries on eagerly.  A run whose kernels
+  all return their input moves no data: it captures nothing and passes each
+  payload on, as the unfused chain does.
 
 Launch accounting: the kernel wrappers count their launches in Python
-(`launches`, `packed_launches`, ... in `gst_plugins_rs_tpu_torch.ops`), and a
-replay runs no Python.  The counts a capture adds (the capture launches
+(`ops.count_launch`), and a replay runs no Python.  The launches that the
+capturing thread counts during a capture (the capture itself launches
 nothing) are taken back after it and added again on every replay, so the
-counters say how often each kernel ran.  The capture's share is read as a
-difference of the counters, so a kernel that another thread launches during
-the one capture of a signature would be counted to the graph.  `captures`
-and `replays` count the graphs captured and replayed.
+counters say how often each kernel ran; launches of other threads during
+the capture stay as they were counted.  `captures` and `replays` count the
+graphs captured and replayed.
 """
 from __future__ import annotations
 
 import sys
+from collections import Counter
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -44,8 +48,7 @@ import torch
 from .._device import device
 from ..core import Buffer, FlowReturn, Pad
 from ..core.basetransform import BaseTransform
-
-_OPS = __name__.rsplit(".", 2)[0] + ".ops."
+from ..ops import noting_launches
 
 Counts = Dict[Tuple[str, str], int]
 
@@ -69,28 +72,15 @@ def _signature(data) -> tuple:
     return tuple((tuple(p.shape), p.dtype) for p in _planes(data))
 
 
-def launch_counts() -> Counts:
-    """Every kernel launch counter of the loaded ops modules: the module-level
-    ints whose names end in `launches`."""
-    counts = {}
-    for name, mod in list(sys.modules.items()):
-        if name.startswith(_OPS) and mod is not None:
-            for attr, value in list(vars(mod).items()):
-                if attr.endswith("launches") and type(value) is int:
-                    counts[(name, attr)] = value
-    return counts
-
-
-def _add_launches(delta: Counts, sign: int = 1) -> None:
-    for (name, attr), n in delta.items():
+def _add_launches(counts: Counts, sign: int = 1) -> None:
+    for (name, attr), n in counts.items():
         mod = sys.modules[name]
         setattr(mod, attr, getattr(mod, attr) + sign * n)
 
 
 class _Graph:
-    """One captured signature: the graph (None for a run that returns its
-    input), its static input planes and output payload, and the kernel
-    launches one replay makes."""
+    """One captured signature: the graph, its static input planes and output
+    payload, and the kernel launches one replay makes."""
 
     def __init__(self, graph, inputs, output, launches: Counts):
         self.graph, self.inputs, self.output, self.launches = graph, inputs, output, launches
@@ -102,7 +92,8 @@ class FusedRun:
 
     def __init__(self, kernels: List[Callable], names: List[str], dev: torch.device):
         self.kernels, self.names, self.device = kernels, names, dev
-        self.graphs: Dict[tuple, _Graph] = {}
+        # signature -> its graph, or None where the run moves no data
+        self.graphs: Dict[tuple, Optional[_Graph]] = {}
 
     def eager(self, data):
         for k in self.kernels:
@@ -114,57 +105,55 @@ class FusedRun:
         data = _to_device(data, self.device)
         if self.device.type != "cuda":
             return self.eager(data)
-        g = self.graphs.get(_signature(data))
+        sig = _signature(data)
+        if sig not in self.graphs:
+            return self._capture(data, sig)
+        g = self.graphs[sig]
         if g is None:
-            return self._capture(data)
+            return data
         for static, p in zip(g.inputs, _planes(data)):
             static.copy_(p)
-        if g.graph is not None:
-            g.graph.replay()
-            replays += 1
-            _add_launches(g.launches)
+        g.graph.replay()
+        replays += 1
+        _add_launches(g.launches)
         return _like(g.output, [p.clone() for p in _planes(g.output)])
 
-    def _capture(self, data):
-        """Warm up on a side stream (the returned output), then capture the
-        run for this signature."""
+    def _capture(self, data, sig):
+        """Warm up on a side stream on the buffer's own planes (the returned
+        output), then capture the run for this signature on static copies."""
         global captures
-        inputs = [p.clone(memory_format=torch.contiguous_format) for p in _planes(data)]
-        static_in = _like(data, inputs)
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            out = self.eager(static_in)
+            out = self.eager(data)
         cur.wait_stream(side)
         for p in _planes(out):
             p.record_stream(cur)
-        if all(any(o is i for i in inputs) for o in _planes(out)):
-            # the run moves no data (every kernel returned its input)
-            self.graphs[_signature(data)] = _Graph(None, inputs, static_in, {})
-            return _like(out, [p.clone() for p in _planes(out)])
+        if all(any(o is i for i in _planes(data)) for o in _planes(out)):
+            self.graphs[sig] = None  # every kernel returned its input
+            return out
+        inputs = [p.clone(memory_format=torch.contiguous_format) for p in _planes(data)]
         graph = torch.cuda.CUDAGraph()
         torch.cuda.synchronize(self.device)
-        before = launch_counts()
-        try:
-            # capture_begin/capture_end by hand rather than torch.cuda.graph:
-            # the stream context is left even when capture_end raises
-            with torch.cuda.stream(side):
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    static_out = self.eager(static_in)
-                finally:
-                    graph.capture_end()
-        except Exception as e:
-            raise RuntimeError(f"fused run {' ! '.join(self.names)}: CUDA graph capture "
-                               f"failed: {e}") from e
-        finally:
-            after = launch_counts()
-            captured = {k: v - before.get(k, 0) for k, v in after.items()
-                        if v != before.get(k, 0)}
-            _add_launches(captured, -1)  # the capture itself launched nothing
+        with noting_launches() as noted:
+            try:
+                # capture_begin/capture_end by hand rather than torch.cuda.graph:
+                # the stream context is left even when capture_end raises
+                with torch.cuda.stream(side):
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        static_out = self.eager(_like(data, inputs))
+                    finally:
+                        graph.capture_end()
+            except Exception as e:
+                raise RuntimeError(f"fused run {' ! '.join(self.names)}: CUDA graph capture "
+                                   f"failed: {e}") from e
+            finally:
+                captured = dict(Counter(noted))
+                _add_launches(captured, -1)  # the capture itself launched nothing
         captures += 1
-        self.graphs[_signature(data)] = _Graph(graph, inputs, static_out, captured)
+        self.graphs[sig] = _Graph(graph, inputs, static_out, captured)
         return out
 
 
@@ -240,5 +229,4 @@ def fuse_pipeline(pipeline) -> int:
     return len(runs)
 
 
-__all__ = ["FusedRun", "captures", "fusable_runs", "fuse", "fuse_pipeline", "launch_counts",
-           "replays"]
+__all__ = ["FusedRun", "captures", "fusable_runs", "fuse", "fuse_pipeline", "replays"]

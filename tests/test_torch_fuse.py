@@ -167,16 +167,21 @@ def test_fused_layout_chain_matches_jax_bit_for_bit():
     assert got[0].shape == (48, 24, 4)
 
 
-def _appsrc_run(pkg, desc, frames, fused):
+def _appsrc_run(pkg, desc, frames, fused, fmt="RGBA"):
     p = pkg.parse_launch(desc)
     n = (jfuse if pkg is jfx else fuse_pipeline)(p) if fused else None
     src = p.by_name("src")
-    h, w = frames[0].shape[:2]
+    h, w = (frames[0][0] if isinstance(frames[0], tuple) else frames[0]).shape[:2]
     src.set_property("caps", pkg.parse_caps(
-        f"video/x-raw,format=RGBA,width={w},height={h},framerate=30/1"))
+        f"video/x-raw,format={fmt},width={w},height={h},framerate=30/1"))
+
+    def payload(f):
+        if pkg is not tfx:
+            return f
+        return tuple(map(torch.from_numpy, f)) if isinstance(f, tuple) else torch.from_numpy(f)
+
     for i, f in enumerate(frames):
-        src.push_buffer(pkg.Buffer(torch.from_numpy(f) if pkg is tfx else f,
-                                   pts=i * 33_333_333, duration=33_333_333))
+        src.push_buffer(pkg.Buffer(payload(f), pts=i * 33_333_333, duration=33_333_333))
     src.end_of_stream()
     p.play_until_eos()
     return n, p.by_name("sink").samples
@@ -205,6 +210,49 @@ def test_fused_differing_frames_every_buffer(tmp_path, precision):
         lsb = HSV_LSB if precision == "exact" else HSV_APPROX_LSB
         assert _max_lsb(g, np.asarray(j.buffer.data)) <= lsb, f"buffer {i}"
     assert all(_max_lsb(a, b) > 0 for a, b in zip(outs, outs[1:]))  # the frames differ
+
+
+def test_fused_planar_passthrough_every_buffer():
+    """I420 -> NV12 at the same size: the scaler is the identity and the
+    converter hands its Y plane on, so one output plane of the run is an
+    input plane.  Every buffer equals the unfused pipeline's and, bit for
+    bit, the JAX package's fused run."""
+    desc = "appsrc name=src ! videoscale ! videoconvert ! video/x-raw,format=NV12 ! appsink name=sink"
+    rng = np.random.RandomState(6)
+    frames = [tuple(rng.randint(0, 256, s).astype(np.uint8) for s in ((24, 40), (12, 20), (12, 20)))
+              for _ in range(4)]
+    _, ref = _appsrc_run(tfx, desc, frames, fused=False, fmt="I420")
+    n, got = _appsrc_run(tfx, desc, frames, fused=True, fmt="I420")
+    jn, jgot = _appsrc_run(jfx, desc, frames, fused=True, fmt="I420")
+    assert n == jn == 1
+    assert len(got) == len(ref) == len(jgot) == len(frames)
+    for i, (g, r, j) in enumerate(zip(got, ref, jgot)):
+        planes = [tuple(np.asarray(q) for q in x.buffer.data) for x in (g, r, j)]
+        assert [len(x) for x in planes] == [2, 2, 2], f"buffer {i}"
+        for pg, pr, pj in zip(*planes):
+            np.testing.assert_array_equal(pg, pr, err_msg=f"buffer {i}")
+            np.testing.assert_array_equal(pg, pj, err_msg=f"buffer {i}")
+        np.testing.assert_array_equal(planes[0][0], frames[i][0])
+
+
+def test_capture_notes_only_its_own_threads_launches():
+    """A capturing thread notes the launches it counts itself; a launch that
+    another thread counts meanwhile goes to the counter alone."""
+    import threading
+
+    from gst_plugins_rs_tpu_torch.ops import count_launch, hsv_planes, noting_launches
+
+    before = hsv_planes.launches
+    other = threading.Thread(target=count_launch, args=(hsv_planes.__name__, "launches"))
+    with noting_launches() as noted:
+        count_launch(hsv_planes.__name__, "launches")
+        other.start()
+        other.join()
+        with noting_launches() as inner:
+            count_launch(hsv_planes.__name__, "launches")
+    hsv_planes.launches = before
+    assert noted == [(hsv_planes.__name__, "launches")]
+    assert inner == [(hsv_planes.__name__, "launches")]
 
 
 def test_fuse_needs_pure_kernels():

@@ -879,16 +879,16 @@ def _write_small_grade(path, size=9):
     return path
 
 
-def _appsrc_frames(desc, frames, fused):
+def _appsrc_frames(desc, frames, fused, fmt="RGBA"):
     import gst_plugins_rs_tpu_torch as g
     from gst_plugins_rs_tpu_torch.parallel.fuse import fuse_pipeline
 
     p = g.parse_launch(f"appsrc name=src ! {desc} ! appsink name=sink")
     n = fuse_pipeline(p) if fused else None
     src = p.by_name("src")
-    h, w = frames[0].shape[:2]
+    h, w = (frames[0][0] if isinstance(frames[0], tuple) else frames[0]).shape[:2]
     src.set_property("caps", g.parse_caps(
-        f"video/x-raw,format=RGBA,width={w},height={h},framerate=30/1"))
+        f"video/x-raw,format={fmt},width={w},height={h},framerate=30/1"))
     for i, f in enumerate(frames):
         src.push_buffer(g.Buffer(f, pts=i * 33_333_333, duration=33_333_333))
     src.end_of_stream()
@@ -938,14 +938,43 @@ def test_fused_capture_failure_raises(cuda):
 def test_fused_identity_run_captures_no_graph(cuda):
     """A run whose kernels all return their input (videoflip method=none and
     a videoscale to the same size) moves no data: it captures no graph and
-    hands downstream a copy of each frame."""
+    passes each frame on, as the unfused chain does."""
     from gst_plugins_rs_tpu_torch.parallel import fuse
 
     gen = torch.Generator(device=cuda).manual_seed(8)
     frames = [torch.randint(0, 256, (24, 40, 4), generator=gen, device=cuda, dtype=torch.uint8)
               for _ in range(3)]
+    desc = "videoflip method=none ! videoscale"
+    _, ref = _appsrc_frames(desc, frames, fused=False)
     before = (fuse.captures, fuse.replays)
-    n, got = _appsrc_frames("videoflip method=none ! videoscale", frames, fused=True)
+    n, got = _appsrc_frames(desc, frames, fused=True)
     assert n == 1 and (fuse.captures, fuse.replays) == before
-    for a, f in zip(got, frames):
-        assert torch.equal(a, f) and a.data_ptr() != f.data_ptr()
+    for a, b, f in zip(got, ref, frames):
+        assert torch.equal(a, f) and a.data_ptr() == b.data_ptr() == f.data_ptr()
+
+
+@pytest.mark.cuda
+def test_fused_planar_passthrough_plane_is_not_overwritten(cuda):
+    """I420 -> NV12 at the same size: the scaler is the identity and the
+    converter hands its Y plane on untouched, so one output plane of the
+    run is an input plane.  Every buffer, the first included, stays equal
+    to the unfused chain's after later buffers have gone through the graph."""
+    from gst_plugins_rs_tpu_torch.parallel import fuse
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+
+    def plane(h, w):
+        return torch.randint(0, 256, (h, w), generator=gen, device=cuda, dtype=torch.uint8)
+
+    frames = [(plane(48, 80), plane(24, 40), plane(24, 40)) for _ in range(6)]
+    desc = "videoscale ! videoconvert ! video/x-raw,format=NV12"
+    _, ref = _appsrc_frames(desc, frames, fused=False, fmt="I420")
+    before = (fuse.captures, fuse.replays)
+    n, got = _appsrc_frames(desc, frames, fused=True, fmt="I420")
+    torch.cuda.synchronize()
+    assert n == 1 and len(got) == len(ref) == len(frames)
+    assert (fuse.captures - before[0], fuse.replays - before[1]) == (1, len(frames) - 1)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert len(a) == len(b) == 2, f"buffer {i}"
+        for pa, pb in zip(a, b):
+            assert pa.device.type == "cuda" and torch.equal(pa, pb), f"buffer {i}"

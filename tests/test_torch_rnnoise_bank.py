@@ -24,6 +24,8 @@ the streams').  The port's 16-stream call is also held to 16 calls of one
 stream each, within FAST_TOL and RNN_TOL (the same functions per channel;
 the batched products may block their sums otherwise).
 
+With `-s` the test prints the measured output and VAD gaps.
+
 Torch runs on one intra-op thread (tests/torch_parity_helpers.py).
 """
 import jax
@@ -89,8 +91,12 @@ def test_denoise_16_streams_matches_jax_vmap(kind):
         ts, to, tv = T.denoise_frames_fast(ts, tw, _streams_as_channels(chunk))
         assert to.shape == (chunk.shape[1], STREAMS, FRAME)
         jo = np.asarray(jo)[:, :, 0].transpose(1, 0, 2)
-        assert np.abs(jo - to.numpy()).max() <= FAST_TOL
-        assert np.abs(np.asarray(jv)[:, :, 0].T - tv.numpy()).max() <= VAD_TOL
+        out_gap = np.abs(jo - to.numpy()).max()
+        vad_gap = np.abs(np.asarray(jv)[:, :, 0].T - tv.numpy()).max()
+        print(f"{kind} weights, {'first' if first else 'second'} call: output gap "
+              f"{out_gap:.3g} s16 (gate {FAST_TOL}), VAD gap {vad_gap:.3g} (gate {VAD_TOL})")
+        assert out_gap <= FAST_TOL
+        assert vad_gap <= VAD_TOL
         if first:  # the silent frames of one stream: its VADs are zeroed, the others' not
             jv = np.asarray(jv)[:, :, 0]
             assert (tv[:SILENT_FRAMES, SILENT_STREAM] == 0).all()
