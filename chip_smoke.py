@@ -45,7 +45,12 @@ Phases (any failure ends the run with a non-zero exit):
   6. timing: apply_fast frames per second at batch 1 and 8, and the element
      pipelines end to end, with their device time per frame, and
      lut3d_apply_mxu's device time per frame on both of its routes.
-The audio phases follow the same steps: 3c/4c/5c/6c the R-128 path (L1),
+The audio phases follow the same steps: 3c/4c/5c/6c the R-128 path (L1,
+which detects the peaks and walks the limiter from peak to peak in one
+launch: against its plain twin on a peaky, an idle and a clipped frame
+from four carries and every boundary carry, with the peaks and segments
+walked, and timed beside its bound and its event floor; 6c adds the busy
+share of the wall),
 3d/4d/5d/6d the denoising and spatial path: R1 against its plain version on
 100 frames x 2 channels and on the path's 10-frame buffer; 60 s of two
 sources through audiomixer into audiornnoise (R1 launches = buffers), 10 s
@@ -69,8 +74,9 @@ seconds of audio per second and device ms a chunk.  4i/5i hand detection:
 30 buffers of a 1920x1080 stream through handdetectiontensordec, each with a
 seeded 2 016-row palm-detection-out tensor on the card, the boxes equal to
 the element's decode of the same rows on the CPU.  3h/4h/5h/6h the stream
-bank: L1 over 16 streams a launch against its plain twin and timed beside
-one stream; 16 streams x 30 s of 192 kHz stereo F32 (8 ticks, 8 sines)
+bank: L1 over 16 streams a launch against its plain twin (a mixed bank of
+idle, peaky and clipped streams, f32 and f64) and timed beside one stream;
+16 streams x 30 s of 192 kHz stereo F32 (8 ticks, 8 sines)
 through loudnormbank (L1 launches = ticks, every stream at -24 LUFS, peaks
 <= -2 dBFS); card against CPU; stream-seconds per second, device ms and ops
 a tick, and parallel/benchmark.py --chain echo,loudnorm.  3d'/4d'/5d' the
@@ -1151,6 +1157,7 @@ AUDIO_SECONDS = 60           # the full-width audioloudnorm run: 600 frames of 1
 AUDIO_CPU_SECONDS = 6        # card against CPU
 AUDIO_SPB = 4800             # samples per 48 kHz source buffer (100 ms)
 LN_FRAME = 19_200            # audioloudnorm's frame at 192 kHz
+LN_LOOKAHEAD = 1920          # the limiter's lookahead: output n reads window row n + 1920
 LN_SAMPLE_TOL = 1e-9         # F64 samples, card vs CPU on the same input
 LN_LOUDNESS_TOL = 1e-6       # LU, card vs CPU
 RESAMPLE_TOL = 1e-5          # f32 resampler, card vs CPU (cuDNN sums in another order)
@@ -1166,11 +1173,21 @@ LN_LOUDNESS_BAR = 2.0
 # its quiet sine: normalised to -24 LUFS the ticks cross -2 dBTP, so every
 # tick's frames run the limiter and the frames between them are idle
 TICKS = "wave=ticks volume=0.8 sine-periods-per-tick=1 tick-interval=500000000"
-# an estimate, not a measurement, of the limiter's serial floor: the
-# loop-carried chain of one FSM step (state compare, select and the envelope
-# count's add, ~3 dependent integer ops of ~4 cycles) at the SM's maximum
-# clock; printed beside the kernel's time, not in the kernels line
-LIMITER_STEP_CYCLES = 12
+# an estimate, not a measurement, of the limiter walk's floor: the
+# loop-carried chain of one event of the kernel's walk (a peak's top
+# compares, its state branch and the envelope count's add, or one ballot
+# of the walking warp over 32 peaks, or a segment's stores; no division),
+# ~40 cycles at the SM's maximum clock, times the events the kernel counted
+# (walk steps plus segments); printed beside the kernel's time, not in the
+# kernels line
+LIMITER_EVENT_CYCLES = 40
+# the walk's hard carries: every state at the envelope and sustain counts
+# where a gap turns (Attack -> Sustain at 1,920, Release -> Out at 19,200,
+# a Sustain's count at 1, 0 and none)
+LIMITER_BOUNDARY = [(st, env, sus, 0.8, 0.6) for st in range(4)
+                    for env in (1919, 1920, 19199, 19200) for sus in (0, 1, -1)]
+LIMITER_CARRIES = [(0, 0, -1, 0.0, 0.0), (1, 500, -1, 0.9, 0.6), (2, 0, 100, 0.7, 0.5),
+                   (3, 3000, -1, 0.5, 1.0)]
 
 
 def loudnorm_launch(seconds: int, tail: str = "audioloudnorm ! appsink name=sink") -> str:
@@ -1190,83 +1207,115 @@ def _sm_clock_hz() -> float:
     return float(out.strip().splitlines()[0]) * 1e6
 
 
-def limiter_window(peaky: bool, dtype, dev):
+def limiter_window(kind: str, dtype, dev):
     """A [40320, 2] 192 kHz limiter window of the path's signal: quiet noise,
-    with (peaky) a tick burst and a pair of close peaks, or (idle) nothing
-    above -2 dBTP."""
+    with (peaky) a tick burst and a pair of close peaks, (idle) nothing above
+    -2 dBTP, or (clipped) a +-1.2 square wave over the whole window, so
+    every sample is a peak."""
     rng = np.random.RandomState(7)
     x = rng.uniform(-0.3, 0.3, (40320, 2))
-    if peaky:
+    if kind == "peaky":
         t = np.arange(2000) / 192000
         x[4000:6000] = 1.2 * np.sin(2 * np.pi * 440 * t)[:, None]
         x[12000, 0], x[13700, 1] = 0.95, 1.0
+    elif kind == "clipped":
+        x[:] = np.where((np.arange(40320) // 218) % 2 == 0, 1.2, -1.2)[:, None]
     return torch.from_numpy(x).to(dev, dtype).contiguous()
+
+
+def _limiter_plain(lim, w, ci, cf, tp):
+    """L1's plain twin on the CPU copies, after the vectorised detection."""
+    w, ci, cf = w.cpu(), ci.cpu(), cf.cpu()
+    run = lim.limiter_frame_plain if w.dim() == 2 else lim.limiter_frames_plain
+    return run(w, ci, cf, tp, *lim.precompute_peaks(w, tp))
+
+
+def _limiter_bytes_flop(w, tp, peaks):
+    """What L1 needs on window(s) w: each stream's window rows 0 .. L +
+    FRAME + 10 read once, the output written, the carry read and written;
+    operations: each window sample's abs and compare with the target, the
+    12 neighbour compares where it is above, at each peak the division and
+    its compare, and each output sample's scale and two-sided clamp."""
+    ch, isz = w.shape[-1], w.element_size()
+    n = 1 if w.dim() == 2 else w.shape[0]
+    rows = LN_LOOKAHEAD + LN_FRAME + 11
+    nbytes = n * ((rows + LN_FRAME) * ch * isz + (3 * 4 + 2 * isz) * 2)
+    above = int((w[..., LN_LOOKAHEAD:LN_LOOKAHEAD + LN_FRAME, :].abs() > tp).sum())
+    flop = n * LN_FRAME * ch * (2 + 3) + above * 24 + peaks * 2
+    return nbytes, flop
 
 
 def limiter_kernel(card_line):
     """Phase 3c: the limiter kernel against its plain version at 192 kHz
-    stereo, bit for bit in f64 and f32, on a peaky and an idle frame from
-    four carries; then timed (f64, the path's type) beside its two bounds."""
+    stereo, bit for bit in f64 and f32, on a peaky, an idle and a clipped
+    frame from four carries and from every boundary carry, with the peaks
+    segments and walk steps each walk took; then timed (f64, the path's
+    type) beside its bound and the walk's event floor."""
     phase("3c audio: the limiter kernel against its plain version")
     from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
 
     dev = torch.device("cuda")
-    carries = [(0, 0, -1, 0.0, 0.0), (1, 500, -1, 0.9, 0.6), (2, 0, 100, 0.7, 0.5),
-               (3, 3000, -1, 0.5, 1.0)]
     cases, max_err = {}, 0.0
+    stats = torch.zeros(3, dtype=torch.int32, device=dev)
     for dtype, np_dtype in ((torch.float64, np.float64), (torch.float32, np.float32)):
         tp = float(np_dtype(10 ** (-2 / 20)))
-        for peaky in (True, False):
-            w = limiter_window(peaky, dtype, dev)
-            pk, pv, fut = lim.precompute_peaks(w, tp)
-            for carry in carries:
+        for kind in ("peaky", "idle", "clipped"):
+            w = limiter_window(kind, dtype, dev)
+            walked = []
+            for carry in LIMITER_CARRIES + LIMITER_BOUNDARY:
                 ci = torch.tensor(carry[:3], dtype=torch.int32, device=dev)
                 cf = torch.tensor(carry[3:], dtype=dtype, device=dev)
-                out, ni, nf = lim.limiter_frame(w, ci, cf, tp, pk, pv, fut)
+                out, ni, nf = lim.limiter_frame(w, ci, cf, tp, walk_stats=stats)
                 torch.cuda.synchronize()
-                ref, ri, rf = lim.limiter_frame_plain(w.cpu(), ci.cpu(), cf.cpu(), tp, pk.cpu(),
-                                                      pv.cpu(), fut.cpu())
+                ref, ri, rf = _limiter_plain(lim, w, ci, cf, tp)
                 err = float((out.cpu() - ref).abs().max())
                 max_err = max(max_err, err)
                 same = torch.equal(out.cpu(), ref) and torch.equal(ni.cpu(), ri) \
                     and torch.equal(nf.cpu(), rf)
                 if not same or not torch.isfinite(out).all():
-                    raise AssertionError(f"limiter {dtype} peaky={peaky} carry={carry}: kernel "
-                                         f"!= plain (max abs err {err:.3e})")
-            label = f"{'f64' if dtype == torch.float64 else 'f32'} {'peaky' if peaky else 'idle'}"
-            print(f"limiter {label}: {int(pk.sum())} peaks, bit-equal to plain from "
-                  f"{len(carries)} carries")
-            cases[label] = (w, pk, pv, fut, tp)
+                    raise AssertionError(f"limiter {dtype} {kind} carry={carry}: kernel != plain "
+                                         f"(max abs err {err:.3e}; carries {ni.tolist()} "
+                                         f"{ri.tolist()}, {nf.tolist()} {rf.tolist()})")
+                walked.append(tuple(stats.tolist()))
+            label = f"{'f64' if dtype == torch.float64 else 'f32'} {kind}"
+            segs = sorted({w_[1] for w_ in walked})
+            steps = sorted({w_[2] for w_ in walked})
+            print(f"limiter {label}: {walked[0][0]} peaks, from Out {walked[0][1]} segments in "
+                  f"{walked[0][2]} walk steps ({segs[0]}-{segs[-1]} segments, {steps[0]}-"
+                  f"{steps[-1]} steps over the {len(walked)} carries), bit-equal to plain from "
+                  f"{len(LIMITER_CARRIES)} carries and {len(LIMITER_BOUNDARY)} boundary carries")
+            cases[label] = (w, tp, walked[0])
     # timed on the path's type (F64) from the Out carry
-    w, pk, pv, fut, tp = cases["f64 peaky"]
     ci = torch.tensor([0, 0, -1], dtype=torch.int32, device=dev)
     cf = torch.zeros(2, dtype=torch.float64, device=dev)
-    ms = cuda_ms(lambda: lim.limiter_frame(w, ci, cf, tp, pk, pv, fut))
-    wi, pki, pvi, futi, _ = cases["f64 idle"]
-    idle_ms = cuda_ms(lambda: lim.limiter_frame(wi, ci, cf, tp, pki, pvi, futi))
-    args = [t.cpu() for t in (w, ci, cf)] + [tp] + [t.cpu() for t in (pk, pv, fut)]
+    times = {kind: cuda_ms(lambda w=cases[f"f64 {kind}"][0], tp=cases[f"f64 {kind}"][1]:
+                           lim.limiter_frame(w, ci, cf, tp))
+             for kind in ("peaky", "idle", "clipped")}
+    w, tp, (npk, nseg, _) = cases["f64 peaky"]
+    args = [t.cpu() for t in (w, ci, cf)] + [tp] + [t.cpu() for t in lim.precompute_peaks(w, tp)]
     t0 = time.perf_counter()
     for _ in range(3):
         lim.limiter_frame_plain(*args)
     plain_ms = (time.perf_counter() - t0) / 3 * 1e3
-    # what the function needs on this frame: the frame's window samples read
-    # and its output written, pk and future (a byte each), pv only at the
-    # peaks (the FSM reads it nowhere else), the carry read and written; the
-    # operations: each output sample's scale and two-sided clamp, and at each
-    # peak the gain's division and its compare (f64)
-    ch, isz, npk = w.shape[1], w.element_size(), int(pk.sum())
-    nbytes = LN_FRAME * ch * isz * 2 + LN_FRAME * 2 + npk * isz + (3 * 4 + 2 * isz) * 2
-    flop = LN_FRAME * ch * 3 + npk * 2
+    nbytes, flop = _limiter_bytes_flop(w, tp, npk)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flop / PEAK_F64 * 1e3
     bound_ms, bound_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-    serial_ms = LN_FRAME * LIMITER_STEP_CYCLES / _sm_clock_hz() * 1e3
-    print(f"limiter f64 stereo frame: kernel {ms:.4f} ms peaky ({npk} peaks), {idle_ms:.4f} ms "
-          f"idle; plain (host loop, CPU) {plain_ms:.2f} ms; bound {bound_ms:.5f} ms ({bound_by}: "
-          f"{nbytes} B, {flop} f64 operations); serial floor, estimated: {serial_ms:.4f} ms "
-          f"({LN_FRAME} steps x ~{LIMITER_STEP_CYCLES} cycles at the max SM clock) [{card_line}]")
-    return dict(case="192 kHz stereo f64, peaky frame", ms=ms, idle_ms=idle_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
-                library_ms=None, flop=flop, bytes=nbytes)
+    hz = _sm_clock_hz()
+    events = {kind: cases[f"f64 {kind}"][2][1] + cases[f"f64 {kind}"][2][2]
+              for kind in ("peaky", "clipped")}
+    floors = {kind: n * LIMITER_EVENT_CYCLES / hz * 1e3 for kind, n in events.items()}
+    clipped_peaks = cases["f64 clipped"][2][0]
+    print(f"limiter f64 stereo frame: kernel {times['peaky']:.4f} ms peaky ({npk} peaks, {nseg} "
+          f"segments), {times['idle']:.4f} ms idle, {times['clipped']:.4f} ms clipped "
+          f"({clipped_peaks} peaks); plain (host loop, CPU) {plain_ms:.2f} ms; bound "
+          f"{bound_ms:.6f} ms ({bound_by}: {nbytes} B, {flop} f64 operations); event floor, "
+          f"estimated: {floors['peaky']:.6f} ms peaky ({events['peaky']} events), "
+          f"{floors['clipped']:.6f} ms clipped ({events['clipped']} events) (events x "
+          f"~{LIMITER_EVENT_CYCLES} cycles at the max SM clock) [{card_line}]")
+    return dict(case="192 kHz stereo f64, peaky frame", ms=times["peaky"], idle_ms=times["idle"],
+                clipped_ms=times["clipped"], plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=max_err, library_ms=None, flop=flop,
+                bytes=nbytes, peaks=npk, segments=nseg)
 
 
 def _r128_of(data, channels, rate):
@@ -1511,12 +1560,15 @@ def audio_timing(card_line):
         busy = sum(e.self_device_time_total for e in events) / 1e3
         kernels = sum(e.count for e in events if not e.key.startswith("Memcpy"))
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+        # 100 ms of audio takes 100 / rate wall ms
+        share = busy / n_prof * (AUDIO_SECONDS / secs) / 100.0
         rows[label] = dict(audio_s_per_s=AUDIO_SECONDS / secs, busy_ms_per_frame=busy / n_prof,
-                           launches_per_frame=kernels / n_prof)
+                           launches_per_frame=kernels / n_prof, busy_share=share)
         print(f"{label}: {AUDIO_SECONDS} s of audio in {secs:.3f} s, "
               f"{AUDIO_SECONDS / secs:.2f} s of audio per second; device busy "
               f"{busy / n_prof:.4f} ms and {kernels / n_prof:.1f} device ops per 100 ms frame "
-              f"(torch.profiler, {n_prof} frames); ms per frame by op: "
+              f"(torch.profiler, {n_prof} frames), {100 * share:.1f}% of the wall; "
+              f"ms per frame by op: "
               + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3 / n_prof:.4f}"
                           for e in top) + f" [{card_line}]")
     return rows
@@ -2747,63 +2799,78 @@ def bank_pipeline(seconds: int):
 
 
 def bank_kernel(card_line):
-    """Phase 3h: L1 over N = 16 streams in one launch (8 peaky windows from
-    mixed carries, 8 idle) against its plain twin (the per-stream host loop),
-    bit for bit, F32 (the bank's type); then the N = 16 launch timed beside
-    one peaky single-stream launch."""
+    """Phase 3h: L1 over N = 16 streams in one launch against its plain twin
+    (the per-stream host loop), bit for bit in f32 (the bank's type) and
+    f64: a mixed bank of idle, peaky (mixed carries) and clipped streams,
+    with the peaks and segments each stream walked; then the path's bank (8
+    peaky windows from mixed carries, 8 idle) timed beside one peaky stream,
+    the 8 idle streams and the mixed bank."""
     phase("3h bank: L1 over 16 streams a launch against its plain twin")
     from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
 
     dev = torch.device("cuda")
-    tp = float(np.float32(10 ** (-2 / 20)))
-    carries = [(0, 0, -1, 0.0, 0.0), (1, 500, -1, 0.9, 0.6), (2, 0, 100, 0.7, 0.5),
-               (3, 3000, -1, 0.5, 1.0)]
     quiet = np.random.RandomState(40).uniform(-0.5, 0.5, (BANK_STREAMS, 40320, 2))
-    rows, ci, cf = [], [], []
-    for n in range(BANK_STREAMS):
-        peaky = n < BANK_STREAMS // 2
-        rows.append(limiter_window(True, torch.float32, dev) if peaky
-                    else torch.from_numpy(quiet[n]).to(dev, torch.float32))
-        c = carries[n % 4] if peaky else carries[0]
-        ci.append(c[:3])
-        cf.append(c[3:])
-    w = torch.stack(rows).contiguous()
-    ci = torch.tensor(ci, dtype=torch.int32, device=dev)
-    cf = torch.tensor(cf, dtype=torch.float32, device=dev)
-    pk, pv, fut = lim.precompute_peaks(w, tp)
-    out, ni, nf = lim.limiter_frames(w, ci, cf, tp, pk, pv, fut)
-    torch.cuda.synchronize()
-    args = [t.cpu() for t in (w, ci, cf)] + [tp] + [t.cpu() for t in (pk, pv, fut)]
-    t0 = time.perf_counter()
-    ref, ri, rf = lim.limiter_frames_plain(*args)
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    err = float((out.cpu() - ref).abs().max())
-    if not (torch.equal(out.cpu(), ref) and torch.equal(ni.cpu(), ri)
-            and torch.equal(nf.cpu(), rf)) or not torch.isfinite(out).all():
-        raise AssertionError(f"L1 over {BANK_STREAMS} streams != its plain twin ({err:.3e})")
-    npk = [int(v) for v in pk.sum(1).tolist()]
-    print(f"L1 {BANK_STREAMS} streams in one launch, F32 stereo: bit-equal to the plain twin "
-          f"(peaks a stream: {npk})")
-    ms = cuda_ms(lambda: lim.limiter_frames(w, ci, cf, tp, pk, pv, fut))
-    one = [t[:1].contiguous() for t in (w, ci, cf, pk, pv, fut)]
-    single_ms = cuda_ms(lambda: lim.limiter_frames(one[0], one[1], one[2], tp, *one[3:]))
-    idle = [t[BANK_STREAMS // 2:].contiguous() for t in (w, ci, cf, pk, pv, fut)]
-    idle_ms = cuda_ms(lambda: lim.limiter_frames(idle[0], idle[1], idle[2], tp, *idle[3:]))
-    ch, isz, peaks = 2, 4, sum(npk)
-    nbytes = BANK_STREAMS * (LN_FRAME * ch * isz * 2 + LN_FRAME * 2 + (3 * 4 + 2 * isz) * 2) \
-        + peaks * isz
-    flop = BANK_STREAMS * LN_FRAME * ch * 3 + peaks * 2
+    carries = LIMITER_CARRIES + LIMITER_BOUNDARY[13::5]
+
+    def bank(dtype, kinds):
+        rows, ci, cf = [], [], []
+        for n, kind in enumerate(kinds):
+            rows.append(torch.from_numpy(quiet[n]).to(dev, dtype) if kind == "idle"
+                        else limiter_window(kind, dtype, dev))
+            c = carries[n % len(carries)] if kind != "idle" else LIMITER_CARRIES[0]
+            ci.append(c[:3])
+            cf.append(c[3:])
+        return (torch.stack(rows).contiguous(), torch.tensor(ci, dtype=torch.int32, device=dev),
+                torch.tensor(cf, dtype=dtype, device=dev))
+
+    mixed = [("peaky", "idle", "clipped")[n % 3] for n in range(BANK_STREAMS)]
+    path = ["peaky"] * (BANK_STREAMS // 2) + ["idle"] * (BANK_STREAMS // 2)
+    stats = torch.zeros((BANK_STREAMS, 3), dtype=torch.int32, device=dev)
+    err, plain_ms = 0.0, None
+    for dtype, np_dtype in ((torch.float32, np.float32), (torch.float64, np.float64)):
+        tp = float(np_dtype(10 ** (-2 / 20)))
+        for label, kinds in (("mixed", mixed), ("path", path)):
+            w, ci, cf = bank(dtype, kinds)
+            out, ni, nf = lim.limiter_frames(w, ci, cf, tp, walk_stats=stats)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref, ri, rf = _limiter_plain(lim, w, ci, cf, tp)
+            if dtype == torch.float32 and label == "path":
+                plain_ms = (time.perf_counter() - t0) * 1e3
+            err = max(err, float((out.cpu() - ref).abs().max()))
+            if not (torch.equal(out.cpu(), ref) and torch.equal(ni.cpu(), ri)
+                    and torch.equal(nf.cpu(), rf)) or not torch.isfinite(out).all():
+                raise AssertionError(f"L1 over {BANK_STREAMS} streams ({label}, {dtype}) != its "
+                                     f"plain twin ({err:.3e})")
+            print(f"L1 {BANK_STREAMS} streams in one launch, {label} bank "
+                  f"({'/'.join(sorted(set(kinds)))}), {dtype}: bit-equal to the plain twin; "
+                  f"(peaks, segments, walk steps) a stream: {[tuple(r) for r in stats.tolist()]}")
+    tp = float(np.float32(10 ** (-2 / 20)))
+    w, ci, cf = bank(torch.float32, path)
+    ms = cuda_ms(lambda: lim.limiter_frames(w, ci, cf, tp))
+    one = [t[:1].contiguous() for t in (w, ci, cf)]
+    single_ms = cuda_ms(lambda: lim.limiter_frames(*one, tp))
+    idle = [t[BANK_STREAMS // 2:].contiguous() for t in (w, ci, cf)]
+    idle_ms = cuda_ms(lambda: lim.limiter_frames(*idle, tp))
+    wm, cim, cfm = bank(torch.float32, mixed)
+    mixed_ms = cuda_ms(lambda: lim.limiter_frames(wm, cim, cfm, tp))
+    peaks = int(lim.precompute_peaks(w, tp)[0].sum())
+    nbytes, flop = _limiter_bytes_flop(w, tp, peaks)
     bound_ms, bound_by = bound(flop, nbytes)
-    serial_ms = LN_FRAME * LIMITER_STEP_CYCLES / _sm_clock_hz() * 1e3
+    lim.limiter_frames(w, ci, cf, tp, walk_stats=stats)
+    events = stats[:, 1] + stats[:, 2]  # segments and walk steps
+    floor_ms = int(events.max()) * LIMITER_EVENT_CYCLES / _sm_clock_hz() * 1e3
     print(f"L1 {BANK_STREAMS} streams (8 peaky, 8 idle) in one launch: {ms:.4f} ms; one peaky "
           f"stream alone {single_ms:.4f} ms ({ms / single_ms:.2f}x); the 8 idle streams alone "
-          f"{idle_ms:.4f} ms; plain twin (host loop, CPU) {plain_ms:.1f} ms; bound "
-          f"{bound_ms:.6f} ms ({bound_by}: {nbytes} B, {flop} f32 operations); serial floor, "
-          f"estimated: {serial_ms:.4f} ms [{card_line}]")
+          f"{idle_ms:.4f} ms; the mixed bank (peaky, idle, clipped) {mixed_ms:.4f} ms; plain twin "
+          f"(host loop, CPU) {plain_ms:.1f} ms; bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, "
+          f"{flop} f32 operations); event floor of the busiest stream, estimated: "
+          f"{floor_ms:.6f} ms ({int(events.max())} events x ~{LIMITER_EVENT_CYCLES} cycles) "
+          f"[{card_line}]")
     return dict(case=f"{BANK_STREAMS} streams a launch, 192 kHz stereo f32, 8 peaky, 8 idle",
-                ms=ms, single_peaky_ms=single_ms, idle_ms=idle_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, library_ms=None,
-                flop=flop, bytes=nbytes)
+                ms=ms, single_peaky_ms=single_ms, idle_ms=idle_ms, mixed_ms=mixed_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                library_ms=None, flop=flop, bytes=nbytes)
 
 
 def _bank_outputs(sinks):
@@ -2902,15 +2969,17 @@ def bank_timing(card_line):
     busy = sum(e.self_device_time_total for e in events) / 1e3
     ops = sum(e.count for e in events if not e.key.startswith("Memcpy"))
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    share = busy / ticks * rate / (100.0 * BANK_STREAMS)  # a tick: 100 ms of every stream
     print(f"loudnormbank {BANK_STREAMS} streams x {BANK_SECONDS} s in {secs:.3f} s: "
           f"{rate:.2f} stream-seconds per second ({rate / BANK_STREAMS:.2f} s of audio per "
           f"second a stream); device busy {busy / ticks:.4f} ms and {ops / ticks:.1f} device ops "
-          f"a tick (torch.profiler, {BANK_PROFILE_SECONDS} s: {ticks} ticks), ms a tick by op: "
+          f"a tick (torch.profiler, {BANK_PROFILE_SECONDS} s: {ticks} ticks), "
+          f"{100 * share:.1f}% of the wall; ms a tick by op: "
           + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3 / ticks:.4f}" for e in top)
           + f" [{card_line}]")
     rows = benchmark.run(BANK_STREAMS, "echo,loudnorm", seconds=3.0, window=1.0, use_mesh=False)
     return dict(stream_s_per_s=rate, device_ms_per_tick=busy / ticks, ops_per_tick=ops / ticks,
-                benchmark=rows)
+                busy_share=share, benchmark=rows)
 
 
 # ---------------------------------------------------------------------------

@@ -11,15 +11,17 @@ raw input, a 110 ms scaled tail, the gain-delta ring, both EbuR128
 analysers (ops/ebur128.py) and the limiter carry (int32 [3] and [2] of the
 stream's dtype); the ring index is a host int (it advances by one a frame,
 whatever the data).  Every frame is a chain of device ops with no
-read-back: the loudness queries, the gaussian-smoothed gain, the gain ramp,
-the peak detection and the limiter kernel (ops/loudnorm_limiter.py).  The
-JAX package scans K frames a dispatch; here the element loops over frames.
+read-back: the loudness queries, the gaussian-smoothed gain, the gain ramp
+and the limiter kernel (ops/loudnorm_limiter.py), which detects the peaks
+inside its launch.  The JAX package scans K frames a dispatch; here the
+element loops over frames.
 
 Every step takes any leading stream axes on the state leaves and the input:
 none for audioloudnorm, [N] for loudnormbank (parallel/streams.py, state
 from `loudnorm_init_batched`; the ring index stays one host int, since a
-bank's streams advance in lockstep).  The limiter then runs the N streams
-in one launch (ops/loudnorm_limiter.py::limiter_frames).  The JAX module's
+bank's streams advance in lockstep).  The limiter then runs the N streams,
+detection included, in one launch
+(ops/loudnorm_limiter.py::limiter_frames).  The JAX module's
 `inner_frames_scan_pre` serves the time-shard path, which waits for the
 mesh layer (ROADMAP queue A, item 6).
 """
@@ -51,7 +53,6 @@ from .loudnorm_limiter import (
     ST_SUSTAIN,
     limiter_frame,
     limiter_frames,
-    precompute_peaks,
 )
 
 RATE = 192_000
@@ -140,12 +141,11 @@ def _gaussian_gain(delta, params: LoudnormParams, i: int):
 
 
 def limit(window, lim_i, lim_f, target_tp: float):
-    """The limiter over window[..., :FRAME, :]: peak detection, then the FSM
-    (on CUDA one kernel launch for one stream or for a bank's N).  Returns
-    (out [..., FRAME, ch], lim_i, lim_f)."""
-    pk, pv, future = precompute_peaks(window, target_tp)
+    """The limiter over window[..., :FRAME, :]: peak detection and the FSM
+    (on CUDA one kernel launch, which finds the peaks itself, for one stream
+    or for a bank's N).  Returns (out [..., FRAME, ch], lim_i, lim_f)."""
     run = limiter_frame if window.dim() == 2 else limiter_frames
-    return run(window, lim_i, lim_f, target_tp, pk, pv, future)
+    return run(window, lim_i, lim_f, target_tp)
 
 
 def _update_gain(state: LoudnormState, params: LoudnormParams) -> LoudnormState:

@@ -3,34 +3,47 @@
 The limiter is a per-sample finite-state machine (Out / Attack / Sustain /
 Release, the reference's imp.rs:1377-1430) that the JAX package runs as a
 `lax.scan` (gst_plugins_rs_tpu/ops/loudnorm.py: `_make_limiter_step`
-:175-258, scanned by `_limiter_scan` :261-283).  PyTorch has no scan, so on
-the card the FSM is csrc/loudnorm_limiter.cu (design and bounds noted
-there).
+:175-258, scanned by `_limiter_scan` :261-283) after a vectorised peak
+detection (`_precompute_peaks` :146).  PyTorch has no scan, so on the card
+detection and FSM are one kernel, csrc/loudnorm_limiter.cu.
 
-`precompute_peaks(window, target_tp)` is the vectorised peak detection of
+`limiter_frame(window, carry_i, carry_f, target_tp)` runs the limiter over
+the first FRAME samples of the window [>= LIMITER_LOOKAHEAD + FRAME + 11,
+ch] and returns the clamped output [FRAME, ch] and the new carry: carry_i
+int32 [3] = (state, envelope count, sustain count; -1 = none), carry_f [2]
+of the window's dtype = (gr0, gr1).  target_tp is a Python float already
+rounded to that dtype.  `limiter_frames` takes N streams at once (windows
+[N, W, ch], carries [N, 3] and [N, 2]), as loudnormbank's tick and the JAX
+package's `_limiter_scan_batched` (:286) do; `limiter_frame` is its N = 1
+case, audioloudnorm's call.
+
+For a CUDA window they launch the kernel once (N blocks), which reads the
+window and the carry and nothing else, and count the launch in
+`launches`.  The kernel finds the peaks itself, compacts their positions,
+walks the FSM on one thread from event to event (the gaps between peaks in
+closed form: an Attack runs out and turns to Sustain, a Sustain holds until
+the frame's last peak is past, a Release runs out and turns to Out), writes
+one segment (start, state, env, gr0, gr1) per change to a scratch, and then
+all threads give every sample its segment's gain, scale and clamp.  The
+output and the carry stay on the device: no host branch, no
+synchronisation, each stream's idle case (state Out, no peak) decided by
+its own block.  On a sparse frame the bytes through the block's one SM
+bound it, on a dense one (a clipped plateau: every sample a peak) the
+walk's chain; the kernel's header has the figures.  `walk_stats`, an
+optional int32 [N, 3] CUDA tensor, receives each stream's (peaks,
+segments, walk steps) as the kernel counted them (a step: one peak's
+transition, or one ballot of the walking warp over 32 peaks).
+
+For a CPU window they run `precompute_peaks` and then `limiter_frame_plain`
+/ `limiter_frames_plain`, the plain versions the tests hold the kernel to.
+`precompute_peaks(window, target_tp)` is the vectorised detection of
 `_precompute_peaks` (local maxima above the target, confirmed over the next
 2..11 samples of the same channel): pk, pv and future [FRAME] for output
-positions 0..FRAME-1.  `limiter_frame(window, carry_i, carry_f, target_tp,
-pk, pv, future)` runs the FSM over the first FRAME samples of the window
-[>= LIMITER_LOOKAHEAD + FRAME + 11, ch] and returns the clamped output
-[FRAME, ch] and the new carry: carry_i int32 [3] = (state, envelope count,
-sustain count; -1 = none), carry_f [2] of the window's dtype = (gr0, gr1).
-target_tp is a Python float already rounded to that dtype.
-
-`limiter_frames` takes N streams at once (windows [N, W, ch], carries [N,
-3] and [N, 2], pk, pv, future [N, FRAME]), as loudnormbank's tick and the
-JAX package's `_limiter_scan_batched` (:286) do: on the card one launch of
-N blocks, each stream's idle case decided by its own block.
-`limiter_frame` is its N = 1 case, audioloudnorm's call.
-
-For a CUDA window it launches the kernel, which leaves the output and the
-carry on the device (no host branch, no synchronisation: the kernel decides
-the idle case itself), and counts the launch in `launches`.  For a CPU
-window it runs `limiter_frame_plain`, a per-sample loop over Python floats
-(f64) or numpy.float32 scalars (f32, every operation rounded to f32), with
-the scan's idle fast path: state Out and no peak in the frame -> the
-clamped input, carry unchanged; `limiter_frames_plain` runs it stream by
-stream.
+positions 0..FRAME-1.  `limiter_frame_plain(window, carry_i, carry_f,
+target_tp, pk, pv, future)` is a per-sample loop over Python floats (f64)
+or numpy.float32 scalars (f32, every operation rounded to f32), with the
+scan's idle fast path: state Out and no peak in the frame -> the clamped
+input, carry unchanged; `limiter_frames_plain` runs it stream by stream.
 
 Roundings.  XLA's CPU backend compiles the scan's envelope expressions
 `gr0 - (env / (ATTACK - 1)) * (gr0 - gr1)` (and the release's) as a product
@@ -217,7 +230,7 @@ def _lib():
     lib = load("loudnorm_limiter")
     if not getattr(lib, "_argtypes_set", False):
         ptr = ctypes.c_void_p
-        lib.loudnorm_limiter.argtypes = [ptr, ctypes.c_longlong] + [ptr] * 8 + [
+        lib.loudnorm_limiter.argtypes = [ptr, ctypes.c_longlong] + [ptr] * 7 + [
             ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr, ptr]
         lib.loudnorm_limiter.restype = ctypes.c_int
         lib.loudnorm_limiter_error_string.argtypes = [ctypes.c_int]
@@ -226,13 +239,17 @@ def _lib():
     return lib
 
 
-def limiter_frames(windows, carry_i, carry_f, target_tp: float, pk, pv, future):
+def limiter_frames(windows, carry_i, carry_f, target_tp: float, walk_stats=None):
     """One frame of the limiter for N streams: windows [N, W, ch] (each
-    stream's rows contiguous), carry_i int32 [N, 3], carry_f [N, 2], pk, pv,
-    future [N, FRAME].  Returns (out [N, FRAME, ch], carry_i, carry_f).  On
-    CUDA one launch of N blocks, one per stream."""
+    stream's rows contiguous), carry_i int32 [N, 3], carry_f [N, 2].
+    Returns (out [N, FRAME, ch], carry_i, carry_f).  On CUDA one launch of N
+    blocks, one per stream; `walk_stats` (int32 [N, 3] on the card, or None)
+    then receives each stream's (peaks, segments, walk steps)."""
     dev = windows.device
     if dev.type == "cpu":
+        if walk_stats is not None:
+            raise ValueError("limiter_frames: walk_stats counts the kernel's walk (CUDA only)")
+        pk, pv, future = precompute_peaks(windows, target_tp)
         return limiter_frames_plain(windows, carry_i, carry_f, target_tp, pk, pv, future)
     if dev.type != "cuda":
         raise ValueError(f"limiter_frames: unsupported device {dev}")
@@ -240,32 +257,38 @@ def limiter_frames(windows, carry_i, carry_f, target_tp: float, pk, pv, future):
     if dtype not in (torch.float64, torch.float32):
         raise ValueError(f"limiter_frames: windows must be float64 or float32, got {dtype}")
     if windows.dim() != 3 or windows.shape[1] < WINDOW_MIN or windows.shape[0] < 1 \
-            or not windows[0].is_contiguous() or windows.stride(2) != 1:
-        raise ValueError(f"limiter_frames: windows must be [N >= 1, >= {WINDOW_MIN}, ch] with "
-                         f"each stream's rows contiguous")
+            or windows.shape[2] < 1 or not windows[0].is_contiguous() or windows.stride(2) != 1:
+        raise ValueError(f"limiter_frames: windows must be [N >= 1, >= {WINDOW_MIN}, ch >= 1] "
+                         f"with each stream's rows contiguous")
     N, ch = windows.shape[0], windows.shape[2]
+    if ch * ch * FRAME >= 2**32:  # the kernel finds an element's row as a 32-bit product
+        raise ValueError(f"limiter_frames: {ch} channels; the kernel takes at most 472")
     if carry_i.dtype != torch.int32 or tuple(carry_i.shape) != (N, 3):
         raise ValueError(f"limiter_frames: carry_i must be int32 [{N}, 3] (state, env, sustain)")
     if carry_f.dtype != dtype or tuple(carry_f.shape) != (N, 2):
         raise ValueError(f"limiter_frames: carry_f must be {dtype} [{N}, 2] (gr0, gr1)")
-    for name, t, want in (("pk", pk, torch.bool), ("pv", pv, dtype), ("future", future, torch.bool)):
-        if t.dtype != want or tuple(t.shape) != (N, FRAME):
-            raise ValueError(f"limiter_frames: {name} must be a [{N}, {FRAME}] {want}")
-    for name, t in (("carry_i", carry_i), ("carry_f", carry_f), ("pk", pk), ("pv", pv),
-                    ("future", future)):
+    checked = [("carry_i", carry_i), ("carry_f", carry_f)]
+    if walk_stats is not None:
+        if walk_stats.dtype != torch.int32 or tuple(walk_stats.shape) != (N, 3):
+            raise ValueError(f"limiter_frames: walk_stats must be int32 [{N}, 3]")
+        checked.append(("walk_stats", walk_stats))
+    for name, t in checked:
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"limiter_frames: {name} must be contiguous on {dev}")
     out = torch.empty((N, FRAME, ch), dtype=dtype, device=dev)
     new_i, new_f = torch.empty_like(carry_i), torch.empty_like(carry_f)
-    mult = torch.empty((N, FRAME), dtype=dtype, device=dev)  # scratch: each sample's gain
+    # scratch: each stream's segments (start, state, env - start, unused) and (gr0, gr1)
+    seg_i = torch.empty((N, FRAME, 4), dtype=torch.int32, device=dev)
+    seg_f = torch.empty((N, FRAME, 2), dtype=dtype, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.loudnorm_limiter(windows.data_ptr(), windows.stride(0), pk.data_ptr(),
-                                   pv.data_ptr(), future.data_ptr(), carry_i.data_ptr(),
+        err = lib.loudnorm_limiter(windows.data_ptr(), windows.stride(0), carry_i.data_ptr(),
                                    carry_f.data_ptr(), new_i.data_ptr(), new_f.data_ptr(),
-                                   mult.data_ptr(), float(target_tp), ch,
-                                   1 if dtype == torch.float64 else 0, N, out.data_ptr(), stream)
+                                   seg_i.data_ptr(), seg_f.data_ptr(),
+                                   None if walk_stats is None else walk_stats.data_ptr(),
+                                   float(target_tp), ch, 1 if dtype == torch.float64 else 0, N,
+                                   out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"limiter_frames launch failed: "
                            f"{lib.loudnorm_limiter_error_string(err).decode()}")
@@ -273,16 +296,20 @@ def limiter_frames(windows, carry_i, carry_f, target_tp: float, pk, pv, future):
     return out, new_i, new_f
 
 
-def limiter_frame(window, carry_i, carry_f, target_tp: float, pk, pv, future):
+def limiter_frame(window, carry_i, carry_f, target_tp: float, walk_stats=None):
     """One frame of the limiter for one stream, the N = 1 case of
     `limiter_frames`: (out [FRAME, ch], carry_i [3], carry_f [2])."""
     if window.device.type == "cpu":
+        if walk_stats is not None:
+            raise ValueError("limiter_frame: walk_stats counts the kernel's walk (CUDA only)")
+        pk, pv, future = precompute_peaks(window, target_tp)
         return limiter_frame_plain(window, carry_i, carry_f, target_tp, pk, pv, future)
     if window.dim() != 2 or not window.is_contiguous():
         raise ValueError(f"limiter_frame: window must be a contiguous [>= {WINDOW_MIN}, ch]")
     _check_carry(carry_i, carry_f, window.dtype)
+    stats = None if walk_stats is None else walk_stats.view(1, -1)
     out, new_i, new_f = limiter_frames(window[None], carry_i[None], carry_f[None], target_tp,
-                                       pk[None], pv[None], future[None])
+                                       stats)
     return out[0], new_i[0], new_f[0]
 
 

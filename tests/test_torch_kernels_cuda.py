@@ -467,7 +467,8 @@ def test_effect_kernels_reject_bad_operands(cuda):
 
 # The limiter (csrc/loudnorm_limiter.cu) against its plain version, bit for
 # bit in f64 and f32: the kernel is built with -fmad=false and evaluates the
-# same roundings, explicit FMAs included (ops/loudnorm_limiter.py).
+# same roundings, explicit FMAs included (ops/loudnorm_limiter.py).  It
+# detects the peaks itself; the plain version takes precompute_peaks' flags.
 
 
 def _limiter_window(seed, dtype, dev):
@@ -483,29 +484,68 @@ def _limiter_window(seed, dtype, dev):
     return torch.from_numpy(x).to(dev, dtype).contiguous()
 
 
+def _limiter_kind(kind, dtype, dev):
+    """[40320, 2] windows of the walk's hard cases: "clipped" (a +-1.2
+    square wave, every sample a peak), "none" (no peak: future false from
+    n = 0), "late" (one peak at n = 15,000), "edges" (peaks at n = 0 and
+    n = FRAME - 1)."""
+    x = np.random.RandomState(7).uniform(-0.3, 0.3, (40320, 2))
+    L, F = 1920, 19200
+    if kind == "clipped":
+        x[:] = np.where((np.arange(40320) // 218) % 2 == 0, 1.2, -1.2)[:, None]
+    elif kind == "late":
+        x[L + 15000, 0] = 0.95
+    elif kind == "edges":
+        x[L, 0], x[L + 9000, 1], x[L + F - 1, 1] = 0.9, 1.1, 0.95
+    return torch.from_numpy(x).to(dev, dtype).contiguous()
+
+
+def _plain(lim, w, ci, cf, tp):
+    """The plain twin on the CPU copies, after precompute_peaks."""
+    w, ci, cf = w.cpu(), ci.cpu(), cf.cpu()
+    run = lim.limiter_frame_plain if w.dim() == 2 else lim.limiter_frames_plain
+    return run(w, ci, cf, tp, *lim.precompute_peaks(w, tp))
+
+
+def _assert_limiter_equal(lim, w, ci, cf, tp, stats=None):
+    before = lim.launches
+    run = lim.limiter_frame if w.dim() == 2 else lim.limiter_frames
+    out, ni, nf = run(w, ci, cf, tp, walk_stats=stats)
+    torch.cuda.synchronize()
+    assert lim.launches == before + 1
+    ref, ri, rf = _plain(lim, w, ci, cf, tp)
+    assert out.device.type == "cuda" and ni.device.type == "cuda"
+    assert torch.equal(out.cpu(), ref)
+    assert torch.equal(ni.cpu(), ri) and torch.equal(nf.cpu(), rf)
+    return out
+
+
+LIMITER_CARRIES = [(0, 0, -1, 0.0, 0.0), (1, 500, -1, 0.9, 0.6), (2, 0, 100, 0.7, 0.5),
+                   (3, 3000, -1, 0.5, 1.0)]
+# every state at the envelope and sustain counts where a gap turns
+LIMITER_BOUNDARY = [(st, env, sus, 0.8, 0.6) for st in range(4)
+                    for env in (1919, 1920, 19199, 19200) for sus in (0, 1, -1)]
+
+
+def _tp(dtype):
+    return float((np.float64 if dtype == torch.float64 else np.float32)(10 ** (-2 / 20)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("carry", [(0, 0, -1, 0.0, 0.0), (1, 500, -1, 0.9, 0.6),
-                                   (2, 0, 100, 0.7, 0.5), (3, 3000, -1, 0.5, 1.0)])
+@pytest.mark.parametrize("carry", LIMITER_CARRIES)
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_limiter_kernel_bit_equal_plain(cuda, seed, carry, dtype):
     from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
 
-    np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    tp = float(np_dtype(10 ** (-2 / 20)))
     w = _limiter_window(seed, dtype, cuda)
     ci = torch.tensor(carry[:3], dtype=torch.int32, device=cuda)
     cf = torch.tensor(carry[3:], dtype=dtype, device=cuda)
-    pk, pv, fut = lim.precompute_peaks(w, tp)
-    before = lim.launches
-    out, ni, nf = lim.limiter_frame(w, ci, cf, tp, pk, pv, fut)
-    torch.cuda.synchronize()
-    assert lim.launches == before + 1
-    ref, ri, rf = lim.limiter_frame_plain(w.cpu(), ci.cpu(), cf.cpu(), tp, pk.cpu(), pv.cpu(),
-                                          fut.cpu())
-    assert out.device.type == "cuda" and ni.device.type == "cuda"
-    assert torch.equal(out.cpu(), ref)
-    assert torch.equal(ni.cpu(), ri) and torch.equal(nf.cpu(), rf)
+    stats = torch.zeros(3, dtype=torch.int32, device=cuda)
+    _assert_limiter_equal(lim, w, ci, cf, _tp(dtype), stats)
+    pk = lim.precompute_peaks(w, _tp(dtype))[0]
+    assert int(stats[0]) == int(pk.sum()) and 1 <= int(stats[1]) <= lim.FRAME
+    assert 1 <= int(stats[2]) <= 2 * int(stats[0])  # at most a ballot and a step a peak
 
 
 @pytest.mark.cuda
@@ -518,10 +558,11 @@ def test_limiter_kernel_idle_frame(cuda, dtype):
     w = torch.from_numpy(np.random.RandomState(4).uniform(-0.5, 0.5, (40320, 2))).to(cuda, dtype)
     ci = torch.tensor([0, 7, -1], dtype=torch.int32, device=cuda)
     cf = torch.tensor([0.25, 0.5], dtype=dtype, device=cuda)
-    pk, pv, fut = lim.precompute_peaks(w, 0.79)
-    out, ni, nf = lim.limiter_frame(w, ci, cf, 0.79, pk, pv, fut)
+    stats = torch.full((3,), -1, dtype=torch.int32, device=cuda)
+    out, ni, nf = lim.limiter_frame(w, ci, cf, 0.79, walk_stats=stats)
     torch.cuda.synchronize()
     assert torch.equal(out, w[:lim.FRAME]) and torch.equal(ni, ci) and torch.equal(nf, cf)
+    assert stats.tolist() == [0, 0, 0]
 
 
 @pytest.mark.cuda
@@ -531,19 +572,77 @@ def test_limiter_kernel_rejects_bad_operands(cuda):
     w = torch.zeros(40320, 2, dtype=torch.float64, device=cuda)
     ci = torch.tensor([0, 0, -1], dtype=torch.int32, device=cuda)
     cf = torch.zeros(2, dtype=torch.float64, device=cuda)
-    pk, pv, fut = lim.precompute_peaks(w, 0.79)
     before = lim.launches
     with pytest.raises(ValueError):
-        lim.limiter_frame(w[:1000], ci, cf, 0.79, pk[:0], pv, fut)
+        lim.limiter_frame(w[:1000], ci, cf, 0.79)
     with pytest.raises(ValueError):
-        lim.limiter_frame(w, ci.long(), cf, 0.79, pk, pv, fut)
+        lim.limiter_frame(w, ci.long(), cf, 0.79)
     with pytest.raises(ValueError):
-        lim.limiter_frame(w, ci, cf.float(), 0.79, pk, pv, fut)
+        lim.limiter_frame(w, ci, cf.float(), 0.79)
     with pytest.raises(ValueError):
-        lim.limiter_frame(w, ci, cf, 0.79, pk, pv.float(), fut)
+        lim.limiter_frame(w, ci, cf, 0.79, walk_stats=torch.zeros(2, dtype=torch.int64,
+                                                                  device=cuda))
     with pytest.raises(ValueError):
-        lim.limiter_frame(w, ci.cpu(), cf, 0.79, pk, pv, fut)
+        lim.limiter_frame(w, ci.cpu(), cf, 0.79)
     assert lim.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("carry", LIMITER_CARRIES)
+def test_limiter_kernel_clipped_frame(cuda, carry, dtype):
+    """Every sample a peak (a clipped plateau): the inert runs are stepped
+    over 32 peaks a ballot; from Out the kernel writes two segments (the
+    attack, the sustain)."""
+    from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
+
+    w = _limiter_kind("clipped", dtype, cuda)
+    ci = torch.tensor(carry[:3], dtype=torch.int32, device=cuda)
+    cf = torch.tensor(carry[3:], dtype=dtype, device=cuda)
+    stats = torch.zeros(3, dtype=torch.int32, device=cuda)
+    _assert_limiter_equal(lim, w, ci, cf, _tp(dtype), stats)
+    assert int(stats[0]) == lim.FRAME and int(stats[2]) < lim.FRAME // 16
+    if carry[0] == lim.ST_OUT:
+        assert int(stats[1]) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("kind", ["none", "late", "edges"])
+def test_limiter_kernel_boundary_carries(cuda, kind, dtype):
+    """Every state at env 1,919, 1,920, 19,199, 19,200 and sus 0, 1, -1, on a
+    frame with no peak, one late peak, and peaks at n = 0 and FRAME - 1."""
+    from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
+
+    w = _limiter_kind(kind, dtype, cuda)
+    for carry in LIMITER_BOUNDARY:
+        ci = torch.tensor(carry[:3], dtype=torch.int32, device=cuda)
+        cf = torch.tensor(carry[3:], dtype=dtype, device=cuda)
+        _assert_limiter_equal(lim, w, ci, cf, _tp(dtype))
+
+
+@pytest.mark.cuda
+def test_limiter_cuda_window_never_runs_the_plain_twin(cuda, monkeypatch):
+    """On the card the wrappers launch the kernel, which finds the peaks
+    itself: neither precompute_peaks nor a plain FSM runs."""
+    from gst_plugins_rs_tpu_torch.ops import loudnorm, loudnorm_limiter as lim
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain limiter function ran on a CUDA window")
+
+    for name in ("precompute_peaks", "limiter_frame_plain", "limiter_frames_plain"):
+        monkeypatch.setattr(lim, name, refuse)
+    w = _limiter_window(0, torch.float64, cuda)
+    ci = torch.tensor([0, 0, -1], dtype=torch.int32, device=cuda)
+    cf = torch.zeros(2, dtype=torch.float64, device=cuda)
+    before = lim.launches
+    lim.limiter_frame(w, ci, cf, 0.79)
+    lim.limiter_frames(w[None], ci[None], cf[None], 0.79)
+    loudnorm.limit(w, ci, cf, 0.79)
+    loudnorm.limit(w[None].expand(3, -1, -1), ci.expand(3, 3).contiguous(),
+                   cf.expand(3, 2).contiguous(), 0.79)
+    torch.cuda.synchronize()
+    assert lim.launches == before + 4
 
 
 # Kernel R1, the RNNoise GRU stack over a buffer's frames
@@ -694,32 +793,59 @@ def test_compositor_operators_card_vs_cpu(cuda, method):
 def test_limiter_kernel_n_streams_bit_equal_plain(cuda, N, dtype):
     from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
 
-    np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    tp = float(np_dtype(10 ** (-2 / 20)))
-    carries = [(0, 0, -1, 0.0, 0.0), (1, 500, -1, 0.9, 0.6), (2, 0, 100, 0.7, 0.5),
-               (3, 3000, -1, 0.5, 1.0)]
     quiet = np.random.RandomState(40).uniform(-0.5, 0.5, (N, 40320, 2))
     rows, ci, cf = [], [], []
     for n in range(N):
         peaky = n % 2 == 0 or N == 1
         rows.append(_limiter_window(n, dtype, cuda) if peaky
                     else torch.from_numpy(quiet[n]).to(cuda, dtype))
-        c = carries[(n // 2) % 4] if peaky else (0, 0, -1, 0.0, 0.0)
+        c = LIMITER_CARRIES[(n // 2) % 4] if peaky else (0, 0, -1, 0.0, 0.0)
         ci.append(c[:3])
         cf.append(c[3:])
     w = torch.stack(rows).contiguous()
     ci = torch.tensor(ci, dtype=torch.int32, device=cuda)
     cf = torch.tensor(cf, dtype=dtype, device=cuda)
-    pk, pv, fut = lim.precompute_peaks(w, tp)
-    before = lim.launches
-    out, ni, nf = lim.limiter_frames(w, ci, cf, tp, pk, pv, fut)
-    torch.cuda.synchronize()
-    assert lim.launches == before + 1
-    ref, ri, rf = lim.limiter_frames_plain(w.cpu(), ci.cpu(), cf.cpu(), tp, pk.cpu(),
-                                           pv.cpu(), fut.cpu())
+    out = _assert_limiter_equal(lim, w, ci, cf, _tp(dtype))
     assert out.shape == (N, lim.FRAME, 2)
-    assert torch.equal(out.cpu(), ref)
-    assert torch.equal(ni.cpu(), ri) and torch.equal(nf.cpu(), rf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_limiter_kernel_mixed_bank_of_16(cuda, dtype):
+    """16 streams of one launch: idle, peaky, clipped and the walk's hard
+    frames from standard and boundary carries, the windows 40,960 rows
+    apart (a bank's stride longer than the window), each stream's walk
+    counted."""
+    from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
+
+    N, stride = 16, 40960
+    quiet = np.random.RandomState(41).uniform(-0.5, 0.5, (40320, 2))
+    kinds = ["idle", "peaky", "clipped", "none", "late", "edges"]
+    carries = LIMITER_CARRIES + LIMITER_BOUNDARY[13::5]
+    store = torch.zeros((N, stride, 2), dtype=dtype, device=cuda)
+    ci, cf = [], []
+    for n in range(N):
+        kind = kinds[n % len(kinds)]
+        if kind == "idle":
+            store[n, :40320] = torch.from_numpy(quiet).to(cuda, dtype)
+            c = (0, 0, -1, 0.0, 0.0)
+        else:
+            store[n, :40320] = (_limiter_window(n, dtype, cuda) if kind == "peaky"
+                                else _limiter_kind(kind, dtype, cuda))
+            c = carries[n % len(carries)]
+        ci.append(c[:3])
+        cf.append(c[3:])
+    w = store[:, :40320]
+    assert not w.is_contiguous() and w.stride(0) == stride * 2
+    ci = torch.tensor(ci, dtype=torch.int32, device=cuda)
+    cf = torch.tensor(cf, dtype=dtype, device=cuda)
+    stats = torch.zeros((N, 3), dtype=torch.int32, device=cuda)
+    _assert_limiter_equal(lim, w, ci, cf, _tp(dtype), stats)
+    pk = lim.precompute_peaks(w, _tp(dtype))[0]
+    assert stats[:, 0].tolist() == pk.sum(1).tolist()
+    for n in range(N):
+        idle = kinds[n % len(kinds)] == "idle" or (int(ci[n, 0]) == 0 and int(pk[n].sum()) == 0)
+        assert (int(stats[n, 1]) == 0) == idle
 
 
 @pytest.mark.cuda
@@ -729,16 +855,19 @@ def test_limiter_kernel_n_streams_rejects_bad_operands(cuda):
     w = torch.zeros(4, 40320, 2, dtype=torch.float32, device=cuda)
     ci = torch.tensor([[0, 0, -1]] * 4, dtype=torch.int32, device=cuda)
     cf = torch.zeros(4, 2, dtype=torch.float32, device=cuda)
-    pk, pv, fut = lim.precompute_peaks(w, 0.79)
     before = lim.launches
     with pytest.raises(ValueError):
-        lim.limiter_frames(w, ci[:3], cf, 0.79, pk, pv, fut)
+        lim.limiter_frames(w, ci[:3], cf, 0.79)
     with pytest.raises(ValueError):
-        lim.limiter_frames(w.transpose(1, 2), ci, cf, 0.79, pk, pv, fut)
+        lim.limiter_frames(w.transpose(1, 2), ci, cf, 0.79)
     with pytest.raises(ValueError):
-        lim.limiter_frames(w, ci, cf.double(), 0.79, pk, pv, fut)
+        lim.limiter_frames(w, ci, cf.double(), 0.79)
     with pytest.raises(ValueError):
-        lim.limiter_frames(w, ci, cf, 0.79, pk[:, :100], pv, fut)
+        lim.limiter_frames(w, ci, cf, 0.79,
+                           walk_stats=torch.zeros(3, 3, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):  # past the kernel's 32-bit row index
+        lim.limiter_frames(torch.zeros(1, lim.WINDOW_MIN, 473, device=cuda), ci[:1], cf[:1],
+                           0.79)
     assert lim.launches == before
 
 

@@ -249,7 +249,7 @@ def test_limiter_plain_equals_jax_scan(dtype):
         assert np.array_equal(np.asarray(jfut), fut.numpy())
         for carry in CARRIES:
             ref, ref_carry, states, envs = _jax_trace(x, carry, tp, npdt)
-            out, ci, cf = TL.limiter_frame(
+            out, ci, cf = TL.limiter_frame_plain(
                 w, torch.tensor(carry[:3], dtype=torch.int32),
                 torch.tensor(carry[3:], dtype=tdt), tp, pk, pv, fut)
             diff = np.flatnonzero((ref != out.numpy()).any(1))
@@ -271,7 +271,7 @@ def test_limiter_idle_frame_passes_input_through():
     pk, pv, fut = TL.precompute_peaks(w, 0.79)
     assert not bool(pk.any())
     ci, cf = torch.tensor([TL.ST_OUT, 0, -1], dtype=torch.int32), torch.zeros(2, dtype=torch.float64)
-    out, ci2, cf2 = TL.limiter_frame(w, ci, cf, 0.79, pk, pv, fut)
+    out, ci2, cf2 = TL.limiter_frame(w, ci, cf, 0.79)
     assert torch.equal(out, w[:TL.FRAME]) and torch.equal(ci2, ci) and torch.equal(cf2, cf)
 
 

@@ -223,12 +223,11 @@ def test_precompute_peaks_batched_equals_single():
 def test_limiter_frames_plain_equals_per_stream():
     w = torch.from_numpy(np.random.RandomState(6).uniform(-1.2, 1.2, (2, 40320, 2)))
     tp = 10 ** (-2 / 20)
-    pk, pv, fut = lim.precompute_peaks(w, tp)
     ci = torch.tensor([[0, 0, -1], [2, 0, 100]], dtype=torch.int32)
     cf = torch.tensor([[0.0, 0.0], [0.7, 0.5]], dtype=torch.float64)
-    out, ni, nf = lim.limiter_frames(w, ci, cf, tp, pk, pv, fut)
+    out, ni, nf = lim.limiter_frames(w, ci, cf, tp)
     for n in range(2):
-        o, i, f = lim.limiter_frame(w[n], ci[n], cf[n], tp, pk[n], pv[n], fut[n])
+        o, i, f = lim.limiter_frame(w[n], ci[n], cf[n], tp)
         assert torch.equal(out[n], o) and torch.equal(ni[n], i) and torch.equal(nf[n], f)
 
 
