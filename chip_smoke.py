@@ -1601,12 +1601,13 @@ AGING_CPU_TOL = 1e-6
 # 96x22 + 24x1
 R1_MACS = 86_952
 R1_WEIGHTS = 87_503        # f32 parameters
-# an estimate, not a measurement, of R1's serial chain a frame: five
-# dependent stages each waiting on an L2 round trip (~260 cycles) for its
-# first weights after a barrier, the longest dot products' FMA chains with
-# four partial sums ((42 + 24 + 90 + 114 + 96) / 4 x 4 cycles), eight
-# barriers and the gate math; printed beside the kernel's time only
-R1_FRAME_CYCLES = 5 * 260 + 366 + 8 * 30 + 3 * 60
+# an estimate, not a measurement, of R1's floor a frame (the recurrence of
+# csrc/rnnoise_gru.cu, its header's reckoning): ~1,680 shared-memory
+# wavefronts at 128 B a cycle (the shared chain weights, the float4
+# broadcasts of the states, the gate buffers), six barriers (~30 cycles) and
+# three gate stages on the chain (~100 cycles); the 24-FMA register chain
+# runs under the wavefronts; printed beside the kernel's time only
+R1_FRAME_CYCLES = 1_680 + 6 * 30 + 3 * 100
 # the mix into audiornnoise: a 180 Hz tone and white noise at 48 kHz stereo
 RNN_SINE = "wave=sine freq=180 volume=0.3"
 RNN_NOISE = "wave=white-noise volume=0.08"
@@ -1700,12 +1701,59 @@ def _r1_errs(got, ref):
     return max(float((g - rg).abs().max()), float((v - rv).abs().max()), state)
 
 
+def _rnn_wide_buffer(dev, C: int = 33, K: int = 16, seed: int = 13):
+    """R1's inputs at C = 33 channels from the port's front end: K frames of
+    the path's mix a channel (a tone, 110 + 7c Hz at 0.3, and white noise at
+    0.08, as the two sources of rnnoise_launch sum), no gaps.  Onsets after
+    silence, the least-conditioned input, are 3d''s cases."""
+    from gst_plugins_rs_tpu_torch.ops import rnnoise as rn
+
+    rng = np.random.RandomState(seed)
+    n = K * rn.FRAME_SIZE
+    t = np.arange(n) / 48000.0
+    f0 = 110.0 + 7.0 * np.arange(C)
+    sig = 0.3 * np.sin(2 * np.pi * f0[:, None] * t) + 0.08 * rng.uniform(-1, 1, (C, n))
+    frames = (sig * 32767).astype(np.float32).reshape(C, K, -1)
+    frames = torch.from_numpy(frames.transpose(1, 0, 2).copy()).to(dev)
+    state = rn.denoise_init(C, dev)
+    _, feats, _, _, _, sil = rn.analysis_frames_batch(state, frames)
+    return feats, sil, state.rnn
+
+
+def _r1_row(label, f, s, ms, card_line):
+    """Prints a timed R1 case: the kernel's ms and cycles a frame beside the
+    floor's estimate."""
+    K, C = f.shape[0], f.shape[1]
+    cycles = ms * 1e-3 * _sm_clock_hz() / K
+    print(f"R1 {label}, {K} frames x {C} channels ({int(s.sum())} silent): kernel {ms:.4f} ms, "
+          f"{cycles:.0f} cycles a frame at the max SM clock; floor estimated ~{R1_FRAME_CYCLES} "
+          f"cycles a frame [{card_line}]")
+
+
+def _r1_bound(f, s):
+    """(bound ms, bound_by, flop, bytes) of R1 on these inputs: the weights
+    read once, the features and silence flags, the gains and VADs written,
+    the states read and written; the operations of the frames and channels
+    not silent."""
+    from gst_plugins_rs_tpu_torch.ops import rnnoise as rn
+
+    K, C = f.shape[0], f.shape[1]
+    active = K * C - int(s.sum())
+    nbytes = R1_WEIGHTS * 4 + K * C * (rn.NB_FEATURES * 4 + 1 + rn.NB_BANDS * 4 + 4) \
+        + 2 * C * (24 + 48 + 96) * 4
+    flop = 2 * R1_MACS * active
+    return (*bound(flop, nbytes), flop, nbytes)
+
+
 def rnnoise_kernel(card_line):
     """Phase 3d: R1 against its plain version (the frame loop of rnn_frame,
     on the card) on 100 frames x 2 channels of front-end features from a
-    harmonic-plus-noise signal and of random features, and on the main
-    path's buffer (10 frames x 2), then timed beside its bound and its
-    serial-chain estimate.  Returns the 100-frame case and the path's."""
+    harmonic-plus-noise signal and of random features, on the main path's
+    buffer (10 frames x 2), and on the edge cases: one frame, a buffer
+    whose frames are all silent, channels silent first that then speak,
+    one channel, 33 channels.  Every case is timed beside the floor's
+    estimate; the 100-frame case and the path's also beside the plain
+    version and the bound.  Returns those two."""
     phase("3d denoising: the GRU-stack kernel R1 against its plain version")
     from gst_plugins_rs_tpu_torch.ops import rnnoise as rn
     from gst_plugins_rs_tpu_torch.ops import rnnoise_gru as gru
@@ -1716,6 +1764,7 @@ def rnnoise_kernel(card_line):
     feats, sil, rnn = _rnn_buffer(dev)
     h = [torch.from_numpy(np.abs(rng.uniform(-1, 1, (RNN_CHANNELS, n))).astype(np.float32))
          .to(dev) for n in (24, 48, 96)]
+    wide = _rnn_wide_buffer(dev)
     cases = {
         "front end": (feats, sil, rnn),
         "random": (torch.from_numpy(rng.randn(RNN_FRAMES, RNN_CHANNELS, rn.NB_FEATURES)
@@ -1723,9 +1772,17 @@ def rnnoise_kernel(card_line):
                    torch.from_numpy(rng.rand(RNN_FRAMES, RNN_CHANNELS) < 0.1).to(dev),
                    rn.RnnState(*h)),
         "front end (the path's buffer)": (feats[:10], sil[:10], rnn),
+        "front end, one frame": (feats[:1], sil[:1], rnn),
+        "front end, every frame silent": (feats[:10], torch.ones_like(sil[:10]), rnn),
+        "front end, silent first, then speaking": (feats[40:52], sil[40:52], rnn),
+        "front end, one channel": (feats[:, :1], sil[:, :1],
+                                   rn.RnnState(*(x[:1] for x in rnn))),
+        "front end, 33 channels": wide,
     }
     max_err = 0.0
     for label, (f, s, r) in cases.items():
+        f, s = f.contiguous(), s.contiguous()
+        r = rn.RnnState(*(x.contiguous() for x in r))
         got = gru.rnn_frames(f, s, r, w)
         torch.cuda.synchronize()
         ref = gru.rnn_frames_plain(f, s, r, w)
@@ -1735,25 +1792,20 @@ def rnnoise_kernel(card_line):
               f"({int(s.sum())} silent): max error {err:.3e} (gate {R1_TOL})")
         if err > R1_TOL or not all(bool(torch.isfinite(t).all()) for t in (*got[:2], *got[2])):
             raise AssertionError(f"R1 against its plain version on {label} features: {err:.3e}")
+        if bool(s.all()) and not all(torch.equal(a, b) for a, b in zip(got[2], r)):
+            raise AssertionError("R1 moved the states on a buffer whose frames are all silent")
+        _r1_row(label, f, s, cuda_ms(lambda: gru.rnn_frames(f, s, r, w)), card_line)
     timed = []
     for f, s in ((feats, sil), (feats[:10], sil[:10])):
         ms = cuda_ms(lambda: gru.rnn_frames(f, s, rnn, w))
         plain_ms = cuda_ms(lambda: gru.rnn_frames_plain(f, s, rnn, w), iters=5, warmup=1)
-        # one buffer a launch: the weights read once, the features and
-        # silence flags, the gains and VADs written, the states read and
-        # written; the operations of the frames and channels not silent
+        bound_ms, bound_by, flop, nbytes = _r1_bound(f, s)
         K, C = f.shape[0], f.shape[1]
-        active = K * C - int(s.sum())
-        nbytes = R1_WEIGHTS * 4 + K * C * (rn.NB_FEATURES * 4 + 1 + rn.NB_BANDS * 4 + 4) \
-            + 2 * C * (24 + 48 + 96) * 4
-        flop = 2 * R1_MACS * active
-        bound_ms, bound_by = bound(flop, nbytes)
-        chain_ms = K * R1_FRAME_CYCLES / _sm_clock_hz() * 1e3
-        print(f"R1 {K} frames x {C} channels ({active} not silent): kernel {ms:.4f} ms, plain "
-              f"(torch ops on the card) {plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
-              f"{nbytes} B, {flop} f32 operations) [{card_line}]")
-        print(f"R1 serial chain, estimated: {chain_ms:.4f} ms ({K} frames x ~{R1_FRAME_CYCLES} "
-              f"cycles at the max SM clock)")
+        print(f"R1 {K} frames x {C} channels ({K * C - int(s.sum())} not silent): kernel "
+              f"{ms:.4f} ms, plain (torch ops on the card) {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.6f} ms ({bound_by}: {nbytes} B, {flop} f32 operations); floor "
+              f"estimated {K * R1_FRAME_CYCLES / _sm_clock_hz() * 1e3:.4f} ms ({K} frames x "
+              f"~{R1_FRAME_CYCLES} cycles at the max SM clock) [{card_line}]")
         timed.append(dict(case=f"{K} frames x {C} channels of front-end features", ms=ms,
                           plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                           max_abs_err=max_err, library_ms=None, flop=flop, bytes=nbytes))
@@ -1908,11 +1960,14 @@ def denoise_timing(card_line):
         busy = sum(e.self_device_time_total for e in events) / 1e3
         ops = sum(e.count for e in events if not e.key.startswith("Memcpy"))
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+        # busy share of the wall: device ms per 100 ms x audio s per wall s / 100 ms
+        share = busy / n_prof * (RNN_SECONDS / secs) / 100.0
         rows[label] = dict(audio_s_per_s=RNN_SECONDS / secs, busy_ms_per_100ms=busy / n_prof,
-                           ops_per_100ms=ops / n_prof)
+                           ops_per_100ms=ops / n_prof, busy_share=share)
         print(f"{label}: {RNN_SECONDS} s of audio in {secs:.3f} s, {RNN_SECONDS / secs:.2f} s of "
               f"audio per second; device busy {busy / n_prof:.4f} ms and {ops / n_prof:.1f} "
-              f"device ops per 100 ms of audio (torch.profiler, {n_prof} buffers); ms per 100 ms "
+              f"device ops per 100 ms of audio (torch.profiler, {n_prof} buffers), "
+              f"{100 * share:.1f}% of the wall; ms per 100 ms "
               f"by op: " + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3 / n_prof:.4f}"
                                      for e in top) + f" [{card_line}]")
     return rows
@@ -1934,13 +1989,13 @@ RNN_BANK_CALLS = 60        # 4d': 60 calls x 16 frames = 9.6 s of each stream
 RNN_BANK_CPU_TOL = RNN_PATH_TOL * 32767
 
 
-def rnn_bank_frames(K, seed=21):
-    """[K, 16, FRAME] f32 on the host: bench.py's input, uniform in +-0.3
-    times 32767 for each of the 16 streams; stream 5 starts with two silent
-    frames (its silence flag set, the others' not)."""
+def rnn_bank_frames(K, seed=21, streams=RNN_BANK_STREAMS):
+    """[K, streams, FRAME] f32 on the host: bench.py's input, uniform in
+    +-0.3 times 32767 for each of the 16 streams (or `streams`); stream 5
+    starts with two silent frames (its silence flag set, the others' not)."""
     from gst_plugins_rs_tpu_torch.ops import rnnoise as rn
 
-    a = (np.random.RandomState(seed).uniform(-0.3, 0.3, (K, RNN_BANK_STREAMS, rn.FRAME_SIZE))
+    a = (np.random.RandomState(seed).uniform(-0.3, 0.3, (K, streams, rn.FRAME_SIZE))
          * 32767).astype(np.float32)
     a[:2, 5] = 0.0
     return a
@@ -1949,7 +2004,11 @@ def rnn_bank_frames(K, seed=21):
 def rnnoise_bank_kernel(card_line):
     """Phase 3d': R1 at C = 16 streams on front-end features of bench.py's
     input, at 16 frames (bench.py's K_RN) and at 100, against its plain
-    version, then timed beside its bound.  Returns the two cases.
+    version, then timed beside its bound; and on the edge cases of the same
+    input: one frame, a buffer whose frames are all silent, stream 5 alone
+    (one channel, silent first, then speaking) and 33 streams.  Every case
+    is timed beside the floor's estimate.  Returns the 16- and 100-frame
+    cases.
 
     On this input the two f32 versions may disagree by more than R1_TOL: the
     stream that starts silent has large onset features, and its ReLU GRU
@@ -1963,43 +2022,60 @@ def rnnoise_bank_kernel(card_line):
 
     dev = torch.device("cuda")
     w = rn.weights_to(rn.default_weights(), dev)
-    state = rn.denoise_init(RNN_BANK_STREAMS, dev)
-    _, feats, _, _, _, sil = rn.analysis_frames_batch(
-        state, torch.from_numpy(rnn_bank_frames(100)).to(dev))
+    w64 = {k: v.double() for k, v in w.items()}
+
+    def features(K, streams):
+        state = rn.denoise_init(streams, dev)
+        _, f, _, _, _, s = rn.analysis_frames_batch(
+            state, torch.from_numpy(rnn_bank_frames(K, streams=streams)).to(dev))
+        return f, s, state.rnn
+
+    feats, sil, rnn = features(100, RNN_BANK_STREAMS)
     print(f"front-end features of the 16 streams, 100 frames: max |feature| "
           f"{float(feats.abs().max()):.2f} (stream 5, silent first: "
           f"{float(feats[:, 5].abs().max()):.2f})")
-    cases = []
-    for K in (RNN_BANK_K, 100):
-        f, s = feats[:K].contiguous(), sil[:K].contiguous()
-        got = gru.rnn_frames(f, s, state.rnn, w)
+    cases = {
+        f"{RNN_BANK_K} frames x 16 streams": (feats[:RNN_BANK_K], sil[:RNN_BANK_K], rnn),
+        "100 frames x 16 streams": (feats, sil, rnn),
+        "one frame x 16 streams": (feats[:1], sil[:1], rnn),
+        "16 frames x 16 streams, every frame silent": (
+            feats[:RNN_BANK_K], torch.ones_like(sil[:RNN_BANK_K]), rnn),
+        "stream 5 alone (silent first, then speaking), 16 frames": (
+            feats[:RNN_BANK_K, 5:6], sil[:RNN_BANK_K, 5:6], rn.RnnState(*(h[5:6] for h in rnn))),
+        "16 frames x 33 streams": features(RNN_BANK_K, 33),
+    }
+    timed = []
+    for label, (f, s, r) in cases.items():
+        f, s = f.contiguous(), s.contiguous()
+        r = rn.RnnState(*(h.contiguous() for h in r))
+        got = gru.rnn_frames(f, s, r, w)
         torch.cuda.synchronize()
-        ref = gru.rnn_frames_plain(f, s, state.rnn, w)
-        ref64 = gru.rnn_frames_plain(f.double(), s, rn.RnnState(*(h.double() for h in state.rnn)),
-                                     {k: v.double() for k, v in w.items()})
+        ref = gru.rnn_frames_plain(f, s, r, w)
+        ref64 = gru.rnn_frames_plain(f.double(), s, rn.RnnState(*(h.double() for h in r)), w64)
         err, err_k64, err_p64 = _r1_errs(got, ref), _r1_errs(got, ref64), _r1_errs(ref, ref64)
         gate = max(R1_TOL, 2 * err_p64)
-        print(f"R1 {K} frames x 16 streams: kernel vs plain {err:.3e}; against the plain version "
-              f"in float64: kernel {err_k64:.3e}, plain {err_p64:.3e} (gate {gate:.3e})")
+        print(f"R1 {label}: kernel vs plain {err:.3e}; against the plain version in float64: "
+              f"kernel {err_k64:.3e}, plain {err_p64:.3e} (gate {gate:.3e})")
         if err_k64 > gate or not all(bool(torch.isfinite(t).all())
                                      for t in (*got[:2], *got[2])):
-            raise AssertionError(f"R1 at C = 16, {K} frames, against float64: {err_k64:.3e}")
-        ms = cuda_ms(lambda: gru.rnn_frames(f, s, state.rnn, w))
-        plain_ms = cuda_ms(lambda: gru.rnn_frames_plain(f, s, state.rnn, w), iters=5, warmup=1)
-        C = RNN_BANK_STREAMS
-        active = K * C - int(s.sum())
-        nbytes = R1_WEIGHTS * 4 + K * C * (rn.NB_FEATURES * 4 + 1 + rn.NB_BANDS * 4 + 4) \
-            + 2 * C * (24 + 48 + 96) * 4
-        flop = 2 * R1_MACS * active
-        bound_ms, bound_by = bound(flop, nbytes)
-        chain_ms = K * R1_FRAME_CYCLES / _sm_clock_hz() * 1e3
-        print(f"R1 {K} frames x {C} streams ({active} not silent): kernel {ms:.4f} ms, plain (torch ops on the card) {plain_ms:.3f} ms, "
-              f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {flop} f32 operations); serial "
-              f"chain estimated {chain_ms:.4f} ms [{card_line}]")
-        cases.append(dict(case=f"{K} frames x {C} streams of front-end features", ms=ms,
+            raise AssertionError(f"R1 {label}, against float64: {err_k64:.3e}")
+        if bool(s.all()) and not all(torch.equal(a, b) for a, b in zip(got[2], r)):
+            raise AssertionError("R1 moved the states on a buffer whose frames are all silent")
+        ms = cuda_ms(lambda: gru.rnn_frames(f, s, r, w))
+        _r1_row(label, f, s, ms, card_line)
+        K, C = f.shape[0], f.shape[1]
+        if C != RNN_BANK_STREAMS or K not in (RNN_BANK_K, 100) or bool(s.all()):
+            continue
+        plain_ms = cuda_ms(lambda: gru.rnn_frames_plain(f, s, r, w), iters=5, warmup=1)
+        bound_ms, bound_by, flop, nbytes = _r1_bound(f, s)
+        print(f"R1 {K} frames x {C} streams ({K * C - int(s.sum())} not silent): kernel "
+              f"{ms:.4f} ms, plain (torch ops on the card) {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.6f} ms ({bound_by}: {nbytes} B, {flop} f32 operations); floor "
+              f"estimated {K * R1_FRAME_CYCLES / _sm_clock_hz() * 1e3:.4f} ms [{card_line}]")
+        timed.append(dict(case=f"{K} frames x {C} streams of front-end features", ms=ms,
                           plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                           max_abs_err=err, library_ms=None, flop=flop, bytes=nbytes))
-    return cases
+    return timed
 
 
 def rnnoise_bank_path(card_line):

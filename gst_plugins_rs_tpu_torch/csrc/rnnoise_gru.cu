@@ -14,46 +14,115 @@
 // 3*size], U [size, 3*size], gates packed [z | r | h~].
 //
 // What bounds it on an H100.  A frame and channel is 86,952 multiply-adds
-// (2 x 86,952 operations at 67 TFLOP/s f32: 2.6 ns) and reads 350 KB of
-// weights, which stay in the 50 MB L2 across frames.  The bound of the
-// function (weights read once, features, gains and states once) is tiny;
-// what binds this design is the recurrence: frame k+1 needs frame k's
-// states, and inside a frame the five stages depend on each other.  Each
-// stage is a dot product per gate row (the longest 114 + 96 terms), an L2
-// round trip for the first weights after each barrier and the gate math, so
-// a frame is a chain of ~2,100 cycles by estimate (chip_smoke.py phase 3d
-// prints it).  This simple form is slower still: each thread waits on L2
-// for every group of four weights it loads (the widest row is 210 loads,
-// ~52 round trips), so a frame took 17.7 us on an NVIDIA H100 80GB HBM3 at
-// 700 W (100 frames x 2 channels, chip_smoke.py phase 3d), ~8x the chain.
+// (2.6 ns at 67 TFLOP/s f32) and the weights are 350 KB, so the bound of the
+// function is tiny; what binds a kernel is the recurrence.  One call is two
+// kernel launches on the caller's stream:
 //
-// Design (a simple correct kernel; weights staged in shared memory across a
-// cluster, several streams a launch and tensor cores are later work):
-//  - one block per channel, 288 threads: one per gate row of the widest GRU
-//    (3 x 96), fewer active in the narrower stages;
-//  - the frame loop runs inside the kernel; inputs, the hidden states and
-//    the gate pre-activations live in shared memory, a barrier between
-//    stages;
-//  - weights are read from global memory (L2): thread t reads column t of
-//    W [in, out], so a warp reads 32 consecutive floats of a row at once;
-//  - each dot product runs four partial sums (a chain a quarter as long);
-//  - a silent frame skips the network: the state is held, the VAD written
-//    0 and the gains 1, as the plain version does.
-// The state enters from h0 and leaves in h1 (device tensors): nothing goes
-// to the host.  Built without -fmad=false: the kernel agrees with its plain
-// version to float rounding (other summation order, expf/tanhf).
+//  1. rnnoise_hoist_kernel: everything that does not depend on the state,
+//     for every frame and channel (silent or not), over a grid of K x C rows
+//     (8 rows a block, one output column a thread, each weight read once a
+//     block): dense = tanh(features @ input_dense_w + b) and
+//       Xv = dense @ vad_gru_w + vad_gru_b                          [72]
+//       Xn = dense @ noise_gru_w[0:24] + features @ noise_gru_w[48:90]
+//            + noise_gru_b                                          [144]
+//       Xd = features @ denoise_gru_w[72:114] + denoise_gru_b       [288]
+//     into a [K, C, 504] scratch the wrapper allocates.  Parallel over
+//     frames, it spreads over many SMs.
+//  2. rnnoise_gru_kernel: the recurrence, one block of 288 threads a
+//     channel (so N streams sit on N SMs), the frame loop inside.  What is
+//     left on the chain is 24 (VAD) + 24 + 48 (noise) + 72 + 96 (denoise)
+//     = 264 terms a frame, where the whole stack is 534.  Each block loads
+//     its chain weights once, 250,464 B from L2:
+//      - thread t holds column t of denoise_gru_u, 96 floats, in registers;
+//      - denoise_gru_w[0:72] (vad_h, noise_h), vad_gru_u,
+//        noise_gru_w[24:48], noise_gru_u, denoise_output_w and
+//        vad_output_w, 34,968 floats (139,872 B), in dynamic shared memory,
+//        as float4 groups of four rows so a thread reads four terms of its
+//        column in one load.
+//     Nine warps put three on one SM sub-partition (16,384 registers), so
+//     a thread may use 168 registers, not 224: with denoise_gru_w[0:72] in
+//     registers too (168 floats a thread) ptxas spilled 220 bytes a thread;
+//     this placement uses 168 registers and spills none.  The states and
+//     every input vector are read as float4 broadcasts.  A frame is six
+//     barrier-separated stages:
+//       1 every product of the previous states: den_h @ U_d (registers),
+//         noise_h @ U_n (threads 0-143), vad_h @ U_v (threads 144-215);
+//       2 the VAD GRU's update (threads 0-23), and the band gains of the
+//         last frame that ran (4 threads a band, 24 rows each, on warps
+//         1-3: den_h is not written again until stage 6);
+//       3 vad_h @ noise_gru_w[24:48] + Xn, vad_h @ denoise_gru_w[0:24];
+//       4 the noise GRU's update, and this frame's VAD (one thread);
+//       5 noise_h @ denoise_gru_w[24:72]; the hoisted term is added last;
+//       6 the denoise GRU's update.
+//     Xv, Xn, Xd and the silence flag of frame k + 1 are loaded while
+//     frame k runs.  The gains and the VAD are off the chain: nothing later
+//     reads them.
+//
+// Per-frame floor of the recurrence, a reckoning (not a measurement):
+// shared-memory wavefronts (128 B a cycle per SM) are the largest part:
+// 1,093 for the shared weights (34,968 floats), ~510 for the float4
+// broadcasts of the states and inputs (a warp reads each vector it needs:
+// 42 loads a warp for the denoise GRU on 9 warps, the rest for the smaller
+// products) and ~80 for the gate buffers: ~1,680 cycles.  The register FMA
+// chain is 96 / 4 partial sums = 24 dependent FMAs (~100 cycles, under the
+// wavefronts of stage 1).  Six barriers (~30 cycles each) and three gate
+// stages (two sigmoids and a tanh or ReLU on the chain, ~100 cycles each)
+// add ~480: ~2,160 cycles, ~1.09 us a frame at 1.98 GHz (chip_smoke.py
+// R1_FRAME_CYCLES).
+//
+// A silent frame (of a channel) skips the network: the state is held, the
+// VAD written 0 and the gains 1; its hoisted values are never read.  The
+// state enters from h0 and leaves in h1 (device tensors): nothing goes to
+// the host, and neither launch allocates or synchronises, so a CUDA graph
+// can take both.  Built without -fmad=false (the dot products contract to
+// FMAs; the gate math rounds as the plain version does): the kernel agrees
+// with its plain version to float rounding (hoisted sums, other summation
+// order, expf/tanhf), not bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kFeat = 42;
+constexpr int kFeatPad = 44;  // a feature row in shared memory, float4-aligned
 constexpr int kDense = 24;
 constexpr int kVad = 24;
 constexpr int kNoise = 48;
 constexpr int kDen = 96;
 constexpr int kBands = 22;
-constexpr int kThreads = 3 * kDen;  // 288
+constexpr int kThreads = 3 * kDen;  // 288: one a gate row of the denoise GRU
+
+// the hoisted products of a frame and channel: [Xv 72 | Xn 144 | Xd 288]
+constexpr int kXv = 0;
+constexpr int kXn = kXv + 3 * kVad;
+constexpr int kXd = kXn + 3 * kNoise;
+constexpr int kX = kXd + 3 * kDen;  // 504
+constexpr int kHoistRows = 8;       // frames x channels a block
+constexpr int kHoistThreads = 512;  // >= kX, one output column a thread
+
+// the denoise GRU's chain: W rows 0:72 (vad_h, noise_h) in shared memory,
+// U rows 0:96 in registers
+constexpr int kDenIn = kVad + kNoise;  // 72
+constexpr int kRegRows = kDen;         // 96
+
+// dynamic shared memory of the recurrence (floats), each matrix [n, m] as
+// float4 groups of four rows: W4[(i / 4) * m + col] holds rows i..i+3
+constexpr int kSmUv = 0;                            // vad_gru_u [24, 72]
+constexpr int kSmWn = kSmUv + kVad * 3 * kVad;      // noise_gru_w[24:48] [24, 144]
+constexpr int kSmUn = kSmWn + kVad * 3 * kNoise;    // noise_gru_u [48, 144]
+constexpr int kSmWo = kSmUn + kNoise * 3 * kNoise;  // denoise_output_w [96, 22]
+constexpr int kSmWvo = kSmWo + kDen * kBands;       // vad_output_w [24, 1]
+constexpr int kSmWd = kSmWvo + kVad;                // denoise_gru_w[0:72] [72, 288]
+constexpr int kSmFloats = kSmWd + kDenIn * 3 * kDen;  // 34,968
+constexpr int kSmBytes = kSmFloats * 4;               // 139,872
+
+// thread roles of the recurrence
+constexpr int kNoiseRows = 3 * kNoise;          // threads 0-143: the noise GRU's rows
+constexpr int kVadRow0 = kNoiseRows;            // threads 144-215: the VAD GRU's rows
+constexpr int kGain0 = 32;                      // threads 32-119: the band gains
+constexpr int kGainParts = 4;                   // threads a band
+constexpr int kGainRows = kDen / kGainParts;    // 24 rows each
+constexpr int kVadHead = 64;                    // the thread of the VAD output
 
 // the 15 weight arrays, in WEIGHT_KEYS order
 enum {
@@ -67,102 +136,277 @@ struct Weights {
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-// sum_i in[i] * W[i * ld + col] over n rows, four partial sums
-__device__ __forceinline__ float dot_col(const float* in, const float* __restrict__ W, int n,
-                                         int ld, int col) {
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-  int i = 0;
-#pragma unroll 4
-  for (; i + 4 <= n; i += 4) {
-    a0 = fmaf(in[i], __ldg(W + (i + 0) * ld + col), a0);
-    a1 = fmaf(in[i + 1], __ldg(W + (i + 1) * ld + col), a1);
-    a2 = fmaf(in[i + 2], __ldg(W + (i + 2) * ld + col), a2);
-    a3 = fmaf(in[i + 3], __ldg(W + (i + 3) * ld + col), a3);
+__device__ __forceinline__ float sum4(const float (&a)[4]) { return (a[0] + a[1]) + (a[2] + a[3]); }
+
+// ---------------------------------------------------------------------------
+// 1. The hoisted products
+// ---------------------------------------------------------------------------
+
+// acc[r][i % 4] += in[r * stride + i] * W[i * ld + col] for i < N and every
+// row r of the block; in is 16-byte aligned, stride a multiple of 4
+template <int N>
+__device__ __forceinline__ void rows_dot(float (&acc)[kHoistRows][4], const float* in, int stride,
+                                         const float* __restrict__ W, int ld, int col) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    float w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) w[j] = (i + j < N) ? __ldg(W + (i + j) * ld + col) : 0.0f;
+#pragma unroll
+    for (int r = 0; r < kHoistRows; ++r) {
+      const float4 v = *reinterpret_cast<const float4*>(in + r * stride + i);
+      acc[r][0] = fmaf(v.x, w[0], acc[r][0]);
+      if (i + 1 < N) acc[r][1] = fmaf(v.y, w[1], acc[r][1]);
+      if (i + 2 < N) acc[r][2] = fmaf(v.z, w[2], acc[r][2]);
+      if (i + 3 < N) acc[r][3] = fmaf(v.w, w[3], acc[r][3]);
+    }
   }
-  for (; i < n; ++i) a0 = fmaf(in[i], __ldg(W + i * ld + col), a0);
-  return (a0 + a1) + (a2 + a3);
 }
 
-// One GRU of `size` units: the 3*size gate rows (thread t < 3*size) from
-// the input segments [in1 (n1 rows of W), in2 (n2 rows)] and h, then the
-// update of h in place (thread t < size).  Ends after a barrier.
-template <bool kRelu>
-__device__ __forceinline__ void gru(const float* in1, int n1, const float* in2, int n2,
-                                    float* h, int size, const float* __restrict__ W,
-                                    const float* __restrict__ U, const float* __restrict__ b,
-                                    float* gx, float* gh) {
+__global__ void __launch_bounds__(kHoistThreads)
+rnnoise_hoist_kernel(const float* __restrict__ features, Weights w, int rows,
+                     float* __restrict__ X) {
+  __shared__ __align__(16) float feat[kHoistRows * kFeatPad];
+  __shared__ __align__(16) float dense[kHoistRows * kDense];
+  // the recurrence may start its prologue now (it waits for this grid's
+  // results before it reads them)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int t = threadIdx.x;
-  const int rows = 3 * size;
-  if (t < rows) {
-    float x = dot_col(in1, W, n1, rows, t);
-    if (n2 > 0) x += dot_col(in2, W + n1 * rows, n2, rows, t);
-    gx[t] = x + b[t];
-    gh[t] = dot_col(h, U, size, rows, t);
+  const int row0 = blockIdx.x * kHoistRows;
+  const int n = min(kHoistRows, rows - row0);
+  for (int i = t; i < kHoistRows * kFeatPad; i += kHoistThreads) {
+    const int r = i / kFeatPad, j = i - r * kFeatPad;
+    feat[i] = (r < n && j < kFeat) ? features[(size_t)(row0 + r) * kFeat + j] : 0.0f;
   }
   __syncthreads();
-  if (t < size) {
-    const float z = sigmoid(gx[t] + gh[t]);
-    const float r = sigmoid(gx[size + t] + gh[size + t]);
-    const float c = gx[2 * size + t] + r * gh[2 * size + t];
-    const float hh = kRelu ? fmaxf(c, 0.0f) : tanhf(c);
-    h[t] = z * h[t] + (1.0f - z) * hh;
+  if (t < kHoistRows * kDense) {
+    const int r = t / kDense, j = t - r * kDense;
+    const float* in = feat + r * kFeatPad;
+    const float* __restrict__ W = w.p[kInW];
+    float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < kFeat; ++i) a[i & 3] = fmaf(in[i], __ldg(W + i * kDense + j), a[i & 3]);
+    dense[t] = tanhf(sum4(a) + w.p[kInB][j]);
   }
   __syncthreads();
+  if (t >= kX) return;
+  float acc[kHoistRows][4];
+#pragma unroll
+  for (int r = 0; r < kHoistRows; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
+  float bias;
+  if (t < kXn) {  // Xv
+    rows_dot<kDense>(acc, dense, kDense, w.p[kVadW], 3 * kVad, t);
+    bias = w.p[kVadB][t];
+  } else if (t < kXd) {  // Xn: rows 0:24 (dense) and 48:90 (features)
+    const int col = t - kXn;
+    rows_dot<kDense>(acc, dense, kDense, w.p[kNoiseW], 3 * kNoise, col);
+    rows_dot<kFeat>(acc, feat, kFeatPad, w.p[kNoiseW] + (kDense + kVad) * 3 * kNoise,
+                    3 * kNoise, col);
+    bias = w.p[kNoiseB][col];
+  } else {  // Xd: rows 72:114 (features)
+    const int col = t - kXd;
+    rows_dot<kFeat>(acc, feat, kFeatPad, w.p[kDenW] + kDenIn * 3 * kDen, 3 * kDen, col);
+    bias = w.p[kDenB][col];
+  }
+#pragma unroll
+  for (int r = 0; r < kHoistRows; ++r)
+    if (r < n) X[(size_t)(row0 + r) * kX + t] = sum4(acc[r]) + bias;
 }
 
-__global__ void __launch_bounds__(kThreads)
-rnnoise_gru_kernel(const float* __restrict__ features, const uint8_t* __restrict__ silence,
+// ---------------------------------------------------------------------------
+// 2. The recurrence
+// ---------------------------------------------------------------------------
+
+// src [n, m] (row-major, global) into dst as float4 groups of four rows,
+// by asynchronous copies: every copy of a thread is in flight at once
+// (complete after cp.async.wait_all and a barrier)
+__device__ __forceinline__ void stage_groups(float* dst, const float* __restrict__ src, int n,
+                                             int m) {
+  for (int idx = threadIdx.x; idx < n * m; idx += kThreads) {
+    const int i = idx / m, j = idx - i * m;
+    const unsigned d = static_cast<unsigned>(
+        __cvta_generic_to_shared(dst + ((i >> 2) * m + j) * 4 + (i & 3)));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src + idx)
+                 : "memory");
+  }
+}
+
+// a[i % 4] += h[i] * W[i, col] over N rows (N % 4 == 0); W4 in the group
+// layout with m columns, h 16-byte aligned
+template <int N>
+__device__ __forceinline__ void dot_shared_acc(float (&a)[4], const float* h, const float* W4,
+                                               int m, int col) {
+  const float4* h4 = reinterpret_cast<const float4*>(h);
+  const float4* w4 = reinterpret_cast<const float4*>(W4) + col;
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    const float4 x = h4[q], v = w4[q * m];
+    a[0] = fmaf(x.x, v.x, a[0]);
+    a[1] = fmaf(x.y, v.y, a[1]);
+    a[2] = fmaf(x.z, v.z, a[2]);
+    a[3] = fmaf(x.w, v.w, a[3]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ float dot_shared(const float* h, const float* W4, int m, int col) {
+  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  dot_shared_acc<N>(a, h, W4, m, col);
+  return sum4(a);
+}
+
+// a[i % 4] += h[i] * wr[i] over N rows: the thread's register column
+template <int N>
+__device__ __forceinline__ void dot_regs(float (&a)[4], const float (&wr)[kRegRows],
+                                         const float* h) {
+  const float4* h4 = reinterpret_cast<const float4*>(h);
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    const float4 x = h4[q];
+    a[0] = fmaf(x.x, wr[4 * q], a[0]);
+    a[1] = fmaf(x.y, wr[4 * q + 1], a[1]);
+    a[2] = fmaf(x.z, wr[4 * q + 2], a[2]);
+    a[3] = fmaf(x.w, wr[4 * q + 3], a[3]);
+  }
+}
+
+// unit j of a GRU of `size` units from its gate inputs gx (x W + b) and gh
+// (h U), updating h[j] in place.  Each product and sum rounds on its own, as
+// in the plain version: after an onset the pre-activations are large and
+// both versions sit ~2e-5 from a float64 evaluation, so the kernel keeps
+// within R1_TOL of the plain version by rounding where it rounds
+template <bool kRelu>
+__device__ __forceinline__ void gru_unit(float* h, const float* gx, const float* gh, int size,
+                                         int j) {
+  const float z = sigmoid(gx[j] + gh[j]);
+  const float r = sigmoid(gx[size + j] + gh[size + j]);
+  const float c = __fadd_rn(gx[2 * size + j], __fmul_rn(r, gh[2 * size + j]));
+  const float hh = kRelu ? fmaxf(c, 0.0f) : tanhf(c);
+  h[j] = __fadd_rn(__fmul_rn(z, h[j]), __fmul_rn(1.0f - z, hh));
+}
+
+// the 22 band gains from den_h, four threads a band (thread t in
+// [kGain0, kGain0 + 88)): each sums 24 rows, two shuffles add the parts
+__device__ __forceinline__ void band_gains(const float* den_h, const float* Wo4,
+                                           const float* __restrict__ bo, float* out, int t) {
+  const int u = t - kGain0, band = u / kGainParts, part = u % kGainParts;
+  const unsigned group = 0xFu << ((t & 31) & ~3);
+  float g = dot_shared<kGainRows>(den_h + part * kGainRows,
+                                  Wo4 + part * (kGainRows / 4) * kBands * 4, kBands, band);
+  g += __shfl_xor_sync(group, g, 1);
+  g += __shfl_xor_sync(group, g, 2);
+  if (part == 0) out[band] = sigmoid(g + bo[band]);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+rnnoise_gru_kernel(const float* __restrict__ X, const uint8_t* __restrict__ silence,
                    const float* __restrict__ h_vad0, const float* __restrict__ h_noise0,
                    const float* __restrict__ h_den0, Weights w, int K, int C,
                    float* __restrict__ gains, float* __restrict__ vads,
                    float* __restrict__ h_vad1, float* __restrict__ h_noise1,
                    float* __restrict__ h_den1) {
-  // s = [dense 24 | vad_h 24 | noise_h 48]: the noise GRU's input starts
-  // with [dense, vad_h] = s[0:48], the denoise GRU's with [vad_h, noise_h]
-  // = s[24:96]; the features follow each from `feat`
-  __shared__ float s[kDense + kVad + kNoise];
-  __shared__ float den_h[kDen];
-  __shared__ float feat[kFeat];
-  __shared__ float gx[3 * kDen];
-  __shared__ float gh[3 * kDen];
-  float* dense = s;
-  float* vad_h = s + kDense;
-  float* noise_h = s + kDense + kVad;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  __shared__ __align__(16) float vad_h[kVad];
+  __shared__ __align__(16) float noise_h[kNoise];
+  __shared__ __align__(16) float den_h[kDen];
+  __shared__ float v_gx[3 * kVad], v_gh[3 * kVad];
+  __shared__ float n_gx[3 * kNoise], n_gh[3 * kNoise];
+  __shared__ float d_gx[3 * kDen], d_gh[3 * kDen];
   const int c = blockIdx.x;
   const int t = threadIdx.x;
+  const bool noise_row = t < kNoiseRows;
+  const bool vad_row = t >= kVadRow0 && t < kVadRow0 + 3 * kVad;
+  const int vj = t - kVadRow0;
 
+  // the prologue: thread t's register column, the shared weights, the states
+  float wr[kRegRows];
+#pragma unroll
+  for (int i = 0; i < kDen; ++i) wr[i] = __ldg(w.p[kDenU] + i * 3 * kDen + t);
+  stage_groups(sm + kSmUv, w.p[kVadU], kVad, 3 * kVad);
+  stage_groups(sm + kSmWn, w.p[kNoiseW] + kDense * 3 * kNoise, kVad, 3 * kNoise);
+  stage_groups(sm + kSmUn, w.p[kNoiseU], kNoise, 3 * kNoise);
+  stage_groups(sm + kSmWo, w.p[kOutW], kDen, kBands);
+  stage_groups(sm + kSmWvo, w.p[kVadOutW], kVad, 1);
+  stage_groups(sm + kSmWd, w.p[kDenW], kDenIn, 3 * kDen);
   if (t < kVad) vad_h[t] = h_vad0[c * kVad + t];
   if (t < kNoise) noise_h[t] = h_noise0[c * kNoise + t];
   if (t < kDen) den_h[t] = h_den0[c * kDen + t];
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  // the hoisted products: written by the grid launched before this one,
+  // which this prologue overlaps (programmatic dependent launch)
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+
+  // frame 0's hoisted values and flag; later, frame k + 1's while k runs
+  const float* xr = X + (size_t)c * kX;
+  float xd = __ldg(xr + kXd + t);
+  float xn = noise_row ? __ldg(xr + kXn + t) : 0.0f;
+  float xv = vad_row ? __ldg(xr + kXv + vj) : 0.0f;
+  bool silent = silence[c] != 0;
+  int pending = -1;  // the frame and channel whose gains wait on den_h
+  __syncthreads();
 
   for (int k = 0; k < K; ++k) {
     const int kc = k * C + c;
-    if (t < kFeat) feat[t] = features[kc * kFeat + t];
-    const bool silent = silence[kc] != 0;
-    __syncthreads();
+    float nxd = 0.0f, nxn = 0.0f, nxv = 0.0f;
+    bool nsilent = false;
+    if (k + 1 < K) {
+      const float* nr = X + (size_t)(kc + C) * kX;
+      nxd = __ldg(nr + kXd + t);
+      if (noise_row) nxn = __ldg(nr + kXn + t);
+      if (vad_row) nxv = __ldg(nr + kXv + vj);
+      nsilent = silence[kc + C] != 0;
+    }
     if (silent) {  // the same for every thread of the block
       if (t < kBands) gains[kc * kBands + t] = 1.0f;
       if (t == 0) vads[kc] = 0.0f;
-      continue;
+    } else {
+      // 1: the products of the previous states
+      float ah[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      dot_regs<kDen>(ah, wr, den_h);
+      if (noise_row) {
+        n_gh[t] = dot_shared<kNoise>(noise_h, sm + kSmUn, 3 * kNoise, t);
+      } else if (vad_row) {
+        v_gh[vj] = dot_shared<kVad>(vad_h, sm + kSmUv, 3 * kVad, vj);
+        v_gx[vj] = xv;
+      }
+      __syncthreads();
+      // 2: the VAD GRU; the gains of the last frame that ran
+      if (t < kVad) {
+        gru_unit<false>(vad_h, v_gx, v_gh, kVad, t);
+      } else if (pending >= 0 && t >= kGain0 && t < kGain0 + kGainParts * kBands) {
+        band_gains(den_h, sm + kSmWo, w.p[kOutB], gains + pending * kBands, t);
+      }
+      __syncthreads();
+      // 3: vad_h's products in the noise and denoise GRUs
+      float ax[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      dot_shared_acc<kVad>(ax, vad_h, sm + kSmWd, 3 * kDen, t);
+      if (noise_row) n_gx[t] = dot_shared<kVad>(vad_h, sm + kSmWn, 3 * kNoise, t) + xn;
+      __syncthreads();
+      // 4: the noise GRU; this frame's VAD
+      if (t < kNoise) {
+        gru_unit<true>(noise_h, n_gx, n_gh, kNoise, t);
+      } else if (t == kVadHead) {
+        vads[kc] = sigmoid(dot_shared<kVad>(vad_h, sm + kSmWvo, 1, 0) + w.p[kVadOutB][0]);
+      }
+      __syncthreads();
+      // 5: noise_h's product in the denoise GRU, the hoisted term last
+      dot_shared_acc<kNoise>(ax, noise_h, sm + kSmWd + (kVad / 4) * 3 * kDen * 4, 3 * kDen, t);
+      d_gx[t] = sum4(ax) + xd;
+      d_gh[t] = sum4(ah);
+      __syncthreads();
+      // 6: the denoise GRU
+      if (t < kDen) gru_unit<true>(den_h, d_gx, d_gh, kDen, t);
+      __syncthreads();
+      pending = kc;
     }
-    if (t < kDense) dense[t] = tanhf(dot_col(feat, w.p[kInW], kFeat, kDense, t) + w.p[kInB][t]);
-    __syncthreads();
-    gru<false>(dense, kDense, nullptr, 0, vad_h, kVad, w.p[kVadW], w.p[kVadU], w.p[kVadB],
-               gx, gh);
-    gru<true>(s, kDense + kVad, feat, kFeat, noise_h, kNoise, w.p[kNoiseW], w.p[kNoiseU],
-              w.p[kNoiseB], gx, gh);
-    gru<true>(vad_h, kVad + kNoise, feat, kFeat, den_h, kDen, w.p[kDenW], w.p[kDenU],
-              w.p[kDenB], gx, gh);
-    if (t < kBands) {
-      gains[kc * kBands + t] = sigmoid(dot_col(den_h, w.p[kOutW], kDen, kBands, t) +
-                                       w.p[kOutB][t]);
-    } else if (t == 32) {  // another warp
-      vads[kc] = sigmoid(dot_col(vad_h, w.p[kVadOutW], kVad, 1, 0) + w.p[kVadOutB][0]);
-    }
-    // the next frame's first writes (feat) and state updates come after
-    // barriers that every thread reaches once its reads here are done
+    xd = nxd;
+    xn = nxn;
+    xv = nxv;
+    silent = nsilent;
   }
-  __syncthreads();
+  if (pending >= 0 && t >= kGain0 && t < kGain0 + kGainParts * kBands)
+    band_gains(den_h, sm + kSmWo, w.p[kOutB], gains + pending * kBands, t);
   if (t < kVad) h_vad1[c * kVad + t] = vad_h[t];
   if (t < kNoise) h_noise1[c * kNoise + t] = noise_h[t];
   if (t < kDen) h_den1[c * kDen + t] = den_h[t];
@@ -172,21 +416,44 @@ rnnoise_gru_kernel(const float* __restrict__ features, const uint8_t* __restrict
 
 extern "C" {
 
-// Runs the GRU stack over K frames of C channels on `stream`.  features
-// [K, C, 42], silence [K, C] (bytes), h_*0 the states in, weights a host
-// array of the 15 device pointers (WEIGHT_KEYS order); writes gains
-// [K, C, 22], vads [K, C] and the states after the last frame to h_*1.
-// Returns 0 or the cudaError_t of the launch.
+// Runs the GRU stack over K frames of C channels on `stream`: two launches,
+// the hoisted products into `hoisted` ([K, C, 504] f32 scratch), then the
+// recurrence.  features [K, C, 42], silence [K, C] (bytes), h_*0 the states
+// in, weights a host array of the 15 device pointers (WEIGHT_KEYS order);
+// writes gains [K, C, 22], vads [K, C] and the states after the last frame
+// to h_*1.  Returns 0 or the first cudaError_t that is not 0.
 int rnnoise_gru(const float* features, const uint8_t* silence, const float* h_vad0,
                 const float* h_noise0, const float* h_den0, const void* const* weights,
-                int K, int C, float* gains, float* vads, float* h_vad1, float* h_noise1,
-                float* h_den1, void* stream) {
+                int K, int C, float* hoisted, float* gains, float* vads, float* h_vad1,
+                float* h_noise1, float* h_den1, void* stream) {
   if (K < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
   Weights w;
   for (int i = 0; i < kNumWeights; ++i) w.p[i] = static_cast<const float*>(weights[i]);
-  rnnoise_gru_kernel<<<C, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      features, silence, h_vad0, h_noise0, h_den0, w, K, C, gains, vads, h_vad1, h_noise1,
-      h_den1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = K * C;
+  rnnoise_hoist_kernel<<<(rows + kHoistRows - 1) / kHoistRows, kHoistThreads, 0, s>>>(
+      features, w, rows, hoisted);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(rnnoise_gru_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a programmatic dependent launch: the recurrence's blocks load their
+  // weights while the hoist kernel runs, then wait for its results
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmBytes;
+  cfg.stream = s;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, rnnoise_gru_kernel, static_cast<const float*>(hoisted), silence,
+                           h_vad0, h_noise0, h_den0, w, K, C, gains, vads, h_vad1, h_noise1,
+                           h_den1);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

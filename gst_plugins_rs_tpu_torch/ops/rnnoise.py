@@ -18,7 +18,8 @@ Two paths, as in the JAX package:
   states from one product (ops/ebur128.py::biquad_apply, TF32 off), the FFTs
   and pitch searches of all frames at once, then the GRU stack over the
   buffer's frames in one call of `ops/rnnoise_gru.py::rnn_frames` (kernel R1
-  on the card), then the batched synthesis.
+  on the card: the state-free input products of every frame, then the
+  recurrence, two launches), then the batched synthesis.
 
 State tensors live on the device of the frames; `ceps_idx` is a host int
 (it depends only on how many frames were seen).  Products run in float32

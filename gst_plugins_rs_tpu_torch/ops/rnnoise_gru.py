@@ -5,8 +5,10 @@ The JAX package runs the stack one frame at a time inside `lax.scan`
 `denoise_frames_fast` :510-521, which holds each channel's state on silent
 frames and forces its VAD to 0).  It is XLA there, not Pallas.  As eager
 torch the scan costs ~40 small launches a 10 ms frame, so on the card the
-whole scan is one launch of csrc/rnnoise_gru.cu per buffer (design and
-bounds noted there).
+whole scan is one call of csrc/rnnoise_gru.cu per buffer: two kernel
+launches, the products that do not depend on the state for every frame at
+once (into a [K, C, 504] scratch allocated here), then the recurrence with
+its chain weights held on chip (design and bounds noted there).
 
 `rnn_frames(features, silence, rnn, weights)`:
   features [K, C, 42] float32, silence [K, C] bool, rnn = RnnState of the
@@ -17,12 +19,13 @@ bounds noted there).
   held, the VAD is 0 and the gains are 1 (the synthesis passes a silent
   frame's spectrum through and never reads them).
 
-For CUDA tensors it launches the kernel (counted in `launches`) or raises;
+For CUDA tensors it makes the call (counted once in `launches`) or raises;
 for CPU tensors it runs `rnn_frames_plain`, a loop over the K frames of the
 port's `rnn_frame` (torch ops).  The kernel sums the same products in
-another order and takes `expf`/`tanhf` where torch takes its vectorised
-sigmoid and tanh, so the two agree to float rounding, not bit for bit
-(tests/test_torch_kernels_cuda.py; chip_smoke.py phase 3d states the gate).
+another order (the input products apart from the recurrent ones) and takes
+`expf`/`tanhf` where torch takes its vectorised sigmoid and tanh, so the two
+agree to float rounding, not bit for bit (tests/test_torch_kernels_cuda.py;
+chip_smoke.py phase 3d states the gate).
 """
 from __future__ import annotations
 
@@ -45,6 +48,9 @@ from .rnnoise import (
 )
 
 launches = 0
+# the hoisted products of a frame and channel (csrc/rnnoise_gru.cu): the VAD,
+# noise and denoise GRUs' input terms that do not depend on the state
+HOISTED = 3 * (VAD_GRU_SIZE + NOISE_GRU_SIZE + DENOISE_GRU_SIZE)
 
 
 def rnn_frames_plain(features, silence, rnn: RnnState, weights: Dict[str, torch.Tensor]):
@@ -87,7 +93,7 @@ def _lib():
     lib = load("rnnoise_gru")
     if not getattr(lib, "_argtypes_set", False):
         ptr = ctypes.c_void_p
-        lib.rnnoise_gru.argtypes = [ptr] * 6 + [ctypes.c_int, ctypes.c_int] + [ptr] * 6
+        lib.rnnoise_gru.argtypes = [ptr] * 6 + [ctypes.c_int, ctypes.c_int] + [ptr] * 7
         lib.rnnoise_gru.restype = ctypes.c_int
         lib.rnnoise_gru_error_string.argtypes = [ctypes.c_int]
         lib.rnnoise_gru_error_string.restype = ctypes.c_char_p
@@ -108,6 +114,7 @@ def rnn_frames(features, silence, rnn: RnnState, weights: Dict[str, torch.Tensor
     silence = silence.contiguous()
     h0 = [h.contiguous() for h in rnn]
     ws = [weights[k].contiguous() for k in WEIGHT_KEYS]
+    hoisted = torch.empty((K, C, HOISTED), dtype=torch.float32, device=dev)
     gains = torch.empty((K, C, NB_BANDS), dtype=torch.float32, device=dev)
     vads = torch.empty((K, C), dtype=torch.float32, device=dev)
     h1 = [torch.empty_like(h) for h in h0]
@@ -117,8 +124,8 @@ def rnn_frames(features, silence, rnn: RnnState, weights: Dict[str, torch.Tensor
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rnnoise_gru(features.data_ptr(), silence.data_ptr(), h0[0].data_ptr(),
                               h0[1].data_ptr(), h0[2].data_ptr(), ctypes.addressof(wptrs), K, C,
-                              gains.data_ptr(), vads.data_ptr(), h1[0].data_ptr(),
-                              h1[1].data_ptr(), h1[2].data_ptr(), stream)
+                              hoisted.data_ptr(), gains.data_ptr(), vads.data_ptr(),
+                              h1[0].data_ptr(), h1[1].data_ptr(), h1[2].data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"rnn_frames launch failed: "
                            f"{lib.rnnoise_gru_error_string(err).decode()}")

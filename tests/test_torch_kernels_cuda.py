@@ -730,6 +730,100 @@ def test_rnnoise_gru_kernel_rejects_bad_operands(cuda):
     assert gru.launches == before
 
 
+def _r1_edge_inputs(case, kind, cuda):
+    """The edge cases of chip_smoke.py phase 3d: one frame; a buffer whose
+    frames are all silent; channels silent first that then speak (and one
+    that stops); one channel; 33 channels (more blocks than the bank's)."""
+    K, C = {"one_frame": (1, 2), "all_silent": (10, 2), "silent_then_speaking": (12, 3),
+            "one_channel": (100, 1), "c33": (16, 33)}[case]
+    feats, sil, rnn, w = _r1_inputs(kind, K, C, 40 + K + C, cuda)
+    if case == "all_silent":
+        sil = torch.ones_like(sil)
+    elif case == "silent_then_speaking":
+        sil = torch.zeros_like(sil)
+        sil[:5, 0] = True
+        sil[:1, 1] = True
+        sil[7:, 2] = True
+    return feats, sil, rnn, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "packaged"])
+@pytest.mark.parametrize("case", ["one_frame", "all_silent", "silent_then_speaking",
+                                  "one_channel", "c33"])
+def test_rnnoise_gru_kernel_edge_cases(cuda, case, kind):
+    """Each edge case against the plain version within R1_TOL, and against a
+    float64 evaluation within twice the plain f32 version's own error
+    (phase 3d''s rule).  Where the plain version is itself more than R1_TOL /
+    2 from float64, two f32 versions as close to it as the plain one can
+    disagree by more than R1_TOL (the 100 packaged frames of one channel:
+    the kernel 6.8e-6 and the plain version 6.7e-6 from float64, on opposite
+    sides); there the float64 rule alone holds the kernel."""
+    from gst_plugins_rs_tpu_torch.ops import rnnoise as rn
+    from gst_plugins_rs_tpu_torch.ops import rnnoise_gru as gru
+
+    feats, sil, rnn, w = _r1_edge_inputs(case, kind, cuda)
+    before = gru.launches
+    got = gru.rnn_frames(feats, sil, rnn, w)
+    torch.cuda.synchronize()
+    assert gru.launches == before + 1
+    f, s = feats.cpu(), sil.cpu()
+    h = rn.RnnState(*(x.cpu() for x in rnn))
+    ref = gru.rnn_frames_plain(f, s, h, {k: t.cpu() for k, t in w.items()})
+    ref64 = gru.rnn_frames_plain(f.double(), s, rn.RnnState(*(x.double() for x in h)),
+                                 {k: t.cpu().double() for k, t in w.items()})
+    assert torch.equal(got[0].cpu()[s], torch.ones_like(ref[0][s]))
+    assert torch.equal(got[1].cpu()[s], torch.zeros_like(ref[1][s]))
+    plain64 = max(_r1_errors(ref, ref64))
+    assert max(_r1_errors(got, ref64)) <= max(R1_TOL, 2 * plain64)
+    if plain64 <= R1_TOL / 2:
+        errs = _r1_errors(got, ref)
+        assert max(errs) <= R1_TOL, errs
+    if case == "all_silent":  # the states pass through untouched
+        assert all(torch.equal(a, b) for a, b in zip(got[2], rnn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "packaged"])
+def test_rnnoise_gru_kernel_chained_calls(cuda, kind):
+    """Two calls of K frames, the first's states into the second, equal one
+    call of 2K frames to float rounding (the kernel's gate), the first call
+    ending on a silent frame of every channel."""
+    from gst_plugins_rs_tpu_torch.ops import rnnoise_gru as gru
+
+    feats, sil, rnn, w = _r1_inputs(kind, 20, 4, 44, cuda)
+    sil[9] = True
+    g1, v1, s1 = gru.rnn_frames(feats[:10].contiguous(), sil[:10].contiguous(), rnn, w)
+    g2, v2, s2 = gru.rnn_frames(feats[10:].contiguous(), sil[10:].contiguous(), s1, w)
+    whole = gru.rnn_frames(feats, sil, rnn, w)
+    errs = _r1_errors((torch.cat([g1, g2]), torch.cat([v1, v2]), s2),
+                      tuple(x.cpu() for x in whole[:2]) + (type(rnn)(*(h.cpu() for h in whole[2])),))
+    assert max(errs) <= R1_TOL, errs
+
+
+@pytest.mark.cuda
+def test_rnnoise_gru_cuda_never_runs_the_plain_version(cuda, monkeypatch):
+    """On the card rnn_frames and denoise_frames_fast make the kernel call:
+    neither the plain frame loop nor the port's rnn_frame runs."""
+    from gst_plugins_rs_tpu_torch.ops import rnnoise as rn
+    from gst_plugins_rs_tpu_torch.ops import rnnoise_gru as gru
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain GRU-stack function ran on CUDA tensors")
+
+    monkeypatch.setattr(gru, "rnn_frames_plain", refuse)
+    monkeypatch.setattr(gru, "rnn_frame", refuse)
+    monkeypatch.setattr(rn, "rnn_frame", refuse)
+    feats, sil, rnn, w = _r1_inputs("packaged", 10, 2, 45, cuda)
+    before = gru.launches
+    gru.rnn_frames(feats, sil, rnn, w)
+    x = torch.from_numpy((np.random.RandomState(46).uniform(-0.3, 0.3, (10, 2, rn.FRAME_SIZE))
+                          * 32767).astype(np.float32)).to(cuda)
+    rn.denoise_frames_fast(rn.denoise_init(2, cuda), w, x)
+    torch.cuda.synchronize()
+    assert gru.launches == before + 2
+
+
 @pytest.mark.cuda
 def test_denoise_frames_fast_card_vs_cpu(cuda):
     """The batched denoiser (front end, R1, synthesis) on the card against
