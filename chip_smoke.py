@@ -1604,10 +1604,10 @@ R1_WEIGHTS = 87_503        # f32 parameters
 # an estimate, not a measurement, of R1's floor a frame (the recurrence of
 # csrc/rnnoise_gru.cu, its header's reckoning): ~1,680 shared-memory
 # wavefronts at 128 B a cycle (the shared chain weights, the float4
-# broadcasts of the states, the gate buffers), six barriers (~30 cycles) and
-# three gate stages on the chain (~100 cycles); the 24-FMA register chain
-# runs under the wavefronts; printed beside the kernel's time only
-R1_FRAME_CYCLES = 1_680 + 6 * 30 + 3 * 100
+# broadcasts of the states, the gate buffers), five barriers (~30 cycles)
+# and three gate updates on the chain (~100 cycles); the 24-FMA register
+# chain runs under the wavefronts; printed beside the kernel's time only
+R1_FRAME_CYCLES = 1_680 + 5 * 30 + 3 * 100
 # the mix into audiornnoise: a 180 Hz tone and white noise at 48 kHz stereo
 RNN_SINE = "wave=sine freq=180 volume=0.3"
 RNN_NOISE = "wave=white-noise volume=0.08"

@@ -41,22 +41,27 @@
 //        column in one load.
 //     Nine warps put three on one SM sub-partition (16,384 registers), so
 //     a thread may use 168 registers, not 224: with denoise_gru_w[0:72] in
-//     registers too (168 floats a thread) ptxas spilled 220 bytes a thread;
-//     this placement uses 168 registers and spills none.  The states and
-//     every input vector are read as float4 broadcasts.  A frame is six
-//     barrier-separated stages:
-//       1 every product of the previous states: den_h @ U_d (registers),
-//         noise_h @ U_n (threads 0-143), vad_h @ U_v (threads 144-215);
-//       2 the VAD GRU's update (threads 0-23), and the band gains of the
-//         last frame that ran (4 threads a band, 24 rows each, on warps
-//         1-3: den_h is not written again until stage 6);
-//       3 vad_h @ noise_gru_w[24:48] + Xn, vad_h @ denoise_gru_w[0:24];
-//       4 the noise GRU's update, and this frame's VAD (one thread);
-//       5 noise_h @ denoise_gru_w[24:72]; the hoisted term is added last;
-//       6 the denoise GRU's update.
-//     Xv, Xn, Xd and the silence flag of frame k + 1 are loaded while
-//     frame k runs.  The gains and the VAD are off the chain: nothing later
-//     reads them.
+//     registers too (168 floats a thread) ptxas spilled 220 bytes a thread.
+//     This placement uses 168 registers and spills 36 bytes a thread (the
+//     prefetched hoisted values).  The states and every input vector are
+//     read as float4 broadcasts.  A frame is five stages, each ending at a
+//     barrier; the chain runs through them and the rest runs beside it on
+//     other warps:
+//       a the VAD GRU's update (warp 8) || den_h @ U_d (registers, warps
+//         0-7) and the band gains of the last frame that ran (4 threads a
+//         band, 24 rows each: den_h is not written again until e);
+//       b vad_h @ noise_gru_w[24:48] + Xn (threads 0-143) || vad_h @
+//         denoise_gru_w[0:24] for the rows of threads 144-287;
+//       c the noise GRU's update (threads 192-239) || the same product for
+//         rows 0-143, den_h @ U_d for warp 8, this frame's VAD;
+//       d noise_h @ denoise_gru_w[24:72] (every row), the hoisted term added
+//         last;
+//       e the denoise GRU's update (warps 0-2) || the next frame's vad_h @
+//         vad_gru_u and noise_h @ noise_gru_u (a silent frame changes
+//         neither state, so they hold for the next frame that runs).
+//     Xn, Xv and the silence flag of frame k + 1 are loaded while frame k
+//     runs, Xd at the top of its frame.  The gains and the VAD are off the
+//     chain: nothing later reads them.
 //
 // Per-frame floor of the recurrence, a reckoning (not a measurement):
 // shared-memory wavefronts (128 B a cycle per SM) are the largest part:
@@ -65,10 +70,10 @@
 // 42 loads a warp for the denoise GRU on 9 warps, the rest for the smaller
 // products) and ~80 for the gate buffers: ~1,680 cycles.  The register FMA
 // chain is 96 / 4 partial sums = 24 dependent FMAs (~100 cycles, under the
-// wavefronts of stage 1).  Six barriers (~30 cycles each) and three gate
-// stages (two sigmoids and a tanh or ReLU on the chain, ~100 cycles each)
-// add ~480: ~2,160 cycles, ~1.09 us a frame at 1.98 GHz (chip_smoke.py
-// R1_FRAME_CYCLES).
+// wavefronts).  Five barriers (~30 cycles each) and three gate updates on
+// the chain (two sigmoids and a tanh or ReLU, ~100 cycles each) add ~450:
+// ~2,130 cycles, ~1.08 us a frame at 1.98 GHz (chip_smoke.py
+// R1_FRAME_CYCLES).  Measured, a frame takes about twice that (PERF.md).
 //
 // A silent frame (of a channel) skips the network: the state is held, the
 // VAD written 0 and the gains 1; its hoisted values are never read.  The
@@ -100,10 +105,9 @@ constexpr int kX = kXd + 3 * kDen;  // 504
 constexpr int kHoistRows = 8;       // frames x channels a block
 constexpr int kHoistThreads = 512;  // >= kX, one output column a thread
 
-// the denoise GRU's chain: W rows 0:72 (vad_h, noise_h) in shared memory,
-// U rows 0:96 in registers
+// the denoise GRU's chain input rows of W (vad_h, noise_h), in shared memory
+// (its U rows are in registers)
 constexpr int kDenIn = kVad + kNoise;  // 72
-constexpr int kRegRows = kDen;         // 96
 
 // dynamic shared memory of the recurrence (floats), each matrix [n, m] as
 // float4 groups of four rows: W4[(i / 4) * m + col] holds rows i..i+3
@@ -116,13 +120,16 @@ constexpr int kSmWd = kSmWvo + kVad;                // denoise_gru_w[0:72] [72, 
 constexpr int kSmFloats = kSmWd + kDenIn * 3 * kDen;  // 34,968
 constexpr int kSmBytes = kSmFloats * 4;               // 139,872
 
-// thread roles of the recurrence
-constexpr int kNoiseRows = 3 * kNoise;          // threads 0-143: the noise GRU's rows
-constexpr int kVadRow0 = kNoiseRows;            // threads 144-215: the VAD GRU's rows
-constexpr int kGain0 = 32;                      // threads 32-119: the band gains
-constexpr int kGainParts = 4;                   // threads a band
-constexpr int kGainRows = kDen / kGainParts;    // 24 rows each
-constexpr int kVadHead = 64;                    // the thread of the VAD output
+// thread roles of the recurrence (thread t is also row t of the denoise GRU)
+constexpr int kNoiseRows = 3 * kNoise;        // threads 0-143: the noise GRU's input rows
+constexpr int kGain0 = 32;                    // threads 32-119: the band gains
+constexpr int kGainParts = 4;                 // threads a band
+constexpr int kGainRows = kDen / kGainParts;  // 24 rows each
+constexpr int kVadURow0 = 96;                 // threads 96-167: the VAD GRU's U rows
+constexpr int kNoiseURow0 = 144;              // threads 144-287: the noise GRU's U rows
+constexpr int kVadHead = 160;                 // the thread of the VAD output
+constexpr int kNoiseGate0 = 192;              // threads 192-239: the noise GRU's units
+constexpr int kVadGate0 = 256;                // threads 256-279 (warp 8): the VAD GRU's units
 
 // the 15 weight arrays, in WEIGHT_KEYS order
 enum {
@@ -136,7 +143,9 @@ struct Weights {
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-__device__ __forceinline__ float sum4(const float (&a)[4]) { return (a[0] + a[1]) + (a[2] + a[3]); }
+__device__ __forceinline__ float sum4(const float (&a)[4]) {
+  return (a[0] + a[1]) + (a[2] + a[3]);
+}
 
 // ---------------------------------------------------------------------------
 // 1. The hoisted products
@@ -255,13 +264,11 @@ __device__ __forceinline__ float dot_shared(const float* h, const float* W4, int
   return sum4(a);
 }
 
-// a[i % 4] += h[i] * wr[i] over N rows: the thread's register column
-template <int N>
-__device__ __forceinline__ void dot_regs(float (&a)[4], const float (&wr)[kRegRows],
-                                         const float* h) {
+// a[i % 4] += h[i] * wr[i]: h = den_h, wr the thread's column of U
+__device__ __forceinline__ void dot_regs(float (&a)[4], const float (&wr)[kDen], const float* h) {
   const float4* h4 = reinterpret_cast<const float4*>(h);
 #pragma unroll
-  for (int q = 0; q < N / 4; ++q) {
+  for (int q = 0; q < kDen / 4; ++q) {
     const float4 x = h4[q];
     a[0] = fmaf(x.x, wr[4 * q], a[0]);
     a[1] = fmaf(x.y, wr[4 * q + 1], a[1]);
@@ -270,19 +277,27 @@ __device__ __forceinline__ void dot_regs(float (&a)[4], const float (&wr)[kRegRo
   }
 }
 
-// unit j of a GRU of `size` units from its gate inputs gx (x W + b) and gh
-// (h U), updating h[j] in place.  Each product and sum rounds on its own, as
-// in the plain version: after an onset the pre-activations are large and
-// both versions sit ~2e-5 from a float64 evaluation, so the kernel keeps
-// within R1_TOL of the plain version by rounding where it rounds
+// a GRU unit's new state from its gate inputs: x_* of x W + b, u_* of h U.
+// Each product and sum rounds on its own, as in the plain version: after an
+// onset the pre-activations are large and both versions sit ~2e-5 from a
+// float64 evaluation, so the kernel keeps within R1_TOL of the plain version
+// by rounding where it rounds
+template <bool kRelu>
+__device__ __forceinline__ float gru_update(float h, float xz, float xr, float xh, float uz,
+                                            float ur, float uh) {
+  const float z = sigmoid(xz + uz);
+  const float r = sigmoid(xr + ur);
+  const float c = __fadd_rn(xh, __fmul_rn(r, uh));
+  const float hh = kRelu ? fmaxf(c, 0.0f) : tanhf(c);
+  return __fadd_rn(__fmul_rn(z, h), __fmul_rn(1.0f - z, hh));
+}
+
+// unit j of a GRU of `size` units, its gate inputs in shared memory
 template <bool kRelu>
 __device__ __forceinline__ void gru_unit(float* h, const float* gx, const float* gh, int size,
                                          int j) {
-  const float z = sigmoid(gx[j] + gh[j]);
-  const float r = sigmoid(gx[size + j] + gh[size + j]);
-  const float c = __fadd_rn(gx[2 * size + j], __fmul_rn(r, gh[2 * size + j]));
-  const float hh = kRelu ? fmaxf(c, 0.0f) : tanhf(c);
-  h[j] = __fadd_rn(__fmul_rn(z, h[j]), __fmul_rn(1.0f - z, hh));
+  h[j] = gru_update<kRelu>(h[j], gx[j], gx[size + j], gx[2 * size + j], gh[j], gh[size + j],
+                           gh[2 * size + j]);
 }
 
 // the 22 band gains from den_h, four threads a band (thread t in
@@ -310,17 +325,21 @@ rnnoise_gru_kernel(const float* __restrict__ X, const uint8_t* __restrict__ sile
   __shared__ __align__(16) float vad_h[kVad];
   __shared__ __align__(16) float noise_h[kNoise];
   __shared__ __align__(16) float den_h[kDen];
-  __shared__ float v_gx[3 * kVad], v_gh[3 * kVad];
+  __shared__ float v_gh[3 * kVad];
   __shared__ float n_gx[3 * kNoise], n_gh[3 * kNoise];
   __shared__ float d_gx[3 * kDen], d_gh[3 * kDen];
   const int c = blockIdx.x;
   const int t = threadIdx.x;
   const bool noise_row = t < kNoiseRows;
-  const bool vad_row = t >= kVadRow0 && t < kVadRow0 + 3 * kVad;
-  const int vj = t - kVadRow0;
+  const bool vad_u_row = t >= kVadURow0 && t < kVadURow0 + 3 * kVad;
+  const bool noise_u_row = t >= kNoiseURow0;
+  const bool vad_gate = t >= kVadGate0 && t < kVadGate0 + kVad;
+  const bool noise_gate = t >= kNoiseGate0 && t < kNoiseGate0 + kNoise;
+  const bool gain_row = t >= kGain0 && t < kGain0 + kGainParts * kBands;
+  const int vj = t - kVadGate0;  // the VAD unit of a vad_gate thread
 
   // the prologue: thread t's register column, the shared weights, the states
-  float wr[kRegRows];
+  float wr[kDen];
 #pragma unroll
   for (int i = 0; i < kDen; ++i) wr[i] = __ldg(w.p[kDenU] + i * 3 * kDen + t);
   stage_groups(sm + kSmUv, w.p[kVadU], kVad, 3 * kVad);
@@ -333,79 +352,114 @@ rnnoise_gru_kernel(const float* __restrict__ X, const uint8_t* __restrict__ sile
   if (t < kNoise) noise_h[t] = h_noise0[c * kNoise + t];
   if (t < kDen) den_h[t] = h_den0[c * kDen + t];
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  // the VAD and noise GRUs' recurrent products of the states in; later, of
+  // each frame's new states, under the denoise GRU's update (stage e)
+  if (vad_u_row)
+    v_gh[t - kVadURow0] = dot_shared<kVad>(vad_h, sm + kSmUv, 3 * kVad, t - kVadURow0);
+  if (noise_u_row)
+    n_gh[t - kNoiseURow0] = dot_shared<kNoise>(noise_h, sm + kSmUn, 3 * kNoise, t - kNoiseURow0);
   // the hoisted products: written by the grid launched before this one,
   // which this prologue overlaps (programmatic dependent launch)
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 
-  // frame 0's hoisted values and flag; later, frame k + 1's while k runs
-  const float* xr = X + (size_t)c * kX;
-  float xd = __ldg(xr + kXd + t);
-  float xn = noise_row ? __ldg(xr + kXn + t) : 0.0f;
-  float xv = vad_row ? __ldg(xr + kXv + vj) : 0.0f;
+  // frame 0's Xn and Xv rows (a VAD unit's z, r and h~) and flag; later,
+  // frame k + 1's while k runs (Xd is read at the top of its frame)
+  const float* x0 = X + (size_t)c * kX;
+  float xn = noise_row ? __ldg(x0 + kXn + t) : 0.0f;
+  float xvz = 0.0f, xvr = 0.0f, xvh = 0.0f;
+  if (vad_gate) {
+    xvz = __ldg(x0 + kXv + vj);
+    xvr = __ldg(x0 + kXv + kVad + vj);
+    xvh = __ldg(x0 + kXv + 2 * kVad + vj);
+  }
   bool silent = silence[c] != 0;
   int pending = -1;  // the frame and channel whose gains wait on den_h
   __syncthreads();
 
+  // Five stages a frame, each ending at a barrier; on the chain: the VAD
+  // GRU's update (a), the noise GRU's input product (b), its update (c),
+  // the denoise GRU's input product of noise_h (d) and its update (e).  The
+  // rest runs beside them on other warps.
   for (int k = 0; k < K; ++k) {
     const int kc = k * C + c;
-    float nxd = 0.0f, nxn = 0.0f, nxv = 0.0f;
+    const float* xk = X + (size_t)kc * kX;
+    float nxn = 0.0f, nxvz = 0.0f, nxvr = 0.0f, nxvh = 0.0f;
     bool nsilent = false;
     if (k + 1 < K) {
-      const float* nr = X + (size_t)(kc + C) * kX;
-      nxd = __ldg(nr + kXd + t);
+      const float* nr = xk + (size_t)C * kX;
       if (noise_row) nxn = __ldg(nr + kXn + t);
-      if (vad_row) nxv = __ldg(nr + kXv + vj);
+      if (vad_gate) {
+        nxvz = __ldg(nr + kXv + vj);
+        nxvr = __ldg(nr + kXv + kVad + vj);
+        nxvh = __ldg(nr + kXv + 2 * kVad + vj);
+      }
       nsilent = silence[kc + C] != 0;
     }
     if (silent) {  // the same for every thread of the block
       if (t < kBands) gains[kc * kBands + t] = 1.0f;
       if (t == 0) vads[kc] = 0.0f;
     } else {
-      // 1: the products of the previous states
+      const float xd = __ldg(xk + kXd + t);
+      // a: the VAD GRU (warp 8); den_h @ U_d (warps 0-7); the gains of the
+      //    last frame that ran (den_h is not written again until e)
       float ah[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      dot_regs<kDen>(ah, wr, den_h);
-      if (noise_row) {
-        n_gh[t] = dot_shared<kNoise>(noise_h, sm + kSmUn, 3 * kNoise, t);
-      } else if (vad_row) {
-        v_gh[vj] = dot_shared<kVad>(vad_h, sm + kSmUv, 3 * kVad, vj);
-        v_gx[vj] = xv;
+      if (vad_gate) {
+        vad_h[vj] = gru_update<false>(vad_h[vj], xvz, xvr, xvh, v_gh[vj], v_gh[kVad + vj],
+                                      v_gh[2 * kVad + vj]);
+      } else if (t < kVadGate0) {
+        dot_regs(ah, wr, den_h);
+        if (pending >= 0 && gain_row)
+          band_gains(den_h, sm + kSmWo, w.p[kOutB], gains + pending * kBands, t);
       }
       __syncthreads();
-      // 2: the VAD GRU; the gains of the last frame that ran
-      if (t < kVad) {
-        gru_unit<false>(vad_h, v_gx, v_gh, kVad, t);
-      } else if (pending >= 0 && t >= kGain0 && t < kGain0 + kGainParts * kBands) {
-        band_gains(den_h, sm + kSmWo, w.p[kOutB], gains + pending * kBands, t);
-      }
-      __syncthreads();
-      // 3: vad_h's products in the noise and denoise GRUs
+      // b: vad_h @ noise_gru_w[24:48] + Xn (threads 0-143); vad_h @
+      //    denoise_gru_w[0:24] for the rows of threads 144-287
       float ax[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      dot_shared_acc<kVad>(ax, vad_h, sm + kSmWd, 3 * kDen, t);
-      if (noise_row) n_gx[t] = dot_shared<kVad>(vad_h, sm + kSmWn, 3 * kNoise, t) + xn;
+      if (noise_row) {
+        n_gx[t] = dot_shared<kVad>(vad_h, sm + kSmWn, 3 * kNoise, t) + xn;
+      } else {
+        dot_shared_acc<kVad>(ax, vad_h, sm + kSmWd, 3 * kDen, t);
+      }
       __syncthreads();
-      // 4: the noise GRU; this frame's VAD
-      if (t < kNoise) {
-        gru_unit<true>(noise_h, n_gx, n_gh, kNoise, t);
+      // c: the noise GRU (threads 192-239); vad_h @ denoise_gru_w[0:24] for
+      //    rows 0-143; den_h @ U_d for warp 8; this frame's VAD
+      if (noise_gate) {
+        gru_unit<true>(noise_h, n_gx, n_gh, kNoise, t - kNoiseGate0);
+      } else if (noise_row) {
+        dot_shared_acc<kVad>(ax, vad_h, sm + kSmWd, 3 * kDen, t);
+      } else if (t >= kVadGate0) {
+        dot_regs(ah, wr, den_h);
       } else if (t == kVadHead) {
         vads[kc] = sigmoid(dot_shared<kVad>(vad_h, sm + kSmWvo, 1, 0) + w.p[kVadOutB][0]);
       }
       __syncthreads();
-      // 5: noise_h's product in the denoise GRU, the hoisted term last
+      // d: noise_h @ denoise_gru_w[24:72], the hoisted term last
       dot_shared_acc<kNoise>(ax, noise_h, sm + kSmWd + (kVad / 4) * 3 * kDen * 4, 3 * kDen, t);
       d_gx[t] = sum4(ax) + xd;
       d_gh[t] = sum4(ah);
       __syncthreads();
-      // 6: the denoise GRU
-      if (t < kDen) gru_unit<true>(den_h, d_gx, d_gh, kDen, t);
+      // e: the denoise GRU (warps 0-2); the next frame's vad_h @ U_v and
+      //    noise_h @ U_n (a silent frame changes neither state)
+      if (t < kDen) {
+        gru_unit<true>(den_h, d_gx, d_gh, kDen, t);
+      } else {
+        if (vad_u_row)
+          v_gh[t - kVadURow0] = dot_shared<kVad>(vad_h, sm + kSmUv, 3 * kVad, t - kVadURow0);
+        if (noise_u_row)
+          n_gh[t - kNoiseURow0] =
+              dot_shared<kNoise>(noise_h, sm + kSmUn, 3 * kNoise, t - kNoiseURow0);
+      }
       __syncthreads();
       pending = kc;
     }
-    xd = nxd;
     xn = nxn;
-    xv = nxv;
+    xvz = nxvz;
+    xvr = nxvr;
+    xvh = nxvh;
     silent = nsilent;
   }
-  if (pending >= 0 && t >= kGain0 && t < kGain0 + kGainParts * kBands)
+  if (pending >= 0 && gain_row)
     band_gains(den_h, sm + kSmWo, w.p[kOutB], gains + pending * kBands, t);
   if (t < kVad) h_vad1[c * kVad + t] = vad_h[t];
   if (t < kNoise) h_noise1[c * kNoise + t] = noise_h[t];

@@ -795,9 +795,9 @@ def test_rnnoise_gru_kernel_chained_calls(cuda, kind):
     sil[9] = True
     g1, v1, s1 = gru.rnn_frames(feats[:10].contiguous(), sil[:10].contiguous(), rnn, w)
     g2, v2, s2 = gru.rnn_frames(feats[10:].contiguous(), sil[10:].contiguous(), s1, w)
-    whole = gru.rnn_frames(feats, sil, rnn, w)
+    g, v, s = gru.rnn_frames(feats, sil, rnn, w)
     errs = _r1_errors((torch.cat([g1, g2]), torch.cat([v1, v2]), s2),
-                      tuple(x.cpu() for x in whole[:2]) + (type(rnn)(*(h.cpu() for h in whole[2])),))
+                      (g.cpu(), v.cpu(), type(rnn)(*(h.cpu() for h in s))))
     assert max(errs) <= R1_TOL, errs
 
 
