@@ -1815,7 +1815,8 @@ def rnnoise_kernel(card_line):
 def denoise_pipelines():
     """Phase 4d: the main path (two sources, audiomixer, audiornnoise) over
     RNN_SECONDS with R1's counter set to 0 just before and read just after:
-    one launch per buffer, the exact sample count and PTS, finite output;
+    one R1 call per buffer (the counter counts a call, its two kernel
+    launches once), the exact sample count and PTS, finite output;
     then hrtfrender (a synthetic sphere) and agingradio over 10 s."""
     phase("4d denoising and spatial audio pipelines on the card")
     from gst_plugins_rs_tpu_torch.elements.audiofx.audiornnoise import AudioLevelMeta
@@ -1976,7 +1977,7 @@ def denoise_timing(card_line):
 # The denoiser over 16 mono streams in one call (bench.py's
 # rnnoise_bank16_realtime_x, a jax.vmap of denoise_frames_fast over 16
 # states): the streams are the channels of one denoise_frames_fast call at
-# C = 16, one R1 launch a call, one block a stream
+# C = 16, one R1 call a call, one recurrence block a stream
 RNN_BANK_STREAMS = 16
 RNN_BANK_K = 16            # frames a call: bench.py's K_RN
 RNN_BANK_CALLS = 60        # 4d': 60 calls x 16 frames = 9.6 s of each stream
@@ -2081,8 +2082,8 @@ def rnnoise_bank_kernel(card_line):
 def rnnoise_bank_path(card_line):
     """Phase 4d': the 16-stream denoiser as bench.py drives it, through
     denoise_frames_fast at C = 16 over RNN_BANK_CALLS calls of 16 frames
-    with R1's counter set to 0 just before and read just after: one launch
-    a call, finite output of the right shape; then one call timed (CUDA
+    with R1's counter set to 0 just before and read just after: one R1
+    call a call, finite output of the right shape; then one call timed (CUDA
     events behind a spin) as bench.py's realtime-x of the bank."""
     phase("4d' the denoiser over 16 streams (denoise_frames_fast at C = 16) on the card")
     from gst_plugins_rs_tpu_torch.ops import rnnoise as rn

@@ -757,8 +757,8 @@ def test_rnnoise_gru_kernel_edge_cases(cuda, case, kind):
     (phase 3d''s rule).  Where the plain version is itself more than R1_TOL /
     2 from float64, two f32 versions as close to it as the plain one can
     disagree by more than R1_TOL (the 100 packaged frames of one channel:
-    the kernel 6.8e-6 and the plain version 6.7e-6 from float64, on opposite
-    sides); there the float64 rule alone holds the kernel."""
+    the kernel and the plain version sit on opposite sides of float64);
+    there the float64 rule alone holds the kernel."""
     from gst_plugins_rs_tpu_torch.ops import rnnoise as rn
     from gst_plugins_rs_tpu_torch.ops import rnnoise_gru as gru
 
