@@ -1128,19 +1128,30 @@ def mxu_timing(card_line, grade):
               + f" [{card_line}]")
 
 
+def device_events(run, sessions: int = 3):
+    """(key averages, device events) of one call of `run` under
+    torch.profiler.  Now and then a profiling session hands back no device
+    activity at all: `run` is then profiled again, up to `sessions` times,
+    and only a session with device events counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        avgs = prof.key_averages()
+        events = [e for e in avgs if str(e.device_type).endswith("CUDA")]
+        if events:
+            return avgs, events
+    raise AssertionError(f"torch.profiler recorded no device events in {sessions} sessions")
+
+
 def profile_device(run, top: int = 6):
     """(device ms, host-to-device copy ms, [(op, device ms)] of the `top`
     largest) over one call of `run` under torch.profiler: the sum of the
     device events' own times, which is busy time as long as one stream runs
     at a time, without the host-to-device copies."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    if not events:
-        raise AssertionError("torch.profiler recorded no device events")
+    _, events = device_events(run)
     uploads = [e for e in events if e.key.startswith("Memcpy HtoD")]
     events = sorted((e for e in events if e not in uploads),
                     key=lambda e: -e.self_device_time_total)
@@ -1528,7 +1539,6 @@ def audio_timing(card_line):
     same for ebur128level and rsaudioecho at 48 kHz."""
     phase("6c audio timing")
     import gst_plugins_rs_tpu_torch as g
-    from torch.profiler import ProfilerActivity, profile
 
     def run(launch):
         p = g.parse_launch(launch)
@@ -1552,11 +1562,7 @@ def audio_timing(card_line):
         run(make(AUDIO_SECONDS * 10))
         secs = time.perf_counter() - t0
         n_prof = 60  # 6 s, 60 frames of 100 ms
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run(make(n_prof))
-        events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-        if not events:
-            raise AssertionError("torch.profiler recorded no device events")
+        _, events = device_events(lambda: run(make(n_prof)))
         busy = sum(e.self_device_time_total for e in events) / 1e3
         kernels = sum(e.count for e in events if not e.key.startswith("Memcpy"))
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
@@ -1936,7 +1942,6 @@ def denoise_timing(card_line):
     (after a warm-up run), device busy time, device ops per 100 ms of audio
     and the top device ops (torch.profiler over 6 s)."""
     phase("6d denoising and spatial audio timing")
-    from torch.profiler import ProfilerActivity, profile
 
     sphere = {"h": {"hrir-raw": hrir_sphere()}}
     rows = {}
@@ -1952,12 +1957,7 @@ def denoise_timing(card_line):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         n_prof = 60  # 100 ms buffers in 6 s
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _play(make(n_prof // 10), props)
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-        if not events:
-            raise AssertionError("torch.profiler recorded no device events")
+        _, events = device_events(lambda: _play(make(n_prof // 10), props))
         busy = sum(e.self_device_time_total for e in events) / 1e3
         ops = sum(e.count for e in events if not e.key.startswith("Memcpy"))
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
@@ -3033,15 +3033,7 @@ def bank_timing(card_line):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     rate = BANK_STREAMS * BANK_SECONDS / secs
-    from torch.profiler import ProfilerActivity, profile
-
-    p, _ = bank_pipeline(BANK_PROFILE_SECONDS)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        p.play_until_eos()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    if not events:
-        raise AssertionError("torch.profiler recorded no device events")
+    _, events = device_events(lambda: bank_pipeline(BANK_PROFILE_SECONDS)[0].play_until_eos())
     ticks = 1 + (BANK_PROFILE_SECONDS * 10 - 30) + 29
     busy = sum(e.self_device_time_total for e in events) / 1e3
     ops = sum(e.count for e in events if not e.key.startswith("Memcpy"))
@@ -3218,15 +3210,7 @@ def fuse_card_vs_cpu(grade):
 def _profile_counts(run):
     """(device busy ms, device ops, host launch calls by name) over one call
     of `run` under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    dev = [e for e in avgs if str(e.device_type).endswith("CUDA")]
-    if not dev:
-        raise AssertionError("torch.profiler recorded no device events")
+    avgs, dev = device_events(run)
     host = {e.key: e.count for e in avgs if e.key in HOST_LAUNCH_CALLS}
     return (sum(e.self_device_time_total for e in dev) / 1e3, sum(e.count for e in dev), host)
 
