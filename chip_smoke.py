@@ -67,7 +67,8 @@ model-name=demucs in 1 s segments (four stems each, the parameter count),
 demucs-lite with the packaged weights (an 80 Hz sine routes to src_bass);
 one full-width segment card against CPU; seconds of audio per second and
 device ms a segment.  3g/4g/5g/6g speech transcription: T1 (asr-lite's BiGRU
-recurrence) against its plain version at T = 500; 30 s of synthesised
+recurrence) against its plain version at T = 500, at T = 1, 2 and 50, with
+saturated gates and on the six chunks in one call; 30 s of synthesised
 speech through appsrc ! whispertranscriber chunk-duration=5 s (T1 launches =
 2 x chunks, every chunk's words); card against CPU (transcripts, logits);
 seconds of audio per second and device ms a chunk.  4i/5i hand detection:
@@ -2539,12 +2540,15 @@ T1_TOL = 1e-5          # T1 vs plain: |d| / (1 + |ref|) on the hidden states
 ASR_LOGIT_TOL = 1e-4   # the model's logits, card vs CPU
 ASR_HIDDEN = 96
 ASR_T = 500            # frames of a padded 5 s chunk
-# an estimate, not a measurement, of T1's serial chain a step: the z/r dot
-# product (96 terms in four partial sums: 24 dependent FMAs of 4 cycles plus
-# ~30 cycles of shared loads), a sigmoid (~40), a barrier (~20), the
-# candidate's dot product with its r*h products (~130), a tanh (~40), the
-# blend and a barrier (~40); printed beside the kernel's time only
-T1_STEP_CYCLES = 96 + 30 + 40 + 20 + 130 + 40 + 40
+# an estimate, not a measurement, of T1's floor a step (the csrc/asr_gru.cu
+# header's reckoning): for the r rows and again for the candidate rows, the
+# first shared load after the hand-off (~30 cycles), 96 FMAs a lane (one
+# warp a sub-partition), one shuffle and add (~30) and the gate (~40); the
+# two hand-offs through shared memory and a named barrier (~40 each) and the
+# blend and store (~20); printed beside the measured cycles a step only
+T1_STEP_CYCLES = 2 * (30 + 96 + 30 + 40) + 2 * 40 + 20
+T1_EDGE_T = (1, 2, 50)  # utterances shorter than the X ring, and the shortest bucket
+T1_SATURATE = 20.0      # layer inputs scaled so the gates sit at 0 or 1
 
 
 def speech_chunks():
@@ -2592,8 +2596,9 @@ def asr_kernel(card_line):
     """Phase 3g: T1 against its plain version (a step loop of torch ops on the
     card) for both layers and both directions at T = 500, on the log-mel
     features of the path's first chunk (layer 1 on the plain layer 0's
-    states) and on seeded random ones; then timed beside its bounds and its
-    serial-chain estimate."""
+    states) and on seeded random ones, then on the edge cases of
+    _asr_kernel_edges; then timed beside its bounds and the cycles a step
+    beside its reckoned floor."""
     phase("3g speech: the BiGRU kernel T1 against its plain version")
     from gst_plugins_rs_tpu_torch.ops import asr, asr_gru
 
@@ -2621,6 +2626,7 @@ def asr_kernel(card_line):
                 raise AssertionError(f"T1 against its plain version, {label} layer {layer}")
             inputs[label, layer] = (X, U)
             x = torch.cat([ref[:, 0], ref[:, 1]], -1)
+    max_err = max(max_err, _asr_kernel_edges(feats[None], w))
     X, U = inputs["log-mel", 0]
     ms = cuda_ms(lambda: asr_gru.bigru(X, U))
     plain_ms = cuda_ms(lambda: asr_gru.bigru_plain(X, U), iters=3, warmup=1)
@@ -2635,11 +2641,52 @@ def asr_kernel(card_line):
           f"the card) {plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {flop} "
           f"f32 operations); no library call computes it (cuDNN's GRU applies r after the "
           f"product) [{card_line}]")
-    print(f"T1 serial chain, estimated: {chain_ms:.4f} ms ({ASR_T} steps x ~{T1_STEP_CYCLES} "
-          f"cycles at the max SM clock)")
+    print(f"T1 {ms * 1e-3 * _sm_clock_hz() / ASR_T:.0f} cycles a step measured at the max SM clock; "
+          f"floor estimated ~{T1_STEP_CYCLES} cycles a step, {chain_ms:.4f} ms ({ASR_T} steps) "
+          f"[{card_line}]")
     return dict(case=f"one layer of a 5 s chunk, T = {ASR_T}, both directions", ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
                 library_ms=None, flop=flop, bytes=nbytes)
+
+
+def _asr_kernel_edges(x, w):
+    """T1's edge cases against its plain version, one launch a call: both
+    layers at T = 1, 2 and 50 (the first frames of x [1, T, 40]) and with
+    saturated gates at T = 500, and the six speech chunks in one call (each
+    row equal to its call alone).  Returns the largest error."""
+    from gst_plugins_rs_tpu_torch.ops import asr, asr_gru
+
+    def check(label, X, U):
+        before = asr_gru.launches
+        got = asr_gru.bigru(X, U)
+        torch.cuda.synchronize()
+        if asr_gru.launches != before + 1:
+            raise AssertionError(f"T1 {label}: {asr_gru.launches - before} launches, not 1")
+        ref = asr_gru.bigru_plain(X, U)
+        err = float(((got - ref).abs() / (1 + ref.abs())).max())
+        print(f"T1 {label}: max error {err:.3e} (gate {T1_TOL})")
+        if err > T1_TOL or not torch.isfinite(got).all():
+            raise AssertionError(f"T1 against its plain version, {label}")
+        return got, ref, err
+
+    max_err = 0.0
+    for label, xs, scale in [(f"T = {n}", x[:, :n], 1.0) for n in T1_EDGE_T] + [
+            (f"saturated gates (inputs x{T1_SATURATE:g}), T = {x.shape[1]}", x, T1_SATURATE)]:
+        for layer in range(2):
+            Wx, b, U = asr.layer_mats(w, layer)
+            _, ref, err = check(f"{label}, layer {layer}",
+                                asr.input_projections(scale * xs, Wx, b), U)
+            max_err = max(max_err, err)
+            xs = torch.cat([ref[:, 0], ref[:, 1]], -1)
+    Wx, b, U = asr.layer_mats(w, 0)
+    six = torch.stack([asr.padded_features(torch.from_numpy(a).to(x.device))[0]
+                       for a, _ in speech_chunks()])
+    X = asr.input_projections(six, Wx, b)
+    got, _, err = check(f"the {len(six)} speech chunks in one call, layer 0", X, U)
+    if not all(torch.equal(got[i:i + 1], asr_gru.bigru(X[i:i + 1].contiguous(), U))
+               for i in range(len(six))):
+        raise AssertionError("T1: a chunk of the batched call differs from its call alone")
+    return max(max_err, err)
 
 
 def speech_pipeline():

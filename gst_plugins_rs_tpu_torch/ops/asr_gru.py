@@ -18,10 +18,12 @@ there).
 
 For CUDA tensors it launches the kernel (counted in `launches`) or raises;
 for CPU tensors it runs `bigru_plain`, a step loop of torch ops that
-computes the JAX cell.  The kernel takes expf/tanhf and sums each dot
-product in four partial sums, so the two agree to float rounding, within
-1e-5 of 1 + |ref| (tests/test_torch_kernels_cuda.py; chip_smoke.py phase
-3g).
+computes the JAX cell.  The kernel holds U in registers, sums each row in
+two lanes' parts of 48 terms and takes its gates from the MUFU's ex2 and
+rcp approximations, so the two agree to float rounding, within 1e-5 of
+1 + |ref| (tests/test_torch_kernels_cuda.py; chip_smoke.py phase 3g);
+tests/test_torch_asr_split.py models the kernel's summation order on the
+CPU.
 """
 from __future__ import annotations
 
@@ -89,6 +91,8 @@ def bigru(X: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"bigru: unsupported device {dev}")
     X, U = X.contiguous(), U.contiguous()
+    if X.data_ptr() % 16:  # the kernel copies X in 16-byte pieces
+        X = X.clone()
     B, _, T, _ = X.shape
     out = torch.empty((B, 2, T, HIDDEN), dtype=torch.float32, device=dev)
     lib = _lib()

@@ -1040,6 +1040,88 @@ def test_asr_gru_kernel_rejects_bad_operands(cuda):
     assert asr_gru.launches == before
 
 
+def _t1_err(got, ref):
+    return float(((got - ref).abs() / (1 + ref.abs())).max())
+
+
+def _t1_layer_inputs(x, layer, cuda):
+    """(X, U) of one layer of the packaged model on layer inputs x [B, T, D]."""
+    from gst_plugins_rs_tpu_torch.ops import asr
+
+    Wx, b, U = asr.layer_mats(asr.load_weights(dev=cuda), layer)
+    return asr.input_projections(x, Wx, b), U
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2, 50])
+def test_asr_gru_kernel_short_utterances(cuda, T):
+    """The ring of X prefetched kDepth - 1 steps ahead, on utterances shorter
+    than it (T = 1, 2) and on the shortest bucket: both layers within
+    T1_TOL, one launch a call."""
+    from gst_plugins_rs_tpu_torch.ops import asr_gru
+
+    _, x = _asr_inputs("speech", cuda)
+    x = x[:, :T]
+    for layer in range(2):
+        X, U = _t1_layer_inputs(x, layer, cuda)
+        before = asr_gru.launches
+        got = asr_gru.bigru(X, U)
+        torch.cuda.synchronize()
+        assert asr_gru.launches == before + 1
+        ref = asr_gru.bigru_plain(X, U)
+        assert got.shape == (1, 2, T, 96) and torch.isfinite(got).all()
+        assert _t1_err(got, ref) <= T1_TOL, (layer, _t1_err(got, ref))
+        x = torch.cat([ref[:, 0], ref[:, 1]], -1)
+
+
+@pytest.mark.cuda
+def test_asr_gru_kernel_six_utterances(cuda):
+    """B = 6 at T = 500 (six chunks in one call): each utterance equal to
+    its call alone, all within T1_TOL of the plain version, one launch."""
+    from gst_plugins_rs_tpu_torch.ops import asr_gru
+
+    x = torch.from_numpy(np.random.RandomState(6).randn(6, 500, 40).astype(np.float32)).to(cuda)
+    X, U = _t1_layer_inputs(x, 0, cuda)
+    before = asr_gru.launches
+    six = asr_gru.bigru(X, U)
+    torch.cuda.synchronize()
+    assert asr_gru.launches == before + 1
+    assert _t1_err(six, asr_gru.bigru_plain(X, U)) <= T1_TOL
+    for i in range(6):
+        assert torch.equal(six[i:i + 1], asr_gru.bigru(X[i:i + 1].contiguous(), U))
+
+
+@pytest.mark.cuda
+def test_asr_gru_kernel_saturated_gates(cuda):
+    """Layer inputs 20x: the gates at 0 or 1 and the candidate at +-1, where
+    the MUFU's ex2 over- and underflows; both layers within T1_TOL."""
+    from gst_plugins_rs_tpu_torch.ops import asr_gru
+
+    _, x = _asr_inputs("speech", cuda)
+    for layer in range(2):
+        X, U = _t1_layer_inputs(20.0 * x, layer, cuda)
+        got = asr_gru.bigru(X, U)
+        torch.cuda.synchronize()
+        ref = asr_gru.bigru_plain(X, U)
+        assert torch.isfinite(got).all() and _t1_err(got, ref) <= T1_TOL, layer
+        x = torch.cat([ref[:, 0], ref[:, 1]], -1)
+
+
+@pytest.mark.cuda
+def test_asr_gru_kernel_unaligned_input(cuda):
+    """X contiguous but 4 bytes past a 16-byte boundary (the kernel copies
+    X in 16-byte pieces): the same states as an aligned copy."""
+    from gst_plugins_rs_tpu_torch.ops import asr_gru
+
+    _, x = _asr_inputs("random", cuda)
+    X, U = _t1_layer_inputs(x[:, :60], 0, cuda)
+    buf = torch.empty(X.numel() + 1, device=cuda)
+    shifted = buf[1:].view(X.shape)
+    shifted.copy_(X)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    assert torch.equal(asr_gru.bigru(shifted, U), asr_gru.bigru(X, U))
+
+
 @pytest.mark.cuda
 def test_transcribe_card_vs_cpu(cuda):
     """The packaged model on a command: the same transcript on the card (T1)
