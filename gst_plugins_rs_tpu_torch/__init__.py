@@ -34,4 +34,11 @@ from .core import (  # noqa: F401
     parse_caps,
     parse_launch,
 )
-from ._device import device, no_tf32, requested_device, set_device  # noqa: F401
+from ._device import (  # noqa: F401
+    device,
+    no_tf32,
+    requested_device,
+    set_device,
+    set_virtual_devices,
+    visible_devices,
+)

@@ -4,15 +4,23 @@ Entry points (sources that put frames on the device, inference elements)
 run on CUDA unless the caller asked for the CPU with `set_device("cpu")`.
 With no CUDA device and no such request, `device()` raises: the port never
 carries on quietly on the CPU.
+
+`visible_devices()` lists the devices a mesh spans (parallel/mesh.py): every
+CUDA device, or the one CPU device when the caller asked for the CPU.
+`set_virtual_devices(n)` makes it list n logical devices that cycle over the
+real ones, the counterpart of XLA's
+`--xla_force_host_platform_device_count`: 8 shards on the CPU in the tests,
+4 shards on one card in chip_smoke.py.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
 _requested: Optional[str] = None
+_virtual: Optional[int] = None
 
 
 def set_device(name: Optional[str]) -> None:
@@ -39,6 +47,27 @@ def device() -> torch.device:
     return torch.device(_requested or "cuda")
 
 
+def set_virtual_devices(n: Optional[int]) -> None:
+    """Let `visible_devices()` list n logical devices cycling over the real
+    ones (None: the real devices themselves)."""
+    global _virtual
+    if n is not None and int(n) < 1:
+        raise ValueError(f"virtual device count must be >= 1, got {n}")
+    _virtual = None if n is None else int(n)
+
+
+def visible_devices() -> List[torch.device]:
+    """The devices a mesh spans: every CUDA device, or the CPU when the
+    caller asked for it; with `set_virtual_devices(n)`, n entries cycling
+    over those."""
+    dev = device()
+    real = ([dev] if dev.type == "cpu"
+            else [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    if _virtual is None:
+        return real
+    return [real[i % len(real)] for i in range(_virtual)]
+
+
 @contextlib.contextmanager
 def no_tf32():
     """Run float32 convolutions and matmuls in full float32 inside the scope.
@@ -58,4 +87,5 @@ def no_tf32():
         torch.backends.cuda.matmul.allow_tf32 = matmul_flag
 
 
-__all__ = ["device", "no_tf32", "requested_device", "set_device"]
+__all__ = ["device", "no_tf32", "requested_device", "set_device", "set_virtual_devices",
+           "visible_devices"]

@@ -10,13 +10,24 @@ Registered as both `yoloxinference` and the reference's `burn-yoloxinference`.
 The forward pass runs on the device `gst_plugins_rs_tpu_torch.set_device`
 selects (CUDA unless the CPU was requested); the output tensor stays on the
 device in the meta (consumers map it on demand).  On CUDA, engine=fast and
-fast-bf16 run dark2's C3 as the fused kernel (ops/yolox_c3.py); on the CPU
-they run the per-conv form, as the JAX element does.  Without
+fast-bf16 run dark2's C3 as the fused kernel (ops/yolox_c3.py) wherever it
+fits one block's shared memory (all but YOLOX-x in bf16:
+`FastEngine.c3_route`); on the CPU they run the per-conv form, as the JAX
+element does.
+
+`shard=true` builds a mesh of every visible device at start
+(parallel/mesh.py).  shard-mode=data: an analytics-batch window is padded
+to a multiple of the mesh, split over the shards, run by one engine per
+distinct device (B1 once a shard on CUDA), and the padded rows are
+discarded.  shard-mode=tensor: the reference-shaped graph with every conv's
+output channels sharded over the mesh (parallel/modelparallel.py), float32,
+as the JAX element's tensor mode runs it.  Without
 `weights-path`, weights come from flax's default initialisers drawn from a
 torch.Generator seeded 0, which cannot reproduce jax.random.PRNGKey(0).
 """
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import torch
@@ -31,7 +42,7 @@ from ...core import (
     register,
     video_caps_template,
 )
-from ..._device import device, no_tf32
+from ..._device import device, no_tf32, visible_devices
 from ...models.yolox import Yolox, init_weights, load_torch_weights
 from ...models.yolox_fast import FastEngine
 from .meta import Tensor, TensorDataType, TensorDimOrder, TensorMeta
@@ -91,15 +102,16 @@ class YoloxInference(VideoFilter):
                  "tests/test_torch_yolox.py); reference = the "
                  "reference-shaped graph (models/yolox.py)"),
         Prop("shard", False, type="bool", mutable="ready",
-             doc="shard the batch axis of analytics-batch input over all "
-                 "visible devices; not ported yet (ROADMAP queue A, item 6: "
-                 "the parallel layer) and raises NotImplementedError"),
+             doc="shard the batch axis of analytics-batch input over a "
+                 "jax.sharding.Mesh of all visible devices (one forward "
+                 "pass per combiner window, streams data-parallel over "
+                 "the mesh)"),
         Prop("shard-mode", "data", type="enum", choices=["data", "tensor"],
              mutable="ready",
              doc="with shard=true: 'data' = streams/batch data-parallel "
                  "over the mesh; 'tensor' = ONE forward model-parallel — "
-                 "every conv's output channels sharded over the mesh "
-                 "(SURVEY §2.3 'shard model "
+                 "every conv's output channels pjit-sharded over the mesh "
+                 "(parallel/modelparallel.py; SURVEY §2.3 'shard model "
                  "across TPU mesh with pjit if needed (YOLOX-X)'). Tensor "
                  "mode pays per-layer all-gathers; prefer data mode unless "
                  "single-image latency dominates (PERF_NOTES)"),
@@ -111,20 +123,27 @@ class YoloxInference(VideoFilter):
         self._apply = None
         self._device: Optional[torch.device] = None
         self._batch_mode = False
+        self._mesh = None
+        self._engines = None
 
     def start(self) -> None:
-        if self.get_property("shard"):
-            raise NotImplementedError(
-                "yoloxinference shard=true: the parallel layer is not ported "
-                "yet (ROADMAP queue A, item 6)")
         self._device = device()
         self._model = Yolox.from_variant(self.get_property("model-type"),
                                          self.get_property("num-classes"))
         self._apply = None  # built at the first frame
+        self._engines = None
+        self._mesh = None
+        if self.get_property("shard"):
+            from ...parallel.mesh import Mesh
+
+            axis = "tp" if self.get_property("shard-mode") == "tensor" else "batch"
+            self._mesh = Mesh(visible_devices(), (axis,))
 
     def stop(self) -> None:
         self._model = None
         self._apply = None
+        self._engines = None
+        self._mesh = None
 
     def set_caps(self, incaps: Caps, outcaps: Caps) -> None:
         # analytics-batch input: per-stream video info comes from each
@@ -144,31 +163,62 @@ class YoloxInference(VideoFilter):
         path = self.get_property("weights-path")
         if path:
             load_torch_weights(path, model)
-        model.to(self._device)
+        if self._mesh is not None and "tp" in self._mesh.shape:
+            # tensor parallelism: conv output channels sharded over the mesh
+            from ...parallel.modelparallel import shard_yolox_variables, tp_forward
+
+            self._apply = tp_forward(
+                model, shard_yolox_variables(model.state_dict(), self._mesh), self._mesh)
+            return
+        self._apply = self._build(model, self._device)
+        if self._mesh is not None:
+            from ...parallel.mesh import canonical
+            from ...parallel.streams import per_device
+
+            # data parallelism: one engine per distinct device of the mesh
+            home = canonical(self._device)
+            self._engines = per_device(
+                lambda d: self._apply if d == home else self._build(copy.deepcopy(model), d))
+
+    def _build(self, model: Yolox, dev: torch.device):
+        """The forward of the chosen engine, with model's weights on dev."""
+        model.to(dev)
         dtype = (torch.bfloat16 if self.get_property("precision") == "bf16"
                  else torch.float32)
         engine = self.get_property("engine")
         if engine in ("fast", "fast-bf16"):
             # BN folding and the s2d kernels are built once, here
             s2d_dtype = torch.bfloat16 if engine == "fast-bf16" else None
-            self._apply = FastEngine(model, model.state_dict(), dtype=dtype,
-                                     s2d_dtype=s2d_dtype,
-                                     fuse_c3=self._device.type == "cuda",
-                                     device=self._device)
-        elif dtype == torch.bfloat16:
+            return FastEngine(model, model.state_dict(), dtype=dtype, s2d_dtype=s2d_dtype,
+                              fuse_c3=dev.type == "cuda", device=dev)
+        if dtype == torch.bfloat16:
             model.to(torch.bfloat16)
 
             def run(img):
                 with torch.no_grad():
                     return model(img.to(torch.bfloat16)).to(torch.float32)
 
-            self._apply = run
-        else:
-            def run(img):
-                with torch.no_grad(), no_tf32():
-                    return model(img)
+            return run
 
-            self._apply = run
+        def run(img):
+            with torch.no_grad(), no_tf32():
+                return model(img)
+
+        return run
+
+    def _forward_batch(self, batch):
+        """One forward over a window's frames [N, H, W, 3]; data-parallel
+        over the mesh in shard-mode=data (the batch padded to a multiple of
+        the mesh, the padded rows discarded)."""
+        if self._engines is None:
+            return self._apply(batch)
+        from ...parallel.mesh import gather, shard
+
+        n, S = batch.shape[0], self._mesh.size
+        if n % S:
+            batch = torch.cat([batch, batch.new_zeros((S - n % S,) + tuple(batch.shape[1:]))])
+        outs = [self._engines(p.device)(p) for p in shard(batch, self._mesh)]
+        return gather(outs, device=batch.device)[:n]
 
     def _transform_batch(self, buf: Buffer) -> Buffer:
         """analytics-batch input: ONE forward pass over every frame in the
@@ -202,7 +252,7 @@ class YoloxInference(VideoFilter):
         if not frames:
             return buf
         self._ensure_model()
-        out = self._apply(torch.stack(frames))  # [N, H, W, 3] u8
+        out = self._forward_batch(torch.stack(frames))  # [N, H, W, 3] u8
         boxes, cols = int(out.shape[1]), int(out.shape[2])
         for i, inner in enumerate(owners):
             inner.add_meta(TensorMeta([

@@ -10,8 +10,17 @@ Caps: F64 or F32 interleaved at 192 kHz.  The stream's tensors live on the
 selected device (CUDA unless `set_device("cpu")`); F64 runs in float64.
 Every frame is one `ops/loudnorm.py` step, one limiter launch on CUDA (the
 final drain runs 29 steps, or 30 when a partial frame is left).  The JAX
-element scans 64/16/4/1 frames a dispatch instead.  `time-shard=true` is
-not ported yet: it raises NotImplementedError when the element starts.
+element scans 64/16/4/1 frames a dispatch instead.
+
+`time-shard=true` shards the time axis over a mesh of every visible device
+(`make_stream_mesh(axis="time")`; parallel/mesh.py, parallel/timeshard.py).
+streaming: chunks of mesh size x _TS_FRAMES_PER_DEV frames; phase A is the
+sharded input analysis, phase B `inner_frames_scan_pre` (one limiter launch
+a frame), after which the sharded filter's exit state is handed back; the
+first frame, the frames left at a drain and the final drain run the
+default path.  linear: the whole stream is buffered and normalised by
+`sharded_loudnorm_linear` at EOS, with one WARNING bus message once 3 s of
+input have arrived.
 """
 from __future__ import annotations
 
@@ -29,6 +38,8 @@ from ...core import (
     Event,
     EventType,
     FlowReturn,
+    Message,
+    MessageType,
     Pad,
     PadDirection,
     PadPresence,
@@ -37,6 +48,7 @@ from ...core import (
     Query,
     QueryType,
     SECOND,
+    Structure,
     audio_caps_template,
     register,
 )
@@ -79,15 +91,36 @@ class AudioLoudNorm(Element):
         Prop("offset", 0.0, minimum=-99.0, maximum=99.0, mutable="ready",
              doc="Offset Gain in LU"),
         Prop("time-shard", False, type="bool", mutable="ready",
-             doc="shard the time axis across every visible device; not ported "
-                 "yet (ROADMAP queue A, item 6: the parallel layer) and raises "
-                 "NotImplementedError when the element starts"),
+             doc="SP mode (SURVEY §2.3): shard the time axis across every "
+                 "visible device.  See time-shard-mode for semantics."),
         Prop("time-shard-mode", "streaming", type="enum",
              choices=["streaming", "linear"], mutable="ready",
-             doc="with time-shard=true: streaming (the same output as "
-                 "time-shard=false) or linear (one whole-stream gain); not "
-                 "ported yet"),
+             doc="streaming (default): SAME OUTPUT as time-shard=false — "
+                 "input is processed in bounded chunks; each chunk's "
+                 "K-weighting/energy/peak analysis runs parallel across "
+                 "the mesh (parallel/timeshard."
+                 "sharded_kweight_frame_analysis: exact blocked-IIR with "
+                 "all_gather state handoff) and the sequential gain/"
+                 "limiter chain scans the precomputed results "
+                 "(ops/loudnorm.inner_frames_scan_pre).  The chain itself "
+                 "cannot be sharded without changing output: frame i's "
+                 "limiter output feeds r128_out which feeds frame i+1's "
+                 "delta (imp.rs:526-608).  Sample-parity on >=6 s streams "
+                 "is test-gated (tests/test_timeshard_streaming.py).  "
+                 "linear: buffer the WHOLE stream and normalize with ONE "
+                 "linear gain (parallel/timeshard.sharded_loudnorm_linear "
+                 "— ppermute halo for the 400 ms gating overlap, psum'd "
+                 "gating histogram).  Semantics = the reference's LINEAR "
+                 "frame type (imp.rs:323-366,781-816) applied to the "
+                 "whole stream: for streams >= 3 s the output DIFFERS "
+                 "from the streaming algorithm and memory grows with "
+                 "stream length — a WARNING bus message is posted when "
+                 "that threshold is crossed."),
     ]
+
+    # streaming time-shard: frames per device per chunk (the memory bound:
+    # a chunk is mesh_size * this * 100 ms of audio)
+    _TS_FRAMES_PER_DEV = 4
 
     def __init__(self, name: Optional[str] = None):
         super().__init__(name)
@@ -101,12 +134,7 @@ class AudioLoudNorm(Element):
         self.sinkpad.event_function = self._sink_event
         self.srcpad.query_function = self._src_query
         self._state: Optional[_State] = None
-
-    def on_ready_to_paused(self) -> None:
-        if self.get_property("time-shard"):
-            raise NotImplementedError(
-                "audioloudnorm time-shard=true: the parallel layer is not ported "
-                "yet (ROADMAP queue A, item 6)")
+        self._ts_linear_warned = False
 
     # ------------------------------------------------------------------
     # Processing
@@ -128,7 +156,7 @@ class AudioLoudNorm(Element):
     def _inner_pts(pts: Optional[int]) -> Optional[int]:
         return None if pts is None else pts + 100 * SECOND // 1000 - 3 * SECOND
 
-    def _drain_full_frames(self) -> None:
+    def _first_frame(self) -> None:
         s = self._state
         if s.frame_type == "first" and s.adapter.available() >= s.samples_per_frame:
             pts = self._adapter_pts()
@@ -136,6 +164,10 @@ class AudioLoudNorm(Element):
             s.frame_type = "inner"
             s.samples_per_frame = LN.FRAME
             self._push_out(out, pts)
+
+    def _drain_full_frames(self) -> None:
+        s = self._state
+        self._first_frame()
         if s.frame_type != "inner":
             return
         while s.adapter.available() >= LN.FRAME:
@@ -143,14 +175,72 @@ class AudioLoudNorm(Element):
             s.dev, out = LN.inner_frame_step(s.dev, s.params, s.take(LN.FRAME))
             self._push_out(out, self._inner_pts(pts))
 
+    def _drain_chunks_streaming_sharded(self) -> None:
+        """Streaming time-shard: whole chunks of M = mesh size x
+        _TS_FRAMES_PER_DEV frames as they accumulate.  Phase A (the input's
+        K-weighting, subblock energies and frame peaks) runs over the mesh;
+        phase B (the sequential gain and limiter chain) runs on the
+        precomputed analysis.  The output equals the default path's; memory
+        is bounded by one chunk and the 3 s backlog."""
+        from ...parallel.mesh import gather
+        from ...parallel.streams import make_stream_mesh
+        from ...parallel.timeshard import sharded_kweight_frame_analysis
+
+        s = self._state
+        self._first_frame()  # the 3 s first frame stays on the default path
+        if s.frame_type != "inner":
+            return
+        mesh = make_stream_mesh(axis="time")
+        m_frames = mesh.shape["time"] * self._TS_FRAMES_PER_DEV
+        while s.adapter.available() >= m_frames * LN.FRAME:
+            pts = self._adapter_pts()
+            src = s.take(m_frames * LN.FRAME)
+            energies, peaks, filt_z = sharded_kweight_frame_analysis(
+                src, s.dev.r128_in.filt_z, s.params, mesh, m_frames, axis="time")
+            s.dev, outs = LN.inner_frames_scan_pre(
+                s.dev, s.params, src.reshape(m_frames, LN.FRAME, -1),
+                gather(energies, device=src.device), gather(peaks, device=src.device))
+            # the sharded filter's exit state, so that the default path (the
+            # frames left at a drain, the final drain) continues exactly
+            s.dev = s.dev._replace(r128_in=s.dev.r128_in._replace(filt_z=filt_z.to(src.device)))
+            self._push_out(outs.reshape(m_frames * LN.FRAME, -1), self._inner_pts(pts))
+
+    def _drain_sharded(self, src, pts: Optional[int]) -> None:
+        """Whole-stream linear normalisation on a time-sharded mesh."""
+        from ...parallel.mesh import gather
+        from ...parallel.streams import make_stream_mesh
+        from ...parallel.timeshard import sharded_loudnorm_linear
+
+        s = self._state
+        n100 = s.params.r128.n100
+        mesh = make_stream_mesh(axis="time")
+        stride = mesh.shape["time"] * n100
+        n = int(src.shape[0])
+        npad = -(-max(n, 1) // stride) * stride
+        xp = torch.zeros((npad, s.info.channels), dtype=s.dtype, device=src.device)
+        xp[:n] = src
+        ys, _gain, _loudness = sharded_loudnorm_linear(xp, s.params, mesh,
+                                                       n_valid_sb=n // n100)
+        self._push_out(gather(ys, device=src.device)[:n], pts)
+
     def _drain(self) -> None:
         """Flush everything buffered (EOS / caps change / discont / segment)."""
         s = self._state
         if s is None:
             return
+        time_shard = self.get_property("time-shard")
+        linear = time_shard and self.get_property("time-shard-mode") == "linear"
+        if time_shard and not linear:
+            # the frames short of a chunk continue on the default path (the
+            # same output), then the final drain below
+            self._drain_full_frames()
         pts = self._adapter_pts()
         avail = s.adapter.available()
         src = s.take(avail) if avail else None
+        if linear:
+            if src is not None:
+                self._drain_sharded(src, pts)
+            return
         if s.frame_type == "inner":
             # the final frames (imp.rs:697-779): the backlog and tail drain
             # through 30 steps, of which 29 frames and the partial input are
@@ -174,6 +264,7 @@ class AudioLoudNorm(Element):
             self._push_out(src * LN.linear_gain_from_global(dev, s.params), pts)
 
     def _reset_state(self) -> None:
+        self._ts_linear_warned = False
         if self._state is not None:
             self._state = _State(self, self._state.info)
 
@@ -186,8 +277,25 @@ class AudioLoudNorm(Element):
         if buf.has_flag(BufferFlags.DISCONT):
             self._drain()
             self._reset_state()
-        self._state.adapter.push(buf)
-        self._drain_full_frames()
+        s = self._state
+        s.adapter.push(buf)
+        if not self.get_property("time-shard"):
+            self._drain_full_frames()
+        elif self.get_property("time-shard-mode") == "streaming":
+            self._drain_chunks_streaming_sharded()
+        elif not self._ts_linear_warned and s.adapter.available() >= LN.GAIN_LOOKAHEAD:
+            # linear whole-stream mode past 3 s: the output diverges from the
+            # streaming algorithm and memory grows with the stream
+            self._ts_linear_warned = True
+            self.post_message(Message(
+                MessageType.WARNING, src=self,
+                structure=Structure(
+                    "audioloudnorm-time-shard-linear",
+                    text="time-shard-mode=linear received >= 3 s of input: "
+                         "output diverges from the streaming algorithm "
+                         "(reference LINEAR frame type applies one whole-"
+                         "stream gain, imp.rs:323-366) and the element "
+                         "buffers the entire stream until EOS")))
         return FlowReturn.OK
 
     def _sink_event(self, pad: Pad, event: Event) -> bool:

@@ -16,9 +16,11 @@ each stream trimmed to 29 frames plus its real samples.  Output PTS = first
 input PTS + k * 100 ms.  EOS goes to every src pad after the drain, and an
 `r128-bank-level` element message is posted then.
 
-`shard=true` (the stream axis over a device mesh) waits for the port's
-torch.distributed layer (ROADMAP queue A, item 6): it raises
-NotImplementedError when the element starts.
+`shard=true` shards the stream axis (state and data) over a mesh of every
+visible device (parallel/streams.py::make_stream_mesh): each shard
+advances its slice of the streams, one L1 launch a shard a tick, and the
+outputs are gathered for the pads.  As in the JAX element, a stream count
+that the mesh does not divide raises ValueError at the first buffer.
 """
 from __future__ import annotations
 
@@ -93,9 +95,7 @@ class LoudnormBank(Element):
     PROPERTIES = [
         Prop("loudness-target", -24.0, type="double", mutable="ready"),
         Prop("shard", False, type="bool", mutable="ready",
-             doc="shard the stream axis over a mesh of all visible devices; not "
-                 "ported yet (ROADMAP queue A, item 6) and raises "
-                 "NotImplementedError when the element starts"),
+             doc="shard the stream axis over a mesh of all visible devices"),
     ]
 
     def __init__(self, name: Optional[str] = None):
@@ -103,13 +103,10 @@ class LoudnormBank(Element):
         self._streams: Dict[str, _Stream] = {}
         self._bank = None
         self._dev = None
+        self._mesh = None
         self._sent_start: Dict[str, bool] = {}
 
     def on_ready_to_paused(self) -> None:
-        if self.get_property("shard"):
-            raise NotImplementedError(
-                "loudnormbank shard=true: the stream mesh waits for the port's "
-                "torch.distributed layer (ROADMAP queue A, item 6)")
         self._dev = device()
 
     # -- pads ---------------------------------------------------------------
@@ -143,11 +140,13 @@ class LoudnormBank(Element):
     def _ensure_bank(self, channels: int) -> None:
         if self._bank is not None:
             return
-        from ...parallel.streams import loudnorm_bank
+        from ...parallel.streams import loudnorm_bank, make_stream_mesh
 
+        if self.get_property("shard"):
+            self._mesh = make_stream_mesh()
         self._bank_channels = channels
         self._bank = loudnorm_bank(
-            len(self._streams), channels=channels,
+            len(self._streams), channels=channels, mesh=self._mesh,
             loudness_target=self.get_property("loudness-target"),
             dtype=torch.float32, dev=self._dev)
 

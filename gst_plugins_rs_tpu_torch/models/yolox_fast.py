@@ -10,6 +10,15 @@ weights.  On CUDA, dark2's C3 runs as one hand-written kernel
 of the original folded convs built here (`_c3_compact_weights`), and the
 kernel works in the normal domain over the s2d activations.
 
+The C3's route is chosen when the engine is built, before any launch, and
+kept in `FastEngine.c3_route`: "fused" (kernel B1) when `fuse_c3` is asked
+for and a tile of B1 fits one block's shared memory by
+`ops/yolox_c3.py::c3_smem_bytes`, the same reckoning that picks the tile
+at every launch; else "per-conv", the s2d conv chain that the JAX package
+runs for every model.  Only YOLOX-x in bf16 (C = 160, h = 80, n = 4: 246,464
+bytes at the smallest tile) takes "per-conv" under `fuse_c3`.  Depthwise
+variants (nano) run the reference graph ("reference").
+
 XLA folded the weights at trace time; eager PyTorch would redo ~40 small
 scatters per frame, so `FastEngine` folds the weights and builds the s2d
 kernels once per weights, and `apply_fast` caches one engine per
@@ -40,8 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from .._device import no_tf32
-from ..ops.yolox_c3 import c3_s2d_fused_compact, s2d, un_s2d
-from .yolox import Yolox, decode, decode_grid, upsample2
+from ..ops.yolox_c3 import c3_s2d_fused_compact, fused_tile, s2d, un_s2d
+from .yolox import Yolox, decode, decode_grid, expand, upsample2
 
 _EPS = 1e-3
 _CL = torch.channels_last
@@ -200,6 +209,19 @@ def _prep(W, b, dtype, device):
             b.to(device=device, dtype=dtype))
 
 
+def c3_route(model: Yolox, s2d_dtype, fuse_c3: bool) -> str:
+    """The route of dark2's C3 (module docstring): "fused", "per-conv" or
+    "reference" (depthwise variants)."""
+    if model.depthwise:
+        return "reference"
+    C = 2 * expand(64, model.width)
+    n = max(round(model.depth * 3), 1)
+    bf16 = s2d_dtype == torch.bfloat16
+    if fuse_c3 and fused_tile(bf16, C, expand(C, 0.5), n) is not None:
+        return "fused"
+    return "per-conv"
+
+
 class FastEngine:
     """The folded, s2d-prepared weights of one model + state, and the
     forward over them.  Build once per weights; call per batch of frames
@@ -216,6 +238,7 @@ class FastEngine:
         self.base_depth = max(round(model.depth * 3), 1)
         self.n_neck = round(3 * model.depth)
         self._grids: Dict[Tuple, Tuple] = {}
+        self.c3_route = c3_route(model, self.s2d_dtype, fuse_c3)
         if model.depthwise:
             # depthwise variants (nano) run the reference graph
             self._state = {k: v.to(self.device) for k, v in state.items()}
@@ -231,7 +254,7 @@ class FastEngine:
         self.stem = _prep(s2d_kernel_s1(W), _tile4(b), sdt, dev)
         W, b = _fold_bn(state, f"{bb}.dark2.conv")
         self.dark2_conv = _prep(s2d_kernel_s2(W), _tile4(b), sdt, dev)
-        if self.fuse_c3:
+        if self.c3_route == "fused":
             w = _c3_compact_weights(state, f"{bb}.dark2.c3", self.base_depth)
             self.c3 = {k: v.to(device=dev, dtype=torch.float32 if k[0] == "b" else sdt).contiguous()
                        for k, v in w.items()}
@@ -307,7 +330,7 @@ class FastEngine:
         y = y.to(self.s2d_dtype)
         y = _conv(y, *self.stem)                       # [B,H/4,W/4,4*bc]
         y = _conv(y, *self.dark2_conv, stride=2)       # [B,H/8,W/8,8*bc]
-        if self.fuse_c3:
+        if self.c3_route == "fused":
             y = c3_s2d_fused_compact(y.contiguous(), **self.c3, width=y.shape[2],
                                      n=self.base_depth)
         else:
@@ -392,5 +415,5 @@ def apply_fast(model: Yolox, state, x, dtype=torch.float32, s2d_dtype=None,
     return hit[2](x)
 
 
-__all__ = ["FastEngine", "apply_fast", "s2d", "un_s2d", "s2d_kernel_s1", "s2d_kernel_s2",
-           "s2d_kernel_1x1"]
+__all__ = ["FastEngine", "apply_fast", "c3_route", "s2d", "un_s2d", "s2d_kernel_s1",
+           "s2d_kernel_s2", "s2d_kernel_1x1"]

@@ -17,9 +17,20 @@ sum_{j<k} AB^(k-1-j) G x_j come from one product with a block-lower-
 triangular matrix of powers of AB (precomputed on the host in f64), so a
 frame costs four matmuls per biquad instead of a loop over blocks.  At 192
 kHz AB's powers decay (|eig| = r^B, ~e^-0.6 a block of 480 for the 38 Hz
-high-pass), so the closed form is well conditioned; it agrees with the JAX
-package's block loop to rounding (tests/test_torch_ebur128.py gates 1e-9
-LU).  Products run in the input's dtype with TF32 off.
+high-pass), but in the direct-form-II-transposed coordinates the high-pass's
+AB is far from normal (entries ~264 for eigenvalues of 0.55): a sum of
+powers of it cancels, and the closed form lost ~3e-8 of the filter state in
+f64 and ~2e-4 of the output in f32.  So the block states run in the basis V
+where A is a scaled rotation (V = [Re v, Im v] of an eigenvector v; for the
+38 Hz high-pass cond(V) ~4e4): u = V^-1 G x, AB' = V^-1 AB V, the output
+reads S0 V, and the exit state is V s'.  That holds the state to ~6e-11 in
+f64 and the output to ~1e-7 in f32 (an f64 lfilter as the yardstick).
+The K-weighting cascade (`k_filter_apply`, and the time-sharded analysis
+of parallel/timeshard.py) runs so; `biquad_apply` keeps the
+direct-form coordinates unless asked (RNNoise's high-pass, held to the JAX
+package's f32 block loop).  It agrees with the JAX package's block loop
+(tests/test_torch_ebur128.py gates 1e-9 LU).  Products run in the input's
+dtype with TF32 off.
 """
 from __future__ import annotations
 
@@ -129,46 +140,73 @@ def _state_mats(AB: np.ndarray, nb: int):
     return M, P.reshape(2 * (nb + 1), 2)
 
 
-def _mats(b, a, block: int, nb: int, dtype, dev):
-    """(T, S0, G, M, Q) as tensors of dtype on dev, cached."""
+def _rotation_basis(a) -> np.ndarray:
+    """V (host f64) with V^-1 A V a scaled rotation (complex poles) or
+    diagonal (real poles), A the biquad's state matrix; the identity when
+    the poles are (nearly) repeated and real."""
+    _, a1, a2 = np.asarray(a, np.float64)
+    w, vecs = np.linalg.eig(np.array([[-a1, 1.0], [-a2, 0.0]]))
+    if abs(w[0].imag) > 0:
+        V = np.stack([vecs[:, 0].real, vecs[:, 0].imag], 1)
+    else:
+        V = vecs.real
+    return V if np.linalg.cond(V) < 1e8 else np.eye(2)
+
+
+def _mats(b, a, block: int, nb: int, dtype, dev, rotation: bool):
+    """(T, S0 V, V^-1 G, M, Q V^-1, V) as tensors of dtype on dev, cached:
+    M and Q of AB' = V^-1 AB V, V the module docstring's basis with
+    `rotation`, else the identity."""
     b = np.asarray(b, np.float64)
     a = np.asarray(a, np.float64)
-    key = (b.tobytes(), a.tobytes(), block, nb, dtype, str(dev))
+    key = (b.tobytes(), a.tobytes(), block, nb, rotation, dtype, str(dev))
     hit = _DEVICE_MATS.get(key)
     if hit is not None:
         return hit
-    hkey = (b.tobytes(), a.tobytes(), block, nb)
+    hkey = (b.tobytes(), a.tobytes(), block, nb, rotation)
     host = _HOST_MATS.get(hkey)
     if host is None:
         T, S0, G, AB = _biquad_block_mats(b, a, block)
-        host = (T, S0, G, *_state_mats(AB, nb))
+        V = _rotation_basis(a) if rotation else np.eye(2)
+        Vi = np.linalg.inv(V)
+        M, Q = _state_mats(Vi @ AB @ V, nb)
+        host = (T, S0 @ V, Vi @ G, M, Q @ Vi, V)
         _HOST_MATS[hkey] = host
     out = tuple(torch.as_tensor(m, dtype=dtype).to(dev) for m in host)
     _DEVICE_MATS[key] = out
     return out
 
 
-def biquad_apply(x, b, a, zi, block_target: int = 512):
+def biquad_apply(x, b, a, zi, block_target: int = 512, rotation: bool = False):
     """One biquad along the leading axis of x [N, ch]; zi [2, ch] is the
-    direct-form-II-transposed state.  Returns (y [N, ch], zf [2, ch])."""
+    direct-form-II-transposed state.  Returns (y [N, ch], zf [2, ch]).
+    rotation: run the block states in the module docstring's basis."""
     N, ch = x.shape
+    if ch == 1:
+        # the CPU's BLAS sums a product of one column's blocks in another
+        # order than one of two or more columns: a lone column runs as two,
+        # so that a mono stream filters the same alone, in a bank and in a
+        # bank's shard (parallel/streams.py)
+        y, zf = biquad_apply(x.expand(N, 2), b, a, zi.expand(2, 2), block_target, rotation)
+        return y[:, :1], zf[:, :1]
     block = _pick_block(N, block_target)
     nb = N // block
-    T, S0, G, M, Q = _mats(b, a, block, nb, x.dtype, x.device)
+    T, S0, G, M, Q, V = _mats(b, a, block, nb, x.dtype, x.device, rotation)
     with no_tf32():
         xc = x.reshape(nb, block, ch).permute(1, 0, 2).reshape(block, nb * ch)
         u = (G @ xc).reshape(2, nb, ch).permute(1, 0, 2).reshape(2 * nb, ch)
         states = (M @ u + Q @ zi).reshape(nb + 1, 2, ch)
         s_in = states[:nb].permute(1, 0, 2).reshape(2, nb * ch)
         y = T @ xc + S0 @ s_in
+        zf = V @ states[nb]
     y = y.reshape(block, nb, ch).permute(1, 0, 2).reshape(N, ch)
-    return y, states[nb]
+    return y, zf
 
 
 def k_filter_apply(x, coeffs_b, coeffs_a, zi):
     """The two-stage K-weighting cascade.  x [N, ch]; zi [2, 2, ch]."""
-    y1, z1 = biquad_apply(x, coeffs_b[0], coeffs_a[0], zi[0])
-    y2, z2 = biquad_apply(y1, coeffs_b[1], coeffs_a[1], zi[1])
+    y1, z1 = biquad_apply(x, coeffs_b[0], coeffs_a[0], zi[0], rotation=True)
+    y2, z2 = biquad_apply(y1, coeffs_b[1], coeffs_a[1], zi[1], rotation=True)
     return y2, torch.stack([z1, z2])
 
 
@@ -355,6 +393,19 @@ def _ingest_subblock_energies(state: R128State, params: R128Params, e) -> R128St
                           block_hist=block_hist, st_hist=st_hist)
 
 
+def r128_ingest_frame(state: R128State, params: R128Params, e, sp) -> R128State:
+    """One 100 ms subblock whose K-weighted energy sum e [...] and sample
+    peak sp [..., ch] were computed ahead (the time-sharded analysis,
+    parallel/timeshard.py): the subblock ring, the gating histograms and
+    the sample peak.  Unlike `r128_add_full_subblocks`, filt_z is left as
+    it is (the sharded filter carries it and hands its exit state back) and
+    the true peak is not updated (loudnorm reads the sample peak only,
+    imp.rs:333-340), as in the JAX package."""
+    state = state._replace(sample_peak=torch.maximum(state.sample_peak, sp),
+                           prev_sample_peak=sp)
+    return _ingest_subblock_energies(state, params, e[..., None])
+
+
 def r128_add_full_subblocks(state: R128State, params: R128Params, x) -> R128State:
     """x [..., B * n100, ch], a whole number of 100 ms subblocks: K-weighting,
     subblock energies, gating histograms, sample and true peaks."""
@@ -382,12 +433,16 @@ def loudness_shortterm(state: R128State, params: R128Params):
     return energy_to_loudness(state.subblocks.sum(-1) / (30.0 * params.n100))
 
 
-def relative_threshold_energy(state: R128State, params: R128Params):
-    total = state.block_hist.sum(-1)
+def _relative_threshold_of(block_hist, params: R128Params):
+    total = block_hist.sum(-1)
     mean_e = torch.where(total > 0,
-                         (state.block_hist * params.energies).sum(-1) / torch.clamp_min(total, 1.0),
+                         (block_hist * params.energies).sum(-1) / torch.clamp_min(total, 1.0),
                          torch.zeros_like(total))
     return mean_e * 0.1
+
+
+def relative_threshold_energy(state: R128State, params: R128Params):
+    return _relative_threshold_of(state.block_hist, params)
 
 
 def _gate_start(boundaries, e):
@@ -400,9 +455,14 @@ def _gate_start(boundaries, e):
 def loudness_global(state: R128State, params: R128Params):
     """Integrated loudness, absolute (-70) and relative (-10 LU) gated, each
     stream on its own histogram."""
-    start = _gate_start(params.boundaries, relative_threshold_energy(state, params))
+    return gated_loudness(state.block_hist, params)
+
+
+def gated_loudness(block_hist, params: R128Params):
+    """Integrated loudness of gated-block histograms [..., HIST_BINS]."""
+    start = _gate_start(params.boundaries, _relative_threshold_of(block_hist, params))
     mask = torch.arange(HIST_BINS, device=start.device) >= start
-    hist = state.block_hist * mask
+    hist = block_hist * mask
     cnt = hist.sum(-1)
     e = (hist * params.energies).sum(-1) / torch.clamp_min(cnt, 1.0)
     return torch.where(cnt > 0, energy_to_loudness(e), torch.full_like(e, -math.inf))
@@ -453,13 +513,22 @@ def r128_init_batched(params: R128Params, channels: int, n: int) -> R128State:
                            for f in R128State._fields if f not in ("sb_count", "st_counter")})
 
 
-def merged_loudness_global(states_batched: R128State, params: R128Params):
+def merged_loudness_global(states_batched, params: R128Params):
     """Integrated loudness of N streams measured as one programme: the
     gated-block histograms summed over the stream axis, then the absolute
     and relative gating once on the merged histogram (the JAX package's
-    `merged_loudness_global`, a psum when its stream axis is sharded)."""
-    merged = states_batched.block_hist.sum(0)
-    return loudness_global(states_batched._replace(block_hist=merged), params)
+    `merged_loudness_global`).  states_batched is one batched R128State, or
+    a list of them, one a shard of a sharded bank (parallel/streams.py):
+    then each shard sums its own streams and the shards' histograms meet in
+    a psum (parallel/mesh.py), the collective of SURVEY.md section 2.3; the
+    gating runs on the result on params' device."""
+    if isinstance(states_batched, list):
+        from ..parallel.mesh import psum
+
+        hist = psum([s.block_hist.sum(0) for s in states_batched])[0]
+    else:
+        hist = states_batched.block_hist.sum(0)
+    return gated_loudness(hist.to(params.energies.device), params)
 
 
 # ---------------------------------------------------------------------------
@@ -543,8 +612,10 @@ class EbuR128:
 __all__ = [
     "MODE_M", "MODE_S", "MODE_I", "MODE_LRA", "MODE_SAMPLE_PEAK", "MODE_TRUE_PEAK",
     "MODE_HISTOGRAM", "EbuR128", "R128Params", "R128State", "biquad_apply",
-    "channel_weights", "energy_to_loudness", "k_filter_apply", "k_weighting_coeffs",
+    "channel_weights", "energy_to_loudness", "gated_loudness", "k_filter_apply",
+    "k_weighting_coeffs",
     "loudness_global", "loudness_momentary", "loudness_range", "loudness_shortterm",
-    "merged_loudness_global", "queries", "r128_add_full_subblocks", "r128_init",
+    "merged_loudness_global", "queries", "r128_add_full_subblocks", "r128_ingest_frame",
+    "r128_init",
     "r128_init_batched", "r128_params", "r128_update_peaks", "relative_threshold_energy",
 ]

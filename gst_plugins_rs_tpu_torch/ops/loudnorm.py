@@ -21,9 +21,9 @@ none for audioloudnorm, [N] for loudnormbank (parallel/streams.py, state
 from `loudnorm_init_batched`; the ring index stays one host int, since a
 bank's streams advance in lockstep).  The limiter then runs the N streams,
 detection included, in one launch
-(ops/loudnorm_limiter.py::limiter_frames).  The JAX module's
-`inner_frames_scan_pre` serves the time-shard path, which waits for the
-mesh layer (ROADMAP queue A, item 6).
+(ops/loudnorm_limiter.py::limiter_frames).  `inner_frames_scan_pre`
+serves audioloudnorm's time-shard path: it runs the frame chain on input
+analysis computed ahead over a device mesh (parallel/timeshard.py).
 """
 from __future__ import annotations
 
@@ -39,6 +39,7 @@ from .ebur128 import (
     loudness_global,
     loudness_shortterm,
     r128_add_full_subblocks,
+    r128_ingest_frame,
     r128_init,
     r128_init_batched,
     r128_params,
@@ -232,6 +233,26 @@ def inner_frame_step(state: LoudnormState, params: LoudnormParams, src):
     return _append_limit_update(state, params, src)
 
 
+def inner_frames_scan_pre(state: LoudnormState, params: LoudnormParams, srcs, energies, peaks):
+    """K inner frames whose r128_in input analysis was computed ahead (the
+    time-sharded streaming mode: parallel/timeshard.py::
+    sharded_kweight_frame_analysis computes a chunk's K-weighted subblock
+    energies and frame peaks across the mesh).  Frame by frame: the ingest
+    of the precomputed energy and peak, the backlog shift, the gain ramp
+    and the limiter (one L1 launch on CUDA), the output analysis and the
+    gain update, as `inner_frame_step` runs them.  srcs [K, FRAME, ch],
+    energies [K], peaks [K, ch]; returns (state, outs [K, FRAME, ch]).
+    r128_in.filt_z is not advanced: the caller hands the sharded filter's
+    exit state back afterwards."""
+    outs = []
+    for k in range(srcs.shape[0]):
+        state = state._replace(r128_in=r128_ingest_frame(state.r128_in, params.r128,
+                                                         energies[k], peaks[k]))
+        state, out = _append_limit_update(state, params, srcs[k])
+        outs.append(out)
+    return state, torch.stack(outs)
+
+
 def final_append_step(state: LoudnormState, params: LoudnormParams, src):
     """One drain step (imp.rs:697-779): src is the zero-padded partial input
     or zeros; r128_in sees no partial subblock."""
@@ -283,6 +304,6 @@ __all__ = [
     "BACKLOG", "DRAIN_FRAMES", "FRAME", "GAIN_LOOKAHEAD", "LIMITER_ATTACK",
     "LIMITER_LOOKAHEAD", "LIMITER_RELEASE", "RATE", "TAIL", "LoudnormParams", "LoudnormState",
     "drain", "final_append_step", "final_frame_step", "first_frame_step", "gaussian_weights",
-    "inner_frame_step", "limit", "linear_gain_from_global", "loudnorm_init",
+    "inner_frame_step", "inner_frames_scan_pre", "limit", "linear_gain_from_global", "loudnorm_init",
     "loudnorm_init_batched", "loudnorm_params",
 ]

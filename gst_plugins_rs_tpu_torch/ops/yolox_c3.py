@@ -33,10 +33,15 @@ pixel (2i+e, 2j+f), channel c, is y[b, i, j, (2e+f)*C + c].
 - `c3_s2d_fused` keeps the TPU kernel's signature and dense operands; it
   reads the compact operands out of them (`compact_from_s2d`, which syncs
   the host) and calls the compact entry.
+- `c3_smem_bytes` reckons a block's shared memory on the host as the
+  library does, and `fused_tile` takes the first tile side that fits: the
+  launch picks its tile by it, and models/yolox_fast.py chooses the C3's
+  route by it when the engine is built (YOLOX-x in bf16 fits no tile).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -205,13 +210,41 @@ def _lib():
     return lib
 
 
-def _pick_tile(lib, bf16: bool, C: int, h: int, n: int) -> int:
-    for ts in _TILES:
-        if lib.yolox_c3_smem_bytes(int(bf16), C, h, n, ts) <= _MAX_SMEM:
-            return ts
-    raise ValueError(
-        f"yolox_c3: C={C}, h={h}, n={n} need more than one block's shared memory "
-        f"({_MAX_SMEM} bytes) even at the smallest tile")
+def _padded(k: int) -> int:
+    """A shared-memory row stride of k bf16 elements: an odd number of
+    16-byte units (csrc/yolox_c3.cu `padded`)."""
+    return k if (k // 8) % 2 else k + 8
+
+
+def c3_smem_bytes(bf16: bool, C: int, h: int, n: int, tile: int) -> int:
+    """Dynamic shared memory of one block of B1, in bytes: the host twin of
+    csrc/yolox_c3.cu's `yolox_c3_smem_bytes` (`Bf16Smem` for bf16, the f32
+    kernel's region and tile buffers otherwise), reckoned without the
+    library so that the engine can choose its route before any build or
+    launch."""
+    S = tile + 2 * n
+    if not bf16:
+        return (2 * S * S + tile * tile) * h * 4
+    ldC, ldh, ld2h = _padded(C), _padded(h), _padded(2 * h)
+    elems = (S * S * max(ldC, ldh) + S * S * ldh + tile * tile * ldh
+             + max(2 * h * ldC, C * ld2h) + 10 * h * ldh)
+    return elems * 2
+
+
+def fused_tile(bf16: bool, C: int, h: int, n: int) -> Optional[int]:
+    """The first tile side of _TILES whose block fits _MAX_SMEM, or None
+    when none does (YOLOX-x's dark2 C3 in bf16: models/yolox_fast.py then
+    runs the per-conv chain)."""
+    return next((ts for ts in _TILES if c3_smem_bytes(bf16, C, h, n, ts) <= _MAX_SMEM), None)
+
+
+def _pick_tile(bf16: bool, C: int, h: int, n: int) -> int:
+    ts = fused_tile(bf16, C, h, n)
+    if ts is None:
+        raise ValueError(
+            f"yolox_c3: C={C}, h={h}, n={n} need more than one block's shared memory "
+            f"({_MAX_SMEM} bytes) even at the smallest tile")
+    return ts
 
 
 def c3_s2d_fused_compact(y, W1, b1, W2, b2, Wa, ba, Wb, bb, W3, b3, *, width: int, n: int):
@@ -231,7 +264,7 @@ def c3_s2d_fused_compact(y, W1, b1, W2, b2, Wa, ba, Wb, bb, W3, b3, *, width: in
     C, h = C4 // 4, W1.shape[1]
     bf16 = y.dtype == torch.bfloat16
     lib = _lib()
-    tile = _pick_tile(lib, bf16, C, h, n)
+    tile = _pick_tile(bf16, C, h, n)
     fn = lib.yolox_c3_bf16 if bf16 else lib.yolox_c3_f32
     out = torch.empty_like(y)
     with torch.cuda.device(y.device):
@@ -261,5 +294,5 @@ def c3_s2d_fused(y, W1, b1, W2, b2, Wa, ba, Wb, bb, W3, b3, *, width: int, n: in
     return c3_s2d_fused_compact(y, **compact, width=width, n=n)
 
 
-__all__ = ["c3_s2d_fused", "c3_s2d_fused_compact", "c3_s2d_fused_plain", "compact_from_s2d",
-           "launches", "s2d", "un_s2d"]
+__all__ = ["c3_s2d_fused", "c3_s2d_fused_compact", "c3_s2d_fused_plain", "c3_smem_bytes",
+           "compact_from_s2d", "fused_tile", "launches", "s2d", "un_s2d"]

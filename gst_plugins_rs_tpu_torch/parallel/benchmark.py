@@ -12,8 +12,9 @@ Usage:
     python -m gst_plugins_rs_tpu_torch.parallel.benchmark --streams 16 \
         --chain echo,loudnorm --seconds 10 --window 2
 
-`--mesh` (the streams sharded over every device) waits for the port's
-torch.distributed layer and raises NotImplementedError.
+`--mesh` shards the streams over a mesh of every visible device
+(parallel/streams.py::make_stream_mesh), as the JAX benchmark does when
+there is more than one device.
 """
 from __future__ import annotations
 
@@ -34,21 +35,20 @@ def run(streams: int, chain: str, seconds: float, window: float, use_mesh: bool,
         emit: Optional[Callable[[str], None]] = print) -> List[dict]:
     """Run the chain for `seconds`, one report a `window`; returns the
     windows' numbers (buffers_per_s, realtime_x, seconds, buffers)."""
-    from .._device import device
+    from .._device import device, visible_devices
     from ..ops import loudnorm as LN
-    from .streams import MESH_TODO, echo_bank, loudnorm_bank
+    from .streams import echo_bank, loudnorm_bank, make_stream_mesh
 
-    if use_mesh:
-        raise NotImplementedError(f"--mesh: {MESH_TODO}")
     dev = device()
+    mesh = make_stream_mesh() if use_mesh and len(visible_devices()) > 1 else None
     rng = np.random.RandomState(0)
 
     banks = []
     for name in (n.strip() for n in chain.split(",")):
         if name == "echo":
-            banks.append(("echo", echo_bank(streams, dev=dev)))
+            banks.append(("echo", echo_bank(streams, mesh=mesh, dev=dev)))
         elif name == "loudnorm":
-            b = loudnorm_bank(streams, channels=2, dev=dev)
+            b = loudnorm_bank(streams, channels=2, mesh=mesh, dev=dev)
             b.first_frame(torch.from_numpy(
                 rng.uniform(-0.5, 0.5, (streams, LN.GAIN_LOOKAHEAD, 2)).astype(np.float32)).to(dev))
             banks.append(("loudnorm", b))
@@ -73,7 +73,8 @@ def run(streams: int, chain: str, seconds: float, window: float, use_mesh: bool,
     _sync(dev)
     label = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     if emit:
-        emit(f"# streams={streams} chain={chain} device={label}")
+        emit(f"# streams={streams} chain={chain} mesh={mesh.size if mesh else 'no'} "
+             f"device={label}")
     rows = []
     t_end = time.perf_counter() + seconds
     while time.perf_counter() < t_end:

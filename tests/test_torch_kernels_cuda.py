@@ -1283,3 +1283,72 @@ def test_fused_planar_passthrough_plane_is_not_overwritten(cuda):
         assert len(a) == len(b) == 2, f"buffer {i}"
         for pa, pb in zip(a, b):
             assert pa.device.type == "cuda" and torch.equal(pa, pb), f"buffer {i}"
+
+
+@pytest.mark.cuda
+def test_c3_smem_bytes_matches_the_library(cuda):
+    """The host reckoning that chooses the engine's C3 route is the
+    library's own, for every zoo model's dark2 C3, both dtypes and every
+    tile side."""
+    from gst_plugins_rs_tpu_torch.models.yolox import VARIANTS, expand
+
+    lib = yolox_c3._lib()
+    for depth, width, _ in VARIANTS.values():
+        C = 2 * expand(64, width)
+        h, n = expand(C, 0.5), max(round(depth * 3), 1)
+        for bf16 in (False, True):
+            for tile in yolox_c3._TILES:
+                assert yolox_c3.c3_smem_bytes(bf16, C, h, n, tile) == \
+                    lib.yolox_c3_smem_bytes(int(bf16), C, h, n, tile), (C, h, n, bf16, tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("props", ["engine=fast-bf16", "engine=fast precision=bf16"])
+def test_yolox_x_bf16_card_matches_cpu(cuda, props):
+    """YOLOX-x in bf16 by both routes, 64x64, init_weights(seed=0): on the
+    card its dark2 C3 takes the per-conv route (no tile of B1 fits), B1 is
+    not launched, and the scores (columns 4:) are within 0.05 of the CPU's
+    (the bf16 gate of tests/test_yolox_fast.py::test_bf16_close), or no
+    farther from them than bf16 moves either device's scores from its f32
+    ones: the randomly initialised YOLOX-x has logits so large (boxes
+    ~1e14-1e32) that bf16's rounding alone moves its scores by more than
+    0.05."""
+    import gst_plugins_rs_tpu_torch as g
+
+    frame = torch.from_numpy(np.random.RandomState(3).randint(0, 256, (64, 64, 3))
+                             .astype(np.uint8))
+
+    def run(dev, props=props):
+        prev = g.requested_device()
+        g.set_device(dev)
+        try:
+            p = g.parse_launch("appsrc name=src ! yoloxinference name=det model-type=x "
+                               f"{props} ! appsink name=sink")
+            p.by_name("src").set_property("caps", g.parse_caps(
+                "video/x-raw,format=RGB,width=64,height=64,framerate=30/1"))
+            p.by_name("src").push_buffer(g.Buffer(frame.to(dev), pts=0))
+            p.by_name("src").end_of_stream()
+            p.play_until_eos()
+            from gst_plugins_rs_tpu_torch.elements.analytics.meta import TensorMeta
+
+            buf = p.by_name("sink").samples[0].buffer
+            return next(iter(buf.iter_meta(TensorMeta))).tensors[0].data
+        finally:
+            g.set_device(prev)
+
+    before = yolox_c3.launches
+    got = run("cuda")
+    torch.cuda.synchronize()
+    assert yolox_c3.launches == before
+    from gst_plugins_rs_tpu_torch.models.yolox import Yolox
+    from gst_plugins_rs_tpu_torch.models.yolox_fast import c3_route
+
+    assert c3_route(Yolox.from_variant("x"), torch.bfloat16, fuse_c3=True) == "per-conv"
+    ref = run("cpu")
+    got = got.float().cpu()
+    assert got.shape == ref.shape == (1, 84, 85) and torch.isfinite(got).all()
+    d = float((got[..., 4:] - ref[..., 4:]).abs().max())
+    bf16_d = max(float((ref[..., 4:] - run("cpu", "engine=fast")[..., 4:]).abs().max()),
+                 float((got[..., 4:] - run("cuda", "engine=fast").float().cpu()[..., 4:])
+                       .abs().max()))
+    assert d < 0.05 or d <= bf16_d, (d, bf16_d)

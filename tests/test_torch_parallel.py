@@ -16,8 +16,9 @@ tests/test_loudnormbank.py, and gates of the port's own:
   included: within JAX_F32_TOL = 1e-4 a sample, the differing samples
   named.  That is tests/test_torch_loudnorm.py's F32_TOL for the
   single-stream element, and for its reason: at 192 kHz the K-weighting
-  high-pass (a pole near 1) costs f32 ~1e-3 of the filtered signal in both
-  packages, each summing in its own order, so on this test's 0.8 and 0.1
+  high-pass (a pole near 1) costs f32 ~1e-3 of the filtered signal in the
+  JAX package's block loop (~1e-7 in the port's rotation basis), so on
+  this test's 0.8 and 0.1
   sines the gains differ by ~1e-5 from the first frame on (both tests
   print the largest difference); the JAX package holds its own bank to its
   sequential path only within 2e-4 (tests/test_parallel.py);
@@ -25,8 +26,10 @@ tests/test_loudnormbank.py, and gates of the port's own:
   LUFS_TOL = 1e-4 LU (f32 histograms, the bin energies summed in another
   order);
 - the loudness oracle of the reference's tests: +-1 LU of -24 LUFS.
-`shard=true`, `mesh=` and `--mesh` raise NotImplementedError (the mesh
-waits for torch.distributed).  Torch runs on one intra-op thread.
+`shard=true`, `mesh=` and `--mesh` run over parallel/mesh.py's mesh (held
+in tests/test_torch_mesh.py); here they raise ValueError, as the JAX bank
+does, where the mesh does not divide the streams.  Torch runs on one
+intra-op thread.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -348,18 +351,37 @@ def test_partial_frame_drain():
 
 
 def test_shard_raises():
-    with pytest.raises(NotImplementedError, match="queue A, item 6"):
-        run_bank(tfx, 2, [0.5, 0.5], shard=True)
+    """shard=true shards the streams over a mesh of every visible device
+    (tests/test_torch_mesh.py holds it against shard=false and JAX); like
+    the JAX element, it raises ValueError when the mesh does not divide the
+    stream count: 2 streams on 4 shards."""
+    tfx.set_virtual_devices(4)
+    try:
+        with pytest.raises(ValueError, match="divisible by 4"):
+            run_bank(tfx, 2, [0.5, 0.5], shard=True)
+        with pytest.raises(ValueError, match="divisible by 8"):
+            run_bank(jfx, 2, [0.5, 0.5], shard=True)  # the JAX bank on its 8 devices
+        _, sinks = run_bank(tfx, 4, [0.5, 0.4, 0.3, 0.2], nbuf=31, shard=True)
+        assert all(s.concat_audio().shape == (31 * LN.RATE // 10, 1) for s in sinks)
+    finally:
+        tfx.set_virtual_devices(None)
 
 
 def test_mesh_arguments_raise():
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        tstreams.make_stream_mesh()
-    for make in (tstreams.loudnorm_bank, tstreams.r128_bank, tstreams.echo_bank):
-        with pytest.raises(NotImplementedError, match="torch.distributed"):
-            make(2, mesh=object())
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        tbench.run(2, "echo", 0.1, 0.05, use_mesh=True)
+    """mesh= shards a bank's streams; a mesh that does not divide the
+    stream count raises ValueError, as device_put does in the JAX bank."""
+    tfx.set_virtual_devices(4)
+    try:
+        mesh = tstreams.make_stream_mesh()
+        assert mesh.shape == {"stream": 4}
+        for make in (tstreams.loudnorm_bank, tstreams.r128_bank, tstreams.echo_bank):
+            with pytest.raises(ValueError, match="divisible by 4"):
+                make(2, mesh=mesh)
+            assert len(make(4, mesh=mesh).states) == 4
+        rows = tbench.run(4, "echo", 0.1, 0.05, use_mesh=True, emit=None)
+        assert rows and all(r["buffers"] > 0 for r in rows)
+    finally:
+        tfx.set_virtual_devices(None)
 
 
 @pytest.mark.parametrize("chain", ["echo", "echo,loudnorm"])

@@ -322,7 +322,20 @@ def test_entry_point_raises_without_cuda(monkeypatch):
 
 
 def test_shard_is_not_ported_yet():
-    det = tfx.element_factory_make("yoloxinference")
-    det.set_property("shard", True)
-    with pytest.raises(NotImplementedError, match="parallel layer"):
+    """shard=true is ported (tests/test_torch_model_parallel.py holds both
+    modes against JAX): the element builds its mesh over every visible
+    device at start, on the batch axis or, in tensor mode, the tp axis."""
+    tfx.set_virtual_devices(8)
+    try:
+        det = tfx.element_factory_make("yoloxinference")
+        det.set_property("shard", True)
         det.start()
+        assert det._mesh is not None and det._mesh.shape == {"batch": 8}
+        det.stop()
+        det.set_property("shard-mode", "tensor")
+        det.start()
+        assert det._mesh.shape == {"tp": 8}
+        det.stop()
+        assert det._mesh is None
+    finally:
+        tfx.set_virtual_devices(None)
