@@ -320,6 +320,11 @@ class FastEngine:
 
     def _stem_dark2_s2d(self, x):
         """stem + dark2 in the s2d domain: [B,H,W,3] -> [B,H/4,W/4,2*bc]."""
+        return un_s2d(self.dark2_c3(self.dark2_c3_input(x))).to(self.dtype)
+
+    def dark2_c3_input(self, x):
+        """The stem and dark2's conv in the s2d domain: frames [B,H,W,3] ->
+        dark2's C3 input [B,H/8,W/8,8*bc] in s2d_dtype."""
         b, h, w, c = x.shape
         # fused Focus(s2d, reference channel order (f1,e1,c)) + second s2d:
         # image row = 4p + 2e2 + e1, col = 4q + 2f2 + f1; channels
@@ -327,15 +332,18 @@ class FastEngine:
         # The transpose runs in the input dtype (u8 moves 4x fewer bytes).
         y = x.reshape(b, h // 4, 2, 2, w // 4, 2, 2, c)
         y = y.permute(0, 1, 4, 2, 5, 6, 3, 7).reshape(b, h // 4, w // 4, 16 * c)
-        y = y.to(self.s2d_dtype)
-        y = _conv(y, *self.stem)                       # [B,H/4,W/4,4*bc]
-        y = _conv(y, *self.dark2_conv, stride=2)       # [B,H/8,W/8,8*bc]
-        if self.c3_route == "fused":
-            y = c3_s2d_fused_compact(y.contiguous(), **self.c3, width=y.shape[2],
-                                     n=self.base_depth)
-        else:
-            y = _c3_s2d(self.c3, y, self.base_depth)
-        return un_s2d(y).to(self.dtype)                # [B,H/4,W/4,2*bc]
+        with torch.no_grad(), no_tf32():
+            y = _conv(y.to(self.s2d_dtype), *self.stem)       # [B,H/4,W/4,4*bc]
+            return _conv(y, *self.dark2_conv, stride=2)      # [B,H/8,W/8,8*bc]
+
+    def dark2_c3(self, y):
+        """dark2's C3 on its s2d input y [B,H/8,W/8,8*bc] by the engine's
+        c3_route: kernel B1 ("fused") or the per-conv chain."""
+        with torch.no_grad(), no_tf32():
+            if self.c3_route == "fused":
+                return c3_s2d_fused_compact(y.contiguous(), **self.c3, width=y.shape[2],
+                                            n=self.base_depth)
+            return _c3_s2d(self.c3, y, self.base_depth)
 
     def _forward(self, x):
         if x.is_floating_point() and x.dtype != self.dtype:

@@ -28,7 +28,7 @@ f64 and the output to ~1e-7 in f32 (an f64 lfilter as the yardstick).
 The K-weighting cascade (`k_filter_apply`, and the time-sharded analysis
 of parallel/timeshard.py) runs so; `biquad_apply` keeps the
 direct-form coordinates unless asked (RNNoise's high-pass, held to the JAX
-package's f32 block loop).  It agrees with the JAX package's block loop
+package's f32 block loop; `biquad_apply` gives the readings).  It agrees with the JAX package's block loop
 (tests/test_torch_ebur128.py gates 1e-9 LU).  Products run in the input's
 dtype with TF32 off.
 """
@@ -180,15 +180,13 @@ def _mats(b, a, block: int, nb: int, dtype, dev, rotation: bool):
 def biquad_apply(x, b, a, zi, block_target: int = 512, rotation: bool = False):
     """One biquad along the leading axis of x [N, ch]; zi [2, ch] is the
     direct-form-II-transposed state.  Returns (y [N, ch], zf [2, ch]).
-    rotation: run the block states in the module docstring's basis."""
+    rotation: run the block states in the module docstring's basis.  The
+    K-weighting asks for it; RNNoise's high-pass does not: there the
+    rotation basis is nearer a float64 recursion (3.6e-7 of scale against
+    4.0e-6) but 4.0e-6 from the JAX package's float32 block loop, past its
+    parity gate of 2e-6, which the direct form holds at 1.7e-6
+    (tests/test_torch_rnnoise.py::test_hp_filter_keeps_the_direct_form)."""
     N, ch = x.shape
-    if ch == 1:
-        # the CPU's BLAS sums a product of one column's blocks in another
-        # order than one of two or more columns: a lone column runs as two,
-        # so that a mono stream filters the same alone, in a bank and in a
-        # bank's shard (parallel/streams.py)
-        y, zf = biquad_apply(x.expand(N, 2), b, a, zi.expand(2, 2), block_target, rotation)
-        return y[:, :1], zf[:, :1]
     block = _pick_block(N, block_target)
     nb = N // block
     T, S0, G, M, Q, V = _mats(b, a, block, nb, x.dtype, x.device, rotation)

@@ -96,6 +96,24 @@ def _entry_state_weights(a, L: int, n_shards: int) -> np.ndarray:
     return W
 
 
+_ENTRY_MATS = {}
+
+
+def _entry_mats(a, L: int, n_shards: int, dtype, dev):
+    """(W [S, S, 2, 2], powers [S, 2, 2]) of `_entry_state_weights` and
+    `_entry_powers` as tensors of dtype on dev, cached (a streaming chunk
+    asks for the same ones every time)."""
+    a = np.asarray(a, np.float64)
+    key = (a.tobytes(), L, n_shards, dtype, str(dev))
+    hit = _ENTRY_MATS.get(key)
+    if hit is None:
+        hit = tuple(torch.as_tensor(m, dtype=dtype).to(dev)
+                    for m in (_entry_state_weights(a, L, n_shards),
+                              _entry_powers(a, L, n_shards)))
+        _ENTRY_MATS[key] = hit
+    return hit
+
+
 def _biquad(x, b, a, zi):
     """ops/ebur128.py::biquad_apply in the K-weighting's rotation basis
     (as `k_filter_apply` runs it), over pieces of at most _PIECE samples."""
@@ -115,8 +133,9 @@ def _matvec(M, v):
     return (M[:, :, None] * v[None, :, :]).sum(1)
 
 
-def _shard_biquad(parts, b, a, W, s0: Optional[list] = None, powers=None):
-    """An exact biquad over the shards of a time-sharded signal.
+def _shard_biquad(parts, b, a, s0: Optional[list] = None):
+    """An exact biquad over the shards of a time-sharded signal, L samples a
+    shard.
 
     Pass 1 filters every shard from a zero state; the all_gather shares the
     exit states ([S, 2, ch]); shard k's entry state is sum_j W[k, j] @
@@ -125,14 +144,15 @@ def _shard_biquad(parts, b, a, W, s0: Optional[list] = None, powers=None):
     carried.  Pass 2 filters with the true entry state.  Returns (the
     output parts, the pass-2 exit states, one a shard: the last shard's is
     the chunk's exit state)."""
+    S, L = len(parts), int(parts[0].shape[0])
     first = [_biquad(p, b, a, p.new_zeros((2,) + tuple(p.shape[1:])))[1] for p in parts]
     gathered = all_gather(first)
     entries = []
     for k, (p, g) in enumerate(zip(parts, gathered)):
-        Wk = torch.as_tensor(W[k], dtype=p.dtype).to(p.device)  # [S, 2, 2]
-        s_in = (Wk[:, :, :, None] * g[:, None, :, :]).sum((0, 2))
+        W, powers = _entry_mats(a, L, S, p.dtype, p.device)
+        s_in = (W[k][:, :, :, None] * g[:, None, :, :]).sum((0, 2))
         if s0 is not None:
-            s_in = s_in + _matvec(torch.as_tensor(powers[k], dtype=p.dtype).to(p.device), s0[k])
+            s_in = s_in + _matvec(powers[k], s0[k])
         entries.append(s_in)
     done = [_biquad(p, b, a, s) for p, s in zip(parts, entries)]
     return [d[0] for d in done], [d[1] for d in done]
@@ -167,14 +187,9 @@ def sharded_kweight_frame_analysis(x, filt_z0, params, mesh: Mesh, n_frames: int
     if n_frames % S or N != n_frames * n100:
         raise ValueError(f"chunk of {n_frames} frames not shardable over {S}")
     parts = _parts(x, mesh)
-    L = N // S
     z0 = replicate(filt_z0, mesh)
-    y1, z1 = _shard_biquad(parts, rp.coeffs_b[0], rp.coeffs_a[0],
-                           _entry_state_weights(rp.coeffs_a[0], L, S),
-                           s0=[z[0] for z in z0], powers=_entry_powers(rp.coeffs_a[0], L, S))
-    y2, z2 = _shard_biquad(y1, rp.coeffs_b[1], rp.coeffs_a[1],
-                           _entry_state_weights(rp.coeffs_a[1], L, S),
-                           s0=[z[1] for z in z0], powers=_entry_powers(rp.coeffs_a[1], L, S))
+    y1, z1 = _shard_biquad(parts, rp.coeffs_b[0], rp.coeffs_a[0], s0=[z[0] for z in z0])
+    y2, z2 = _shard_biquad(y1, rp.coeffs_b[1], rp.coeffs_a[1], s0=[z[1] for z in z0])
     e = _weighted_energies(y2, replicate(rp.weights, mesh), n100)
     sp = [p.abs().reshape(-1, n100, p.shape[-1]).amax(1) for p in parts]
     return e, sp, torch.stack([z1[-1], z2[-1]])
@@ -210,10 +225,8 @@ def sharded_loudnorm_linear(x, params, mesh: Mesh, n_valid_sb: int, axis: str = 
     parts = _parts(x, mesh)
     L = Npad // S
     B = L // n100
-    y1, _ = _shard_biquad(parts, rp.coeffs_b[0], rp.coeffs_a[0],
-                          _entry_state_weights(rp.coeffs_a[0], L, S))
-    y2, _ = _shard_biquad(y1, rp.coeffs_b[1], rp.coeffs_a[1],
-                          _entry_state_weights(rp.coeffs_a[1], L, S))
+    y1, _ = _shard_biquad(parts, rp.coeffs_b[0], rp.coeffs_a[0])
+    y2, _ = _shard_biquad(y1, rp.coeffs_b[1], rp.coeffs_a[1])
     e = _weighted_energies(y2, replicate(rp.weights, mesh), n100)
     g_idx = [k * B + torch.arange(B, device=p.device) for k, p in enumerate(parts)]
     if B >= 3:

@@ -1306,19 +1306,37 @@ def test_c3_smem_bytes_matches_the_library(cuda):
 @pytest.mark.parametrize("props", ["engine=fast-bf16", "engine=fast precision=bf16"])
 def test_yolox_x_bf16_card_matches_cpu(cuda, props):
     """YOLOX-x in bf16 by both routes, 64x64, init_weights(seed=0): on the
-    card its dark2 C3 takes the per-conv route (no tile of B1 fits), B1 is
-    not launched, and the scores (columns 4:) are within 0.05 of the CPU's
-    (the bf16 gate of tests/test_yolox_fast.py::test_bf16_close), or no
-    farther from them than bf16 moves either device's scores from its f32
-    ones: the randomly initialised YOLOX-x has logits so large (boxes
-    ~1e14-1e32) that bf16's rounding alone moves its scores by more than
-    0.05."""
+    card its dark2 C3 takes the per-conv route (no tile of B1 fits) and B1
+    is not launched.  That C3, card against CPU on one bf16 input, is within
+    2e-2 of its output's scale (5.6e-3 read on an H100; two output channels
+    swapped read 0.455).  Through the element, fast-bf16's scores (columns
+    4:) are within 0.05 of the CPU's (the bf16 gate of
+    tests/test_yolox_fast.py::test_bf16_close); precision=bf16's whole net
+    is not held to it (ROADMAP C.1: bf16 moves the deep random-init
+    variants' scores past 0.05 from f32 on either device)."""
     import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.elements.analytics.meta import TensorMeta
+    from gst_plugins_rs_tpu_torch.models.yolox import Yolox, init_weights
+    from gst_plugins_rs_tpu_torch.models.yolox_fast import FastEngine
 
     frame = torch.from_numpy(np.random.RandomState(3).randint(0, 256, (64, 64, 3))
                              .astype(np.uint8))
+    model = init_weights(Yolox.from_variant("x"), seed=0)
+    state = model.state_dict()
+    kw = (dict(s2d_dtype=torch.bfloat16) if props == "engine=fast-bf16"
+          else dict(dtype=torch.bfloat16))
+    host = FastEngine(model, state, **kw)
+    card = FastEngine(model, {k: v.to(cuda) for k, v in state.items()}, fuse_c3=True,
+                      device=cuda, **kw)
+    assert card.c3_route == "per-conv"
+    y = host.dark2_c3_input(frame[None])
+    before = yolox_c3.launches
+    got = card.dark2_c3(y.to(cuda)).float().cpu()
+    want = host.dark2_c3(y).float()
+    assert yolox_c3.launches == before
+    assert float((got - want).abs().max() / want.abs().max()) <= 2e-2
 
-    def run(dev, props=props):
+    def run(dev):
         prev = g.requested_device()
         g.set_device(dev)
         try:
@@ -1329,26 +1347,17 @@ def test_yolox_x_bf16_card_matches_cpu(cuda, props):
             p.by_name("src").push_buffer(g.Buffer(frame.to(dev), pts=0))
             p.by_name("src").end_of_stream()
             p.play_until_eos()
-            from gst_plugins_rs_tpu_torch.elements.analytics.meta import TensorMeta
-
             buf = p.by_name("sink").samples[0].buffer
             return next(iter(buf.iter_meta(TensorMeta))).tensors[0].data
         finally:
             g.set_device(prev)
 
     before = yolox_c3.launches
-    got = run("cuda")
+    out = run("cuda")
     torch.cuda.synchronize()
     assert yolox_c3.launches == before
-    from gst_plugins_rs_tpu_torch.models.yolox import Yolox
-    from gst_plugins_rs_tpu_torch.models.yolox_fast import c3_route
-
-    assert c3_route(Yolox.from_variant("x"), torch.bfloat16, fuse_c3=True) == "per-conv"
     ref = run("cpu")
-    got = got.float().cpu()
-    assert got.shape == ref.shape == (1, 84, 85) and torch.isfinite(got).all()
-    d = float((got[..., 4:] - ref[..., 4:]).abs().max())
-    bf16_d = max(float((ref[..., 4:] - run("cpu", "engine=fast")[..., 4:]).abs().max()),
-                 float((got[..., 4:] - run("cuda", "engine=fast").float().cpu()[..., 4:])
-                       .abs().max()))
-    assert d < 0.05 or d <= bf16_d, (d, bf16_d)
+    out = out.float().cpu()
+    assert out.shape == ref.shape == (1, 84, 85) and torch.isfinite(out).all()
+    if props == "engine=fast-bf16":
+        assert float((out[..., 4:] - ref[..., 4:]).abs().max()) < 0.05

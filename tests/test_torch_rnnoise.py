@@ -238,6 +238,45 @@ def test_hp_filter_batch_matches_jax():
     assert np.abs(_np(mt) - np.asarray(mj)).max() <= 2e-6 * scale
 
 
+def test_hp_filter_keeps_the_direct_form():
+    """RNNoise's high-pass runs ops/ebur128.py::biquad_apply in its
+    direct-form coordinates (rotation=False) while the K-weighting runs the
+    rotation basis.  On the frames of test_hp_filter_batch_matches_jax the
+    rotation basis is the nearer to a float64 recursion, but it moves the
+    output farther than that test's 2e-6 of scale from the JAX package's
+    float32 block loop, which the direct form stays within: so the flag
+    stays.  The readings print with -s."""
+    from gst_plugins_rs_tpu_torch.ops.ebur128 import biquad_apply
+
+    frames = _signal(2, 6, 2)
+    mem = np.random.RandomState(3).uniform(-3000, 3000, (2, 4)).astype(np.float32)
+    yj = np.asarray(J._hp_filter_batch(jnp.asarray(mem), jnp.asarray(frames))[0])
+    K, C, F = frames.shape
+    b = np.array([1.0, *T.HP_B])
+    a = np.array([1.0, *T.HP_A])
+    truth = np.empty((C, K * F))
+    for c in range(C):  # the direct-form-I recursion in float64
+        x1, x2, y1, y2 = mem[c].astype(np.float64)
+        for n, v in enumerate(frames[:, c, :].astype(np.float64).reshape(-1)):
+            y = v + b[1] * x1 + b[2] * x2 - a[1] * y1 - a[2] * y2
+            x1, x2, y1, y2 = v, x1, y, y1
+            truth[c, n] = y
+    truth = truth.reshape(C, K, F).transpose(1, 0, 2)
+    scale = np.abs(yj).max()
+    x1, x2, y1, y2 = torch.from_numpy(mem).unbind(1)
+    zi = torch.stack([b[1] * x1 - a[1] * y1 + b[2] * x2 - a[2] * y2, b[2] * x1 - a[2] * y1])
+    flat = torch.from_numpy(frames).permute(0, 2, 1).reshape(K * F, C)
+    err = {}
+    for rotation in (False, True):
+        y, _ = biquad_apply(flat, b, a, zi, block_target=F, rotation=rotation)
+        y = _np(y.reshape(K, F, C).permute(0, 2, 1))
+        err[rotation] = (np.abs(y - truth).max() / scale, np.abs(y - yj).max() / scale)
+    print(f"high-pass |d| / scale: direct form {err[False][0]:.3e} from float64, "
+          f"{err[False][1]:.3e} from JAX; rotation basis {err[True][0]:.3e}, {err[True][1]:.3e}")
+    assert err[False][1] <= 2e-6 < err[True][1]
+    assert err[True][0] < err[False][0]
+
+
 def test_hp_frame_is_the_float32_recursion():
     """The per-frame high-pass equals the direct-form-I recursion in numpy
     float32, bit for bit (the JAX scan's differences from it are XLA's)."""
