@@ -109,6 +109,22 @@ routes (per-conv C3, no B1), dark2's C3 and the element card against CPU;
 device ms and
 ops a tick and a frame, sharded against unsharded.  The sharded paths'
 launches are added to L1's and B1's counts.
+4l/5l/6l the recording and failover path (the host-only elements with
+their payloads on the card): 32 seeded 1080p RGBA frames through
+appsrc ! hsvfilter ! colorlut approx ! togglerecord (record off and on at
+two seeded frames, a test tone as its audio track, clipped at the video's
+end) ! fallbackswitch (a videotestsrc on its second input) ! intersink,
+then intersrc ! ts-queue ! livesync ! appsink; 60 s of 192 kHz F64 through
+audioloudnorm ! togglerecord is-live=true (a seeded stop) ! intersink, then
+intersrc ! livesync (its silence fill) ! appsink; every payload on cuda:0,
+shared (data_ptr) from the kernels' output to the appsink, no device-to-host
+copy beyond the kernels' own (torch.profiler, against the same chains
+without the recording stages), B4 and B2 launches = frames, L1 launches =
+100 ms frames (added to their counts); 8 frames through rsfilesink /
+rsfilesrc and the compress, brotli and sodium round trips, bit-equal, one
+device-to-host copy a buffer; card against CPU (4 frames, 6 s); frames per
+second against appsrc ! hsvfilter ! colorlut ! appsink, the host ms a frame
+the recording stages add, the busy share.
 Prints a JSON line of the kernels, the card's name and power limit, then,
 last, {"ok": true, "device": ...}.  It imports nothing of JAX and nothing of
 the JAX package.
@@ -3827,6 +3843,542 @@ def mesh_timing(card_line):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The recording and failover path (the host-only families): togglerecord, fallbackswitch,
+# the inter bridge, ts-queue and livesync behind the effects kernels (B4,
+# B2) and the loudnorm limiter (L1), and the byte elements on card payloads
+# ---------------------------------------------------------------------------
+REC_FRAMES = 32            # seeded 1080p RGBA frames through the recording path (4l)
+REC_CPU_FRAMES = 6         # card against CPU (5l)
+REC_SECONDS = 60           # 192 kHz stereo F64 through audioloudnorm ! togglerecord (4l)
+REC_CPU_SECONDS = 6        # card against CPU (5l)
+REC_TRACK_SPB = 1000       # the recording's audio track: 20.8 ms buffers at 48 kHz, so the
+                           # video's end (32 frames, 1.0667 s) falls inside one, which is clipped
+REC_BYTE_FRAMES = 8        # frames through each byte round trip (4l; 2 in 5l)
+REC_TIMING_FRAMES = 128    # a repeat (6l): the first REC_TIMING_WARM stream untimed,
+REC_TIMING_WARM = 16       # the rest timed ...
+REC_REPEATS = 3            # ... the median of these
+REC_SEED = 17
+# the recording: the graded frames are togglerecord's main stream and a
+# test tone its audio track (sink_0 / src_0), a videotestsrc is the
+# fallbackswitch's second input, and the graded stream crosses to a second
+# pipeline (REC_VIDEO_OUT) through the inter bridge
+REC_VIDEO = ("appsrc name=src ! hsvfilter hue-shift=120 ! colorlut location={grade} "
+             "precision=approx ! togglerecord name=tr record=true ! fallbackswitch name=fs "
+             "! intersink name=isink producer-name={channel} "
+             "videotestsrc num-buffers=2 pattern=black "
+             "! video/x-raw,format=RGBA,width={w},height={h},framerate=30/1 ! fs. "
+             "ts-audiotestsrc context={channel}-track wave=white-noise seed=3 "
+             "num-buffers={track} samplesperbuffer=1000 "
+             "! audio/x-raw,format=F32,rate=48000,channels=2 ! tr. tr. ! appsink name=track")
+REC_VIDEO_OUT = ("intersrc producer-name={channel} max-time=0 ! ts-queue name=tq "
+                 "! livesync name=ls ! appsink name=sink")
+REC_PLAIN = ("appsrc name=src ! hsvfilter hue-shift=120 ! colorlut location={grade} "
+             "precision=approx ! appsink name=sink")
+# the loudness path: a live source (each buffer waits for the pipeline's
+# clock, which rec_audio sets to its time), togglerecord in live mode
+# (timestamps kept, so a stop leaves a hole), and livesync behind the inter
+# bridge on a clock of its own: audioloudnorm's 3 s lookahead puts its
+# output 3 s behind the source's clock
+REC_AUDIO = "audioloudnorm ! togglerecord name=tr is-live=true record=true " \
+            "! intersink name=isink producer-name={channel}"
+REC_AUDIO_OUT = "intersrc producer-name={channel} max-time=0 ! livesync name=ls " \
+                "! appsink name=sink"
+
+
+class PayloadTrace:
+    """A pipeline tracer: each buffer that enters an element's sink pad, by
+    "element:pad", as (data_ptr, device, shape, pts) for a tensor payload
+    (None, the payload's type name, None, pts) otherwise."""
+
+    def __init__(self):
+        self.seen = {}
+
+    def on_buffer(self, element, pad, buffer):
+        d = buffer.data
+        key = (d.data_ptr(), str(d.device), tuple(d.shape)) if isinstance(d, torch.Tensor) \
+            else (None, type(d).__name__, None)
+        self.seen.setdefault(f"{element.name}:{pad.name}", []).append(key + (buffer.pts,))
+
+    def ptrs(self, where):
+        return [e[0] for e in self.seen.get(where, [])]
+
+
+class RecordToggle:
+    """A pipeline tracer that stops the recording as frame k of `frames`
+    reaches togglerecord's main pad, and starts it again from a thread of
+    its own once the element has left the recording state: a non-live
+    upstream blocks while the recording is stopped, so the restart cannot
+    come from the streaming thread.  The frames must be at least two apart
+    (rec_toggles), so each stop finds the element recording."""
+
+    def __init__(self, tr, frames):
+        self.tr, self.frames, self.count, self.threads = tr, set(frames), 0, []
+
+    def _restart(self):
+        deadline = time.monotonic() + 60
+        while self.tr.get_property("recording") and time.monotonic() < deadline:
+            time.sleep(0.001)
+        self.tr.set_property("record", True)
+
+    def on_buffer(self, element, pad, buffer):
+        import threading
+
+        if element is not self.tr or pad.name != "sink":
+            return
+        if self.count in self.frames:
+            self.tr.set_property("record", False)
+            t = threading.Thread(target=self._restart, daemon=True)
+            t.start()
+            self.threads.append(t)
+        self.count += 1
+
+
+_REC_RUNS = [0]
+
+
+def _rec_channel(kind):
+    _REC_RUNS[0] += 1
+    return f"rec-{kind}-{_REC_RUNS[0]}"
+
+
+def _wait_eos(sink, limit=120.0):
+    deadline = time.monotonic() + limit
+    while not sink.eos and time.monotonic() < deadline:
+        time.sleep(0.002)
+    if not sink.eos:
+        raise AssertionError(f"{sink.name} saw no EOS within {limit} s")
+
+
+def rec_toggles(n_frames, seed=REC_SEED):
+    """The two seeded frames at which the video recording stops and starts
+    again, at least two frames apart: the frame after a restart starts the
+    recording anew, and a stop there would race RecordToggle's restart."""
+    pairs = [(a, b) for a in range(1, n_frames - 1) for b in range(a + 2, n_frames - 1)]
+    return list(pairs[int(np.random.default_rng(seed).integers(len(pairs)))])
+
+
+def rec_audio_gap(n_buffers, seed=REC_SEED):
+    """(the source buffer before which record goes off, buffers it stays off)."""
+    rng = np.random.default_rng(seed + 1)
+    return int(rng.integers(n_buffers // 2, 3 * n_buffers // 4)), int(rng.integers(2, 5))
+
+
+def _video_caps():
+    import gst_plugins_rs_tpu_torch as g
+
+    return g.parse_caps(f"video/x-raw,format=RGBA,width={HD_W},height={HD_H},framerate=30/1")
+
+
+def rec_video(frames, grade, toggles, around=None, warm=0, traced=True):
+    """The recording's video path on the current device: `frames` (tensors
+    on it) through REC_VIDEO, then REC_VIDEO_OUT.  Both pipelines run on
+    TestClocks that never move, so fallbackswitch never times out and
+    livesync emits each buffer as it arrives.  The first `warm` frames
+    stream through both pipelines first; `around`, if given, is then called
+    with the streaming of the rest (start-up, colorlut's fit and the first
+    buffers' negotiation stay outside).  `traced=False` leaves the payload
+    trace out (its cost is the tracer's, not the path's).  Returns (outputs,
+    the track's outputs, the trace)."""
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.core import State, TestClock
+
+    channel = _rec_channel("video")
+    track = int(len(frames) * FRAME_NS * 48000 / (REC_TRACK_SPB * 10**9)) + 8
+    p = g.parse_launch(REC_VIDEO.format(grade=grade, channel=channel, track=track, w=HD_W,
+                                        h=HD_H))
+    c = g.parse_launch(REC_VIDEO_OUT.format(channel=channel))
+    trace, toggle = PayloadTrace(), RecordToggle(p.by_name("tr"), toggles)
+    for q in (p, c):
+        q.use_clock(TestClock())
+        if traced:
+            q.add_tracer(trace)
+    p.add_tracer(toggle)
+    p.by_name("src").set_property("caps", _video_caps())
+    _push_frames(p, frames)
+    p.by_name("src").end_of_stream()
+    p.set_state(State.PLAYING)
+    c.set_state(State.PLAYING)
+    sink = c.by_name("sink")
+    if warm:
+        p.run(max_iterations=warm)
+        c.run(max_iterations=warm)
+        deadline = time.monotonic() + 60
+        while len(sink.samples) < warm and time.monotonic() < deadline:
+            time.sleep(0.0005)
+
+    def stream():
+        p.run()
+        c.run()
+        _wait_eos(sink)
+
+    (around or (lambda fn: fn()))(stream)
+    for t in toggle.threads:
+        t.join(60)
+    out = [s.buffer for s in c.by_name("sink").samples]
+    track_out = [s.buffer for s in p.by_name("track").samples]
+    c.set_state(State.NULL)
+    p.set_state(State.NULL)
+    return out, track_out, trace
+
+
+def rec_plain(frames, grade, around=None, warm=0):
+    """The same frames through REC_PLAIN (the first `warm` outside
+    `around`): the outputs."""
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.core import State
+
+    p = g.parse_launch(REC_PLAIN.format(grade=grade))
+    p.by_name("src").set_property("caps", _video_caps())
+    _push_frames(p, frames)
+    p.by_name("src").end_of_stream()
+    p.set_state(State.PLAYING)
+    if warm:
+        p.run(max_iterations=warm)
+    (around or (lambda fn: fn()))(p.run)
+    out = [s.buffer for s in p.by_name("sink").samples]
+    p.set_state(State.NULL)
+    return out
+
+
+def rec_audio(seconds, gap):
+    """The loudness path on the current device: `seconds` of the ticks
+    through audioloudnorm into togglerecord (live mode) and intersink, one
+    source buffer at a time on a TestClock set to its time, record off
+    before source buffer gap[0] and on again gap[1] buffers later; then the
+    inter bridge into livesync, each buffer let in with the output clock 1
+    ns before its time, so every slot of the hole passes its deadline and
+    is filled.  Returns (outputs, trace)."""
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.core import State, TestClock
+
+    channel = _rec_channel("audio")
+    launch = loudnorm_launch(seconds, tail=REC_AUDIO.format(channel=channel))
+    p = g.parse_launch(launch.replace("audiotestsrc ", "audiotestsrc is-live=true ", 1))
+    c = g.parse_launch(REC_AUDIO_OUT.format(channel=channel))
+    trace, clocks = PayloadTrace(), (TestClock(), TestClock())
+    for q, clk in zip((p, c), clocks):
+        q.use_clock(clk)
+        q.add_tracer(trace)
+    tr = p.by_name("tr")
+    p.set_state(State.PLAYING)
+    src_ns = AUDIO_SPB * 10**9 // 48000
+    for i in range(seconds * 10 + 1):  # the last iteration pushes EOS
+        if i == gap[0]:
+            tr.set_property("record", False)
+        elif i == gap[0] + gap[1]:
+            tr.set_property("record", True)
+        clocks[0].set_time(max(clocks[0].now(), i * src_ns))
+        p.run(max_iterations=1)
+    c.set_state(State.PLAYING)
+    for _, _, _, pts in trace.seen["isink:sink"]:
+        clocks[1].set_time(max(clocks[1].now(), c.base_time + pts - 1))
+        c.run(max_iterations=1)
+    c.run(max_iterations=1)  # the EOS
+    _wait_eos(c.by_name("sink"))
+    out = [s.buffer for s in c.by_name("sink").samples]
+    c.set_state(State.NULL)
+    p.set_state(State.NULL)
+    return out, trace
+
+
+def _profiled(run, sessions=3):
+    """(run's result, device-to-host copies) over one call of `run` under
+    torch.profiler, the card's activity only (a session over the 60 s audio
+    path with the host's ops too left the next sessions empty).  A session
+    that hands back no device activity at all, not even its marker kernel,
+    is thrown away and `run` called again (it must build what it runs), up
+    to `sessions` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)  # a marker: the session records the card
+            got = run()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+        if dev:
+            return got, sum(1 for e in dev if e.name.startswith("Memcpy DtoH"))
+        time.sleep(1.0)
+    raise AssertionError(f"torch.profiler recorded no device events in {sessions} sessions")
+
+
+def rec_byte_chains():
+    """The byte round trips after rsfilesink / rsfilesrc, as (label, launch
+    fragment); the sodium keys and the stream nonce are fixed, so the sealed
+    stream repeats."""
+    from gst_plugins_rs_tpu_torch.net.nacl import x25519_public_key
+
+    s, r = bytes(range(1, 33)), bytes(range(33, 65))
+    enc = (f"sodiumencrypter sender-key={s.hex()} receiver-key={x25519_public_key(r).hex()} "
+           f"nonce={bytes(range(24)).hex()}")
+    dec = f"sodiumdecrypter sender-key={x25519_public_key(s).hex()} receiver-key={r.hex()}"
+    return [("compressenc ! compressdec", "compressenc ! compressdec"),
+            ("brotlicompress ! brotlidecompress", "brotlicompress ! brotlidecompress"),
+            ("sodiumencrypter ! sodiumdecrypter", f"{enc} ! {dec}")]
+
+
+def rec_bytes(frames, path, profiled=False):
+    """Each byte round trip over `frames` (tensors): {label: (output bytes,
+    device-to-host copies or None)}.  rsfilesink writes `path` and rsfilesrc
+    reads it back a frame a block."""
+    import gst_plugins_rs_tpu_torch as g
+
+    nbytes = frames[0].numel() * frames[0].element_size()
+
+    def through(launch):
+        def run():
+            p = g.parse_launch(launch)
+            if "appsrc" in launch:
+                src = p.by_name("src")
+                src.set_property("caps", g.parse_caps("application/octet-stream"))
+                for i, f in enumerate(frames):
+                    src.push_buffer(g.Buffer(f, pts=i * FRAME_NS, duration=FRAME_NS))
+                src.end_of_stream()
+            p.play_until_eos()
+            if "appsink" not in launch:
+                return b""
+            return b"".join(np.asarray(s.buffer.data).tobytes()
+                            for s in p.by_name("sink").samples)
+        return _profiled(run) if profiled else (run(), None)
+
+    _, wrote = through(f"appsrc name=src ! rsfilesink location={path}")
+    data, _ = through(f"rsfilesrc location={path} blocksize={nbytes} ! appsink name=sink")
+    results = {"rsfilesink ! rsfilesrc": (data, wrote)}
+    for label, chain in rec_byte_chains():
+        results[label] = through(f"appsrc name=src ! {chain} ! appsink name=sink")
+    return results
+
+
+def rec_pipelines(grade):
+    """Phase 4l: the recording path at full width on the card.  Video:
+    REC_FRAMES seeded 1080p frames through hsvfilter and colorlut approx
+    (B4, B2) into togglerecord (record off and on again at two seeded
+    frames; a test tone is its audio track), fallbackswitch (a videotestsrc
+    on its second input), the inter bridge, ts-queue and livesync.  Audio:
+    REC_SECONDS of 192 kHz F64 through audioloudnorm (L1) into togglerecord
+    (a seeded stop), the inter bridge and livesync (its silence fill).  The
+    counters of B4, B2 and L1 are set to 0 just before each path and read
+    just after.  Then REC_BYTE_FRAMES frames on the card through rsfilesink
+    and rsfilesrc and the compress, brotli and sodium round trips.  Returns
+    the launches."""
+    phase("4l recording and failover path on the card")
+    import importlib.util
+
+    from gst_plugins_rs_tpu_torch.codecs import brotli
+    from gst_plugins_rs_tpu_torch.core import BufferFlags
+    from gst_plugins_rs_tpu_torch.ops import colorlut_lowrank_fused as lowrank
+    from gst_plugins_rs_tpu_torch.ops import hsv_planes
+    from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
+    from gst_plugins_rs_tpu_torch.utils.build import BUILD_DIR
+
+    print(f"host: brotli {brotli.backend()}; the `cryptography` package "
+          f"{'present' if importlib.util.find_spec('cryptography') else 'absent'} (the port's "
+          f"nacl uses none); PIL {'present' if importlib.util.find_spec('PIL') else 'absent'}")
+    card0 = torch.device("cuda", 0)
+    frames = fuse_frames(REC_FRAMES, seed=REC_SEED)
+    toggles = rec_toggles(REC_FRAMES)
+
+    # the byte elements first: one read-back a buffer, at the first byte element
+    bframes = frames[:REC_BYTE_FRAMES]
+    want = b"".join(f.cpu().numpy().tobytes() for f in bframes)
+    for label, (data, dtoh) in rec_bytes(bframes, BUILD_DIR / "rec_bytes.bin",
+                                         profiled=True).items():
+        print(f"{label}: {len(bframes)} card frames, bit-equal {data == want}, Memcpy DtoH {dtoh}")
+        if data != want or dtoh != len(bframes):
+            raise AssertionError(f"{label}: not bit-equal or not one read-back a buffer")
+
+    # the kernels' own copies, read on the chain without the recording stages
+    _, plain_dtoh = _profiled(lambda: rec_plain(frames, grade))
+
+    def video():
+        hsv_planes.launches = lowrank.packed_launches = 0
+        got = rec_video(frames, grade, toggles)
+        torch.cuda.synchronize()
+        return got, {"hsv_planes": hsv_planes.launches,
+                     "colorlut_lowrank_packed": lowrank.packed_launches}
+
+    ((out, track, trace), counted), path_dtoh = _profiled(video)
+    graded = trace.ptrs("tr:sink")
+    stages = ("fs:sink_0", "isink:sink", "tq:sink", "ls:sink", "sink:sink")
+    shared = {s: trace.ptrs(s) == graded for s in stages}
+    cuts = [i for i, b in enumerate(out) if b.has_flag(BufferFlags.DISCONT)]
+    on_card = all(isinstance(b.data, torch.Tensor) and b.data.device == card0 for b in out)
+    track_in = trace.seen.get("tr:sink_0", [])
+    clipped = [b for b in track if b.data.shape[0] != REC_TRACK_SPB]
+    views = all(b.data._base is not None and b.data.device == card0 for b in clipped)
+    print(f"video {len(frames)} x {HD_W}x{HD_H} RGBA: {len(out)} out, all on {card0}: {on_card}; "
+          f"record off and on at frames {toggles}, DISCONT at outputs {cuts}; colorlut's output "
+          f"payloads shared through {[s for s in stages if shared[s]]}; Memcpy DtoH {path_dtoh} "
+          f"against {plain_dtoh} on appsrc ! hsvfilter ! colorlut ! appsink; launches {counted}")
+    print(f"audio track: {len(track_in)} buffers in, {len(track)} out, clipped at the video's end "
+          f"to {[b.data.shape[0] for b in clipped]} samples, views of the input on the card: "
+          f"{views}")
+    if len(out) != REC_FRAMES or not on_card or not all(shared.values()) \
+            or len(graded) != REC_FRAMES:
+        raise AssertionError("the recording's video left the card or was copied")
+    if path_dtoh != plain_dtoh:
+        raise AssertionError("the recording stages copied a payload off the card")
+    if counted != {"hsv_planes": REC_FRAMES, "colorlut_lowrank_packed": REC_FRAMES}:
+        raise AssertionError("B4 / B2 launches != frames on the recording path")
+    if cuts[:1] != [0] or len(cuts) < 2 or len(clipped) != 1 or not views:
+        raise AssertionError("togglerecord: the restarts or the clipped track")
+    launches = dict(counted)
+
+    # the loudness path, and the same source and loudnorm into an appsink
+    gap = rec_audio_gap(REC_SECONDS * 10)
+    _, plain_adtoh = _profiled(lambda: __import__("gst_plugins_rs_tpu_torch").parse_launch(
+        loudnorm_launch(REC_SECONDS)).play_until_eos())
+
+    def audio():
+        lim.launches = 0
+        got = rec_audio(REC_SECONDS, gap)
+        torch.cuda.synchronize()
+        return got, lim.launches
+
+    ((aout, atrace), l1), a_dtoh = _profiled(audio)
+    frames_in = atrace.ptrs("tr:sink")
+    # the limiter runs once a 100 ms output frame; at EOS audioloudnorm
+    # drains its 3 s lookahead as one buffer of many frames
+    want_l1 = -(-sum(e[2][0] for e in atrace.seen["tr:sink"]) // LN_FRAME)
+    passed = [b for b in aout if not b.has_flag(BufferFlags.GAP)]
+    fills = [b for b in aout if b.has_flag(BufferFlags.GAP)]
+    a_shared = [b.data.data_ptr() for b in passed] == atrace.ptrs("isink:sink") \
+        and atrace.ptrs("ls:sink") == atrace.ptrs("isink:sink") \
+        and set(atrace.ptrs("isink:sink")) <= set(frames_in)
+    a_on_card = all(b.data.device == card0 and b.data.dtype == torch.float64 for b in aout)
+    zeros = all(not bool(b.data.any()) and tuple(b.data.shape) == (LN_FRAME, 2) for b in fills)
+    dropped = len(frames_in) - len(passed)
+    print(f"audio {REC_SECONDS} s 192 kHz F64: {len(frames_in)} frames into togglerecord, record "
+          f"off from source buffer {gap[0]} for {gap[1]}: {dropped} dropped; livesync {len(aout)} "
+          f"out, {len(fills)} fills, zeros on {card0}: {zeros}; all on the card: {a_on_card}; "
+          f"payloads shared through the bridge and livesync: {a_shared}; Memcpy DtoH {a_dtoh} "
+          f"against {plain_adtoh} on the source ! audioloudnorm ! appsink; L1 launches {l1}, "
+          f"100 ms frames {want_l1}")
+    if l1 != want_l1 or l1 < REC_SECONDS * 10 or not a_on_card or not a_shared \
+            or a_dtoh != plain_adtoh:
+        raise AssertionError("the loudness path: launches, device or copies")
+    if dropped < 1 or len(fills) != dropped or not zeros:
+        raise AssertionError("the loudness path: the stop or livesync's fill")
+    launches["loudnorm_limiter"] = l1
+
+    return launches
+
+
+def rec_card_vs_cpu(grade):
+    """Phase 5l: the recording path on the card against the same on the
+    CPU, at REC_CPU_FRAMES frames and REC_CPU_SECONDS of audio: buffer
+    counts, PTS, durations, flags, togglerecord's restarts and the clipped
+    track's sample counts equal; pixels within LSB_TOL; the loudness path
+    within LN_SAMPLE_TOL; the track and the byte round trips bit-equal."""
+    phase("5l recording path, card against CPU")
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.utils.build import BUILD_DIR
+
+    frames = fuse_frames(REC_CPU_FRAMES, seed=REC_SEED + 1)
+    toggles = rec_toggles(REC_CPU_FRAMES)
+    gap = rec_audio_gap(REC_CPU_SECONDS * 10)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        g.set_device(dev)
+        try:
+            fr = [f.to(dev) for f in frames]
+            out, track, _ = rec_video(fr, grade, toggles)
+            aout, _ = rec_audio(REC_CPU_SECONDS, gap)
+            res = rec_bytes(fr[:2], BUILD_DIR / f"rec_bytes_{dev}.bin")
+        finally:
+            g.set_device("cuda")
+        runs[dev] = (out, track, aout, {k: v[0] for k, v in res.items()})
+
+    def meta(bufs):
+        return [(b.pts, b.duration, b.flags.value, tuple(b.data.shape)) for b in bufs]
+
+    def clips(bufs):
+        return [b.data.shape[0] for b in bufs if b.data.shape[0] != REC_TRACK_SPB]
+
+    (vc, tc, ac, bc), (vh, th, ah, bh) = runs["cuda"], runs["cpu"]
+    same = {"video": meta(vc) == meta(vh), "track": meta(tc) == meta(th),
+            "audio": meta(ac) == meta(ah)}
+    same_meta = all(same.values())
+    d_px = max(_lsb(a.data.cpu().numpy(), b.data.numpy()) for a, b in zip(vc, vh))
+    d_audio = max(float((a.data.cpu() - b.data).abs().max()) for a, b in zip(ac, ah))
+    d_track = max(float((a.data.cpu() - b.data).abs().max()) for a, b in zip(tc, th))
+    print(f"video {REC_CPU_FRAMES} frames, toggles {toggles}: {len(vc)} / {len(vh)} out, buffer "
+          f"metadata equal {same}, max {d_px} LSB (gate {LSB_TOL}); the track clipped to "
+          f"{clips(tc)} / {clips(th)} samples, max {d_track:.3e}; audio {REC_CPU_SECONDS} s, gap "
+          f"{gap}: {len(ac)} / {len(ah)} out, max {d_audio:.3e} (gate {LN_SAMPLE_TOL}); byte "
+          f"round trips equal across the devices: {bc == bh} ({sorted(bc)})")
+    if not same_meta or len(vc) != REC_CPU_FRAMES or d_px > LSB_TOL or d_track != 0.0 \
+            or d_audio > LN_SAMPLE_TOL or bc != bh or not clips(tc):
+        raise AssertionError("the recording path: card and CPU disagree")
+
+
+def _stream_busy(run):
+    """(device busy ms, device ops) of the streaming part of one call of
+    `run(around)` under torch.profiler; a session with no device events is
+    thrown away and `run` called again (up to 3 times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        box = {}
+
+        def around(fn):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            box["prof"] = prof
+
+        run(around)
+        dev = [e for e in box["prof"].key_averages() if str(e.device_type).endswith("CUDA")]
+        if dev:
+            return (sum(e.self_device_time_total for e in dev) / 1e3, sum(e.count for e in dev))
+    raise AssertionError("torch.profiler recorded no device events in 3 sessions")
+
+
+def rec_timing(card_line, grade):
+    """Phase 6l: frames per second of 4l's video path (REC_VIDEO into
+    REC_VIDEO_OUT, no toggles) against REC_PLAIN on the same frames, the
+    median of REC_REPEATS runs of REC_TIMING_FRAMES frames, each timed on
+    the host clock to torch.cuda.synchronize over all but its first
+    REC_TIMING_WARM (start-up and negotiation outside); the host ms a frame
+    the recording stages add; device busy ms and ops a frame over the
+    timed frames of one more run (torch.profiler) and the busy share of
+    the median wall."""
+    phase("6l recording path timing")
+    frames = fuse_frames(REC_TIMING_FRAMES, seed=REC_SEED + 2)
+    warm, timed_n = REC_TIMING_WARM, REC_TIMING_FRAMES - REC_TIMING_WARM
+    paths = {"appsrc ! hsvfilter ! colorlut ! appsink": lambda around: rec_plain(
+                 frames, grade, around=around, warm=warm),
+             "the recording path (4l)": lambda around: rec_video(
+                 frames, grade, [], around=around, warm=warm, traced=False)}
+    rows = {}
+    for label, run in paths.items():
+        walls = []
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+
+        for _ in range(REC_REPEATS):
+            run(timed)
+        busy, ops = _stream_busy(run)
+        wall = statistics.median(walls)
+        rows[label] = dict(fps=timed_n / wall, wall=wall, busy=busy)
+        print(f"{label}, {HD_W}x{HD_H}, {timed_n} frames timed after {warm}: "
+              f"{timed_n / wall:.1f} frames/s (median of "
+              f"{[round(timed_n / w, 1) for w in walls]}); device busy {busy / timed_n:.4f} ms "
+              f"and {ops / timed_n:.1f} ops a frame, {100 * busy / 1e3 / wall:.1f}% of the "
+              f"median wall [{card_line}]")
+    plain, rec = rows.values()
+    print(f"the recording stages add {(rec['wall'] - plain['wall']) / timed_n * 1e3:.3f} host "
+          f"ms a frame; frames/s recording / plain {rec['fps'] / plain['fps']:.3f} "
+          f"[{card_line}]")
+    return rows
+
+
 def main() -> int:
     card_line = card()
     sys.path.insert(0, str(ROOT))
@@ -3861,12 +4413,14 @@ def main() -> int:
     audio_launches.update(speech_pipeline())
     audio_launches.update(bank_pipelines())
     mesh_launches, _ = mesh_pipelines()
+    rec_launches = rec_pipelines(grade)
     compose_card_vs_cpu()
     demucs_card_vs_cpu()
     speech_card_vs_cpu()
     hand_pipelines(card_line)
     bank_card_vs_cpu()
     mesh_card_vs_cpu()
+    rec_card_vs_cpu(grade)
     timing(card_line)
     effects_timing(card_line, grade)
     fuse_timing(card_line, grade)
@@ -3877,10 +4431,15 @@ def main() -> int:
     speech_timing(card_line)
     bank_timing(card_line)
     mesh_timing(card_line)
+    rec_timing(card_line, grade)
     # the sharded paths' launches (phase 4k) join their kernels' counts
     launches += mesh_launches["yolox_c3"]
     for name in ("loudnorm_limiter", "loudnorm_limiter_bank"):
         audio_launches[name] += mesh_launches[name]
+    # and the recording path's (phase 4l)
+    for name in ("hsv_planes", "colorlut_lowrank_packed"):
+        effect_launches[name] += rec_launches[name]
+    audio_launches["loudnorm_limiter"] += rec_launches["loudnorm_limiter"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "library_ms")
     main_case = next(c for c in cases if c["dtype"] == "f32" and c["batch"] == 1)
     entries = [{

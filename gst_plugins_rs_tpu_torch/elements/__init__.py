@@ -9,8 +9,12 @@ videocompare), the EBU R-128 audio path (audioloudnorm, ebur128level,
 rsaudioecho), the RNNoise denoiser (audiornnoise), the spatial renderers
 (hrtfrender, sofalizer), agingradio, audiomixer, the Demucs source
 separator (demucs), speech transcription (whispertranscriber), the palm
-detection decoder (handdetectiontensordec) and the stream bank
-(loudnormbank)."""
+detection decoder (handdetectiontensordec), the stream bank
+(loudnormbank), and the host-only generic, switching and text families
+(file, inter, compression, brotli and sodium elements, gopbuffer,
+debugseimetainserter, originalbuffer*, the misc inventory, the remaining
+ts-* elements, decodebin, togglerecord, fallbackswitch, livesync,
+fallbacksrc, regex, textwrap, textaccumulate, jsongst*)."""
 from . import sinks, sources  # noqa: F401
 from .analytics import combiner, handdetection, meta, yoloxinference, yoloxtensordec  # noqa: F401
 from .audiofx import (  # noqa: F401
@@ -26,7 +30,21 @@ from .audiofx import (  # noqa: F401
     sofalizer,
     whisper,
 )
-from .generic import basic, convert, corefx  # noqa: F401
+from .generic import (  # noqa: F401
+    basic,
+    buffers,
+    convert,
+    corefx,
+    debugsei,
+    decodebin,
+    gopbuffer,
+    io,
+    misc,
+    sodium,
+    threadshare_extra,
+)
+from .text import elements as text_elements  # noqa: F401
+from .utilsfx import fallbacksrc, switching, togglerecord  # noqa: F401
 from .video import (  # noqa: F401
     colordetect,
     colorlut,

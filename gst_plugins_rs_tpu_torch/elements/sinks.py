@@ -4,16 +4,9 @@ from __future__ import annotations
 from typing import List, Optional
 
 import numpy as np
-import torch
 
 from ..core import BaseSink, Buffer, Caps, FlowReturn, Prop, register
-
-
-def _host(data) -> np.ndarray:
-    """A payload as a host array: device tensors are copied to the host."""
-    if isinstance(data, torch.Tensor):
-        return data.detach().cpu().numpy()
-    return np.asarray(data)
+from ..core.payload import host_array
 
 
 class Sample:
@@ -57,7 +50,7 @@ class AppSink(BaseSink):
         """Concatenate all collected audio payloads to one [frames, ch] host array."""
         if not self.samples:
             return np.zeros((0, 0), np.float32)
-        return np.concatenate([_host(s.buffer.data) for s in self.samples], axis=0)
+        return np.concatenate([host_array(s.buffer.data) for s in self.samples], axis=0)
 
     def on_paused_to_ready_keep_samples(self) -> None:
         pass  # samples survive teardown so tests can inspect them

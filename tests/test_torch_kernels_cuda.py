@@ -1361,3 +1361,175 @@ def test_yolox_x_bf16_card_matches_cpu(cuda, props):
     assert out.shape == ref.shape == (1, 84, 85) and torch.isfinite(out).all()
     if props == "engine=fast-bf16":
         assert float((out[..., 4:] - ref[..., 4:]).abs().max()) < 0.05
+
+
+# -- the host-only elements with payloads on the card ----------------------------
+# Byte elements read a card payload back once and must give the bytes a CPU
+# tensor gives; togglerecord's clip of a card tensor is a view of it; the
+# fills of livesync and fallbacksrc are made on the card.
+_OCTETS = "application/octet-stream"
+
+
+def _byte_outputs(launch, payloads, caps=_OCTETS, host=True):
+    import gst_plugins_rs_tpu_torch as g
+
+    p = g.parse_launch(f"appsrc name=src ! {launch} ! appsink name=sink")
+    p.by_name("src").set_property("caps", g.parse_caps(caps))
+    for i, t in enumerate(payloads):
+        p.by_name("src").push_buffer(g.Buffer(t, pts=i * 1_000_000, duration=1_000_000))
+    p.by_name("src").end_of_stream()
+    p.play_until_eos()
+    out = [s.buffer.data for s in p.by_name("sink").samples]
+    if not host:
+        return out
+    assert out and all(isinstance(o, np.ndarray) and o.dtype == np.uint8 for o in out)
+    return [o.tobytes() for o in out]
+
+
+_KEY_S, _KEY_R = bytes(range(1, 33)), bytes(range(40, 72))
+
+
+def _sodium_pair():
+    from gst_plugins_rs_tpu_torch.net.nacl import x25519_public_key
+
+    return (f"sodiumencrypter sender-key={_KEY_S.hex()} "
+            f"receiver-key={x25519_public_key(_KEY_R).hex()} block-size=4096 "
+            f"nonce={bytes(range(24)).hex()}",
+            f"sodiumdecrypter sender-key={x25519_public_key(_KEY_S).hex()} "
+            f"receiver-key={_KEY_R.hex()}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("launch", [
+    "compressenc", "compressenc format=deflate ! compressdec format=deflate",
+    "zlibcompress ! zlibdecompress", "brotlicompress", "brotlicompress ! brotlidecompress",
+    "sodium", "sodium-roundtrip", "debugseimetainserter", "s302mparse", "ac4parse",
+])
+def test_byte_elements_take_card_payloads(cuda, launch):
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    frames = [torch.randint(0, 256, (48, 64, 4), generator=gen, device="cuda",
+                            dtype=torch.uint8) for _ in range(3)]
+    caps = {"debugseimetainserter": "video/x-h264,stream-format=avc",
+            "s302mparse": "audio/x-smpte-302m", "ac4parse": "audio/x-ac4"}.get(launch, _OCTETS)
+    enc, dec = _sodium_pair()
+    chain = {"sodium": enc, "sodium-roundtrip": f"{enc} ! {dec}"}.get(launch, launch)
+    if launch == "ac4parse":  # frames behind an AC-4 sync word and size
+        frames = [torch.cat([torch.tensor([0xAC, 0x40, 0x30, 0x00], dtype=torch.uint8,
+                                          device="cuda"), f.flatten()]) for f in frames]
+    if launch == "s302mparse":  # parses the header, then hands the payload on
+        frames = [torch.cat([torch.tensor([0, 240, 0x80, 0x20], dtype=torch.uint8,
+                                          device="cuda"), f.flatten()]) for f in frames]
+        assert _byte_outputs(chain, frames, caps, host=False) == frames
+        return
+    got = _byte_outputs(chain, frames, caps)
+    assert got == _byte_outputs(chain, [f.cpu() for f in frames], caps)
+    if launch.endswith("roundtrip") or "!" in launch:
+        assert b"".join(got) == b"".join(f.cpu().numpy().tobytes() for f in frames)
+
+
+@pytest.mark.cuda
+def test_rsfilesink_writes_card_payloads(cuda, tmp_path):
+    import gst_plugins_rs_tpu_torch as g
+
+    frames = [torch.arange(4096, device="cuda", dtype=torch.int32).reshape(64, 64) * (i + 1)
+              for i in range(3)]
+    path = tmp_path / "card.bin"
+    p = g.parse_launch(f"appsrc name=src ! rsfilesink location={path}")
+    p.by_name("src").set_property("caps", g.parse_caps(_OCTETS))
+    for i, f in enumerate(frames):
+        p.by_name("src").push_buffer(g.Buffer(f[:, ::2], pts=i))  # a strided view
+    p.by_name("src").end_of_stream()
+    p.play_until_eos()
+    assert path.read_bytes() == b"".join(f[:, ::2].cpu().numpy().tobytes() for f in frames)
+
+
+def _port_test_module(name):
+    """A test file of the JAX package compiled against the port (this file
+    imports nothing of JAX, so it cannot use tests/torch_parity_helpers)."""
+    import pathlib
+    import re
+
+    path = pathlib.Path(__file__).with_name(name)
+    ns = {"__name__": f"port_{path.stem}", "__file__": str(path)}
+    src = re.sub(r"\bgst_plugins_rs_tpu\b", "gst_plugins_rs_tpu_torch", path.read_text())
+    exec(compile(src, str(path), "exec"), ns)  # noqa: S102
+    return ns
+
+
+@pytest.mark.cuda
+def test_togglerecord_clips_card_tensors_to_views(cuda):
+    ns = _port_test_module("test_togglerecord.py")
+    MS = 1_000_000
+    tr, main, (sec,) = ns["_make"](record=False, n_secondary=1)
+    sec.set_caps(ns["Caps"].builder("audio/x-raw", format="F32", rate=48000, channels=2,
+                                    layout="interleaved"))
+    main.run([ns["_buf"](0), lambda: tr.set_property("record", True), ns["_buf"](10),
+              ns["_buf"](20), ns["_buf"](30), lambda: tr.set_property("record", False),
+              ns["_buf"](40), ns["_buf"](50), ns["Event"].new_eos()])
+    sent = [torch.randn(960, 2, device="cuda") for _ in range(3)]
+    sec.run([ns["Buffer"](d, pts=t * MS, duration=20 * MS) for t, d in zip((0, 20, 40), sent)]
+            + [ns["Event"].new_eos()])
+    main.join()
+    sec.join()
+    lens = [b.data.shape[0] for b in sec.buffers]
+    assert lens == [480, 960]
+    assert sec.buffers[0].data._base is sent[0] and sec.buffers[0].data.is_cuda
+    assert torch.equal(sec.buffers[0].data, sent[0][480:])
+    assert sec.buffers[1].data is sent[1]
+
+
+@pytest.mark.cuda
+def test_livesync_fills_on_the_card(cuda):
+    ns = _port_test_module("test_livesync.py")
+    tc, ls, h = ns["_mk"](False, latency=0)
+    h.set_src_caps(ns["Caps"].builder("audio/x-raw", format="F64", rate=48000, channels=2,
+                                      layout="interleaved"))
+    slot = 100_000_000
+    sent = [torch.randn(4800, 2, device="cuda", dtype=torch.float64) for _ in range(3)]
+    out = []
+    h.push(ns["Buffer"](sent[0], pts=0, duration=slot))
+    h.push(ns["Buffer"](sent[1], pts=slot, duration=slot))
+    for _ in range(3):  # slot 1, then two slots of silence (slot 0 left at the push)
+        assert tc.crank()
+        out += h.pull_all()
+    h.push(ns["Buffer"](sent[2], pts=4 * slot, duration=slot))
+    assert tc.crank()
+    out += h.pull_all()
+    gap = ns["BufferFlags"].GAP
+    fills = [b for b in out if b.has_flag(gap)]
+    assert [b.data for b in out if not b.has_flag(gap)] == sent
+    assert len(fills) == 2
+    for b in fills:
+        assert b.data.is_cuda and b.data.dtype == torch.float64
+        assert tuple(b.data.shape) == (4800, 2) and not bool(b.data.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["audio", "video"])
+def test_fallbacksrc_dummies_on_the_card(cuda, tmp_path, kind):
+    import time
+
+    import gst_plugins_rs_tpu_torch as g
+
+    ns = _port_test_module("test_fallbacksrc.py")
+    props = {"uri": f"file://{tmp_path}/missing.bin", "restart-timeout": 20_000_000,
+             "timeout": 50_000_000}
+    if kind == "video":
+        props.update({"enable-audio": False, "dummy-video-caps":
+                      "video/x-raw,format=RGB,width=16,height=8,framerate=50/1"})
+    prev = g.requested_device()
+    g.set_device("cuda")
+    try:
+        p, src, sink = ns["build"](**props)
+        p.set_state(ns["State"].PLAYING)
+        deadline = time.monotonic() + 8  # the JAX file's `collect` reads numpy payloads
+        while len(sink.samples) < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        got = [s.buffer.data for s in sink.samples[:2]]
+        p.set_state(ns["State"].NULL)
+    finally:
+        g.set_device(prev)
+    assert len(got) == 2
+    for d in got:
+        assert isinstance(d, torch.Tensor) and d.is_cuda and not bool(d.any())
+        assert d.dtype == (torch.float32 if kind == "audio" else torch.uint8)

@@ -259,11 +259,33 @@ def test_factories_mirror_jax():
             "videoconvertscale", "skiacompositor", "roundedcorners", "colordetect",
             "videocompare", "demucs", "whispertranscriber", "handdetectiontensordec",
             "loudnormbank", "volume", "videoflip", "videocrop", "videorate",
-            "audiorate"} == set(names)
+            "audiorate",
+            # the host-only generic, switching and text families
+            "originalbuffersave", "originalbufferrestore", "rsfilesrc", "rsfilesink",
+            "intersink", "intersrc", "compressenc", "compressdec", "zlibcompress",
+            "zlibdecompress", "deflatecompress", "deflatedecompress", "brotlicompress",
+            "brotlidecompress", "gopbuffer", "debugseimetainserter", "sodiumencrypter",
+            "sodiumdecrypter", "textahead", "streamgrouper", "s302mparse", "ac4parse",
+            "uriplaylistbin", "viuersink", "ts-proxysink", "ts-proxysrc", "ts-appsrc",
+            "ts-audiotestsrc", "ts-queue", "ts-blocking-adapter", "ts-intersink",
+            "ts-intersrc", "ts-clocksync", "ts-input-selector", "ts-rtpdtmfsrc",
+            "ts-tcpclientsrc", "decodebin", "togglerecord", "fallbackswitch", "livesync",
+            "fallbacksrc", "regex", "textwrap", "textaccumulate", "jsongstenc",
+            "jsongstparse"} == set(names)
+    assert len(names) == 89
     for name in names:
         jc, tc = jfactory(name), tfactory(name)
         assert [(p.name, repr(p.default), p.type, p.choices) for p in jc.PROPERTIES] == \
             [(p.name, repr(p.default), p.type, p.choices) for p in tc.PROPERTIES], name
+        assert [(p.name, p.minimum, p.maximum, p.mutable) for p in jc.PROPERTIES] == \
+            [(p.name, p.minimum, p.maximum, p.mutable) for p in tc.PROPERTIES], name
+        assert jc._all_signals() == tc._all_signals(), name
+        assert repr(getattr(jc, "EXTRA_PAD_TEMPLATES", None)) == \
+            repr(getattr(tc, "EXTRA_PAD_TEMPLATES", None)), name
+        assert {k: [(p.name, repr(p.default), p.type) for p in v]
+                for k, v in jc._all_pad_properties().items()} == \
+            {k: [(p.name, repr(p.default), p.type) for p in v]
+             for k, v in tc._all_pad_properties().items()}, name
         for attr in ("SINK_CAPS", "SRC_CAPS", "SRC_TEMPLATE_CAPS", "SINK_TEMPLATE_CAPS"):
             assert repr(getattr(jc, attr, None)) == repr(getattr(tc, attr, None)), (name, attr)
 
@@ -297,7 +319,14 @@ def test_port_imports_no_jax():
                 "ops/palette.py", "ops/imagehash.py", "elements/video/videoscale.py",
                 "elements/video/compositor.py", "elements/video/roundedcorners.py",
                 "elements/video/colordetect.py", "elements/video/videocompare.py",
-                "models/demucs.py", "elements/audiofx/demucs.py"):
+                "models/demucs.py", "elements/audiofx/demucs.py", "net/nacl.py",
+                "codecs/brotli.py", "core/payload.py", "elements/generic/buffers.py",
+                "elements/generic/io.py", "elements/generic/gopbuffer.py",
+                "elements/generic/debugsei.py", "elements/generic/sodium.py",
+                "elements/generic/misc.py", "elements/generic/threadshare_extra.py",
+                "elements/generic/decodebin.py", "elements/utilsfx/togglerecord.py",
+                "elements/utilsfx/switching.py", "elements/utilsfx/fallbacksrc.py",
+                "elements/text/elements.py"):
         assert f"gst_plugins_rs_tpu_torch/{mod}" in names, mod
     banned = ("jax", "jaxlib", "flax", "gst_plugins_rs_tpu")
     for f in files:

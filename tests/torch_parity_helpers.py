@@ -2,6 +2,7 @@
 package (tests/test_torch_*.py): seeded weights that both packages load,
 an official-style YOLOX checkpoint, and the CPU setting of the audio tests."""
 import contextlib
+import pathlib
 import re
 
 import jax
@@ -108,3 +109,94 @@ def official_checkpoint(variables, path):
     sd = {official_key(k): v for k, v in port_state(variables).items()}
     torch.save({"model": sd}, path)
     return path
+
+
+def load_test_module(jax_test_file, port):
+    """The namespace of a test file of the JAX package, compiled as it is
+    (port=False) or with every `gst_plugins_rs_tpu` module name replaced by
+    `gst_plugins_rs_tpu_torch` (port=True), so that its helpers drive the
+    port."""
+    path = pathlib.Path(__file__).with_name(jax_test_file)
+    src = path.read_text()
+    if port:
+        src = re.sub(r"\bgst_plugins_rs_tpu\b", "gst_plugins_rs_tpu_torch", src)
+    ns = {"__name__": f"{'port' if port else 'jax'}_{path.stem}", "__file__": str(path)}
+    exec(compile(src, str(path), "exec"), ns)  # noqa: S102
+    return ns
+
+
+def mirror_jax_tests(jax_test_file, namespace, skip=()):
+    """Run a test file of the JAX package against the port.
+
+    The file is compiled by `load_test_module(..., port=True)`, and its
+    tests, fixtures and helpers are put into `namespace` (the calling test
+    module's globals), so pytest collects each JAX test under its own name
+    in the port's file.  `skip` names tests that are not mirrored because
+    they need a factory of a later slice of the port.  Returns the names of
+    the mirrored tests."""
+    ns = load_test_module(jax_test_file, port=True)
+    missing = set(skip) - set(ns)
+    assert not missing, f"{jax_test_file} has no tests {sorted(missing)}"
+    mirrored = []
+    for name, value in ns.items():
+        if name.startswith("__") or name in skip:
+            continue
+        if name.startswith("test_"):
+            assert name not in namespace, f"{name} is mirrored twice"
+            mirrored.append(name)
+        namespace.setdefault(name, value)
+    return mirrored
+
+
+def payload_summary(data):
+    """A payload as something both packages' outputs compare by: text as
+    is, arrays (numpy or tensors, on any device) as (dtype, shape, bytes)."""
+    if data is None or isinstance(data, (str, bytes)):
+        return data
+    if isinstance(data, torch.Tensor):
+        data = data.detach().cpu().numpy()
+    arr = np.asarray(data)
+    return (arr.dtype.str, arr.shape, arr.tobytes())
+
+
+def buffer_summary(buf):
+    """(payload, pts, dts, duration, offset, flags) of a buffer; flags by
+    value, since each package has its own BufferFlags class."""
+    return (payload_summary(buf.data), buf.pts, buf.dts, buf.duration, buf.offset,
+            buf.flags.value)
+
+
+def message_summary(msg):
+    """(type, structure name, fields as text) of a bus message."""
+    s = msg.structure
+    fields = None if s is None else sorted((k, repr(v)) for k, v in s.fields.items())
+    return (msg.type.value, None if s is None else s.name, fields,
+            sorted((k, repr(v)) for k, v in msg.fields.items()))
+
+
+def run_launch(pkg, launch, buffers=(), caps=None, configure=None, src="src", sink="sink"):
+    """Run `launch` in one package (the JAX package or the port, passed as
+    its module): buffers given as dicts of Buffer arguments (flags by name,
+    payloads as the caller made them for that package) go into the appsrc
+    named `src` when there is one, then EOS.  Returns the appsink's buffer
+    summaries and the bus messages' summaries."""
+    p = pkg.parse_launch(launch)
+    if configure is not None:
+        configure(p)
+    try:
+        appsrc = p.by_name(src)
+    except KeyError:
+        appsrc = None
+    if appsrc is not None:
+        if caps is not None:
+            appsrc.set_property("caps", pkg.parse_caps(caps))
+        for b in buffers:
+            b = dict(b)
+            flags = pkg.BufferFlags.NONE
+            for name in b.pop("flags", ()):
+                flags |= pkg.BufferFlags[name]
+            appsrc.push_buffer(pkg.Buffer(b.pop("data"), flags=flags, **b))
+        appsrc.end_of_stream()
+    p.play_until_eos()
+    samples = [buffer_summary(s.buffer) for s in p.by_name(sink).samples]
+    return samples, [message_summary(m) for m in p.bus.messages()]
