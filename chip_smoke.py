@@ -1161,18 +1161,30 @@ def mxu_timing(card_line, grade):
               + f" [{card_line}]")
 
 
-def device_events(run, sessions: int = 3):
+def device_events(run, sessions: int = 3, cuda_only: bool = False, around: bool = False):
     """(key averages, device events) of one call of `run` under
     torch.profiler.  Now and then a profiling session hands back no device
     activity at all: `run` is then profiled again, up to `sessions` times,
-    and only a session with device events counts."""
+    and only a session with device events counts.  `cuda_only` records the
+    card's activity alone (a session with the host's ops over the 60 s
+    audio path left the next sessions empty).  With `around`, `run` is
+    called with a function that profiles the call it is given, so that
+    only that part of `run` is recorded."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA] if cuda_only else \
+        [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for _ in range(sessions):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        avgs = prof.key_averages()
+        box = {}
+
+        def profiled(fn):
+            with profile(activities=activities) as prof:
+                fn()
+                torch.cuda.synchronize()
+            box["prof"] = prof
+
+        run(profiled) if around else profiled(run)
+        avgs = box["prof"].key_averages()
         events = [e for e in avgs if str(e.device_type).endswith("CUDA")]
         if events:
             return avgs, events
@@ -4082,25 +4094,20 @@ def rec_audio(seconds, gap):
     return out, trace
 
 
-def _profiled(run, sessions=3):
+def _profiled(run):
     """(run's result, device-to-host copies) over one call of `run` under
-    torch.profiler, the card's activity only (a session over the 60 s audio
-    path with the host's ops too left the next sessions empty).  A session
-    that hands back no device activity at all, not even its marker kernel,
-    is thrown away and `run` called again (it must build what it runs), up
-    to `sessions` times."""
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler, the card's activity only.  A marker kernel goes first,
+    so that a session that records nothing of the card (the file source's
+    run has no device work) is told apart and `run` called again (it must
+    build what it runs)."""
+    got = []
 
-    for _ in range(sessions):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.ones(1, device="cuda").add_(1)  # a marker: the session records the card
-            got = run()
-            torch.cuda.synchronize()
-        dev = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
-        if dev:
-            return got, sum(1 for e in dev if e.name.startswith("Memcpy DtoH"))
-        time.sleep(1.0)
-    raise AssertionError(f"torch.profiler recorded no device events in {sessions} sessions")
+    def marked():
+        torch.ones(1, device="cuda").add_(1)
+        got.append(run())
+
+    _, events = device_events(marked, cuda_only=True)
+    return got[-1], sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
 
 
 def rec_byte_chains():
@@ -4174,7 +4181,7 @@ def rec_pipelines(grade):
 
     print(f"host: brotli {brotli.backend()}; the `cryptography` package "
           f"{'present' if importlib.util.find_spec('cryptography') else 'absent'} (the port's "
-          f"nacl uses none); PIL {'present' if importlib.util.find_spec('PIL') else 'absent'}")
+          f"nacl needs it); PIL {'present' if importlib.util.find_spec('PIL') else 'absent'}")
     card0 = torch.device("cuda", 0)
     frames = fuse_frames(REC_FRAMES, seed=REC_SEED)
     toggles = rec_toggles(REC_FRAMES)
@@ -4221,8 +4228,12 @@ def rec_pipelines(grade):
         raise AssertionError("the recording stages copied a payload off the card")
     if counted != {"hsv_planes": REC_FRAMES, "colorlut_lowrank_packed": REC_FRAMES}:
         raise AssertionError("B4 / B2 launches != frames on the recording path")
-    if cuts[:1] != [0] or len(cuts) < 2 or len(clipped) != 1 or not views:
-        raise AssertionError("togglerecord: the restarts or the clipped track")
+    # togglerecord marks the first frame, and at each toggle the frame that
+    # met the stop and the one after it
+    want_cuts = [0] + [i + k for i in toggles for k in (0, 1)]
+    if cuts != want_cuts or len(clipped) != 1 or not views:
+        raise AssertionError(f"togglerecord: DISCONT at {cuts}, not {want_cuts}, or the "
+                             f"clipped track")
     launches = dict(counted)
 
     # the loudness path, and the same source and loudnorm into an appsink
@@ -4315,24 +4326,9 @@ def rec_card_vs_cpu(grade):
 
 def _stream_busy(run):
     """(device busy ms, device ops) of the streaming part of one call of
-    `run(around)` under torch.profiler; a session with no device events is
-    thrown away and `run` called again (up to 3 times)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        box = {}
-
-        def around(fn):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            box["prof"] = prof
-
-        run(around)
-        dev = [e for e in box["prof"].key_averages() if str(e.device_type).endswith("CUDA")]
-        if dev:
-            return (sum(e.self_device_time_total for e in dev) / 1e3, sum(e.count for e in dev))
-    raise AssertionError("torch.profiler recorded no device events in 3 sessions")
+    `run(around)` under torch.profiler."""
+    _, dev = device_events(run, around=True)
+    return sum(e.self_device_time_total for e in dev) / 1e3, sum(e.count for e in dev)
 
 
 def rec_timing(card_line, grade):
@@ -4373,9 +4369,9 @@ def rec_timing(card_line, grade):
               f"and {ops / timed_n:.1f} ops a frame, {100 * busy / 1e3 / wall:.1f}% of the "
               f"median wall [{card_line}]")
     plain, rec = rows.values()
-    print(f"the recording stages add {(rec['wall'] - plain['wall']) / timed_n * 1e3:.3f} host "
-          f"ms a frame; frames/s recording / plain {rec['fps'] / plain['fps']:.3f} "
-          f"[{card_line}]")
+    print(f"the recording stages and their two test sources add "
+          f"{(rec['wall'] - plain['wall']) / timed_n * 1e3:.3f} host ms a frame; frames/s "
+          f"recording / plain {rec['fps'] / plain['fps']:.3f} [{card_line}]")
     return rows
 
 

@@ -15,16 +15,12 @@ Implementation notes:
   crypto_box precomputed key from the X25519 shared secret and the
   XSalsa20 subkey from the first 16 nonce bytes (Bernstein, "Extending
   the Salsa20 nonce").
-- X25519 (RFC 7748 section 5, the Montgomery ladder) and Poly1305
-  (RFC 8439 section 2.5) are plain Python integer arithmetic, so one code
-  path runs on every host, with or without an optional crypto package.
-  Neither is constant-time: they seal media streams, not long-term keys
-  on a shared machine.
+- X25519 and Poly1305 come from the `cryptography` package, as in the
+  JAX package's nacl: its constant-time implementations handle the
+  elements' long-term private keys and authenticate every block.
 - crypto_box "easy" layout: 16-byte MAC then ciphertext.
 """
 from __future__ import annotations
-
-import hmac
 
 import numpy as np
 
@@ -112,103 +108,48 @@ def _xor(a: bytes, b: bytes) -> bytes:
     return (np.frombuffer(a, np.uint8) ^ np.frombuffer(b, np.uint8)).tobytes()
 
 
-_P25519 = (1 << 255) - 19
-_A24 = 121665
-_BASE_U = (9).to_bytes(32, "little")
-
-
-def _clamp_scalar(k: bytes) -> int:
-    b = bytearray(k)
-    b[0] &= 248
-    b[31] &= 127
-    b[31] |= 64
-    return int.from_bytes(b, "little")
-
-
-def x25519(scalar32: bytes, u32: bytes) -> bytes:
-    """X25519(k, u) by the RFC 7748 section 5 ladder; raises ValueError on
-    an all-zero result (a low-order point), as libsodium refuses it."""
-    if len(scalar32) != 32 or len(u32) != 32:
-        raise ValueError("X25519 keys are 32 bytes")
-    p = _P25519
-    k = _clamp_scalar(scalar32)
-    ub = bytearray(u32)
-    ub[31] &= 127
-    x1 = int.from_bytes(ub, "little") % p
-    x2, z2, x3, z3 = 1, 0, x1, 1
-    swap = 0
-    for t in range(254, -1, -1):
-        kt = (k >> t) & 1
-        if swap ^ kt:
-            x2, x3 = x3, x2
-            z2, z3 = z3, z2
-        swap = kt
-        a = x2 + z2
-        aa = a * a % p
-        b = x2 - z2
-        bb = b * b % p
-        e = aa - bb
-        c = x3 + z3
-        d = x3 - z3
-        da = d * a % p
-        cb = c * b % p
-        x3 = (da + cb) * (da + cb) % p
-        z3 = x1 * (da - cb) * (da - cb) % p
-        x2 = aa * bb % p
-        z2 = e * (aa + _A24 * e) % p
-    if swap:
-        x2, z2 = x3, z3
-    out = (x2 * pow(z2, p - 2, p) % p).to_bytes(32, "little")
-    if out == bytes(32):
-        raise ValueError("X25519 produced the all-zero shared secret")
-    return out
-
-
 def x25519_public_key(private32: bytes) -> bytes:
     """The public key of a 32-byte X25519 private key."""
-    return x25519(private32, _BASE_U)
+    from cryptography.hazmat.primitives import serialization
+    from cryptography.hazmat.primitives.asymmetric.x25519 import X25519PrivateKey
 
-
-_P1305 = (1 << 130) - 5
-_R_CLAMP = 0x0FFFFFFC0FFFFFFC0FFFFFFC0FFFFFFF
-
-
-def poly1305(key32: bytes, message: bytes) -> bytes:
-    """One-time authenticator of RFC 8439 section 2.5: 16-byte tag."""
-    r = int.from_bytes(key32[:16], "little") & _R_CLAMP
-    s = int.from_bytes(key32[16:32], "little")
-    p = _P1305
-    hi = 1 << 128
-    acc = 0
-    n = len(message)
-    full = n - n % 16
-    mv = memoryview(message)
-    for i in range(0, full, 16):
-        acc = (acc + int.from_bytes(mv[i:i + 16], "little") + hi) * r % p
-    if full < n:
-        acc = (acc + int.from_bytes(bytes(mv[full:]) + b"\x01", "little")) * r % p
-    return ((acc + s) & (hi - 1)).to_bytes(16, "little")
+    return X25519PrivateKey.from_private_bytes(private32).public_key().public_bytes(
+        serialization.Encoding.Raw, serialization.PublicFormat.Raw)
 
 
 def crypto_box_beforenm(private32: bytes, public32: bytes) -> bytes:
     """Precomputed crypto_box key: HSalsa20(X25519 shared secret, 0)."""
-    return hsalsa20(x25519(private32, public32), b"\x00" * 16)
+    from cryptography.hazmat.primitives.asymmetric.x25519 import (
+        X25519PrivateKey,
+        X25519PublicKey,
+    )
+
+    shared = X25519PrivateKey.from_private_bytes(private32).exchange(
+        X25519PublicKey.from_public_bytes(public32))
+    return hsalsa20(shared, b"\x00" * 16)
 
 
 def secretbox_easy(message: bytes, nonce24: bytes, key: bytes) -> bytes:
     """XSalsa20-Poly1305 seal, easy layout: MAC(16) || ciphertext."""
+    from cryptography.hazmat.primitives.poly1305 import Poly1305
+
     ks = xsalsa20_keystream(key, nonce24, 32 + len(message))
     ct = _xor(message, ks[32:])
-    return poly1305(ks[:32], ct) + ct
+    return Poly1305.generate_tag(ks[:32], ct) + ct
 
 
 def secretbox_open_easy(boxed: bytes, nonce24: bytes, key: bytes) -> bytes:
+    from cryptography.exceptions import InvalidSignature
+    from cryptography.hazmat.primitives.poly1305 import Poly1305
+
     if len(boxed) < MAC_BYTES:
         raise ValueError("boxed message too short")
     mac, ct = boxed[:MAC_BYTES], boxed[MAC_BYTES:]
     ks = xsalsa20_keystream(key, nonce24, 32 + len(ct))
-    if not hmac.compare_digest(poly1305(ks[:32], ct), mac):
-        raise ValueError("crypto_box MAC verification failed")
+    try:
+        Poly1305.verify_tag(ks[:32], ct, mac)
+    except InvalidSignature:
+        raise ValueError("crypto_box MAC verification failed") from None
     return _xor(ct, ks[32:])
 
 
@@ -224,9 +165,7 @@ __all__ = [
     "hsalsa20",
     "salsa20_keystream",
     "xsalsa20_keystream",
-    "x25519",
     "x25519_public_key",
-    "poly1305",
     "crypto_box_beforenm",
     "secretbox_easy",
     "secretbox_open_easy",

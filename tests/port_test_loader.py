@@ -1,0 +1,20 @@
+"""Loads a test file of the JAX package as a namespace, as it is or
+compiled against the PyTorch port.  It imports nothing of JAX, so the card
+tests (tests/test_torch_kernels_cuda.py) use it on a machine without JAX,
+and tests/torch_parity_helpers.py builds its mirrored tests on it."""
+import pathlib
+import re
+
+
+def load_test_module(jax_test_file, port):
+    """The namespace of a test file of the JAX package, compiled as it is
+    (port=False) or with every `gst_plugins_rs_tpu` module name replaced by
+    `gst_plugins_rs_tpu_torch` (port=True), so that its helpers drive the
+    port."""
+    path = pathlib.Path(__file__).with_name(jax_test_file)
+    src = path.read_text()
+    if port:
+        src = re.sub(r"\bgst_plugins_rs_tpu\b", "gst_plugins_rs_tpu_torch", src)
+    ns = {"__name__": f"{'port' if port else 'jax'}_{path.stem}", "__file__": str(path)}
+    exec(compile(src, str(path), "exec"), ns)  # noqa: S102
+    return ns

@@ -19,6 +19,7 @@ import torch
 from gst_plugins_rs_tpu_torch.ops import colorlut_lowrank_fused as lowrank
 from gst_plugins_rs_tpu_torch.ops import colorlut_mxu, hsv_planes, yolox_c3
 from gst_plugins_rs_tpu_torch.ops.colorlut import grid_coord, quantize
+from port_test_loader import load_test_module
 
 
 @pytest.fixture
@@ -1443,22 +1444,9 @@ def test_rsfilesink_writes_card_payloads(cuda, tmp_path):
     assert path.read_bytes() == b"".join(f[:, ::2].cpu().numpy().tobytes() for f in frames)
 
 
-def _port_test_module(name):
-    """A test file of the JAX package compiled against the port (this file
-    imports nothing of JAX, so it cannot use tests/torch_parity_helpers)."""
-    import pathlib
-    import re
-
-    path = pathlib.Path(__file__).with_name(name)
-    ns = {"__name__": f"port_{path.stem}", "__file__": str(path)}
-    src = re.sub(r"\bgst_plugins_rs_tpu\b", "gst_plugins_rs_tpu_torch", path.read_text())
-    exec(compile(src, str(path), "exec"), ns)  # noqa: S102
-    return ns
-
-
 @pytest.mark.cuda
 def test_togglerecord_clips_card_tensors_to_views(cuda):
-    ns = _port_test_module("test_togglerecord.py")
+    ns = load_test_module("test_togglerecord.py", port=True)
     MS = 1_000_000
     tr, main, (sec,) = ns["_make"](record=False, n_secondary=1)
     sec.set_caps(ns["Caps"].builder("audio/x-raw", format="F32", rate=48000, channels=2,
@@ -1480,7 +1468,7 @@ def test_togglerecord_clips_card_tensors_to_views(cuda):
 
 @pytest.mark.cuda
 def test_livesync_fills_on_the_card(cuda):
-    ns = _port_test_module("test_livesync.py")
+    ns = load_test_module("test_livesync.py", port=True)
     tc, ls, h = ns["_mk"](False, latency=0)
     h.set_src_caps(ns["Caps"].builder("audio/x-raw", format="F64", rate=48000, channels=2,
                                       layout="interleaved"))
@@ -1511,7 +1499,7 @@ def test_fallbacksrc_dummies_on_the_card(cuda, tmp_path, kind):
 
     import gst_plugins_rs_tpu_torch as g
 
-    ns = _port_test_module("test_fallbacksrc.py")
+    ns = load_test_module("test_fallbacksrc.py", port=True)
     props = {"uri": f"file://{tmp_path}/missing.bin", "restart-timeout": 20_000_000,
              "timeout": 50_000_000}
     if kind == "video":

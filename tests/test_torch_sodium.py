@@ -1,10 +1,11 @@
 """The port's NaCl crypto_box (net/nacl.py) and sodium elements against the
 JAX package's.
 
-The port computes X25519 and Poly1305 in plain Python, with no crypto
-package; the JAX package takes both from `cryptography`.  On seeded keys,
-nonces and messages the two must agree byte for byte: public keys, shared
-box keys, boxes, opened boxes, and the refusal of tampered boxes.  The
+Both packages take X25519 and Poly1305 from `cryptography` and compute
+XSalsa20 themselves.  On seeded keys, nonces and messages the two must
+agree byte for byte: public keys, shared box keys, boxes, opened boxes,
+and the refusal of tampered boxes.  NaCl's and RFC 7748's published
+vectors pin the port's own XSalsa20 and the layout of its boxes.  The
 elements must give the JAX elements' stream, bytes equal, from numpy and
 from tensor payloads.
 """
@@ -47,32 +48,56 @@ def test_x25519_matches_cryptography(seed):
     a, b = rng.randbytes(32), rng.randbytes(32)
     pa, pb = tnacl.x25519_public_key(a), tnacl.x25519_public_key(b)
     assert pa == _cryptography_public(a) and pb == _cryptography_public(b)
-    assert tnacl.x25519(a, pb) == tnacl.x25519(b, pa)
+    assert tnacl.crypto_box_beforenm(a, pb) == tnacl.crypto_box_beforenm(b, pa)
     assert tnacl.crypto_box_beforenm(a, pb) == jnacl.crypto_box_beforenm(a, pb)
 
 
 def test_x25519_rfc7748_vectors():
-    """RFC 7748 section 5.2's two single-step vectors."""
-    k = bytes.fromhex("a546e36bf0527c9d3b16154b82465edd62144c0ac1fc5a18506a2244ba449ac4")
-    u = bytes.fromhex("e6db6867583030db3594c1a424b15f7c726624ec26b3353b10a903a6d0ab1c4c")
-    assert tnacl.x25519(k, u).hex() == \
-        "c3da55379de9c6908e94ea4df28d084f32eccf03491c71f754b4075577a28552"
-    k = bytes.fromhex("4b66e9d4d1b4673c5ad22691957d6af5c11b6421e0ea01d42ca4169e7918ba0d")
-    u = bytes.fromhex("e5210f12786811d3f4b7959d0538ae2c31dbe7106fc03c3efc4cd549c715a493")
-    assert tnacl.x25519(k, u).hex() == \
-        "95cbde9476e8907d7aade45cb4b873f88b595a68799fa152e6f8f7647aac7957"
+    """RFC 7748 section 5.2's two single-step vectors, through the box key:
+    HSalsa20 of the published shared secret."""
+    for k, u, shared in (
+            ("a546e36bf0527c9d3b16154b82465edd62144c0ac1fc5a18506a2244ba449ac4",
+             "e6db6867583030db3594c1a424b15f7c726624ec26b3353b10a903a6d0ab1c4c",
+             "c3da55379de9c6908e94ea4df28d084f32eccf03491c71f754b4075577a28552"),
+            ("4b66e9d4d1b4673c5ad22691957d6af5c11b6421e0ea01d42ca4169e7918ba0d",
+             "e5210f12786811d3f4b7959d0538ae2c31dbe7106fc03c3efc4cd549c715a493",
+             "95cbde9476e8907d7aade45cb4b873f88b595a68799fa152e6f8f7647aac7957")):
+        assert tnacl.crypto_box_beforenm(bytes.fromhex(k), bytes.fromhex(u)) == \
+            tnacl.hsalsa20(bytes.fromhex(shared), bytes(16))
 
 
 def test_x25519_refuses_low_order_point():
     with pytest.raises(ValueError):
-        tnacl.x25519(bytes(range(32)), bytes(32))
+        tnacl.crypto_box_beforenm(bytes(range(32)), bytes(32))
 
 
-def test_poly1305_rfc8439_vector():
-    """RFC 8439 section 2.5.2."""
-    key = bytes.fromhex("85d6be7857556d337f4452fe42d506a80103808afb0db2fd4abff6af4149f51b")
-    msg = b"Cryptographic Forum Research Group"
-    assert tnacl.poly1305(key, msg).hex() == "a8061dc1305136c6c22b8baf0c0127a9"
+def test_crypto_box_nacl_vector():
+    """NaCl's tests/box.c: Alice's secret and Bob's public key (RFC 7748
+    section 6.1's pair), their box key `firstkey`, and the box of the
+    131-byte message, 16-byte Poly1305 tag first."""
+    alice = bytes.fromhex("77076d0a7318a57d3c16c17251b26645df4c2f87ebc0992ab177fba51db92c2a")
+    bob = bytes.fromhex("5dab087e624a8a4b79e17f8b83800ee66f3bb1292618b6fd1c2f8b27ff88e0eb")
+    assert tnacl.x25519_public_key(alice).hex() == \
+        "8520f0098930a754748b7ddcb43ef75a0dbf3a0d26381af4eba4a98eaa9b4e6a"
+    bob_pub = tnacl.x25519_public_key(bob)
+    assert bob_pub.hex() == "de9edb7d7b7dc1b4d35b61c2ece435373f8343c85b78674dadfc7e146f882b4f"
+    key = tnacl.crypto_box_beforenm(alice, bob_pub)
+    assert key.hex() == "1b27556473e985d462cd51197a9a46c76009549eac6474f206c4ee0844f68389"
+    nonce = bytes.fromhex("69696ee955b62b73cd62bda875fc73d68219e0036b7a0b37")
+    msg = bytes.fromhex(
+        "be075fc53c81f2d5cf141316ebeb0c7b5228c52a4c62cbd44b66849b64244ffc"
+        "e5ecbaaf33bd751a1ac728d45e6c61296cdc3c01233561f41db66cce314adb31"
+        "0e3be8250c46f06dceea3a7fa1348057e2f6556ad6b1318a024a838f21af1fde"
+        "048977eb48f59ffd4924ca1c60902e52f0a089bc76897040e082f93776384864"
+        "5e0705")
+    box = bytes.fromhex(
+        "f3ffc7703f9400e52a7dfb4b3d3305d98e993b9f48681273c29650ba32fc76ce"
+        "48332ea7164d96a4476fb8c531a1186ac0dfc17c98dce87b4da7f011ec48c972"
+        "71d2c20f9b928fe2270d6fb863d51738b48eeee314a7cc8ab932164548e526ae"
+        "90224368517acfeabd6bb3732bc0e9da99832b61ca01b6de56244a9e88d5f9b3"
+        "7973f622a43d14a6599b1f654cb45a74e355a5")
+    assert tnacl.secretbox_easy(msg, nonce, key) == box
+    assert tnacl.secretbox_open_easy(box, nonce, key) == msg
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -100,14 +125,19 @@ def test_tampered_box_refused_by_both(seed):
             mod.secretbox_open_easy(bytes(box[:10]), nonce, key)
 
 
-def test_port_nacl_imports_no_crypto_package():
+def test_port_nacl_imports_only_cryptography():
+    """The port's X25519 and Poly1305 come from `cryptography`, as the JAX
+    package's do, and nothing binds libsodium."""
     for rel in ("gst_plugins_rs_tpu_torch/net/nacl.py",
                 "gst_plugins_rs_tpu_torch/elements/generic/sodium.py"):
         tree = ast.parse((ROOT / rel).read_text())
         names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
         names |= {n.module for n in ast.walk(tree)
                   if isinstance(n, ast.ImportFrom) and n.module and n.level == 0}
-        assert not any(n.split(".")[0] in ("cryptography", "nacl", "sodium") for n in names), rel
+        assert not any(n.split(".")[0] in ("nacl", "sodium") for n in names), rel
+        if rel.endswith("nacl.py"):
+            assert {"cryptography.hazmat.primitives.poly1305",
+                    "cryptography.hazmat.primitives.asymmetric.x25519"} <= names
 
 
 def test_generate_keypair_pairs():

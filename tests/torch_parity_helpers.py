@@ -2,7 +2,6 @@
 package (tests/test_torch_*.py): seeded weights that both packages load,
 an official-style YOLOX checkpoint, and the CPU setting of the audio tests."""
 import contextlib
-import pathlib
 import re
 
 import jax
@@ -12,6 +11,7 @@ import torch
 
 from gst_plugins_rs_tpu_torch.models.convert import variables_from_jax, variables_to_numpy
 from gst_plugins_rs_tpu_torch.models.yolox import Yolox
+from port_test_loader import load_test_module  # noqa: F401  (the tests import it from here)
 
 
 @contextlib.contextmanager
@@ -109,20 +109,6 @@ def official_checkpoint(variables, path):
     sd = {official_key(k): v for k, v in port_state(variables).items()}
     torch.save({"model": sd}, path)
     return path
-
-
-def load_test_module(jax_test_file, port):
-    """The namespace of a test file of the JAX package, compiled as it is
-    (port=False) or with every `gst_plugins_rs_tpu` module name replaced by
-    `gst_plugins_rs_tpu_torch` (port=True), so that its helpers drive the
-    port."""
-    path = pathlib.Path(__file__).with_name(jax_test_file)
-    src = path.read_text()
-    if port:
-        src = re.sub(r"\bgst_plugins_rs_tpu\b", "gst_plugins_rs_tpu_torch", src)
-    ns = {"__name__": f"{'port' if port else 'jax'}_{path.stem}", "__file__": str(path)}
-    exec(compile(src, str(path), "exec"), ns)  # noqa: S102
-    return ns
 
 
 def mirror_jax_tests(jax_test_file, namespace, skip=()):
