@@ -14,7 +14,11 @@ detection decoder (handdetectiontensordec), the stream bank
 (file, inter, compression, brotli and sodium elements, gopbuffer,
 debugseimetainserter, originalbuffer*, the misc inventory, the remaining
 ts-* elements, decodebin, togglerecord, fallbackswitch, livesync,
-fallbacksrc, regex, textwrap, textaccumulate, jsongst*)."""
+fallbacksrc, regex, textwrap, textaccumulate, jsongst*), the muxers
+(isofmp4mux, cmafmux, dashmp4mux, onviffmp4mux, isomp4mux, onvifmp4mux,
+mpegtsmux, rsflvdemux) and the closed-caption family (the CEA-608/708 and
+ST-2038 elements, the SCC/MCC parsers and encoders, cea608overlay,
+transcriberbin, translationbin)."""
 from . import sinks, sources  # noqa: F401
 from .analytics import combiner, handdetection, meta, yoloxinference, yoloxtensordec  # noqa: F401
 from .audiofx import (  # noqa: F401
@@ -30,6 +34,7 @@ from .audiofx import (  # noqa: F401
     sofalizer,
     whisper,
 )
+from .cc import elements as cc_elements  # noqa: F401  (registers the whole family)
 from .generic import (  # noqa: F401
     basic,
     buffers,
@@ -43,6 +48,7 @@ from .generic import (  # noqa: F401
     sodium,
     threadshare_extra,
 )
+from .mux import flv, isobmff, tsmux  # noqa: F401
 from .text import elements as text_elements  # noqa: F401
 from .utilsfx import fallbacksrc, switching, togglerecord  # noqa: F401
 from .video import (  # noqa: F401

@@ -1521,3 +1521,97 @@ def test_fallbacksrc_dummies_on_the_card(cuda, tmp_path, kind):
     for d in got:
         assert isinstance(d, torch.Tensor) and d.is_cuda and not bool(d.any())
         assert d.dtype == (torch.float32 if kind == "audio" else torch.uint8)
+
+
+def _caption_frames(n, seed, h=180, w=320):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randint(0, 256, (h, w, 4), generator=gen, device="cuda", dtype=torch.uint8)
+            for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factory", ["cea608overlay", "cea708overlay"])
+def test_caption_overlay_composites_on_the_card(cuda, factory):
+    """cea608overlay (caption metas) and cea708overlay (a cc_data stream)
+    composite card frames on the card, within 1 LSB of the same element on
+    the CPU, with their masks cached on the card."""
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.core import FlowReturn, VideoCaptionMeta
+    from gst_plugins_rs_tpu_torch.ops import cea608, cea708
+
+    pairs = cea608.encode_pop_on(["ON THE CARD", "CAPTIONS"])
+    frames = _caption_frames(4, seed=21)
+
+    def run(dev):
+        g.set_device(dev)
+        try:
+            el = g.element_factory_make(factory)
+            el.on_ready_to_paused()
+            out = []
+            if factory == "cea708overlay":
+                cc = b"".join(cea708.cc_data_triplet(0, hi, lo) for hi, lo in pairs)
+                el.ccpad.current_caps = g.parse_caps("closedcaption/x-cea-708,format=cc_data")
+                el.set_property("cea608-channel", 1)
+                el._cc_chain(el.ccpad, g.Buffer(np.frombuffer(cc, np.uint8).copy(), pts=0))
+            el.srcpad.push = lambda buf: out.append(buf) or FlowReturn.OK
+            for i, f in enumerate(frames):
+                b = g.Buffer(f.to(dev), pts=i * 33_333_333, duration=33_333_333)
+                if factory == "cea608overlay" and i == 1:
+                    b.add_meta(VideoCaptionMeta("cea608-raw", bytes(x for pr in pairs for x in pr)))
+                el._video_chain(el.sinkpad, b)
+            return el, out
+        finally:
+            g.set_device("cuda")
+
+    el, card = run("cuda")
+    _, host = run("cpu")
+    assert all(b.data.device.type == "cuda" and b.data.dtype == torch.uint8 for b in card)
+    renderer = el if factory == "cea608overlay" else el._renderer
+    assert renderer._mask_cache and all(m.device.type == "cuda" and x.device.type == "cuda"
+                                        for m, x in renderer._mask_cache.values())
+    d = max(int((a.data.cpu().to(torch.int32) - b.data.to(torch.int32)).abs().max())
+            for a, b in zip(card, host))
+    assert d <= 1
+    assert any(bool((a.data != f).any()) for a, f in zip(card, frames))
+
+
+@pytest.mark.cuda
+def test_cmafmux_reads_each_card_payload_back_once(cuda):
+    """cmafmux on card payloads: one device-to-host copy a video frame and
+    an audio buffer (torch.profiler), and the same file as from the same
+    payloads on the host; a float frame is clipped and cast on the card
+    before its copy."""
+    import gst_plugins_rs_tpu_torch as g
+    from torch.profiler import ProfilerActivity, profile
+
+    frames = _caption_frames(6, seed=22, h=48, w=64)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    audio = [torch.randn(1600, 1, generator=gen, device="cuda") for _ in range(4)]
+
+    def run(vf, af):
+        out = {}
+        for name, caps, bufs, dur in (
+                ("v", "video/x-raw,format=RGBA,width=64,height=48,framerate=30/1", vf, 33_333_333),
+                ("a", "audio/x-raw,format=F32,rate=16000,channels=1", af, 100_000_000)):
+            p = g.parse_launch(f"appsrc name=src ! cmafmux fragment-duration=100000000 "
+                               f"! appsink name=sink")
+            p.by_name("src").set_property("caps", g.parse_caps(caps))
+            for i, b in enumerate(bufs):
+                p.by_name("src").push_buffer(g.Buffer(b, pts=i * dur, duration=dur))
+            p.by_name("src").end_of_stream()
+            p.play_until_eos()
+            out[name] = b"".join(np.asarray(s.buffer.data).tobytes()
+                                 for s in p.by_name("sink").samples)
+        return out
+
+    run(frames, audio)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = run(frames, audio)
+        torch.cuda.synchronize()
+    dtoh = sum(e.count for e in prof.key_averages() if e.key.startswith("Memcpy DtoH"))
+    assert dtoh == len(frames) + len(audio)
+    assert got == run([f.cpu() for f in frames], [a.cpu() for a in audio])
+    floats = [f.float() * 1.5 - 64 for f in frames]
+    want = run([f.cpu().clamp(0, 255).to(torch.uint8) for f in floats], audio)["v"]
+    assert run(floats, audio)["v"] == want

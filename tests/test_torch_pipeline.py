@@ -271,8 +271,16 @@ def test_factories_mirror_jax():
             "ts-intersrc", "ts-clocksync", "ts-input-selector", "ts-rtpdtmfsrc",
             "ts-tcpclientsrc", "decodebin", "togglerecord", "fallbackswitch", "livesync",
             "fallbacksrc", "regex", "textwrap", "textaccumulate", "jsongstenc",
-            "jsongstparse"} == set(names)
-    assert len(names) == 89
+            "jsongstparse",
+            # the muxers and the closed-caption family
+            "isofmp4mux", "cmafmux", "dashmp4mux", "onviffmp4mux", "isomp4mux",
+            "onvifmp4mux", "mpegtsmux", "rsflvdemux", "tttocea608", "cea608tott",
+            "cea608tojson", "tttojson", "jsontovtt", "ccdetect", "sccparse", "sccenc",
+            "mccparse", "mccenc", "cea608overlay", "tttocea708", "cea608tocea708",
+            "cea708mux", "cdpserviceinject", "cea708overlay", "st2038ancdemux",
+            "st2038ancmux", "st2038anctocc", "st2038combiner", "st2038extractor",
+            "cctost2038anc", "transcriberbin", "translationbin"} == set(names)
+    assert len(names) == 121
     for name in names:
         jc, tc = jfactory(name), tfactory(name)
         assert [(p.name, repr(p.default), p.type, p.choices) for p in jc.PROPERTIES] == \
@@ -326,13 +334,22 @@ def test_port_imports_no_jax():
                 "elements/generic/misc.py", "elements/generic/threadshare_extra.py",
                 "elements/generic/decodebin.py", "elements/utilsfx/togglerecord.py",
                 "elements/utilsfx/switching.py", "elements/utilsfx/fallbacksrc.py",
-                "elements/text/elements.py"):
+                "elements/text/elements.py", "mux/bmff.py", "mux/reader.py",
+                "mux/mpegts.py", "elements/mux/isobmff.py", "elements/mux/tsmux.py",
+                "elements/mux/flv.py", "ops/cea608.py", "ops/cea708.py", "ops/st2038.py",
+                "elements/cc/elements.py", "elements/cc/files.py", "elements/cc/overlay.py",
+                "elements/cc/cea708.py", "elements/cc/st2038.py",
+                "elements/cc/transcriberbin.py", "elements/cc/translationbin.py"):
         assert f"gst_plugins_rs_tpu_torch/{mod}" in names, mod
     banned = ("jax", "jaxlib", "flax", "gst_plugins_rs_tpu")
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in banned, f"{f.relative_to(ROOT)} imports {mod}"
+            # the port needs no Pillow: only the script that draws
+            # cea608overlay's bundled atlas uses it
+            if f.name != "cea608_atlas.py":
+                assert top != "PIL", f"{f.relative_to(ROOT)} imports {mod}"
 
 
 def test_entry_point_raises_without_cuda(monkeypatch):

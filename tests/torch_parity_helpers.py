@@ -117,12 +117,27 @@ def mirror_jax_tests(jax_test_file, namespace, skip=()):
     The file is compiled by `load_test_module(..., port=True)`, and its
     tests, fixtures and helpers are put into `namespace` (the calling test
     module's globals), so pytest collects each JAX test under its own name
-    in the port's file.  `skip` names tests that are not mirrored because
-    they need a factory of a later slice of the port.  Returns the names of
+    in the port's file.  `skip` names tests that are not mirrored, because
+    they need a module of a later slice of the port or another port test
+    file holds them against the JAX package: a function's or class's name,
+    or "Class::method" for a test method (the class is mirrored without
+    it); a dict maps each name to the slice or file.  Returns the names of
     the mirrored tests."""
     ns = load_test_module(jax_test_file, port=True)
-    missing = set(skip) - set(ns)
+    methods = {}
+    for entry in skip:
+        if "::" in entry:
+            cls, meth = entry.split("::")
+            methods.setdefault(cls, set()).add(meth)
+    missing = {n for n in skip if "::" not in n} - set(ns)
+    missing |= {f"{c}::{m}" for c, ms in methods.items() for m in ms
+                if m not in vars(ns.get(c, object))}
     assert not missing, f"{jax_test_file} has no tests {sorted(missing)}"
+    for cls, ms in methods.items():
+        old = ns[cls]
+        ns[cls] = type(old.__name__, old.__bases__,
+                       {k: v for k, v in vars(old).items()
+                        if k not in ms and k not in ("__dict__", "__weakref__")})
     mirrored = []
     for name, value in ns.items():
         if name.startswith("__") or name in skip:
