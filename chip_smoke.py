@@ -147,6 +147,25 @@ against CPU at 6 frames (pairs, boxes outside mdat, 1 LSB, audio bit-equal);
 frames per second against the graded chain into an appsink, the host ms a
 frame the captioning stages add, device ms and ops a frame, the busy share
 and the muxers' read-back rate.
+4n/5n/6n the ONVIF camera: 60 seeded 640x640 RGB frames at 30/1 on cuda:0
+through appsrc ! yoloxinference (YOLOX-tiny, engine=fast, f32: B1) !
+yoloxtensordec ! relationmeta2onvifmeta ! onvifmetadataextractor, whose XML
+goes onvifmetadatapay ! rtpsend ! rtprecv (RTCP both ways) !
+onvifmetadatadepay ! onvifmetadataparse into onvifmetadatacombiner, which
+takes the frames through a queue, then onvifmeta2relationmeta !
+onvifmetadataoverlay ! appsink; beside it 60 buffers of 20 ms S16 8 kHz
+through mulawenc ! rtppcmupay2 ! rtpsend ! rtprecv ! rtppcmudepay2 !
+mulawdec; the XML that came back carries each frame's detections, every
+frame stays on cuda:0 to the appsink, the overlay changes exactly the box
+edges, B1 launches = 60 (added to its count), the ONVIF stages add no
+device-to-host copy (torch.profiler, against appsrc ! yoloxinference !
+yoloxtensordec ! appsink), the audio one a buffer at the payloader and
+decodes bit-equal to the plain G.711 round trip; card against CPU (3
+frames: detections within YOLOX's gates, yolox-out within CPU_TOL; from the
+same relation metas equal XML, RTP packets and frames; the audio's packets
+and samples equal); frames per second against the plain YOLOX stream, the
+host ms a frame the ONVIF stages add, the busy share, the audio's buffers
+per second.
 Prints a JSON line of the kernels, the card's name and power limit, then,
 last, {"ok": true, "device": ...}.  It imports nothing of JAX and nothing of
 the JAX package.
@@ -161,6 +180,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -1130,10 +1150,7 @@ def effects_timing(card_line, grade):
         print(f"pipeline {label}, {HD_W}x{HD_H}: {TIMING_FRAMES} frames in {secs:.3f} s, "
               f"{TIMING_FRAMES / secs:.1f} frames/s end to end (set-up {t1 - t0:.3f} s) "
               f"[{card_line}]")
-        p = make(grade, EFFECT_FRAMES)
-        p.set_state(State.PLAYING)
-        device_ms, upload_ms, top = profile_device(p.run)
-        p.set_state(State.NULL)
+        device_ms, upload_ms, top = profile_pipeline(lambda: make(grade, EFFECT_FRAMES))
         per_frame = device_ms / EFFECT_FRAMES
         was = f"glue in torch around B3: {before[label]} ms; " if label in before else ""
         print(f"pipeline {label}: device busy {per_frame:.4f} ms per frame ({was}torch.profiler, "
@@ -1183,48 +1200,93 @@ def mxu_timing(card_line, grade):
               + f" [{card_line}]")
 
 
-def device_events(run, sessions: int = 3, cuda_only: bool = False, around: bool = False):
+# Each card-only profiling session starts and ends with PROFILE_PAD small
+# kernels of their own (an xor on an int16), left out of what device_events
+# returns: on the H100 machine a session lost the first or last few device
+# events now and then, for tens of seconds at a time, which emptied a
+# session of 8 kernels (6b's RGBA64LE chain) ten times in a row.  The pads
+# take that loss.
+PROFILE_PAD = 128
+PAD_KERNEL = "BitwiseXorFunctor<short>"
+
+
+def device_events(run, sessions: int = 10, cuda_only: bool = True, around: bool = False,
+                  complete=None, retry_wait_s: float = 1.0):
     """(key averages, device events) of one call of `run` under
-    torch.profiler.  Now and then a profiling session hands back no device
-    activity at all: `run` is then profiled again, up to `sessions` times,
-    and only a session with device events counts.  `cuda_only` records the
-    card's activity alone (a session with the host's ops over the 60 s
-    audio path left the next sessions empty).  With `around`, `run` is
-    called with a function that profiles the call it is given, so that
-    only that part of `run` is recorded."""
+    torch.profiler.  `cuda_only` (the default) records the card's activity
+    alone, between the pads above (a session with the host's ops over the
+    60 s audio path left the next sessions empty); the host's launch calls
+    need cuda_only=False, which has no pads.  Now and then a session hands
+    back no device activity at all, several sessions in a row: `run` is
+    then profiled again, `retry_wait_s` seconds later, up to `sessions`
+    times, and only a session with device events counts (and, if
+    `complete` is given, whose device events it accepts).  With `around`,
+    `run` is called with a function that profiles the call it is given, so
+    that only that part of `run` is recorded."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CUDA] if cuda_only else \
         [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for _ in range(sessions):
+    for attempt in range(sessions):
+        if attempt:
+            time.sleep(retry_wait_s)
         box = {}
 
         def profiled(fn):
+            pad = torch.zeros(1, dtype=torch.int16, device="cuda")
+            torch.cuda.synchronize()
             with profile(activities=activities) as prof:
+                for _ in range(PROFILE_PAD if cuda_only else 0):
+                    pad.bitwise_xor_(1)
                 fn()
+                torch.cuda.synchronize()
+                for _ in range(PROFILE_PAD if cuda_only else 0):
+                    pad.bitwise_xor_(1)
                 torch.cuda.synchronize()
             box["prof"] = prof
 
         run(profiled) if around else profiled(run)
         avgs = box["prof"].key_averages()
-        events = [e for e in avgs if str(e.device_type).endswith("CUDA")]
-        if events:
+        events = [e for e in avgs
+                  if str(e.device_type).endswith("CUDA") and PAD_KERNEL not in e.key]
+        if events and (complete is None or complete(events)):
+            if attempt:
+                print(f"  (torch.profiler: {attempt} incomplete session(s) discarded)")
             return avgs, events
-    raise AssertionError(f"torch.profiler recorded no device events in {sessions} sessions")
+    raise AssertionError(f"torch.profiler recorded no (complete) device events in {sessions} "
+                         f"sessions")
 
 
-def profile_device(run, top: int = 6):
+def profile_device(run, top: int = 6, around: bool = False):
     """(device ms, host-to-device copy ms, [(op, device ms)] of the `top`
-    largest) over one call of `run` under torch.profiler: the sum of the
-    device events' own times, which is busy time as long as one stream runs
-    at a time, without the host-to-device copies."""
-    _, events = device_events(run)
+    largest) over one call of `run` under torch.profiler (`around` as in
+    device_events): the sum of the device events' own times, which is busy
+    time as long as one stream runs at a time, without the host-to-device
+    copies."""
+    _, events = device_events(run, around=around)
     uploads = [e for e in events if e.key.startswith("Memcpy HtoD")]
     events = sorted((e for e in events if e not in uploads),
                     key=lambda e: -e.self_device_time_total)
     total = sum(e.self_device_time_total for e in events) / 1e3
     upload = sum(e.self_device_time_total for e in uploads) / 1e3
     return total, upload, [(e.key[:48], e.self_device_time_total / 1e3) for e in events[:top]]
+
+
+def profile_pipeline(make):
+    """profile_device over the streaming of a pipeline that make() builds,
+    its start (weights, a LUT fit) outside the profiling session; a session
+    that comes back empty is tried again on a fresh pipeline."""
+    from gst_plugins_rs_tpu_torch.core import State
+
+    def run(profiled):
+        p = make()
+        p.set_state(State.PLAYING)
+        try:
+            profiled(p.run)
+        finally:
+            p.set_state(State.NULL)
+
+    return profile_device(run, around=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2432,10 +2494,7 @@ def compose_timing(card_line):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         p.set_state(State.NULL)
-        p = make(COMP_PROFILE_FRAMES)
-        p.set_state(State.PLAYING)
-        device_ms, upload_ms, top = profile_device(p.run)
-        p.set_state(State.NULL)
+        device_ms, upload_ms, top = profile_pipeline(lambda: make(COMP_PROFILE_FRAMES))
         per_frame = device_ms / COMP_PROFILE_FRAMES
         rows[label] = dict(fps=COMP_TIMING_FRAMES / secs, device_ms=per_frame)
         print(f"{label}, {HD_W}x{HD_H}: {COMP_TIMING_FRAMES} frames in {secs:.3f} s, "
@@ -2568,10 +2627,8 @@ def demucs_timing(card_line):
         secs = time.perf_counter() - t0
         p.set_state(State.NULL)
         n_prof = 3
-        p = g.parse_launch(demucs_launch(n_prof, model))
-        p.set_state(State.PLAYING)
-        device_ms, upload_ms, top = profile_device(p.run)
-        p.set_state(State.NULL)
+        device_ms, upload_ms, top = profile_pipeline(
+            lambda: g.parse_launch(demucs_launch(n_prof, model)))
         rows[model] = dict(audio_s_per_s=DEMUCS_SECONDS / secs, device_ms=device_ms / n_prof)
         print(f"demucs model-name={model}, 48 kHz stereo in 1 s segments: {DEMUCS_SECONDS} s of "
               f"audio in {secs:.3f} s, {DEMUCS_SECONDS / secs:.2f} s of audio per second; "
@@ -3324,7 +3381,7 @@ def fuse_card_vs_cpu(grade):
 def _profile_counts(run):
     """(device busy ms, device ops, host launch calls by name) over one call
     of `run` under torch.profiler."""
-    avgs, dev = device_events(run)
+    avgs, dev = device_events(run, cuda_only=False)
     host = {e.key: e.count for e in avgs if e.key in HOST_LAUNCH_CALLS}
     return (sum(e.self_device_time_total for e in dev) / 1e3, sum(e.count for e in dev), host)
 
@@ -4118,18 +4175,27 @@ def rec_audio(seconds, gap):
 
 def _profiled(run):
     """(run's result, device-to-host copies) over one call of `run` under
-    torch.profiler, the card's activity only.  A marker kernel goes first,
-    so that a session that records nothing of the card (the file source's
-    run has no device work) is told apart and `run` called again (it must
-    build what it runs)."""
+    torch.profiler, the card's activity only.  A marker kernel (the spin
+    kernel of torch.cuda._sleep) goes first and another last, inside the
+    session's pads (device_events): only a session that holds both markers
+    counts, so no copy of `run` was lost at its edges, and `run` is called
+    again otherwise (it must build what it runs)."""
     got = []
 
     def marked():
-        torch.ones(1, device="cuda").add_(1)
+        torch.cuda._sleep(MARKER_CYCLES)
         got.append(run())
+        torch.cuda.synchronize()
+        torch.cuda._sleep(MARKER_CYCLES)
 
-    _, events = device_events(marked, cuda_only=True)
+    def complete(events):
+        return sum(e.count for e in events if "spin_kernel" in e.key) == 2
+
+    _, events = device_events(marked, complete=complete)
     return got[-1], sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
+
+
+MARKER_CYCLES = 1000
 
 
 def rec_byte_chains():
@@ -4933,6 +4999,481 @@ def yolox_x_bf16_stages(card_line):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The ONVIF camera: YOLOX detections published as ONVIF Profile M metadata
+# over RTP, beside a G.711 audio track (phases 4n/5n/6n)
+# ---------------------------------------------------------------------------
+ONVIF_FRAMES = 60            # seeded 640x640 RGB frames at 30/1 (4n)
+ONVIF_CPU_FRAMES = 3         # card against CPU (5n)
+ONVIF_FPS = 30
+ONVIF_SEED = 41
+ONVIF_TIMING_REPEATS = 3     # 6n: the median of these
+# yoloxtensordec's box and class thresholds.  On these seeded 640x640 frames
+# YOLOX-tiny's random-init weights (init_weights(seed=0)) score objectness
+# 0.024 at the median and 0.14 at most, classes 0.33 and 0.88, so the
+# element's 0.4 defaults find nothing, and 0.02 / 0.3 pass ~4,000 candidates
+# a frame, which the decoder cuts to its top 400 and then to 100 detections
+# (166 host ms a frame on an H100's host, most of it, by the code, the
+# decoder's Python NMS); 0.06 / 0.5 pass 15-38 candidates a frame (median
+# 24), the few tens of objects of a busy scene
+ONVIF_THRESHOLDS = (0.06, 0.5)
+# fixed RTP identities so that packets compare byte for byte between runs
+ONVIF_META_RTP = "ssrc=3735928559 timestamp-offset=0 seqnum-offset=0"
+ONVIF_AUDIO_RTP = "ssrc=305419896 timestamp-offset=0 seqnum-offset=0 max-ptime=20000000"
+ONVIF_AUDIO_RATE = 8000
+ONVIF_AUDIO_SPB = 160        # 20 ms of S16 mono, one PCMU packet a buffer
+ONVIF_AUDIO_BUFFERS = 60
+ONVIF_GREEN = (0, 255, 0)    # onvifmetadataoverlay's box colour on RGB
+ONVIF_THICKNESS = 2          # ... and its default edge width
+# the elements that receive the video frames, on their sink pads (the
+# metadata branch carries XML and packets, host data by design)
+ONVIF_VIDEO_PADS = {"det": "sink", "dec": "sink", "toxml": "sink", "ext": "sink",
+                    "mq": "sink", "comb": "media", "torel": "sink", "overlay": "sink",
+                    "sink": "sink"}
+
+
+def onvif_frames(n, size=SIZE, seed=ONVIF_SEED):
+    """n seeded RGB u8 frames [size, size, 3] on the host (numpy), each
+    unlike the others."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (size, size, 3), dtype=np.uint8) for _ in range(n)]
+
+
+def onvif_audio(n=ONVIF_AUDIO_BUFFERS, seed=ONVIF_SEED):
+    """n seeded buffers of ONVIF_AUDIO_SPB S16 mono samples [spb, 1] on the
+    host: a sine with noise over the whole 16-bit range."""
+    rng = np.random.default_rng(seed + 1)
+    t = np.arange(n * ONVIF_AUDIO_SPB) / ONVIF_AUDIO_RATE
+    x = 20000 * np.sin(2 * np.pi * 440 * t) + rng.normal(0, 3000, t.shape)
+    x = np.clip(np.round(x), -32768, 32767).astype(np.int16).reshape(n, ONVIF_AUDIO_SPB, 1)
+    return list(x)
+
+
+class OnvifTap:
+    """Pipeline tracer of the ONVIF paths (a tracer sees each buffer as a
+    sink pad receives it): in push order, the XML frames into the metadata
+    payloader, the RTP packets into the sessions (pay -> send, apay ->
+    asend), the RTCP packets each session's other half receives, the XML
+    frames that reach the combiner's meta pad, and where each video payload
+    lies as the pads of ONVIF_VIDEO_PADS receive it."""
+
+    def __init__(self):
+        self.xml, self.rtp, self.audio_rtp, self.rtcp = [], [], [], []
+        self.meta, self.video = [], []
+
+    def on_buffer(self, element, pad, buffer):
+        name, d = element.name, buffer.data
+        if name == "pay":
+            self.xml.append(d)
+        elif name == "send" and pad.name.startswith("rtp_sink"):
+            self.rtp.append(np.asarray(d).tobytes())
+        elif name == "asend" and pad.name.startswith("rtp_sink"):
+            self.audio_rtp.append(np.asarray(d).tobytes())
+        elif pad.name.startswith("rtcp_sink"):
+            self.rtcp.append((name, np.asarray(d).tobytes()))
+        elif name == "comb" and pad.name == "meta":
+            self.meta.append(d)
+        elif ONVIF_VIDEO_PADS.get(name) == pad.name:
+            self.video.append((name, str(d.device) if isinstance(d, torch.Tensor)
+                               else type(d).__name__))
+
+
+def _rtp_session(g, p, send, rtp_id, downstream):
+    """rtpsend `send` (already in p, its rtp_sink_0 linked) -> a new rtprecv
+    with RTCP looped both ways (SR to the receiver, RR back) -> `downstream`."""
+    recv = g.element_factory_make("rtprecv", f"{send.name}_recv")
+    recv.set_property("rtp-id", rtp_id)
+    p.add(recv)
+    send.pad("rtp_src_0").link(recv.request_sink_pad())
+    send.pad("rtcp_src_0").link(recv.pad("rtcp_sink_0"))
+    recv.pad("rtcp_src_0").link(send.pad("rtcp_sink_0"))
+    recv.link(downstream)
+    return recv
+
+
+def onvif_pipeline(g, detect="yoloxinference name=det engine=fast",
+                   thresholds=ONVIF_THRESHOLDS, size=SIZE):
+    """The ONVIF camera's video graph in package `g` (the port; the CPU
+    tests also build it in the JAX package): appsrc ! [detect !
+    yoloxtensordec !] relationmeta2onvifmeta (UtcTime from the running time)
+    ! onvifmetadataextractor remove-onvif-metadata=true, whose meta_src goes
+    onvifmetadatapay ! rtpsend ! rtprecv ! onvifmetadatadepay !
+    onvifmetadataparse into the combiner's meta pad, and whose src goes
+    through a queue into its media pad; onvifmetadatacombiner !
+    onvifmeta2relationmeta ! onvifmetadataoverlay ! appsink.  detect=None
+    leaves the detector out: the buffers then carry their relation metas
+    from the appsrc.  Returns (pipeline, OnvifTap)."""
+    head = ""
+    if detect:
+        box, cls = thresholds
+        head = (f"{detect} ! yoloxtensordec name=dec box-confidence-threshold={box} "
+                f"class-confidence-threshold={cls} ! ")
+    p = g.parse_launch(
+        f"appsrc name=src ! {head}relationmeta2onvifmeta name=toxml time-source=running-time "
+        f"! onvifmetadataextractor name=ext remove-onvif-metadata=true ! queue name=mq "
+        f"onvifmetadatacombiner name=comb ! onvifmeta2relationmeta name=torel "
+        f"! onvifmetadataoverlay name=overlay ! appsink name=sink "
+        f"onvifmetadatapay name=pay {ONVIF_META_RTP} ! rtpsend name=send rtp-id=onvif-meta")
+    p.by_name("src").set_property("caps", g.parse_caps(
+        f"video/x-raw,format=RGB,width={size},height={size},framerate={ONVIF_FPS}/1"))
+    depay = g.element_factory_make("onvifmetadatadepay", "depay")
+    parse = g.element_factory_make("onvifmetadataparse", "parse")
+    p.add(depay)
+    p.add(parse)
+    p.by_name("ext").pad("meta_src").link(p.by_name("pay").pad("sink"))
+    p.by_name("mq").pad("src").link(p.by_name("comb").pad("media"))
+    _rtp_session(g, p, p.by_name("send"), "onvif-meta", depay)
+    depay.link(parse)
+    parse.pad("src").link(p.by_name("comb").pad("meta"))
+    tap = OnvifTap()
+    p.add_tracer(tap)
+    return p, tap
+
+
+def onvif_run(g, p, frames, metas=None, around=None):
+    """Push `frames` (tensors or host arrays, at 30/1, no duration: the
+    combiner then attaches to a frame only the metadata of its own time),
+    each with a copy of metas[i] if given, and play to the appsink's EOS;
+    `around`, if given, is called with the streaming.  Returns the appsink's
+    buffers."""
+    State = g.core.State
+    src = p.by_name("src")
+    for i, f in enumerate(frames):
+        buf = g.Buffer(f, pts=i * 10**9 // ONVIF_FPS)
+        if metas is not None:
+            buf.add_meta(copy.deepcopy(metas[i]))
+        src.push_buffer(buf)
+    src.end_of_stream()
+    p.set_state(State.PLAYING)
+    sink = p.by_name("sink")
+
+    def stream():
+        p.run()
+        _wait_eos(sink)
+
+    try:
+        (around or (lambda fn: fn()))(stream)
+    finally:
+        p.set_state(State.NULL)
+    return [s.buffer for s in sink.samples]
+
+
+def onvif_plain_run(g, frames, around=None):
+    """The plain YOLOX stream the ONVIF camera is held to: `frames` at 30/1
+    through appsrc ! yoloxinference engine=fast ! yoloxtensordec (at
+    ONVIF_THRESHOLDS) ! appsink; `around`, if given, is called with the
+    streaming.  Returns the appsink's buffers."""
+    box, cls = ONVIF_THRESHOLDS
+    p = g.parse_launch(f"appsrc name=src ! yoloxinference engine=fast ! yoloxtensordec "
+                       f"box-confidence-threshold={box} class-confidence-threshold={cls} "
+                       f"! appsink name=sink")
+    p.by_name("src").set_property("caps", g.parse_caps(
+        f"video/x-raw,format=RGB,width={SIZE},height={SIZE},framerate={ONVIF_FPS}/1"))
+    for i, f in enumerate(frames):
+        p.by_name("src").push_buffer(g.Buffer(f, pts=i * 10**9 // ONVIF_FPS))
+    p.by_name("src").end_of_stream()
+    p.set_state(g.core.State.PLAYING)
+    try:
+        (around or (lambda fn: fn()))(p.run)
+    finally:
+        p.set_state(g.core.State.NULL)
+    return [s.buffer for s in p.by_name("sink").samples]
+
+
+def pcmu_pipeline(g):
+    """The camera's audio in package `g`: appsrc (S16 8 kHz mono) ! mulawenc
+    ! rtppcmupay2 ! rtpsend ! rtprecv ! rtppcmudepay2 ! mulawdec ! appsink.
+    Returns (pipeline, OnvifTap)."""
+    p = g.parse_launch(f"appsrc name=asrc ! mulawenc ! rtppcmupay2 name=apay "
+                       f"{ONVIF_AUDIO_RTP} ! rtpsend name=asend rtp-id=onvif-audio")
+    p.by_name("asrc").set_property("caps", g.parse_caps(
+        f"audio/x-raw,format=S16,rate={ONVIF_AUDIO_RATE},channels=1,layout=interleaved"))
+    depay = g.element_factory_make("rtppcmudepay2", "adepay")
+    dec = g.element_factory_make("mulawdec", "adec")
+    sink = g.element_factory_make("appsink", "asink")
+    for e in (depay, dec, sink):
+        p.add(e)
+    _rtp_session(g, p, p.by_name("asend"), "onvif-audio", depay)
+    depay.link(dec)
+    dec.link(sink)
+    tap = OnvifTap()
+    p.add_tracer(tap)
+    return p, tap
+
+
+def pcmu_run(g, p, audio, around=None):
+    """Push the audio buffers (20 ms each) and play to EOS; `around`, if
+    given, is called with the streaming.  Returns the appsink's buffers."""
+    State = g.core.State
+    src = p.by_name("asrc")
+    dur = ONVIF_AUDIO_SPB * 10**9 // ONVIF_AUDIO_RATE
+    for i, a in enumerate(audio):
+        src.push_buffer(g.Buffer(a, pts=i * dur, duration=dur))
+    src.end_of_stream()
+    p.set_state(State.PLAYING)
+    try:
+        (around or (lambda fn: fn()))(p.run)
+    finally:
+        p.set_state(State.NULL)
+    return [s.buffer for s in p.by_name("asink").samples]
+
+
+def onvif_detections(g, buf):
+    """(yoloxtensordec's detections, the detections the XML carried back)
+    of a sink buffer: [(label, x, y, w, h, likelihood)] each, in order."""
+    rels = list(buf.iter_meta(g.elements.analytics.meta.AnalyticsRelationMeta))
+    rows = [[(o.object_type, o.x, o.y, o.w, o.h, o.loc_conf_lvl) for o in r.od] for r in rels]
+    if len(rows) != 2:
+        raise AssertionError(f"expected the decoder's and the XML's relation metas, got "
+                             f"{len(rows)}")
+    return rows[0], rows[1]
+
+
+def onvif_xml_frames(g, buf):
+    """The XML frames the combiner attached to a sink buffer."""
+    return [x for m in buf.iter_meta(g.elements.analytics.onvif.OnvifXMLFrameMeta)
+            for x in m.frames]
+
+
+def onvif_overlay_expected(frame, boxes, thickness=ONVIF_THICKNESS):
+    """The plain overlay: `frame` (a tensor) with the edges of `boxes`
+    [(x, y, w, h)] set to ONVIF_GREEN, on the frame's device."""
+    h, w = frame.shape[:2]
+    edges = torch.zeros((h, w), dtype=torch.bool, device=frame.device)
+    t = thickness
+    for x, y, bw, bh in boxes:
+        x0, y0, x1, y1 = max(x, 0), max(y, 0), min(x + bw, w), min(y + bh, h)
+        if x1 <= x0 or y1 <= y0:
+            continue
+        edges[y0:y0 + t, x0:x1] = True
+        edges[max(y1 - t, 0):y1, x0:x1] = True
+        edges[y0:y1, x0:x0 + t] = True
+        edges[y0:y1, max(x1 - t, 0):x1] = True
+    out = frame.clone()
+    out[edges] = torch.tensor(ONVIF_GREEN, dtype=frame.dtype, device=frame.device)
+    return out, edges
+
+
+def _detections_within_gates(ref, got):
+    """YOLOX's parity gates on two frames' detections, as sets: labels
+    equal, boxes within 1 px, likelihoods within 1e-3."""
+    ref, got = sorted(ref), sorted(got)
+    return len(ref) == len(got) and all(
+        r[0] == s[0] and all(abs(a - b) <= 1 for a, b in zip(r[1:5], s[1:5]))
+        and abs(r[5] - s[5]) < 1e-3 for r, s in zip(ref, got))
+
+
+def onvif_pipelines():
+    """Phase 4n: the ONVIF camera at full width on the card: ONVIF_FRAMES
+    seeded 640x640 frames on cuda:0 through onvif_pipeline (YOLOX-tiny,
+    engine=fast, f32) and ONVIF_AUDIO_BUFFERS seeded 20 ms buffers through
+    pcmu_pipeline.  yolox_c3's count is set to 0 just before the video run
+    and read just after.  Checks: every frame has boxes, and the XML that
+    came back over RTP carries exactly yoloxtensordec's detections of that
+    frame; every video payload lies on cuda:0 up to the appsink; the overlay
+    changed exactly the box edges, to green; B1's launches equal the
+    forwards; the device-to-host copies (torch.profiler) of the ONVIF path
+    equal those of appsrc ! yoloxinference ! yoloxtensordec ! appsink on the
+    same frames; the audio's are one a buffer; the decoded audio equals the
+    plain G.711 round trip bit for bit.  Returns B1's launches."""
+    phase("4n the ONVIF camera on the card: YOLOX detections as ONVIF metadata over RTP, "
+          "G.711 audio")
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.elements.analytics.meta import AnalyticsRelationMeta
+    from gst_plugins_rs_tpu_torch.elements.analytics.onvif import _utc_of
+    from gst_plugins_rs_tpu_torch.ops import g711, yolox_c3
+
+    card0 = torch.device("cuda", 0)
+    frames = [torch.from_numpy(f).to(card0) for f in onvif_frames(ONVIF_FRAMES)]
+    audio = [torch.from_numpy(a).to(card0) for a in onvif_audio()]
+    box_thr, cls_thr = ONVIF_THRESHOLDS
+    print(f"yoloxtensordec box-confidence-threshold={box_thr} "
+          f"class-confidence-threshold={cls_thr}")
+
+    plain_out, plain_dtoh = _profiled(lambda: onvif_plain_run(g, frames))
+
+    def run():
+        yolox_c3.launches = 0
+        p, tap = onvif_pipeline(g)
+        out = onvif_run(g, p, frames)
+        torch.cuda.synchronize()
+        return out, tap, yolox_c3.launches
+
+    (out, tap, launches), path_dtoh = _profiled(run)
+    forwards = _check_outputs([SimpleNamespace(buffer=b) for b in out], ONVIF_FRAMES)
+    boxes_per_frame, carried, one_xml = [], True, True
+    for i, buf in enumerate(out):
+        dec, back = onvif_detections(g, buf)
+        xml = onvif_xml_frames(g, buf)
+        utc = _utc_of(i * 10**9 // ONVIF_FPS)
+        one_xml &= len(xml) == 1 and f'UtcTime="{utc}"' in xml[0]
+        carried &= dec == back
+        boxes_per_frame.append(len(dec))
+    on_card = all(d == str(card0) for _, d in tap.video) and all(
+        isinstance(b.data, torch.Tensor) and b.data.device == card0 for b in out)
+    overlay_ok = True
+    for f, buf in zip(frames, out):
+        expected, _ = onvif_overlay_expected(f, [d[1:5] for d in onvif_detections(g, buf)[0]])
+        overlay_ok &= torch.equal(buf.data, expected)
+    same_as_plain = all(onvif_detections(g, b)[0] == [
+        (o.object_type, o.x, o.y, o.w, o.h, o.loc_conf_lvl)
+        for o in pb.get_meta(AnalyticsRelationMeta).od]
+        for b, pb in zip(out, plain_out))
+    sr = sum(1 for n, _ in tap.rtcp if n == "send")
+    rr = sum(1 for n, _ in tap.rtcp if n == "send_recv")
+    print(f"video {ONVIF_FRAMES} x {SIZE}x{SIZE} RGB: boxes a frame {min(boxes_per_frame)}-"
+          f"{max(boxes_per_frame)} (total {sum(boxes_per_frame)}); XML frames {len(tap.xml)}, "
+          f"RTP packets {len(tap.rtp)}, RTCP SR {sr} / RR {rr}; one XML frame a buffer at its "
+          f"own UtcTime: {one_xml}; the XML carried the decoder's detections: {carried}; the "
+          f"same detections as the plain path: {same_as_plain}; payloads on {card0} up to the "
+          f"appsink: {on_card} ({len(tap.video)} pushes); overlay = the box edges in green: "
+          f"{overlay_ok}; {forwards} forwards, yolox_c3 launches {launches}")
+    print(f"Memcpy DtoH: the ONVIF path {path_dtoh}, appsrc ! yoloxinference ! yoloxtensordec "
+          f"! appsink {plain_dtoh}")
+    if min(boxes_per_frame) < 1:
+        raise AssertionError(f"a frame without boxes: {boxes_per_frame}")
+    if not (one_xml and carried and same_as_plain):
+        raise AssertionError("the XML over RTP does not carry each frame's detections")
+    if not on_card or not overlay_ok:
+        raise AssertionError("a frame left the card, or the overlay drew other than the edges")
+    if len(tap.xml) != ONVIF_FRAMES or sr < 1:
+        raise AssertionError(f"{len(tap.xml)} XML frames, {sr} sender reports")
+    if launches != forwards or forwards != ONVIF_FRAMES:
+        raise AssertionError("yolox_c3 launches != forward passes")
+    if path_dtoh != plain_dtoh:
+        raise AssertionError("the ONVIF stages read a frame back")
+
+    def audio_run():
+        p, atap = pcmu_pipeline(g)
+        got = pcmu_run(g, p, audio)
+        torch.cuda.synchronize()
+        return got, atap
+
+    (got, atap), audio_dtoh = _profiled(audio_run)
+    decoded = torch.cat([b.data for b in got])
+    ref = g711.mulaw_decode(g711.mulaw_encode(torch.cat(audio)))
+    audio_on_card = all(b.data.device == card0 for b in got)
+    print(f"audio {ONVIF_AUDIO_BUFFERS} x 20 ms S16 {ONVIF_AUDIO_RATE} Hz: {len(atap.audio_rtp)} "
+          f"PCMU packets, {len(got)} decoded buffers on {card0}: {audio_on_card}, equal to the "
+          f"plain G.711 round trip: {torch.equal(decoded, ref)}; Memcpy DtoH {audio_dtoh}")
+    if not torch.equal(decoded, ref) or not audio_on_card:
+        raise AssertionError("the PCMU loop's audio differs from the plain G.711 round trip")
+    if audio_dtoh != ONVIF_AUDIO_BUFFERS or len(atap.audio_rtp) != ONVIF_AUDIO_BUFFERS:
+        raise AssertionError("not one read-back and one packet an audio buffer")
+    return launches
+
+
+def onvif_card_vs_cpu():
+    """Phase 5n: the ONVIF camera, card against CPU, on ONVIF_CPU_FRAMES
+    frames: the whole graph's detections within YOLOX's gates (as sets) and
+    its yolox-out within CPU_TOL; given the CPU run's relation metas on both
+    devices, the ONVIF stages' XML frames, RTP packets and overlaid frames
+    equal (0 LSB); the audio's RTP packets and decoded samples equal."""
+    phase("5n the ONVIF camera, card against CPU")
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.elements.analytics.meta import AnalyticsRelationMeta
+
+    frames = onvif_frames(ONVIF_CPU_FRAMES, seed=ONVIF_SEED + 1)
+    audio = onvif_audio(seed=ONVIF_SEED + 1)
+    runs, audio_runs = {}, {}
+    for dev in ("cuda", "cpu"):
+        g.set_device(dev)
+        try:
+            p, _ = onvif_pipeline(g)
+            runs[dev] = onvif_run(g, p, [torch.from_numpy(f).to(dev) for f in frames])
+        finally:
+            g.set_device("cuda")
+    gates = all(_detections_within_gates(onvif_detections(g, h)[0], onvif_detections(g, c)[0])
+                for c, h in zip(runs["cuda"], runs["cpu"]))
+    err = max(float(((_tensor_meta(c).data.cpu() - _tensor_meta(h).data).abs()
+                     / (_tensor_meta(h).data.abs() + 1e-2)).max())
+              for c, h in zip(runs["cuda"], runs["cpu"]))
+    metas = [b.get_meta(AnalyticsRelationMeta) for b in runs["cpu"]]
+    same = {}
+    for dev in ("cuda", "cpu"):
+        g.set_device(dev)
+        try:
+            p, tap = onvif_pipeline(g, detect=None)
+            same[dev] = (onvif_run(g, p, [torch.from_numpy(f).to(dev) for f in frames], metas),
+                         tap)
+            p, atap = pcmu_pipeline(g)
+            audio_runs[dev] = (pcmu_run(g, p, [torch.from_numpy(a).to(dev) for a in audio]), atap)
+        finally:
+            g.set_device("cuda")
+    (c_out, c_tap), (h_out, h_tap) = same["cuda"], same["cpu"]
+    d_px = max(_lsb(c.data.cpu().numpy(), h.data.numpy()) for c, h in zip(c_out, h_out))
+    (c_aud, c_atap), (h_aud, h_atap) = audio_runs["cuda"], audio_runs["cpu"]
+    equal = {"xml": c_tap.xml == h_tap.xml and len(c_tap.xml) == ONVIF_CPU_FRAMES,
+             "rtp": c_tap.rtp == h_tap.rtp and len(c_tap.rtp) >= ONVIF_CPU_FRAMES,
+             "frames": d_px == 0 and len(c_out) == len(h_out) == ONVIF_CPU_FRAMES,
+             "audio rtp": c_atap.audio_rtp == h_atap.audio_rtp,
+             "audio": torch.equal(torch.cat([b.data.cpu() for b in c_aud]),
+                                  torch.cat([b.data for b in h_aud]))}
+    print(f"{ONVIF_CPU_FRAMES} frames {SIZE}x{SIZE}: detections within the YOLOX gates: {gates} "
+          f"({[len(onvif_detections(g, b)[0]) for b in runs['cuda']]} / "
+          f"{[len(onvif_detections(g, b)[0]) for b in runs['cpu']]} boxes); yolox-out max rel "
+          f"{err:.3e} (gate {CPU_TOL}); from the CPU run's relation metas: equal {equal}, "
+          f"overlay max {d_px} LSB")
+    if not gates or not err < CPU_TOL or not all(equal.values()):
+        raise AssertionError("the ONVIF camera: card and CPU disagree")
+
+
+def onvif_timing(card_line):
+    """Phase 6n: frames per second of 4n's video path against the plain
+    YOLOX single stream (appsrc ! yoloxinference ! yoloxtensordec ! appsink)
+    on the same ONVIF_FRAMES frames, the median of ONVIF_TIMING_REPEATS runs
+    each timed on the host clock from the streaming's start to the appsink's
+    EOS and torch.cuda.synchronize; the host ms a frame the ONVIF stages add;
+    device busy ms and ops a frame over one more run (torch.profiler) and
+    the busy share of the median wall; the PCMU loop's buffers per second
+    and host ms a buffer."""
+    phase("6n the ONVIF camera, timing")
+    import gst_plugins_rs_tpu_torch as g
+
+    card0 = torch.device("cuda", 0)
+    frames = [torch.from_numpy(f).to(card0)
+              for f in onvif_frames(ONVIF_FRAMES, seed=ONVIF_SEED + 2)]
+    audio = [torch.from_numpy(a).to(card0) for a in onvif_audio(seed=ONVIF_SEED + 2)]
+
+    paths = {"appsrc ! yoloxinference ! yoloxtensordec ! appsink": lambda around: onvif_plain_run(
+                 g, frames, around=around),
+             "the ONVIF camera's video path (4n)": lambda around: onvif_run(
+                 g, onvif_pipeline(g)[0], frames, around=around),
+             "the PCMU loop (4n)": lambda around: pcmu_run(
+                 g, pcmu_pipeline(g)[0], audio, around=around)}
+    rows = {}
+    for label, run in paths.items():
+        walls = []
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+
+        run(timed)  # warm-up: weights, cuDNN plans
+        walls.clear()
+        for _ in range(ONVIF_TIMING_REPEATS):
+            run(timed)
+        _, dev = device_events(run, around=True)
+        busy = sum(e.self_device_time_total for e in dev) / 1e3
+        ops = sum(e.count for e in dev)
+        wall = statistics.median(walls)
+        n = ONVIF_AUDIO_BUFFERS if "PCMU" in label else ONVIF_FRAMES
+        unit = "buffers" if "PCMU" in label else "frames"
+        rows[label] = dict(rate=n / wall, wall=wall, busy=busy, ops=ops)
+        print(f"{label}, {n} {unit}: {n / wall:.2f} {unit}/s (median of "
+              f"{[round(n / w, 2) for w in walls]}), host {wall / n * 1e3:.3f} ms a "
+              f"{unit[:-1]}; device busy {busy / n:.4f} ms and {ops / n:.1f} ops a "
+              f"{unit[:-1]}, {100 * busy / 1e3 / wall:.1f}% of the median wall [{card_line}]")
+    plain_row, onvif_row = (rows[k] for k in list(rows)[:2])
+    print(f"the ONVIF stages add {(onvif_row['wall'] - plain_row['wall']) / ONVIF_FRAMES * 1e3:.3f}"
+          f" host ms a frame; frames/s ONVIF / plain {onvif_row['rate'] / plain_row['rate']:.3f} "
+          f"[{card_line}]")
+    return rows
+
+
 def main() -> int:
     card_line = card()
     sys.path.insert(0, str(ROOT))
@@ -4969,6 +5510,7 @@ def main() -> int:
     mesh_launches, _ = mesh_pipelines()
     rec_launches = rec_pipelines(grade)
     cap_launches = caption_pipelines(grade)
+    onvif_launches = onvif_pipelines()
     compose_card_vs_cpu()
     demucs_card_vs_cpu()
     speech_card_vs_cpu()
@@ -4978,6 +5520,7 @@ def main() -> int:
     yolox_x_bf16_stages(card_line)
     rec_card_vs_cpu(grade)
     caption_card_vs_cpu(grade)
+    onvif_card_vs_cpu()
     timing(card_line)
     effects_timing(card_line, grade)
     fuse_timing(card_line, grade)
@@ -4990,6 +5533,7 @@ def main() -> int:
     mesh_timing(card_line)
     rec_timing(card_line, grade)
     caption_timing(card_line, grade)
+    onvif_timing(card_line)
     # the sharded paths' launches (phase 4k) join their kernels' counts
     launches += mesh_launches["yolox_c3"]
     for name in ("loudnorm_limiter", "loudnorm_limiter_bank"):
@@ -5002,6 +5546,8 @@ def main() -> int:
     for name in ("hsv_planes", "colorlut_lowrank_packed"):
         effect_launches[name] += cap_launches[name]
     audio_launches["asr_gru"] += cap_launches["asr_gru"]
+    # and the ONVIF camera's (phase 4n)
+    launches += onvif_launches
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "library_ms")
     main_case = next(c for c in cases if c["dtype"] == "f32" and c["batch"] == 1)
     entries = [{

@@ -16,11 +16,21 @@ debugseimetainserter, originalbuffer*, the misc inventory, the remaining
 ts-* elements, decodebin, togglerecord, fallbackswitch, livesync,
 fallbacksrc, regex, textwrap, textaccumulate, jsongst*), the muxers
 (isofmp4mux, cmafmux, dashmp4mux, onviffmp4mux, isomp4mux, onvifmp4mux,
-mpegtsmux, rsflvdemux) and the closed-caption family (the CEA-608/708 and
+mpegtsmux, rsflvdemux), the closed-caption family (the CEA-608/708 and
 ST-2038 elements, the SCC/MCC parsers and encoders, cea608overlay,
-transcriberbin, translationbin)."""
+transcriberbin, translationbin), the ONVIF metadata converters
+(relationmeta2onvifmeta, onvifmeta2relationmeta) and the network elements
+of elements/net (G.711 codecs, RTP payloaders, the onvifmetadata family,
+rtpsend, rtprecv, ts-jitterbuffer)."""
 from . import sinks, sources  # noqa: F401
-from .analytics import combiner, handdetection, meta, yoloxinference, yoloxtensordec  # noqa: F401
+from .analytics import (  # noqa: F401
+    combiner,
+    handdetection,
+    meta,
+    onvif as analytics_onvif,
+    yoloxinference,
+    yoloxtensordec,
+)
 from .audiofx import (  # noqa: F401
     agingradio,
     audioecho,
@@ -49,6 +59,7 @@ from .generic import (  # noqa: F401
     threadshare_extra,
 )
 from .mux import flv, isobmff, tsmux  # noqa: F401
+from .net import codecs as net_codecs, onvif, rtpbin2, rtppay  # noqa: F401
 from .text import elements as text_elements  # noqa: F401
 from .utilsfx import fallbacksrc, switching, togglerecord  # noqa: F401
 from .video import (  # noqa: F401

@@ -6,13 +6,17 @@ import pathlib
 import re
 
 
-def load_test_module(jax_test_file, port):
+def load_test_module(jax_test_file, port, drop=()):
     """The namespace of a test file of the JAX package, compiled as it is
     (port=False) or with every `gst_plugins_rs_tpu` module name replaced by
     `gst_plugins_rs_tpu_torch` (port=True), so that its helpers drive the
-    port."""
+    port.  `drop` names modules whose top-level `from <module> import ...`
+    lines are left out (modules of a later slice of the port; the tests that
+    use those names are not run)."""
     path = pathlib.Path(__file__).with_name(jax_test_file)
     src = path.read_text()
+    for module in drop:
+        src = re.sub(rf"(?m)^from {re.escape(module)} import [^\n]*$", "", src)
     if port:
         src = re.sub(r"\bgst_plugins_rs_tpu\b", "gst_plugins_rs_tpu_torch", src)
     ns = {"__name__": f"{'port' if port else 'jax'}_{path.stem}", "__file__": str(path)}

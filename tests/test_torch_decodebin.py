@@ -7,8 +7,8 @@ exposed downstream, an error flow to the upstream source, and no KeyError
 out of the streaming thread.  Streams with no decoder to plug are exposed
 raw, as in the JAX package, from numpy and from tensor payloads, and SCC
 and MCC caption files are plugged into their parsers as in the JAX
-package.  An FLV stream plugs rsflvdemux, whose mu-law audio then needs
-mulawdec (ops/g711.py, a later slice's).
+package.  An FLV stream plugs rsflvdemux, then mulawdec on its mu-law
+audio, as in the JAX package.
 """
 import numpy as np
 import pytest
@@ -145,32 +145,28 @@ def test_caption_file_autoplugged_as_jax(kind, payload):
     assert len(ref[0]) >= 2 and got == ref
 
 
-def test_flv_plugs_rsflvdemux_then_posts_error_naming_mulawdec():
-    """An FLV stream with mu-law audio: decodebin plugs rsflvdemux, whose
-    audio pad needs mulawdec, which waits for ops/g711.py: an ERROR names
-    it, nothing is exposed, and the source's next buffer gets an error
-    flow."""
+@pytest.mark.parametrize("payload", ["numpy", "torch"])
+def test_flv_autoplugged_through_mulawdec_as_jax(payload):
+    """An FLV stream with mu-law audio: decodebin plugs rsflvdemux, then
+    mulawdec on its audio pad, and decodes the samples the JAX package's
+    decodebin decodes (tests/test_decodebin.py's FLV case), equal to
+    audioop's G.711 table, from numpy and from tensor chunks."""
+    import audioop
+
     from test_image_flv import make_flv
 
-    from gst_plugins_rs_tpu_torch.core import State
+    rng = np.random.default_rng(3)
+    ulaw = [rng.integers(0, 256, 160, dtype=np.uint8).tobytes() for _ in range(3)]
+    flv = make_flv([(8, i * 20, bytes([0x80]) + u) for i, u in enumerate(ulaw)])
+    chunks = [flv[:200], flv[200:]]
+    launch = "appsrc name=src ! decodebin ! appsink name=sink"
 
-    assert factory_exists("rsflvdemux") and not factory_exists("mulawdec")
-    flv = make_flv([(8, i * 20, bytes([0x80]) + bytes([i]) * 160) for i in range(3)])
-    p = tfx.parse_launch("appsrc name=src ! decodebin name=db ! appsink name=sink")
-    src, db = p.by_name("src"), p.by_name("db")
-    src.set_property("caps", tfx.parse_caps("application/octet-stream"))
-    for i, at in enumerate((0, 200, len(flv))[:-1]):
-        src.push_buffer(tfx.Buffer(np.frombuffer(flv[at:(200, len(flv))[i]], np.uint8).copy(),
-                                   pts=None))
-    src.end_of_stream()
-    p.set_state(State.PLAYING)
-    try:
-        with pytest.raises(RuntimeError, match="flow error"):
-            p.run()
-        assert [c.ELEMENT_NAME for c in db._children] == ["rsflvdemux"]
-    finally:
-        p.set_state(State.NULL)
-    errors = [m.structure for m in p.bus.messages(tfx.MessageType.ERROR)]
-    assert [e["factory"] for e in errors] == ["mulawdec"]
-    assert errors[0]["caps"] == "audio/x-mulaw"
-    assert db.src_pads() == [] and p.by_name("sink").samples == []
+    def bufs(tensor):
+        return [dict(data=(torch.from_numpy if tensor else np.asarray)(
+            np.frombuffer(c, np.uint8).copy()), pts=None) for c in chunks]
+
+    ref = run_launch(fx, launch, bufs(False), caps="application/octet-stream")
+    got = run_launch(tfx, launch, bufs(payload == "torch"), caps="application/octet-stream")
+    assert len(got[0]) == 3 and got == ref
+    pcm = b"".join(s[0][2] for s in got[0])
+    assert pcm == audioop.ulaw2lin(b"".join(ulaw), 2)

@@ -1615,3 +1615,101 @@ def test_cmafmux_reads_each_card_payload_back_once(cuda):
     floats = [f.float() * 1.5 - 64 for f in frames]
     want = run([f.cpu().clamp(0, 255).to(torch.uint8) for f in floats], audio)["v"]
     assert run(floats, audio)["v"] == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law", ["alaw", "mulaw"])
+def test_g711_on_the_card_matches_cpu(cuda, law):
+    """G.711 (ops/g711.py, int32 torch ops) on the card over every S16
+    value and every code: bit-equal to the CPU, on the card."""
+    from gst_plugins_rs_tpu_torch.ops import g711
+
+    pcm = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    enc, dec = getattr(g711, f"{law}_encode"), getattr(g711, f"{law}_decode")
+    card_enc, card_dec = enc(pcm.to(cuda)), dec(codes.to(cuda))
+    assert card_enc.device.type == card_dec.device.type == "cuda"
+    assert torch.equal(card_enc.cpu(), enc(pcm)) and torch.equal(card_dec.cpu(), dec(codes))
+
+
+@pytest.mark.cuda
+def test_onvif_overlay_draws_on_the_card(cuda):
+    """onvifmetadataoverlay on card frames: the frame stays on the card, no
+    device-to-host copy (torch.profiler), bit-equal to the same element on
+    the CPU."""
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.elements.analytics.meta import AnalyticsRelationMeta
+    from gst_plugins_rs_tpu_torch.elements.analytics.onvif import (
+        OnvifXMLFrameMeta, build_metadata_xml)
+    from torch.profiler import ProfilerActivity, profile
+
+    frames = _caption_frames(3, seed=24, h=48, w=64)
+    rel = AnalyticsRelationMeta()
+    for box in ((4, 5, 20, 10), (-3, 30, 70, 40), (50, 2, 8, 8)):
+        rel.add_od_mtd("person", *box, 0.5)
+    xml = build_metadata_xml(rel, 0, 64, 48)
+
+    def run(dev):
+        g.set_device(dev)
+        try:
+            p = g.parse_launch("appsrc name=src ! onvifmetadataoverlay ! appsink name=sink")
+            p.by_name("src").set_property("caps", g.parse_caps(
+                "video/x-raw,format=RGBA,width=64,height=48,framerate=30/1"))
+            for i, f in enumerate(frames):
+                b = g.Buffer(f.to(dev), pts=i)
+                b.add_meta(OnvifXMLFrameMeta([xml]))
+                p.by_name("src").push_buffer(b)
+            p.by_name("src").end_of_stream()
+            p.play_until_eos()
+            return [s.buffer.data for s in p.by_name("sink").samples]
+        finally:
+            g.set_device("cuda")
+
+    run("cuda")  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        card = run("cuda")
+        torch.cuda.synchronize()
+    dtoh = sum(e.count for e in prof.key_averages() if e.key.startswith("Memcpy DtoH"))
+    assert dtoh == 0 and all(c.device.type == "cuda" for c in card)
+    host = run("cpu")
+    assert all(torch.equal(c.cpu(), h) for c, h in zip(card, host))
+    assert any(bool((c.cpu() != f.cpu()).any()) for c, f in zip(card, frames))
+
+
+@pytest.mark.cuda
+def test_pcmu_payloader_reads_each_card_buffer_back_once(cuda):
+    """mulawenc ! rtppcmupay2 on card audio: the companding on the card,
+    one device-to-host copy a buffer at the payloader, and the packets of
+    the same audio on the host."""
+    import gst_plugins_rs_tpu_torch as g
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    audio = [torch.randint(-32768, 32768, (160, 1), generator=gen, device="cuda",
+                           dtype=torch.int32).to(torch.int16) for _ in range(8)]
+
+    def run(bufs):
+        p = g.parse_launch("appsrc name=src ! mulawenc ! rtppcmupay2 ssrc=1 "
+                           "timestamp-offset=0 seqnum-offset=0 max-ptime=20000000 "
+                           "! appsink name=sink")
+        p.by_name("src").set_property("caps", g.parse_caps(
+            "audio/x-raw,format=S16,rate=8000,channels=1,layout=interleaved"))
+        for i, b in enumerate(bufs):
+            p.by_name("src").push_buffer(g.Buffer(b, pts=i * 20_000_000, duration=20_000_000))
+        p.by_name("src").end_of_stream()
+        p.play_until_eos()
+        return [np.asarray(s.buffer.data).tobytes() for s in p.by_name("sink").samples]
+
+    run(audio)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = run(audio)
+        torch.cuda.synchronize()
+    dtoh = sum(e.count for e in prof.key_averages() if e.key.startswith("Memcpy DtoH"))
+    assert dtoh == len(audio) and len(got) == len(audio)
+    g.set_device("cpu")
+    try:
+        assert got == run([a.cpu() for a in audio])
+    finally:
+        g.set_device("cuda")

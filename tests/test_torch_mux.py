@@ -16,7 +16,7 @@ def _port_cpu():
 
 
 # The FLAC sample entry needs the FLAC codec (codecs/flac.py) and the RTP
-# carriage case the RTP payloaders (elements/net), both a later slice's.  test_mux_external_oracle.py (codecs/avlib) and
+# carriage case the MPEG-TS RTP payloaders (elements/net/mp2t.py), both a later slice's.  test_mux_external_oracle.py (codecs/avlib) and
 # test_gcc_mp2t.py (net/) wait for their slices and are not mirrored.
 FLAC = "codecs/flac.py"
 MIRRORED = (mirror_jax_tests("test_fmp4_scenarios.py", globals(),
@@ -26,7 +26,7 @@ MIRRORED = (mirror_jax_tests("test_fmp4_scenarios.py", globals(),
             + mirror_jax_tests("test_mux.py", globals(),
                                skip={"TestFlacMux::test_flac_sample_entry": FLAC})
             + mirror_jax_tests("test_tsmux_sei.py", globals(), skip={
-                "TestMpegTsMux::test_mux_feeds_rtp_and_livesrc_layers": "elements/net"}))
+                "TestMpegTsMux::test_mux_feeds_rtp_and_livesrc_layers": "elements/net/mp2t.py"}))
 
 
 # ---------------------------------------------------------------------------

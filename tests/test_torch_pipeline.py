@@ -279,8 +279,17 @@ def test_factories_mirror_jax():
             "mccparse", "mccenc", "cea608overlay", "tttocea708", "cea608tocea708",
             "cea708mux", "cdpserviceinject", "cea708overlay", "st2038ancdemux",
             "st2038ancmux", "st2038anctocc", "st2038combiner", "st2038extractor",
-            "cctost2038anc", "transcriberbin", "translationbin"} == set(names)
-    assert len(names) == 121
+            "cctost2038anc", "transcriberbin", "translationbin",
+            # ONVIF metadata over RTP: the converters, G.711, the payloaders,
+            # the onvifmetadata family and the RTP session
+            "relationmeta2onvifmeta", "onvifmeta2relationmeta", "alawenc", "alawdec",
+            "mulawenc", "mulawdec", "rtppcmapay2", "rtppcmupay2", "rtppcmadepay2",
+            "rtppcmudepay2", "rtpL8pay2", "rtpL16pay2", "rtpL8depay2", "rtpL16depay2",
+            "rtpklvpay2", "rtpklvdepay2", "onvifmetadatapay", "onvifmetadatadepay",
+            "onvifmetadataparse", "onvifmetadatacombiner", "onvifmetadataextractor",
+            "onvifmetadataoverlay", "rtponvifmetadatapay", "rtponvifmetadatadepay",
+            "rtpsend", "rtprecv", "ts-jitterbuffer"} == set(names)
+    assert len(names) == 148
     for name in names:
         jc, tc = jfactory(name), tfactory(name)
         assert [(p.name, repr(p.default), p.type, p.choices) for p in jc.PROPERTIES] == \
@@ -339,7 +348,10 @@ def test_port_imports_no_jax():
                 "elements/mux/flv.py", "ops/cea608.py", "ops/cea708.py", "ops/st2038.py",
                 "elements/cc/elements.py", "elements/cc/files.py", "elements/cc/overlay.py",
                 "elements/cc/cea708.py", "elements/cc/st2038.py",
-                "elements/cc/transcriberbin.py", "elements/cc/translationbin.py"):
+                "elements/cc/transcriberbin.py", "elements/cc/translationbin.py",
+                "elements/analytics/onvif.py", "net/rtp.py", "ops/g711.py",
+                "elements/net/codecs.py", "elements/net/rtppay.py", "elements/net/onvif.py",
+                "net/rtcp.py", "net/jitterbuffer.py", "elements/net/rtpbin2.py"):
         assert f"gst_plugins_rs_tpu_torch/{mod}" in names, mod
     banned = ("jax", "jaxlib", "flax", "gst_plugins_rs_tpu")
     for f in files:

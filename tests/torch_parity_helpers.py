@@ -111,7 +111,7 @@ def official_checkpoint(variables, path):
     return path
 
 
-def mirror_jax_tests(jax_test_file, namespace, skip=()):
+def mirror_jax_tests(jax_test_file, namespace, skip=(), drop=()):
     """Run a test file of the JAX package against the port.
 
     The file is compiled by `load_test_module(..., port=True)`, and its
@@ -121,9 +121,10 @@ def mirror_jax_tests(jax_test_file, namespace, skip=()):
     they need a module of a later slice of the port or another port test
     file holds them against the JAX package: a function's or class's name,
     or "Class::method" for a test method (the class is mirrored without
-    it); a dict maps each name to the slice or file.  Returns the names of
-    the mirrored tests."""
-    ns = load_test_module(jax_test_file, port=True)
+    it); a dict maps each name to the slice or file.  `drop` names modules
+    of a later slice whose top-level imports the file's compiled copy leaves
+    out (`load_test_module`).  Returns the names of the mirrored tests."""
+    ns = load_test_module(jax_test_file, port=True, drop=drop)
     methods = {}
     for entry in skip:
         if "::" in entry:
