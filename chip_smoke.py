@@ -166,6 +166,30 @@ same relation metas equal XML, RTP packets and frames; the audio's packets
 and samples equal); frames per second against the plain YOLOX stream, the
 host ms a frame the ONVIF stages add, the busy share, the audio's buffers
 per second.
+3d'' (ROADMAP C.2) R1 under stress after 4j's CUDA graphs: 2,000 calls at K
+= 1 and 16 frames of the 16 streams of 3d', each synchronised alone or
+enqueued back to back, with tensors of R1's sizes filled with large values
+and freed before each call; every call held to the float64 gate of 3d'.
+4o/5o/6o the uncompressed contribution link: 8 seeded 1080p RGBA frames at
+30/1 on cuda:0 through appsrc ! hsvfilter hue-shift=120 ! colorlut approx
+(B4, B2) ! rtpvrawpay2 mtu=1400 ! raptorqenc (its defaults: 25 protected,
+5 repairs, 1,408-byte symbols, 50 ms window), the media into one
+ts-udpsink and fec_0 into another on 127.0.0.1; ts-udpsrc (media) and
+udpsrc2 (repairs), each on a context of its own, into raptorqdec !
+ts-jitterbuffer ! rtpvrawdepay2 ! appsink, a probe dropping a seeded
+packet in each 25-packet block; every datagram sent is received, every
+drop recovered, every frame out bit-equal to the graded frame and on
+cuda:0, one Memcpy DtoH a frame (the payloader) and one HtoD (the
+depayloader) beyond the graded chain's own; 4 s of the ticks through
+audioloudnorm (L1), quantised to 24 bits on the card, through rtpL24pay2
+(1 ms packets) over a third socket pair to rtpL24depay2, bit-equal; every
+other pair of the slice (VP8, VP9, AV1, JPEG, MP4A, MP4G, Opus, AC-3,
+MPA, MPV, AMR, ST 291 from cctost2038anc, MP2T from mux/mpegts.py, L20)
+round trips card payloads bit-equal with one DtoH a buffer; card against
+CPU on 2 frames graded on the CPU (repair packets byte-equal, frames 0
+LSB); frames per second against the graded chain, the host ms a frame of
+each stage alone, device ms and ops a frame, the busy share, the L24
+link's buffers per second.
 Prints a JSON line of the kernels, the card's name and power limit, then,
 last, {"ok": true, "device": ...}.  It imports nothing of JAX and nothing of
 the JAX package.
@@ -4173,9 +4197,10 @@ def rec_audio(seconds, gap):
     return out, trace
 
 
-def _profiled(run):
-    """(run's result, device-to-host copies) over one call of `run` under
-    torch.profiler, the card's activity only.  A marker kernel (the spin
+def _profiled(run, htod=False):
+    """(run's result, device-to-host copies), and the host-to-device copies
+    after them with `htod`, over one call of `run` under torch.profiler,
+    the card's activity only.  A marker kernel (the spin
     kernel of torch.cuda._sleep) goes first and another last, inside the
     session's pads (device_events): only a session that holds both markers
     counts, so no copy of `run` was lost at its edges, and `run` is called
@@ -4192,7 +4217,10 @@ def _profiled(run):
         return sum(e.count for e in events if "spin_kernel" in e.key) == 2
 
     _, events = device_events(marked, complete=complete)
-    return got[-1], sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
+    dtoh = sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
+    if htod:
+        return got[-1], dtoh, sum(e.count for e in events if e.key.startswith("Memcpy HtoD"))
+    return got[-1], dtoh
 
 
 MARKER_CYCLES = 1000
@@ -5474,6 +5502,926 @@ def onvif_timing(card_line):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# R1 under stress (ROADMAP C.2): many calls after the CUDA graphs of 4j,
+# with allocations between them
+# ---------------------------------------------------------------------------
+R1_STRESS_CALLS = 500      # a (K, mode) pair: K = 1 and 16, a call synchronised
+R1_STRESS_K = (1, 16)      # alone and calls enqueued back to back: 2,000 calls
+# the sizes of the stale blocks freed before each call (floats): the
+# hoisted scratch, gains and states of both K, so the caching allocator
+# hands R1 memory that holds other values than its own
+R1_STRESS_JUNK = tuple(K * RNN_BANK_STREAMS * n for K in R1_STRESS_K for n in (504, 22, 1)) \
+    + tuple(RNN_BANK_STREAMS * n for n in (24, 48, 96))
+
+
+def rnnoise_stress():
+    """Phase 3d'' (ROADMAP C.2): R1 at K = 1 and 16 frames of the 16
+    streams of phase 3d', R1_STRESS_CALLS times each, every call synchronised
+    alone and then every call enqueued behind the last, with tensors of the
+    sizes R1 allocates filled with large values and freed before each call.
+    Each call's gains, VADs and states are held to the plain version in
+    float64 on the same input, at the gate of phase 3d' (twice the plain f32
+    version's own error, R1_TOL at least).  Returns the calls made."""
+    phase("3d'' R1 under stress: 2,000 calls after the CUDA graphs, allocations between them")
+    from gst_plugins_rs_tpu_torch.ops import rnnoise as rn
+    from gst_plugins_rs_tpu_torch.ops import rnnoise_gru as gru
+
+    dev = torch.device("cuda")
+    w = rn.weights_to(rn.default_weights(), dev)
+    w64 = {k: v.double() for k, v in w.items()}
+    state = rn.denoise_init(RNN_BANK_STREAMS, dev)
+    _, feats, _, _, _, sil = rn.analysis_frames_batch(
+        state, torch.from_numpy(rnn_bank_frames(max(R1_STRESS_K))).to(dev))
+    t0 = time.perf_counter()
+    calls, worst = 0, {}
+    for K in R1_STRESS_K:
+        f, s = feats[:K].contiguous(), sil[:K].contiguous()
+        r = rn.RnnState(*(h.contiguous() for h in state.rnn))
+        ref = gru.rnn_frames_plain(f, s, r, w)
+        ref64 = gru.rnn_frames_plain(f.double(), s, rn.RnnState(*(h.double() for h in r)), w64)
+        gate = max(R1_TOL, 2 * _r1_errs(ref, ref64))
+        g64, v64 = ref64[0].float(), ref64[1].float()
+        s64 = [h.float() for h in ref64[2]]
+        for synced in (True, False):
+            errs = []
+            for i in range(R1_STRESS_CALLS):
+                junk = [torch.full((n,), 1e4 * (1 + (i + j) % 7), device=dev)
+                        for j, n in enumerate(R1_STRESS_JUNK)]
+                del junk
+                g, v, st = gru.rnn_frames(f, s, r, w)
+                errs.append(torch.stack(
+                    [(g - g64).abs().max(), (v - v64).abs().max()]
+                    + [((a - b) / (1 + b.abs())).abs().max() for a, b in zip(st, s64)]).max())
+                if synced:
+                    torch.cuda.synchronize()
+            errs = torch.stack(errs).cpu()
+            calls += len(errs)
+            bad = [i for i, e in enumerate(errs.tolist()) if not e <= gate]
+            worst[(K, synced)] = float(errs.max())
+            print(f"R1 {K} frame(s) x {RNN_BANK_STREAMS} streams, {R1_STRESS_CALLS} calls "
+                  f"{'each synchronised' if synced else 'back to back'}: max error against "
+                  f"float64 {float(errs.max()):.3e} (gate {gate:.3e}), calls over the gate "
+                  f"{len(bad)}{(' at ' + str(bad[:10])) if bad else ''}")
+            if bad:
+                raise AssertionError(f"R1 under stress: {len(bad)} of {len(errs)} calls at K = "
+                                     f"{K} over the float64 gate (max {float(errs.max()):.3e})")
+    print(f"R1 under stress: {calls} calls, every one within its gate, in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return calls
+
+
+# ---------------------------------------------------------------------------
+# The uncompressed contribution link: 1080p RGBA graded on the card, RFC 4175
+# raw video (rtpvrawpay2) protected by raptorqenc, over UDP on 127.0.0.1 with
+# a seeded loss a block, raptorqdec, ts-jitterbuffer and rtpvrawdepay2; L24
+# audio over a third socket pair; the rest of the RTP families' byte round
+# trips
+# ---------------------------------------------------------------------------
+LINK_FRAMES = 8            # seeded 1080p RGBA frames at 30/1 (4o)
+LINK_PROFILED_FRAMES = 2   # the copies (4o) and device time (6o), under torch.profiler
+LINK_CPU_FRAMES = 2        # card against CPU (5o)
+LINK_STAGE_FRAMES = 2      # 6o: each stage alone on the first frames' traffic
+LINK_SEED = 61
+LINK_MTU = 1400
+LINK_RTP = f"mtu={LINK_MTU} ssrc=3405691582 timestamp-offset=0 seqnum-offset=65000"
+LINK_BLOCK = 25            # raptorqenc's defaults: protected-packets, ...
+LINK_REPAIRS = 5           # ... repair-packets (symbol-size 1408, repair-window 50 ms)
+LINK_MEDIA_CAPS = ("application/x-rtp,media=video,clock-rate=90000,encoding-name=RAW,"
+                   "sampling=RGBA,depth=8,width={w},height={h}")
+LINK_FEC_CAPS = "application/x-rtp,raptor-scheme-id=6,repair-window=50000,t=1408"
+LINK_TIMEOUT_NS = 5 * 10**9   # a UDP source ends after this long without a datagram
+# ts-jitterbuffer's latency: a gap is held until its repair fills it (the
+# repair of a frame's last block comes after the frame's marker packet)
+LINK_JB_LATENCY = 2 * 10**9
+# 192 kHz F64 ticks through audioloudnorm, then L24 ...: 4 s, since
+# audioloudnorm takes a stream shorter than its 3 s window with one linear
+# gain and runs no limiter (L1)
+LINK_AUDIO_SECONDS = 4
+LINK_AUDIO_RATE = 192_000
+LINK_AUDIO_RTP = ("mtu=1400 ssrc=19088743 timestamp-offset=0 seqnum-offset=0 "
+                  "min-ptime=1000000 max-ptime=1000000")  # ... at 1 ms a packet
+LINK_AUDIO_CAPS = ("application/x-rtp,media=audio,clock-rate=192000,encoding-name=L24,"
+                   "encoding-params=2,channels=2")
+LINK_TIMING_REPEATS = 2    # 6o: the L24 link's median of these
+
+
+def rmem_max() -> int:
+    """The host's cap on a socket's receive buffer (read, not changed)."""
+    return int(Path("/proc/sys/net/core/rmem_max").read_text())
+
+
+def vraw_packets(w: int, h: int, mtu: int = LINK_MTU) -> int:
+    """RTP packets rtpvrawpay2 makes of an RGBA frame: its greedy packing of
+    line segments (elements/net/rtpextra.py)."""
+    line, maxp = 4 * w, mtu - 12
+    segs = []
+    for _ in range(h):
+        off = 0
+        while off < line:
+            n = min(line - off, maxp - 2 - 6)
+            segs.append(n)
+            off += n
+    packets, i = 0, 0
+    while i < len(segs):
+        used = 2 + 6 + segs[i]
+        i += 1
+        while i < len(segs) and used + 6 + segs[i] <= maxp:
+            used += 6 + segs[i]
+            i += 1
+        packets += 1
+    return packets
+
+
+def link_drops(n_media: int, seed: int = LINK_SEED):
+    """The seeded loss: one media packet in each LINK_BLOCK-packet block, by
+    its index from the first (the last block's index may fall past its
+    end)."""
+    at = np.random.default_rng(seed).integers(0, LINK_BLOCK, -(-n_media // LINK_BLOCK))
+    return {b * LINK_BLOCK + int(k) for b, k in enumerate(at) if b * LINK_BLOCK + k < n_media}
+
+
+def link_probe(g, drops):
+    """The probe after the media source: drops the seeded packets (by their
+    sequence number's distance from the first) and stamps each packet's
+    running time of arrival as its pts, as a live UDP source would, so that
+    raptorqdec ages its blocks and ts-jitterbuffer its gaps.  It notes the
+    furthest packet it has passed on (or dropped) for link_fec_gate.  An
+    element of the script, not of the port."""
+    import threading
+
+    from gst_plugins_rs_tpu_torch.core import BaseTransform, EventType, TransformMode
+    from gst_plugins_rs_tpu_torch.net.rtp import RtpPacket
+
+    class LinkProbe(BaseTransform):
+        ELEMENT_NAME = "link-probe"
+        MODE = TransformMode.NEVER_IN_PLACE
+
+        def __init__(self):
+            super().__init__("probe")
+            self.first = None
+            self.gate = None
+            self.furthest = -1
+            self.passed = threading.Condition()
+            self.received = self.dropped = 0
+
+        def transform(self, inbuf):
+            self.received += 1
+            seq = RtpPacket.parse(np.asarray(inbuf.data).tobytes()).sequence_number
+            if self.first is None:
+                self.first = seq
+            index = (seq - self.first) & 0xFFFF
+            out = None
+            if index in drops:
+                self.dropped += 1
+            else:
+                out = g.Buffer(inbuf.data)
+                out.copy_metadata_from(inbuf)
+                if self.clock is not None:
+                    out.pts = out.dts = self.clock.now() - self.base_time
+            self._index = index
+            return out
+
+        def _sink_chain(self, pad, buf):
+            # noted once the packet is through raptorqdec (pushed on this
+            # thread before the chain returns)
+            ret = super()._sink_chain(pad, buf)
+            with self.passed:
+                self.furthest = max(self.furthest, self._index)
+                self.passed.notify_all()
+            return ret
+
+        def sink_event(self, event):
+            # the media's EOS waits for the last repairs, which come after
+            # the last media packet: ts-jitterbuffer releases every gap at
+            # EOS, and a repair behind it would come too late
+            if event.type == EventType.EOS and self.gate is not None:
+                self.gate.done.wait(LINK_TIMEOUT_NS / 1e9)
+            return True
+
+        def wait_for(self, seq, timeout):
+            """Block until the packet `seq` has gone through (or was
+            dropped), or `timeout` s have gone by."""
+            with self.passed:
+                return self.passed.wait_for(
+                    lambda: self.first is not None
+                    and self.furthest >= (seq - self.first) & 0xFFFF, timeout)
+
+    return LinkProbe()
+
+
+def link_fec_gate(g, probe):
+    """On the repairs' path in front of raptorqdec: holds each repair until
+    the probe has passed the last media packet of the repair's block.  The
+    host's encoder runs far behind the frames' timestamps, so raptorqenc
+    sends a block's repairs at once instead of spreading them over its
+    50 ms repair window, and the repairs' receiving thread could otherwise
+    hand them to raptorqdec before the media thread has handed it the
+    block's packets (raptorqdec decodes when a repair arrives).  An element
+    of the script, not of the port."""
+    import threading
+
+    from gst_plugins_rs_tpu_torch.core import BaseTransform, EventType, TransformMode
+    from gst_plugins_rs_tpu_torch.net.rtp import RtpPacket
+
+    class LinkFecGate(BaseTransform):
+        ELEMENT_NAME = "link-fec-gate"
+        MODE = TransformMode.NEVER_IN_PLACE
+
+        def __init__(self):
+            super().__init__("gate")
+            self.waited = 0
+            self.done = threading.Event()
+            probe.gate = self
+
+        def sink_event(self, event):
+            if event.type == EventType.EOS:
+                self.done.set()
+            return True
+
+        def transform(self, inbuf):
+            payload = RtpPacket.parse(np.asarray(inbuf.data).tobytes()).payload
+            base_seq, k = int.from_bytes(payload[2:4], "big"), payload[4]
+            t0 = time.perf_counter()
+            probe.wait_for((base_seq + k - 1) & 0xFFFF, LINK_TIMEOUT_NS / 1e9)
+            self.waited += time.perf_counter() - t0
+            out = g.Buffer(inbuf.data)
+            out.copy_metadata_from(inbuf)
+            return out
+
+    return LinkFecGate()
+
+
+class LinkTrace:
+    """A pipeline tracer: every buffer entering the given "element:pad"s,
+    in order, with the host clock at its arrival."""
+
+    def __init__(self, *where):
+        self.seen = {w: [] for w in where}
+        self.order = []
+
+    def on_buffer(self, element, pad, buffer):
+        key = f"{element.name}:{pad.name}"
+        got = self.seen.get(key)
+        if got is not None:
+            got.append((time.perf_counter(), buffer))
+            self.order.append((key, buffer))
+
+
+def _udp_src(g, factory, name, context, caps, n):
+    src = g.element_factory_make(factory, name)
+    for k, v in (("address", "127.0.0.1"), ("port", 0), ("context", context),
+                 ("context-wait", 1), ("buffer-size", rmem_max()), ("timeout", LINK_TIMEOUT_NS),
+                 ("num-buffers", n), ("caps", caps)):
+        src.set_property(k, v)
+    return src
+
+
+def _udp_sink(g, name, port):
+    sink = g.element_factory_make("ts-udpsink", name)
+    sink.set_property("clients", f"127.0.0.1:{port}")
+    return sink
+
+
+def link_receiver(g, w, h, n_media, n_fec, drops):
+    """ts-udpsrc (media) ! link-probe ! raptorqdec name=dec ! ts-jitterbuffer
+    ! rtpvrawdepay2 ! appsink name=sink, with udpsrc2 (the repairs) !
+    link-fec-gate into dec's fec_0; each source drains its socket on a context of its own (the
+    native epoll drain of net/netio.py where the shared library loads).
+    The sources end after n_media and n_fec datagrams.  Returns (pipeline,
+    probe, trace) in PAUSED, its sockets bound."""
+    from gst_plugins_rs_tpu_torch.core import State
+
+    p = g.Pipeline("link-rx")
+    media = _udp_src(g, "ts-udpsrc", "media", "link-media",
+                     LINK_MEDIA_CAPS.format(w=w, h=h), n_media)
+    fec = _udp_src(g, "udpsrc2", "fec", "link-fec", LINK_FEC_CAPS, n_fec)
+    probe = link_probe(g, drops)
+    gate = link_fec_gate(g, probe)
+    dec = g.element_factory_make("raptorqdec", "dec")
+    jb = g.element_factory_make("ts-jitterbuffer", "jb")
+    jb.set_property("latency", LINK_JB_LATENCY)
+    depay = g.element_factory_make("rtpvrawdepay2", "depay")
+    sink = g.element_factory_make("appsink", "sink")
+    for e in (media, fec, probe, gate, dec, jb, depay, sink):
+        p.add(e)
+    media.link(probe)
+    probe.link(dec)
+    fec.link(gate)
+    gate.pad("src").link(dec.pad("fec_0"))
+    for a, b in ((dec, jb), (jb, depay), (depay, sink)):
+        a.link(b)
+    trace = LinkTrace("dec:sink", "dec:fec_0", "depay:sink", "sink:sink")
+    p.add_tracer(trace)
+    p.set_state(State.PAUSED)
+    return p, probe, trace
+
+
+def link_sender(g, w, h, media_port, fec_port, grade=None):
+    """appsrc name=src [! hsvfilter hue-shift=120 ! colorlut approx] !
+    rtpvrawpay2 name=pay ! raptorqenc name=enc, its media pad into a
+    ts-udpsink and fec_0 into another, both to 127.0.0.1.  Returns
+    (pipeline, trace): the trace keeps the payloader's input and what each
+    sink sent."""
+    head = "" if grade is None else \
+        f"hsvfilter hue-shift=120 ! colorlut location={grade} precision=approx ! "
+    p = g.parse_launch(f"appsrc name=src ! {head}rtpvrawpay2 name=pay {LINK_RTP} "
+                       f"! raptorqenc name=enc")
+    p.by_name("src").set_property("caps", g.parse_caps(
+        f"video/x-raw,format=RGBA,width={w},height={h},framerate=30/1"))
+    enc = p.by_name("enc")
+    msink, fsink = _udp_sink(g, "msink", media_port), _udp_sink(g, "fsink", fec_port)
+    p.add(msink, fsink)
+    enc.pad("src").link(msink.pad("sink"))
+    enc.pad("fec_0").link(fsink.pad("sink"))
+    trace = LinkTrace("pay:sink", "msink:sink", "fsink:sink")
+    p.add_tracer(trace)
+    return p, trace
+
+
+def link_counts(w, h, frames):
+    n_media = frames * vraw_packets(w, h)
+    return n_media, -(-n_media // LINK_BLOCK) * LINK_REPAIRS
+
+
+def link_run(g, frames, grade=None, around=None):
+    """The link on `frames` (RGBA tensors, graded on the way when `grade` is
+    given): the receiver starts in its own threads, then the sender runs to
+    EOS on this one.  `around` (as in device_events) wraps the streaming of
+    both.  Returns a namespace: out (the frames out, in order), graded (the
+    payloader's input), sent (media, repairs), received (media, repairs),
+    dropped (by the probe), expected (seeded drops), recovered (raptorqdec's
+    stats), arrivals (raptorqdec's input in order), wall (s from the
+    sender's start to the last frame at the appsink)."""
+    import threading
+
+    from gst_plugins_rs_tpu_torch.core import State
+
+    h, w = frames[0].shape[:2]
+    n_media, n_fec = link_counts(w, h, len(frames))
+    drops = link_drops(n_media)
+    rx, probe, rtrace = link_receiver(g, w, h, n_media, n_fec, drops)
+    tx = None
+    try:
+        tx, ttrace = link_sender(g, w, h, rx.by_name("media").bound_port,
+                                 rx.by_name("fec").bound_port, grade)
+        tx.set_state(State.PLAYING)  # colorlut fits its factors here
+        src = tx.by_name("src")
+        for i, f in enumerate(frames):
+            src.push_buffer(g.Buffer(f, pts=i * FRAME_NS, duration=FRAME_NS))
+        src.end_of_stream()
+        box = {}
+
+        def stream():
+            rx.set_state(State.PLAYING)
+            errors = []
+            rx_thread = threading.Thread(
+                target=lambda: errors.extend(_run_errors(rx)), name="link-rx")
+            rx_thread.start()
+            box["t0"] = time.perf_counter()
+            tx.run()
+            rx_thread.join(timeout=LINK_TIMEOUT_NS / 1e9 + 120)
+            if rx_thread.is_alive() or errors:
+                raise AssertionError(f"the link's receiver did not end cleanly: {errors}")
+            if g.device().type == "cuda":
+                torch.cuda.synchronize()
+
+        stream() if around is None else around(stream)
+    finally:
+        if tx is not None:
+            tx.set_state(State.NULL)
+        rx.set_state(State.NULL)
+    arrivals = rtrace.seen["sink:sink"]
+    return SimpleNamespace(
+        out=[b.data for _, b in arrivals], graded=[b.data for _, b in ttrace.seen["pay:sink"]],
+        sent=(len(ttrace.seen["msink:sink"]), len(ttrace.seen["fsink:sink"])),
+        received=(probe.received, len(rtrace.seen["dec:fec_0"])), dropped=probe.dropped,
+        expected=len(drops), recovered=rx.by_name("dec").get_property("stats")["recovered"],
+        arrivals=[(k, b) for k, b in rtrace.order if k.startswith("dec:")], fec=[_bytes(b) for _, b in rtrace.seen["dec:fec_0"]],
+        depay_in=[b for _, b in rtrace.seen["depay:sink"]],
+        wall=(arrivals[-1][0] - box["t0"]) if arrivals else float("nan"),
+        n_media=n_media, n_fec=n_fec)
+
+
+def _run_errors(p):
+    try:
+        p.run()
+        return []
+    except BaseException as e:  # reported by the caller's thread
+        return [e]
+
+
+def _bytes(buf):
+    d = buf.data
+    return (d.cpu().numpy() if isinstance(d, torch.Tensor) else np.asarray(d)).tobytes()
+
+
+def link_check(r, label):
+    """The link's counts and frames: every datagram sent was received, the
+    probe dropped exactly the seeded packets, raptorqdec recovered each,
+    and every frame out equals the payloader's input frame bit for bit."""
+    equal = len(r.out) == len(r.graded) and all(
+        torch.equal(o.to(gi.device), gi) for o, gi in zip(r.out, r.graded))
+    print(f"{label}: datagrams sent (media, repairs) {r.sent}, received {r.received}, lost in "
+          f"the sockets {r.sent[0] - r.received[0]} / {r.sent[1] - r.received[1]}; dropped by "
+          f"the probe {r.dropped} (seeded {r.expected}), recovered by raptorqdec {r.recovered}; "
+          f"{len(r.out)} frames out of {len(r.graded)}, bit-equal to the payloader's input: "
+          f"{equal}; {r.wall:.3f} s from the sender's start to the last frame")
+    if r.sent != (r.n_media, r.n_fec) or r.received != r.sent:
+        raise AssertionError(f"{label}: datagrams lost or miscounted: sent {r.sent}, received "
+                             f"{r.received}, expected {(r.n_media, r.n_fec)}")
+    if r.dropped != r.expected or r.recovered != r.dropped:
+        raise AssertionError(f"{label}: {r.recovered} recovered of {r.dropped} dropped "
+                             f"({r.expected} seeded): a block was not recovered")
+    if not equal:
+        raise AssertionError(f"{label}: a frame out differs from the frame in")
+
+
+def link_audio_input(g, seconds=LINK_AUDIO_SECONDS):
+    """`seconds` of the ticks through audioloudnorm (192 kHz F64, one L1
+    launch a 100 ms frame on the card), quantised to 24 bits where the
+    samples lie, since no element of either package produces S24:
+    ([int32 [n, 2] buffers], L1 launches)."""
+    from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
+
+    lim.launches = 0
+    p = g.parse_launch(loudnorm_launch(seconds))
+    p.play_until_eos()
+    out = [s.buffer.data for s in p.by_name("sink").samples]
+    launches = lim.launches
+    return [torch.clamp(torch.round(x * 2**23), -2**23, 2**23 - 1).to(torch.int32)
+            for x in out], launches
+
+
+def audio_link_run(g, buffers, around=None):
+    """appsrc (S24, 192 kHz stereo) ! rtpL24pay2 at 1 ms packets !
+    ts-udpsink, over 127.0.0.1 to ts-udpsrc ! rtpL24depay2 ! appsink, the
+    receiver on a context of its own.  Returns (samples out [n, 2] int32
+    on the host, packets sent, packets received, wall s)."""
+    import threading
+
+    from gst_plugins_rs_tpu_torch.core import State
+
+    frames = sum(int(b.shape[0]) for b in buffers)
+    n = -(-frames // (LINK_AUDIO_RATE // 1000))
+    rx = g.Pipeline("link-audio-rx")
+    asrc = _udp_src(g, "ts-udpsrc", "asrc", "link-audio", LINK_AUDIO_CAPS, n)
+    depay = g.element_factory_make("rtpL24depay2", "adepay")
+    sink = g.element_factory_make("appsink", "sink")
+    rx.add(asrc, depay, sink)
+    asrc.link(depay)
+    depay.link(sink)
+    rtrace = LinkTrace("adepay:sink", "sink:sink")
+    rx.add_tracer(rtrace)
+    rx.set_state(State.PAUSED)
+    tx = None
+    try:
+        tx = g.parse_launch(f"appsrc name=src ! rtpL24pay2 name=apay {LINK_AUDIO_RTP}")
+        tx.by_name("src").set_property("caps", g.parse_caps(
+            f"audio/x-raw,format=S24,rate={LINK_AUDIO_RATE},channels=2,layout=interleaved"))
+        asink = _udp_sink(g, "asink", asrc.bound_port)
+        tx.add(asink)
+        tx.by_name("apay").link(asink)
+        ttrace = LinkTrace("asink:sink")
+        tx.add_tracer(ttrace)
+        src, pts = tx.by_name("src"), 0
+        for b in buffers:
+            dur = int(b.shape[0]) * 10**9 // LINK_AUDIO_RATE
+            src.push_buffer(g.Buffer(b, pts=pts, duration=dur))
+            pts += dur
+        src.end_of_stream()
+        box = {}
+
+        def stream():
+            rx.set_state(State.PLAYING)
+            errors = []
+            t = threading.Thread(target=lambda: errors.extend(_run_errors(rx)), name="link-arx")
+            t.start()
+            tx.set_state(State.PLAYING)
+            box["t0"] = time.perf_counter()
+            tx.run()
+            t.join(timeout=LINK_TIMEOUT_NS / 1e9 + 60)
+            if t.is_alive() or errors:
+                raise AssertionError(f"the L24 receiver did not end cleanly: {errors}")
+
+        stream() if around is None else around(stream)
+    finally:
+        if tx is not None:
+            tx.set_state(State.NULL)
+        rx.set_state(State.NULL)
+    got = [np.asarray(s.buffer.data) for s in sink.samples]
+    last = rtrace.seen["sink:sink"]
+    return (np.concatenate(got) if got else np.zeros((0, 2), np.int32),
+            len(ttrace.seen["asink:sink"]), len(rtrace.seen["adepay:sink"]),
+            (last[-1][0] - box["t0"]) if last else float("nan"))
+
+
+def _jpeg_bytes(rng):
+    """A 64x48 4:2:0 baseline JFIF in the layout rtpjpegdepay2 writes
+    (elements/net/rtpvideo.py::_rebuild_jfif): two seeded quantisation
+    tables and seeded entropy-coded bytes (no 0xFF, so no marker), as the
+    payloader parses it and the depayloader rebuilds it byte for byte."""
+    from gst_plugins_rs_tpu_torch.elements.net.rtpvideo import _rebuild_jfif
+
+    tables = [rng.integers(1, 256, 64, dtype=np.uint8).tobytes() for _ in range(2)]
+    return _rebuild_jfif(1, 64, 48, 0, tables, rng.integers(0, 255, 900, dtype=np.uint8).tobytes())
+
+
+def _st2038_bytes(g):
+    """ST 2038 ancillary packets as cctost2038anc wraps a CEA-608 pop-on
+    caption (line 21), one buffer."""
+    from gst_plugins_rs_tpu_torch.ops import cea608
+
+    pairs = np.asarray(cea608.encode_pop_on(["LINK CAPTION"]), np.uint8).reshape(-1, 2)
+    p = g.parse_launch("appsrc name=src ! cctost2038anc line-number=21 ! appsink name=sink")
+    src = p.by_name("src")
+    src.set_property("caps", g.parse_caps("closedcaption/x-cea-608,format=raw"))
+    src.push_buffer(g.Buffer(pairs, pts=0))
+    src.end_of_stream()
+    p.play_until_eos()
+    return b"".join(_bytes(s.buffer) for s in p.by_name("sink").samples)
+
+
+def _ts_bytes():
+    """An MPEG-TS stream from mux/mpegts.py: PAT, PMT, three PES of a
+    private stream (tests/test_gcc_mp2t.py's make_ts_stream)."""
+    from gst_plugins_rs_tpu_torch.mux import mpegts
+
+    out, cc = [mpegts.build_pat(), mpegts.build_pmt([(0x06, 0x101)])], 0
+    for i in range(3):
+        pkts = mpegts.packetize_pes(0x101, mpegts.build_pes(0xBD, bytes([i]) * 300,
+                                                          pts_90k=i * 9000), continuity_start=cc)
+        cc = (cc + len(pkts)) & 0xF
+        out += pkts
+    return b"".join(out)
+
+
+def link_byte_pairs(g):
+    """Every other payloader and depayloader pair of the slice, as (label,
+    caps, payloader, depayloader, payloader options, payloads as host
+    arrays): seeded encoded frames built as the JAX package's tests build
+    theirs (tests/test_rtpcodecs.py, test_rtpextra.py, test_gcc_mp2t.py)."""
+    from gst_plugins_rs_tpu_torch.net.mpa import build_frame_header
+
+    rng = np.random.default_rng(LINK_SEED + 7)
+
+    def u8(*parts):
+        return np.frombuffer(b"".join(p if isinstance(p, bytes) else
+                                      rng.integers(0, 256, p, dtype=np.uint8).tobytes()
+                                      for p in parts), np.uint8).copy()
+
+    mpa = build_frame_header(version=1, layer=3, rate_idx=0, channels=2)
+    aac = "audio/mpeg,mpegversion=4,stream-format=raw,rate=48000"
+    return [
+        ("VP8", "video/x-vp8", "rtpvp8pay2", "rtpvp8depay2", "picture-id-mode=15-bit",
+         [u8(b"\x30", 3000), u8(b"\x30", 100)]),
+        ("VP9", "video/x-vp9", "rtpvp9pay2", "rtpvp9depay2", "picture-id-mode=7-bit",
+         [u8(2500), u8(700)]),
+        ("AV1", "video/x-av1", "rtpav1pay2", "rtpav1depay2", "", [u8(2500), u8(100)]),
+        ("AV1 (unsuffixed)", "video/x-av1", "rtpav1pay", "rtpav1depay", "", [u8(1800)]),
+        ("JPEG", "image/jpeg", "rtpjpegpay2", "rtpjpegdepay2", "",
+         [np.frombuffer(_jpeg_bytes(rng), np.uint8).copy()]),
+        ("MP4A", aac, "rtpmp4apay2", "rtpmp4adepay2", "", [u8(b"\x21\x1b", 300), u8(3000)]),
+        ("MP4G", "video/mpeg,mpegversion=4,systemstream=false", "rtpmp4gpay2",
+         "rtpmp4gdepay2", "", [u8(5000)]),
+        ("MP4G/AAC", aac, "rtpmp4gpay2", "rtpmp4gdepay2", "", [u8(b"\x21\x1b", 400)]),
+        ("Opus", "audio/x-opus,channel-mapping-family=0", "rtpopuspay2", "rtpopusdepay2", "",
+         [u8(bytes([0xFC, i]), 50) for i in range(4)]),
+        ("AC-3", "audio/x-ac3,framed=true,rate=48000,alignment=frame", "rtpac3pay2",
+         "rtpac3depay2", "", [u8(b"\x0b\x77", 100), u8(b"\x0b\x77", 3072)]),
+        ("MPA", "audio/mpeg,mpegversion=1", "rtpmpapay2", "rtpmpadepay2", "",
+         [u8(mpa, 400), u8(mpa, 400)]),
+        ("MPV", "video/mpeg,mpegversion=2,systemstream=false", "rtpmpvpay2", "rtpmpvdepay2", "",
+         [u8(b"\x00\x00\x01\xb3", 3000)]),
+        ("AMR", "audio/AMR,rate=8000,channels=1", "rtpamrpay2", "rtpamrdepay2", "",
+         [u8(b"\x0c", 13), u8(b"\x0c", 13)]),
+        ("ST 291", "meta/x-st-2038", "rtpsmpte291pay", "rtpsmpte291depay", "",
+         [np.frombuffer(_st2038_bytes(g), np.uint8).copy()]),
+        ("MP2T", "video/mpegts,systemstream=true,packetsize=188", "rtpmp2tpay2",
+         "rtpmp2tdepay2", "", [np.frombuffer(_ts_bytes(), np.uint8).copy()]),
+        ("L20", "audio/x-raw,format=S20,rate=48000,channels=2,layout=interleaved",
+         "rtpL20pay", "rtpL20depay", "",
+         [rng.integers(-(1 << 19), 1 << 19, (480, 2), dtype=np.int32) for _ in range(3)]),
+    ]
+
+
+def link_bytes(g, pairs, dev):
+    """Each pair's round trip, appsrc ! pay ! depay ! appsink, on payloads
+    put on `dev`: {label: (bytes in, bytes out, buffers in)}."""
+    results = {}
+    for label, caps, pay, depay, opts, payloads in pairs:
+        p = g.parse_launch(f"appsrc name=src ! {pay} mtu=1400 ssrc=1 seqnum-offset=0 "
+                           f"timestamp-offset=0 {opts} ! {depay} ! appsink name=sink")
+        src = p.by_name("src")
+        src.set_property("caps", g.parse_caps(caps))
+        for i, a in enumerate(payloads):
+            src.push_buffer(g.Buffer(torch.from_numpy(a).to(dev), pts=i * 20_000_000,
+                                     duration=20_000_000))
+        src.end_of_stream()
+        p.play_until_eos()
+        results[label] = (b"".join(a.tobytes() for a in payloads),
+                          b"".join(_bytes(s.buffer) for s in p.by_name("sink").samples),
+                          len(payloads))
+    return results
+
+
+def link_pipelines(grade):
+    """Phase 4o: the contribution link on the card.  LINK_FRAMES seeded
+    1080p RGBA frames on cuda:0 through link_run with the grade (hsvfilter
+    hue-shift=120 ! colorlut approx: B4 then B2), the counts of B4 and B2
+    set to 0 just before and read just after; every frame out of
+    rtpvrawdepay2 lies on cuda:0 and equals the graded frame that went into
+    rtpvrawpay2 bit for bit, every datagram sent is received, raptorqdec
+    recovers each seeded drop; against appsrc ! hsvfilter ! colorlut !
+    appsink on the first LINK_PROFILED_FRAMES frames (torch.profiler), the
+    link adds one Memcpy DtoH a frame (rtpvrawpay2) and one Memcpy HtoD a
+    frame (rtpvrawdepay2).  Then LINK_AUDIO_SECONDS of the ticks through
+    audioloudnorm (L1 counted), quantised to 24 bits on the card, through
+    audio_link_run: bit-equal, one DtoH a buffer at rtpL24pay2, none after.
+    Then every other pair of the slice on card payloads (link_bytes): the
+    bytes come back equal, one DtoH a buffer.  Returns the launches of B2,
+    B4 and L1, and the link's run (6o replays its stages)."""
+    phase("4o the contribution link on the card: 1080p RFC 4175 with RaptorQ FEC over UDP, "
+          "L24 audio, the RTP families' byte round trips")
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.net import netio
+    from gst_plugins_rs_tpu_torch.ops import colorlut_lowrank_fused as lowrank
+    from gst_plugins_rs_tpu_torch.ops import hsv_planes
+
+    card0 = torch.device("cuda", 0)
+    frames = fuse_frames(LINK_FRAMES, seed=LINK_SEED)
+    n_media, n_fec = link_counts(HD_W, HD_H, LINK_FRAMES)
+    print(f"net.core.rmem_max {rmem_max()} B (each UDP source asks for it as buffer-size); "
+          f"the UDP sources drain their sockets through "
+          f"{'the native epoll drain (native/libgstpu_netio.so)' if netio.available() else 'the portable socket path (the shared library did not load)'}; "
+          f"{vraw_packets(HD_W, HD_H)} RTP packets a frame, {n_media} media and {n_fec} repair "
+          f"datagrams in all")
+    hsv_planes.launches = lowrank.packed_launches = 0
+    r = link_run(g, frames, grade)
+    torch.cuda.synchronize()
+    counted = {"hsv_planes": hsv_planes.launches,
+               "colorlut_lowrank_packed": lowrank.packed_launches}
+    link_check(r, f"{LINK_FRAMES} frames {HD_W}x{HD_H} RGBA")
+    on_card = all(isinstance(o, torch.Tensor) and o.device == card0 for o in r.out)
+    # the copies, on the first frames under torch.profiler (a session as
+    # long as the whole link loses events more often, ROADMAP C.3)
+    few = frames[:LINK_PROFILED_FRAMES]
+    _, plain_dtoh, plain_htod = _profiled(lambda: rec_plain(few, grade), htod=True)
+    rp, dtoh, htod = _profiled(lambda: link_run(g, few, grade), htod=True)
+    link_check(rp, f"{LINK_PROFILED_FRAMES} frames under torch.profiler")
+    print(f"frames out on {card0}: {on_card}; B4 launches {counted['hsv_planes']}, B2 launches "
+          f"{counted['colorlut_lowrank_packed']}; on {LINK_PROFILED_FRAMES} frames Memcpy DtoH the "
+          f"link {dtoh}, the graded chain alone {plain_dtoh}; Memcpy HtoD the link {htod}, the "
+          f"graded chain alone {plain_htod}")
+    if not on_card:
+        raise AssertionError("a frame out of rtpvrawdepay2 is not on the card")
+    if counted != {"hsv_planes": LINK_FRAMES, "colorlut_lowrank_packed": LINK_FRAMES}:
+        raise AssertionError(f"B4 / B2 launches {counted} != frames")
+    if dtoh - plain_dtoh != LINK_PROFILED_FRAMES or htod - plain_htod != LINK_PROFILED_FRAMES:
+        raise AssertionError("not one read-back and one upload a frame on the link")
+
+    (audio, l1), ln_dtoh = _profiled(lambda: link_audio_input(g))
+    want = torch.cat(audio).cpu().numpy()
+    (got, a_sent, a_recv, _), a_dtoh, a_htod = _profiled(lambda: audio_link_run(g, audio),
+                                                         htod=True)
+    print(f"L24: {LINK_AUDIO_SECONDS} s of 192 kHz stereo ({len(audio)} buffers on the card, "
+          f"L1 launches {l1}) in 1 ms packets: sent {a_sent}, received {a_recv}, samples "
+          f"bit-equal {np.array_equal(got, want)} ({got.shape[0]} of {want.shape[0]}); Memcpy "
+          f"DtoH {a_dtoh} (audioloudnorm's own run {ln_dtoh}), HtoD {a_htod}")
+    if not np.array_equal(got, want) or a_recv != a_sent:
+        raise AssertionError("the L24 link's samples differ or a packet was lost")
+    if a_dtoh != len(audio) or a_htod != 0 or l1 < 1:
+        raise AssertionError("not one read-back a buffer at rtpL24pay2, or an upload after")
+
+    pairs = link_byte_pairs(g)
+    results, b_dtoh = _profiled(lambda: link_bytes(g, pairs, card0))
+    buffers = sum(n for _, _, n in results.values())
+    bad = [k for k, (a, b, _) in results.items() if a != b]
+    print(f"byte round trips on card payloads: {', '.join(results)}; equal {not bad}"
+          f"{(' (not: ' + ', '.join(bad) + ')') if bad else ''}; {buffers} buffers, Memcpy "
+          f"DtoH {b_dtoh}")
+    if bad or b_dtoh != buffers:
+        raise AssertionError(f"byte round trips: {bad or 'not one read-back a buffer'}")
+    return {**counted, "loudnorm_limiter": l1}, r
+
+
+def link_card_vs_cpu(grade):
+    """Phase 5o: the link card against CPU on LINK_CPU_FRAMES frames graded
+    on the CPU (hsvfilter ! colorlut approx, plain versions): the same
+    frames through link_run with the port on the card and on the CPU, the
+    repair packets raptorqdec received byte-equal and the frames out equal
+    (0 LSB); the byte round trips equal on both devices."""
+    phase("5o the contribution link, card against CPU")
+    import gst_plugins_rs_tpu_torch as g
+
+    frames = [f.cpu() for f in fuse_frames(LINK_CPU_FRAMES, seed=LINK_SEED + 1)]
+    g.set_device("cpu")
+    try:
+        graded = [b.data for b in rec_plain(frames, grade)]
+        cpu_run = link_run(g, graded)
+        cpu_bytes = link_bytes(g, link_byte_pairs(g), torch.device("cpu"))
+    finally:
+        g.set_device("cuda")
+    card_run = link_run(g, [f.cuda() for f in graded])
+    link_check(cpu_run, f"on the CPU, {LINK_CPU_FRAMES} frames")
+    link_check(card_run, f"on the card, {LINK_CPU_FRAMES} frames")
+    d = max(_lsb(c.cpu().numpy(), h.numpy()) for c, h in zip(card_run.out, cpu_run.out))
+    same_fec = card_run.fec == cpu_run.fec and len(card_run.fec) == card_run.n_fec
+    card_bytes = link_bytes(g, link_byte_pairs(g), torch.device("cuda", 0))
+    same_bytes = {k: v[1] == card_bytes[k][1] for k, v in cpu_bytes.items()}
+    print(f"repair packets byte-equal: {same_fec} ({len(card_run.fec)}); frames out max "
+          f"{d} LSB; byte round trips equal on both devices: {all(same_bytes.values())}")
+    if not same_fec or d != 0 or not all(same_bytes.values()):
+        raise AssertionError("the link: card and CPU disagree")
+
+
+def _replay(g, factory, inputs, props=None):
+    """Host seconds for `factory` (one element, PLAYING, no pipeline) to take
+    `inputs`, [(sink pad name, caps, buffer)] in order, its outputs
+    dropped."""
+    from gst_plugins_rs_tpu_torch.core import Event, FlowReturn, Pad, PadDirection, State
+    from gst_plugins_rs_tpu_torch.core.events import Segment
+
+    e = g.element_factory_make(factory)
+    for k, v in (props or {}).items():
+        e.set_property(k, v)
+    e.set_state(State.PLAYING)
+    for pad in e.pads.values():
+        if pad.direction == PadDirection.SRC:
+            cap = Pad(f"cap-{pad.name}", PadDirection.SINK)
+            cap.chain_function = lambda p, b: FlowReturn.OK
+            cap.event_function = lambda p, ev: True
+            pad.link(cap)
+    srcs = {}
+    for name, caps, _ in inputs:
+        if name not in srcs:
+            s = Pad(f"h-{name}", PadDirection.SRC)
+            s.link(e.pad(name))
+            s.push_event(Event.new_stream_start(f"h-{name}"))
+            s.push_event(Event.new_caps(g.parse_caps(caps)))
+            s.push_event(Event.new_segment(Segment()))
+            srcs[name] = s
+    t0 = time.perf_counter()
+    for name, _, buf in inputs:
+        srcs[name].push(buf)
+    for s in srcs.values():
+        s.push_event(Event.new_eos())
+    wall = time.perf_counter() - t0
+    e.set_state(State.NULL)
+    return wall
+
+
+def link_timing(card_line, grade, r):
+    """Phase 6o: frames per second of the link (4o's run on LINK_FRAMES
+    frames, from the sender's start to the last frame at the appsink; a run
+    takes over a minute, so it is not repeated here) against appsrc !
+    hsvfilter ! colorlut ! appsink on the same frames (the median of 3);
+    device busy ms and ops a frame over a
+    run of LINK_PROFILED_FRAMES frames under torch.profiler and their share
+    of that run's wall; the host ms a frame of each stage alone, replayed on
+    one thread on what 4o's run carried there over its first
+    LINK_STAGE_FRAMES frames: rtpvrawpay2 (the graded frames on the card),
+    raptorqenc (the media packets), the UDP hop (media and repairs through
+    ts-udpsink to ts-udpsrc), raptorqdec (media and repairs in the order it
+    took them) and ts-jitterbuffer ! rtpvrawdepay2 (the packets as they
+    left raptorqdec); the L24 link's buffers per second."""
+    phase("6o the contribution link, timing")
+    import gst_plugins_rs_tpu_torch as g
+
+    frames = fuse_frames(LINK_FRAMES, seed=LINK_SEED)
+    media_caps = LINK_MEDIA_CAPS.format(w=HD_W, h=HD_H)
+    walls = []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    for _ in range(4):  # a warm-up and three
+        rec_plain(frames, grade, around=timed)
+    plain = statistics.median(walls[1:])
+    link = r.wall
+    few = frames[:LINK_PROFILED_FRAMES]
+    runs = []
+    _, dev = device_events(lambda around: runs.append(link_run(g, few, grade, around=around)),
+                           around=True)
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    ops = sum(e.count for e in dev)
+    print(f"appsrc ! hsvfilter ! colorlut approx ! appsink, {LINK_FRAMES} frames: "
+          f"{LINK_FRAMES / plain:.2f} frames/s (median of "
+          f"{[round(LINK_FRAMES / w, 2) for w in walls[1:]]}) [{card_line}]")
+    print(f"the contribution link (4o's run), {LINK_FRAMES} frames: {LINK_FRAMES / link:.4f} "
+          f"frames/s, host {link / LINK_FRAMES * 1e3:.1f} ms a frame; frames/s link / graded "
+          f"chain {plain / link:.6f} [{card_line}]")
+    print(f"the link on {LINK_PROFILED_FRAMES} frames under torch.profiler: device busy "
+          f"{busy / LINK_PROFILED_FRAMES:.4f} ms and {ops / LINK_PROFILED_FRAMES:.1f} ops a frame, "
+          f"{100 * busy / 1e3 / runs[-1].wall:.4f}% of its wall ({runs[-1].wall:.3f} s) "
+          f"[{card_line}]")
+    rows = {"plain_rate": LINK_FRAMES / plain, "link_rate": LINK_FRAMES / link, "busy": busy,
+            "ops": ops}
+
+    # the stages alone, on the traffic of 4o's first LINK_STAGE_FRAMES frames
+    n_media = LINK_STAGE_FRAMES * vraw_packets(HD_W, HD_H)
+    n_blocks = -(-n_media // LINK_BLOCK)
+    first_seq = int(dict(kv.split("=") for kv in LINK_RTP.split())["seqnum-offset"])
+
+    def early(key, buf):
+        """A packet of the first LINK_STAGE_FRAMES frames' traffic: a media
+        packet by its sequence number, a repair by its block number."""
+        data = _bytes(buf)
+        if key == "dec:sink":
+            return (int.from_bytes(data[2:4], "big") - first_seq) & 0xFFFF < n_media
+        return int.from_bytes(data[12:14], "big") < n_blocks
+
+    arrivals = [(k, b) for k, b in r.arrivals if early(k, b)]
+    stages = {}
+    t0 = time.perf_counter()
+    p = g.parse_launch(f"appsrc name=src ! rtpvrawpay2 {LINK_RTP} ! appsink name=sink")
+    p.by_name("src").set_property("caps", g.parse_caps(
+        f"video/x-raw,format=RGBA,width={HD_W},height={HD_H},framerate=30/1"))
+    for i, f in enumerate(r.graded[:LINK_STAGE_FRAMES]):
+        p.by_name("src").push_buffer(g.Buffer(f, pts=i * FRAME_NS, duration=FRAME_NS))
+    p.by_name("src").end_of_stream()
+    p.play_until_eos()
+    stages["rtpvrawpay2"] = time.perf_counter() - t0
+    packets = [s.buffer for s in p.by_name("sink").samples]
+    stages["raptorqenc"] = _replay(g, "raptorqenc", [("sink", media_caps, b) for b in packets])
+    repairs = [_bytes(b) for k, b in arrivals if k == "dec:fec_0"]
+    stages["UDP hop"] = udp_hop(g, [_bytes(b) for b in packets] + repairs)
+    stages["raptorqdec"] = _replay(g, "raptorqdec", [
+        ("sink" if k == "dec:sink" else "fec_0", media_caps if k == "dec:sink" else LINK_FEC_CAPS,
+         b) for k, b in arrivals])
+    depay_in = r.depay_in[:n_media]
+    t0 = time.perf_counter()
+    p = g.parse_launch(f"appsrc name=src ! ts-jitterbuffer latency={LINK_JB_LATENCY} "
+                       f"! rtpvrawdepay2 ! appsink name=sink")
+    p.by_name("src").set_property("caps", g.parse_caps(media_caps))
+    for b in depay_in:
+        p.by_name("src").push_buffer(b)
+    p.by_name("src").end_of_stream()
+    p.play_until_eos()
+    torch.cuda.synchronize()
+    stages["ts-jitterbuffer ! rtpvrawdepay2"] = time.perf_counter() - t0
+    print(f"host ms a frame, each stage alone on the traffic of 4o's first {LINK_STAGE_FRAMES} "
+          f"frames ({len(packets)} media packets, {len(repairs)} repairs, "
+          f"{len(p.by_name('sink').samples)} frames out of the depayloader): "
+          + ", ".join(f"{k} {v / LINK_STAGE_FRAMES * 1e3:.1f}" for k, v in stages.items())
+          + f"; their sum {sum(stages.values()) / LINK_STAGE_FRAMES * 1e3:.1f} [{card_line}]")
+    rows["stages"] = {k: v / LINK_STAGE_FRAMES * 1e3 for k, v in stages.items()}
+
+    audio, _ = link_audio_input(g)
+    walls = []
+    for _ in range(LINK_TIMING_REPEATS):
+        walls.append(audio_link_run(g, audio)[3])
+    wall = statistics.median(walls)
+    print(f"L24 link, {len(audio)} buffers ({LINK_AUDIO_SECONDS} s): {len(audio) / wall:.2f} "
+          f"buffers/s, {LINK_AUDIO_SECONDS / wall:.2f} audio s/s (median of "
+          f"{[round(len(audio) / w, 2) for w in walls]}) [{card_line}]")
+    return rows
+
+
+def udp_hop(g, datagrams):
+    """Host seconds for `datagrams` to go appsrc ! ts-udpsink to a ts-udpsrc
+    on a context of its own (127.0.0.1), from the first send to the last
+    arrival; every datagram must arrive."""
+    import threading
+
+    from gst_plugins_rs_tpu_torch.core import State
+
+    rx = g.Pipeline("hop-rx")
+    src = _udp_src(g, "ts-udpsrc", "hop", "link-hop", "application/x-rtp", len(datagrams))
+    sink = g.element_factory_make("appsink", "sink")
+    rx.add(src, sink)
+    src.link(sink)
+    trace = LinkTrace("sink:sink")
+    rx.add_tracer(trace)
+    rx.set_state(State.PAUSED)
+    tx = g.parse_launch("appsrc name=src")
+    tx.by_name("src").set_property("caps", g.parse_caps("application/x-rtp"))
+    out = _udp_sink(g, "out", src.bound_port)
+    tx.add(out)
+    tx.by_name("src").link(out)
+    for d in datagrams:
+        tx.by_name("src").push_buffer(g.Buffer(np.frombuffer(d, np.uint8)))
+    tx.by_name("src").end_of_stream()
+    rx.set_state(State.PLAYING)
+    errors = []
+    t = threading.Thread(target=lambda: errors.extend(_run_errors(rx)), name="hop-rx")
+    t.start()
+    tx.set_state(State.PLAYING)
+    t0 = time.perf_counter()
+    tx.run()
+    t.join(timeout=LINK_TIMEOUT_NS / 1e9 + 60)
+    tx.set_state(State.NULL)
+    rx.set_state(State.NULL)
+    got = trace.seen["sink:sink"]
+    if errors or len(got) != len(datagrams):
+        raise AssertionError(f"the UDP hop: {len(got)} of {len(datagrams)} arrived {errors}")
+    return got[-1][0] - t0
+
+
 def main() -> int:
     card_line = card()
     sys.path.insert(0, str(ROOT))
@@ -5494,6 +6442,7 @@ def main() -> int:
     limiter_case = limiter_kernel(card_line)
     rnn_cases = rnnoise_kernel(card_line)
     rnn_bank_cases = rnnoise_bank_kernel(card_line)
+    rnnoise_stress()
     asr_case = asr_kernel(card_line)
     bank_case = bank_kernel(card_line)
     mesh_kernels(card_line)
@@ -5511,6 +6460,7 @@ def main() -> int:
     rec_launches = rec_pipelines(grade)
     cap_launches = caption_pipelines(grade)
     onvif_launches = onvif_pipelines()
+    link_launches, link_r = link_pipelines(grade)
     compose_card_vs_cpu()
     demucs_card_vs_cpu()
     speech_card_vs_cpu()
@@ -5521,6 +6471,7 @@ def main() -> int:
     rec_card_vs_cpu(grade)
     caption_card_vs_cpu(grade)
     onvif_card_vs_cpu()
+    link_card_vs_cpu(grade)
     timing(card_line)
     effects_timing(card_line, grade)
     fuse_timing(card_line, grade)
@@ -5534,6 +6485,7 @@ def main() -> int:
     rec_timing(card_line, grade)
     caption_timing(card_line, grade)
     onvif_timing(card_line)
+    link_timing(card_line, grade, link_r)
     # the sharded paths' launches (phase 4k) join their kernels' counts
     launches += mesh_launches["yolox_c3"]
     for name in ("loudnorm_limiter", "loudnorm_limiter_bank"):
@@ -5548,6 +6500,10 @@ def main() -> int:
     audio_launches["asr_gru"] += cap_launches["asr_gru"]
     # and the ONVIF camera's (phase 4n)
     launches += onvif_launches
+    # and the contribution link's (phase 4o)
+    for name in ("hsv_planes", "colorlut_lowrank_packed"):
+        effect_launches[name] += link_launches[name]
+    audio_launches["loudnorm_limiter"] += link_launches["loudnorm_limiter"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "library_ms")
     main_case = next(c for c in cases if c["dtype"] == "f32" and c["batch"] == 1)
     entries = [{

@@ -60,7 +60,8 @@
 //         vad_gru_u and noise_h @ noise_gru_u (a silent frame changes
 //         neither state, so they hold for the next frame that runs).
 //     Xn, Xv and the silence flag of frame k + 1 are loaded while frame k
-//     runs, Xd at the top of its frame.  The gains and the VAD are off the
+//     runs, Xd at the top of its frame, all by coherent loads after
+//     griddepcontrol.wait (ld_hoisted).  The gains and the VAD are off the
 //     chain: nothing later reads them.
 //
 // Per-frame floor of the recurrence, a reckoning (not a measurement):
@@ -240,6 +241,17 @@ __device__ __forceinline__ void stage_groups(float* dst, const float* __restrict
   }
 }
 
+// A value of the hoisted products, which the grid launched before this one
+// writes while this one's prologue runs: a coherent load (L2, not the
+// read-only path), through a pointer that is not __restrict__, so nothing
+// lets the compiler take it for read-only memory and move it above
+// griddepcontrol.wait.  Through __ldg and a __restrict__ X, the compiler
+// issued frame 0's Xn and Xv loads (LDG.E.CONSTANT) before the barrier
+// and before ACQBULK, the instruction griddepcontrol.wait becomes, and a
+// few calls in 8,000 (C = 16, enqueued back to back) read what an earlier
+// allocation had left in the scratch (ROADMAP C.2)
+__device__ __forceinline__ float ld_hoisted(const float* p) { return __ldcg(p); }
+
 // a[i % 4] += h[i] * W[i, col] over N rows (N % 4 == 0); W4 in the group
 // layout with m columns, h 16-byte aligned
 template <int N>
@@ -314,7 +326,7 @@ __device__ __forceinline__ void band_gains(const float* den_h, const float* Wo4,
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-rnnoise_gru_kernel(const float* __restrict__ X, const uint8_t* __restrict__ silence,
+rnnoise_gru_kernel(const float* X, const uint8_t* __restrict__ silence,
                    const float* __restrict__ h_vad0, const float* __restrict__ h_noise0,
                    const float* __restrict__ h_den0, Weights w, int K, int C,
                    float* __restrict__ gains, float* __restrict__ vads,
@@ -366,12 +378,12 @@ rnnoise_gru_kernel(const float* __restrict__ X, const uint8_t* __restrict__ sile
   // frame 0's Xn and Xv rows (a VAD unit's z, r and h~) and flag; later,
   // frame k + 1's while k runs (Xd is read at the top of its frame)
   const float* x0 = X + (size_t)c * kX;
-  float xn = noise_row ? __ldg(x0 + kXn + t) : 0.0f;
+  float xn = noise_row ? ld_hoisted(x0 + kXn + t) : 0.0f;
   float xvz = 0.0f, xvr = 0.0f, xvh = 0.0f;
   if (vad_gate) {
-    xvz = __ldg(x0 + kXv + vj);
-    xvr = __ldg(x0 + kXv + kVad + vj);
-    xvh = __ldg(x0 + kXv + 2 * kVad + vj);
+    xvz = ld_hoisted(x0 + kXv + vj);
+    xvr = ld_hoisted(x0 + kXv + kVad + vj);
+    xvh = ld_hoisted(x0 + kXv + 2 * kVad + vj);
   }
   bool silent = silence[c] != 0;
   int pending = -1;  // the frame and channel whose gains wait on den_h
@@ -388,11 +400,11 @@ rnnoise_gru_kernel(const float* __restrict__ X, const uint8_t* __restrict__ sile
     bool nsilent = false;
     if (k + 1 < K) {
       const float* nr = xk + (size_t)C * kX;
-      if (noise_row) nxn = __ldg(nr + kXn + t);
+      if (noise_row) nxn = ld_hoisted(nr + kXn + t);
       if (vad_gate) {
-        nxvz = __ldg(nr + kXv + vj);
-        nxvr = __ldg(nr + kXv + kVad + vj);
-        nxvh = __ldg(nr + kXv + 2 * kVad + vj);
+        nxvz = ld_hoisted(nr + kXv + vj);
+        nxvr = ld_hoisted(nr + kXv + kVad + vj);
+        nxvh = ld_hoisted(nr + kXv + 2 * kVad + vj);
       }
       nsilent = silence[kc + C] != 0;
     }
@@ -400,7 +412,7 @@ rnnoise_gru_kernel(const float* __restrict__ X, const uint8_t* __restrict__ sile
       if (t < kBands) gains[kc * kBands + t] = 1.0f;
       if (t == 0) vads[kc] = 0.0f;
     } else {
-      const float xd = __ldg(xk + kXd + t);
+      const float xd = ld_hoisted(xk + kXd + t);
       // a: the VAD GRU (warp 8); den_h @ U_d (warps 0-7); the gains of the
       //    last frame that ran (den_h is not written again until e)
       float ah[4] = {0.0f, 0.0f, 0.0f, 0.0f};

@@ -785,6 +785,33 @@ def test_rnnoise_gru_kernel_edge_cases(cuda, case, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 16])
+def test_rnnoise_gru_kernel_back_to_back_over_stale_memory(cuda, K):
+    """8,000 calls at K frames x 16 channels enqueued back to back, each
+    after tensors of R1's sizes were filled with large values and freed, so
+    its scratch and outputs start as other values: every call equals the
+    first (which matches the plain version).  Before the recurrence read
+    the hoisted products by coherent loads after griddepcontrol.wait
+    (ROADMAP C.2), 5 calls of 8,000 at K = 1 and 2 at K = 16 differed."""
+    from gst_plugins_rs_tpu_torch.ops import rnnoise_gru as gru
+
+    feats, sil, rnn, w = _r1_inputs("packaged", K, 16, 70 + K, cuda)
+    _r1_check(feats, sil, rnn, w)
+    ref = gru.rnn_frames(feats, sil, rnn, w)
+    sizes = [K * 16 * n for n in (504, 22, 1)] + [16 * n for n in (24, 48, 96)]
+    diffs = []
+    for i in range(8000):
+        junk = [torch.full((n,), 1e4 * (1 + (i + j) % 7), device=cuda)
+                for j, n in enumerate(sizes)]
+        del junk
+        got = gru.rnn_frames(feats, sil, rnn, w)
+        diffs.append(torch.stack([(a - b).abs().max() for a, b in
+                                  zip((got[0], got[1], *got[2]), (ref[0], ref[1], *ref[2]))]).max())
+    diffs = torch.stack(diffs).cpu()
+    assert float(diffs.max()) == 0.0, (diffs > 0).nonzero().flatten().tolist()[:10]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["random", "packaged"])
 def test_rnnoise_gru_kernel_chained_calls(cuda, kind):
     """Two calls of K frames, the first's states into the second, equal one
@@ -1713,3 +1740,81 @@ def test_pcmu_payloader_reads_each_card_buffer_back_once(cuda):
         assert got == run([a.cpu() for a in audio])
     finally:
         g.set_device("cuda")
+
+
+@pytest.mark.cuda
+def test_vraw_link_copies_each_frame_once_each_way(cuda):
+    """rtpvrawpay2 ! rtpvrawdepay2 on card RGBA frames: one device-to-host
+    copy a frame at the payloader, one host-to-device copy a frame at the
+    depayloader's marker (torch.profiler), the frames back on the card bit
+    for bit, and the packets of the same frames on the host."""
+    import gst_plugins_rs_tpu_torch as g
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    frames = [torch.randint(0, 256, (48, 64, 4), generator=gen, device="cuda",
+                            dtype=torch.uint8) for _ in range(4)]
+
+    def run(bufs, depay=True):
+        p = g.parse_launch("appsrc name=src ! rtpvrawpay2 mtu=600 ssrc=1 timestamp-offset=0 "
+                           f"seqnum-offset=0 {'! rtpvrawdepay2 ' if depay else ''}! appsink name=sink")
+        p.by_name("src").set_property("caps", g.parse_caps(
+            "video/x-raw,format=RGBA,width=64,height=48,framerate=30/1"))
+        for i, b in enumerate(bufs):
+            p.by_name("src").push_buffer(g.Buffer(b, pts=i * 33_333_333, duration=33_333_333))
+        p.by_name("src").end_of_stream()
+        p.play_until_eos()
+        return [s.buffer.data for s in p.by_name("sink").samples]
+
+    run(frames)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run(frames)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dtoh = sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
+    htod = sum(e.count for e in events if e.key.startswith("Memcpy HtoD"))
+    assert (dtoh, htod) == (len(frames), len(frames))
+    assert all(o.device.type == "cuda" and torch.equal(o, f) for o, f in zip(out, frames))
+    packets = [np.asarray(d).tobytes() for d in run(frames, depay=False)]
+    g.set_device("cpu")
+    try:
+        assert packets == [np.asarray(d).tobytes() for d in run([f.cpu() for f in frames],
+                                                                depay=False)]
+    finally:
+        g.set_device("cuda")
+
+
+@pytest.mark.cuda
+def test_l24_payloader_reads_each_card_buffer_back_once(cuda):
+    """rtpL24pay2 ! rtpL24depay2 on card S24 samples (int32): one
+    device-to-host copy a buffer at the payloader, none after, the samples
+    back bit for bit."""
+    import gst_plugins_rs_tpu_torch as g
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    audio = [torch.randint(-(1 << 23), 1 << 23, (1920, 2), generator=gen, device="cuda",
+                           dtype=torch.int32) for _ in range(6)]
+
+    def run():
+        p = g.parse_launch("appsrc name=src ! rtpL24pay2 mtu=1400 ssrc=1 timestamp-offset=0 "
+                           "seqnum-offset=0 ! rtpL24depay2 ! appsink name=sink")
+        p.by_name("src").set_property("caps", g.parse_caps(
+            "audio/x-raw,format=S24,rate=192000,channels=2,layout=interleaved"))
+        for i, b in enumerate(audio):
+            p.by_name("src").push_buffer(g.Buffer(b, pts=i * 10_000_000, duration=10_000_000))
+        p.by_name("src").end_of_stream()
+        p.play_until_eos()
+        return np.concatenate([np.asarray(s.buffer.data) for s in p.by_name("sink").samples])
+
+    run()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dtoh = sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
+    htod = sum(e.count for e in events if e.key.startswith("Memcpy HtoD"))
+    assert (dtoh, htod) == (len(audio), 0)
+    np.testing.assert_array_equal(got, torch.cat(audio).cpu().numpy())

@@ -15,9 +15,9 @@ def _port_cpu():
         yield
 
 
-# The FLAC sample entry needs the FLAC codec (codecs/flac.py) and the RTP
-# carriage case the MPEG-TS RTP payloaders (elements/net/mp2t.py), both a later slice's.  test_mux_external_oracle.py (codecs/avlib) and
-# test_gcc_mp2t.py (net/) wait for their slices and are not mirrored.
+# The FLAC sample entry needs the FLAC codec (codecs/flac.py), a later
+# slice's; test_mux_external_oracle.py (codecs/avlib) waits for its slice and
+# is not mirrored.  tests/test_torch_rtp_families.py mirrors test_gcc_mp2t.py.
 FLAC = "codecs/flac.py"
 MIRRORED = (mirror_jax_tests("test_fmp4_scenarios.py", globals(),
                              skip={"TestFmuxBoxes::test_flac_fmux_boxes": FLAC})
@@ -25,8 +25,7 @@ MIRRORED = (mirror_jax_tests("test_fmp4_scenarios.py", globals(),
                                skip={"TestCodecMuxBoxes::test_flac_mux_boxes": FLAC})
             + mirror_jax_tests("test_mux.py", globals(),
                                skip={"TestFlacMux::test_flac_sample_entry": FLAC})
-            + mirror_jax_tests("test_tsmux_sei.py", globals(), skip={
-                "TestMpegTsMux::test_mux_feeds_rtp_and_livesrc_layers": "elements/net/mp2t.py"}))
+            + mirror_jax_tests("test_tsmux_sei.py", globals()))
 
 
 # ---------------------------------------------------------------------------

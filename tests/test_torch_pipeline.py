@@ -288,8 +288,20 @@ def test_factories_mirror_jax():
             "rtpklvpay2", "rtpklvdepay2", "onvifmetadatapay", "onvifmetadatadepay",
             "onvifmetadataparse", "onvifmetadatacombiner", "onvifmetadataextractor",
             "onvifmetadataoverlay", "rtponvifmetadatapay", "rtponvifmetadatadepay",
-            "rtpsend", "rtprecv", "ts-jitterbuffer"} == set(names)
-    assert len(names) == 148
+            "rtpsend", "rtprecv", "ts-jitterbuffer",
+            # the rest of the RTP families: FEC, UDP, video, linear audio,
+            # raw video, ancillary data, codecs, MPEG-TS and congestion control
+            "raptorqenc", "raptorqdec", "udpsrc2", "ts-udpsrc", "ts-udpsink",
+            "rtpvp8pay2", "rtpvp8depay2", "rtpvp9pay2", "rtpvp9depay2", "rtpav1pay2",
+            "rtpav1depay2", "rtpjpegpay2", "rtpjpegdepay2", "rtpmp4apay2",
+            "rtpmp4adepay2", "rtpmp4gpay2", "rtpmp4gdepay2", "rtpL24pay2",
+            "rtpL24depay2", "rtpL20pay", "rtpL20depay", "rtpav1pay", "rtpav1depay",
+            "rtpvrawpay2", "rtpvrawdepay2", "rtpsmpte291pay", "rtpsmpte291depay",
+            "rtpopuspay2", "rtpopusdepay2", "rtpac3pay2", "rtpac3depay2", "rtpmpapay2",
+            "rtpmpadepay2", "rtpmpvpay2", "rtpmpvdepay2", "rtpamrpay2", "rtpamrdepay2",
+            "rtpmparobustdepay2", "rtpmp2tpay2", "rtpmp2tdepay2", "mpegtslivesrc",
+            "rtpgccbwe"} == set(names)
+    assert len(names) == 190
     for name in names:
         jc, tc = jfactory(name), tfactory(name)
         assert [(p.name, repr(p.default), p.type, p.choices) for p in jc.PROPERTIES] == \
@@ -351,7 +363,12 @@ def test_port_imports_no_jax():
                 "elements/cc/transcriberbin.py", "elements/cc/translationbin.py",
                 "elements/analytics/onvif.py", "net/rtp.py", "ops/g711.py",
                 "elements/net/codecs.py", "elements/net/rtppay.py", "elements/net/onvif.py",
-                "net/rtcp.py", "net/jitterbuffer.py", "elements/net/rtpbin2.py"):
+                "net/rtcp.py", "net/jitterbuffer.py", "elements/net/rtpbin2.py",
+                "net/fountain.py", "net/netio.py", "net/context.py", "net/mpa.py",
+                "net/gcc.py", "elements/net/raptorq.py", "elements/net/udp.py",
+                "elements/net/rtpvideo.py", "elements/net/rtpextra.py",
+                "elements/net/rtpcodecs.py", "elements/net/mp2t.py",
+                "elements/net/gccbwe.py"):
         assert f"gst_plugins_rs_tpu_torch/{mod}" in names, mod
     banned = ("jax", "jaxlib", "flax", "gst_plugins_rs_tpu")
     for f in files:

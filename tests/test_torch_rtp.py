@@ -1,10 +1,8 @@
 """The port's RTP core against the JAX package's RTP tests.
 
-Each test of tests/test_rtp.py and tests/test_rtpbin2.py runs on the port
-with the same inputs and the same assertions, with the cases of
-tests/test_rtp_surface.py and tests/test_clock.py that need only modules
-the port has.  The skipped cases wait for a later slice of elements/net,
-each named below.  Then the payloaders' packets and the session's output,
+Each test of tests/test_rtp.py, tests/test_rtpbin2.py and
+tests/test_rtp_surface.py runs on the port with the same inputs and the
+same assertions, with the RTP cases of tests/test_clock.py.  Then the payloaders' packets and the session's output,
 port against the JAX package, byte for byte on seeded input."""
 import pytest
 
@@ -18,16 +16,9 @@ def _port_cpu():
         yield
 
 
-UDP = "elements/net/udp.py (udpsrc2, ts-udpsink)"
-GCC = "elements/net/gccbwe.py and net/gcc.py (rtpgccbwe)"
-RTPCODECS = "elements/net/rtpcodecs.py"
-RTPVIDEO = "elements/net/rtpvideo.py"
-MIRRORED = (mirror_jax_tests("test_rtp.py", globals(), skip={"TestUdpLoopback": UDP})
-            + mirror_jax_tests("test_rtpbin2.py", globals(), skip={"TestTwccEndToEnd": GCC})
-            + mirror_jax_tests("test_rtp_surface.py", globals(), skip={
-                "TestAggregation": RTPCODECS, "TestPictureId": RTPVIDEO,
-                "TestKeyframeRecovery": RTPVIDEO, "TestOpusDtx": RTPCODECS,
-                "TestAmrWb": RTPCODECS, "TestMp4gAudio": RTPCODECS}))
+MIRRORED = (mirror_jax_tests("test_rtp.py", globals())
+            + mirror_jax_tests("test_rtpbin2.py", globals())
+            + mirror_jax_tests("test_rtp_surface.py", globals()))
 # tests/test_clock.py: the jitterbuffer's clock-driven cases.  The file's
 # other classes drive the core clock, the switching elements, live sources
 # and the transcriber, which are not this slice's; tests/test_torch_core.py
@@ -65,6 +56,94 @@ PAYLOADERS = {
     "klv": ("meta/x-klv,parsed=true", "rtpklvpay2", "rtpklvdepay2",
             lambda rng, i: rng.integers(0, 256, 100 + 900 * i, dtype=np.uint8), "mtu=400"),
 }
+
+
+def _u8(n):
+    return lambda rng, i: rng.integers(0, 256, n(i), dtype=np.uint8)
+
+
+def _prefixed(head, n):
+    return lambda rng, i: np.concatenate([np.frombuffer(head, np.uint8),
+                                          rng.integers(0, 256, n(i), dtype=np.uint8)])
+
+
+def _jpeg(rng, i):
+    """A baseline JPEG of a seeded 48x64 image, 4:2:0 or 4:2:2."""
+    import io
+
+    from PIL import Image
+
+    bio = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (48, 64, 3), dtype=np.uint8), "RGB").save(
+        bio, "JPEG", quality=90, subsampling=2 - i % 2)
+    return np.frombuffer(bio.getvalue(), np.uint8)
+
+
+def _mpa(rng, i):
+    from gst_plugins_rs_tpu.net.mpa import build_frame_header
+
+    return _prefixed(build_frame_header(version=1, layer=3, rate_idx=0, channels=2),
+                     lambda i: 400)(rng, i)
+
+
+def _mp2t(rng, i):
+    pkts = rng.integers(0, 256, (3 + 5 * i, 188), dtype=np.uint8)
+    pkts[:, 0] = 0x47
+    return pkts.reshape(-1)
+
+
+def _st2038(rng, i):
+    from gst_plugins_rs_tpu.ops import st2038
+
+    return np.frombuffer(b"".join(
+        st2038.pack(int(rng.integers(1, 256)), int(rng.integers(1, 256)),
+                    rng.integers(0, 256, 5 + 20 * k, dtype=np.uint8).tobytes(),
+                    c_not_y=bool(k % 2), line_number=9 + k, horizontal_offset=4 * k)
+        for k in range(1 + i % 3)), np.uint8)
+
+
+def _pcm(bits, shape):
+    return lambda rng, i: rng.integers(-(1 << bits - 1), 1 << bits - 1, shape, dtype=np.int32)
+
+
+VRAW = "video/x-raw,format={fmt},width=64,height=48"
+# The rest of the RTP families: video, MPEG-4 generic, linear audio, raw
+# video, ancillary data, codecs and MPEG-TS
+PAYLOADERS.update({
+    "vp8": ("video/x-vp8", "rtpvp8pay2", "rtpvp8depay2", _u8(lambda i: 300 + 1500 * i),
+            "mtu=600 picture-id-mode=15-bit picture-id-offset=32760"),
+    "vp9": ("video/x-vp9", "rtpvp9pay2", "rtpvp9depay2", _u8(lambda i: 200 + 1100 * i),
+            "mtu=700 picture-id-mode=7-bit picture-id-offset=120"),
+    "av1": ("video/x-av1", "rtpav1pay2", "rtpav1depay2", _u8(lambda i: 100 + 1300 * i), "mtu=500"),
+    "av1-alias": ("video/x-av1", "rtpav1pay", "rtpav1depay", _u8(lambda i: 900 * i), "mtu=500"),
+    "jpeg": ("image/jpeg", "rtpjpegpay2", "rtpjpegdepay2", _jpeg, "mtu=700"),
+    "mp4a": ("audio/mpeg,mpegversion=4,stream-format=raw,rate=48000", "rtpmp4apay2",
+             "rtpmp4adepay2", _u8(lambda i: 150 + 1400 * (i % 2)), "mtu=900"),
+    "mp4g": ("video/mpeg,mpegversion=4,systemstream=false", "rtpmp4gpay2", "rtpmp4gdepay2",
+             _u8(lambda i: 200 + 2000 * i), "mtu=1000"),
+    "mp4g-aac": ("audio/mpeg,mpegversion=4,stream-format=raw,rate=44100", "rtpmp4gpay2",
+                 "rtpmp4gdepay2", _u8(lambda i: 120 + 1300 * (i % 2)), ""),
+    "L24": (AUDIO.format(rate=48000, ch=2, fmt="S24"), "rtpL24pay2", "rtpL24depay2",
+            _pcm(24, (480, 2)), "mtu=800"),
+    "L20": (AUDIO.format(rate=48000, ch=2, fmt="S20"), "rtpL20pay", "rtpL20depay",
+            _pcm(20, (480, 2)), ""),
+    "vraw-rgba": (VRAW.format(fmt="RGBA"), "rtpvrawpay2", "rtpvrawdepay2",
+                  lambda rng, i: rng.integers(0, 256, (48, 64, 4), dtype=np.uint8), "mtu=600"),
+    "vraw-rgb": (VRAW.format(fmt="RGB"), "rtpvrawpay2", "rtpvrawdepay2",
+                 lambda rng, i: rng.integers(0, 256, (48, 64, 3), dtype=np.uint8), ""),
+    "smpte291": ("meta/x-st-2038", "rtpsmpte291pay", "rtpsmpte291depay", _st2038, ""),
+    "opus": ("audio/x-opus,channel-mapping-family=0", "rtpopuspay2", "rtpopusdepay2",
+             _prefixed(b"\xfc", lambda i: 1 if i == 2 else 60 + 10 * i), "dtx=true"),
+    "ac3": ("audio/x-ac3,framed=true,rate=48000,alignment=frame", "rtpac3pay2", "rtpac3depay2",
+            _prefixed(b"\x0b\x77", lambda i: 100 + 1500 * (i % 2)), ""),
+    "mpa": ("audio/mpeg,mpegversion=1", "rtpmpapay2", "rtpmpadepay2", _mpa, "mtu=300"),
+    "mpv": ("video/mpeg,mpegversion=2,systemstream=false", "rtpmpvpay2", "rtpmpvdepay2",
+            _prefixed(b"\x00\x00\x01\xb3", lambda i: 3000 if i == 0 else 500), ""),
+    "amr": ("audio/AMR,rate=8000,channels=1", "rtpamrpay2", "rtpamrdepay2",
+            _prefixed(b"\x0c", lambda i: 13), ""),
+    "mp2t": ("video/mpegts,systemstream=true,packetsize=188", "rtpmp2tpay2", "rtpmp2tdepay2",
+             _mp2t, ""),
+})
 
 
 def _seeded_buffers(name, tensor, n=5):
