@@ -190,6 +190,27 @@ CPU on 2 frames graded on the CPU (repair packets byte-equal, frames 0
 LSB); frames per second against the graded chain, the host ms a frame of
 each stage alone, device ms and ops a frame, the busy share, the L24
 link's buffers per second.
+4p/5p/6p the codec and image families: 8 seeded 1080p RGBA stills written
+as PNG by rspngenc, each its own stream through appsrc ! imagersdec !
+hsvfilter hue-shift=120 ! colorlut approx (B4, B2) ! imagersoverlay (a
+seeded 256x128 logo at -32,-32, alpha 0.8) ! rspngenc, every frame on
+cuda:0 from the decoder to the encoder, each output PNG decoded bit-equal
+to the frame into rspngenc, one Memcpy HtoD and one DtoH an image beyond
+the graded chain's own; a 16-frame 480x270 GIF through gifdec ! hsvfilter !
+colorlut approx ! gifenc repeat=0 (16 frames back, one copy a frame each
+way beyond the chain); 8 s of the 4c ticks as a 24-bit 192 kHz FLAC master
+in 64 KiB buffers through claxondec ! audioconvert ! F64 ! audioloudnorm
+(every frame decoded natively, the samples bit-equal, L1 launches = 100 ms
+frames); 10 s of seeded CD+G through cdgparse ! cdgdec (frames on cuda:0,
+one HtoD a frame); the libavcodec-bound elements (without the shim, each
+fails with the JAX element's RuntimeError; with it, FFV1 and AV1 round
+trips) and rswebpdec (a lossless WebP bit-equal where Pillow has WebP);
+card against CPU on 2 stills (PNG bytes equal, the frame into the overlay
+bit-equal, out of it within 1 LSB), the GIF (bytes equal), 4 s of FLAC
+(samples equal, loudness within 5c's gates) and the CD+G frames (equal);
+stills a second with device ms and busy share, each stage's host ms, the
+overlay's device ms, claxondec's and the FLAC path's audio s/s, CD+G frames
+a second.
 Prints a JSON line of the kernels, the card's name and power limit, then,
 last, {"ok": true, "device": ...}.  It imports nothing of JAX and nothing of
 the JAX package.
@@ -257,8 +278,11 @@ MXU_OPS = 88
 MXU_PACKED_OPS = MXU_OPS + 3 * (6 + 4)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} [{time.perf_counter() - _T0:.1f} s]", flush=True)
 
 
 # Cycles the card spins before each timed call (~1 ms): the host enqueues
@@ -5955,8 +5979,8 @@ def link_audio_input(g, seconds=LINK_AUDIO_SECONDS):
 
 def audio_link_run(g, buffers, around=None):
     """appsrc (S24, 192 kHz stereo) ! rtpL24pay2 at 1 ms packets !
-    ts-udpsink, over 127.0.0.1 to ts-udpsrc ! rtpL24depay2 ! appsink, the
-    receiver on a context of its own.  Returns (samples out [n, 2] int32
+    send-window ! ts-udpsink, over 127.0.0.1 to ts-udpsrc ! rtpL24depay2 !
+    appsink, the receiver on a context of its own.  Returns (samples out [n, 2] int32
     on the host, packets sent, packets received, wall s)."""
     import threading
 
@@ -5971,7 +5995,7 @@ def audio_link_run(g, buffers, around=None):
     rx.add(asrc, depay, sink)
     asrc.link(depay)
     depay.link(sink)
-    rtrace = LinkTrace("adepay:sink", "sink:sink")
+    rtrace = ArrivalTrace("adepay:sink", "sink:sink")
     rx.add_tracer(rtrace)
     rx.set_state(State.PAUSED)
     tx = None
@@ -5979,9 +6003,11 @@ def audio_link_run(g, buffers, around=None):
         tx = g.parse_launch(f"appsrc name=src ! rtpL24pay2 name=apay {LINK_AUDIO_RTP}")
         tx.by_name("src").set_property("caps", g.parse_caps(
             f"audio/x-raw,format=S24,rate={LINK_AUDIO_RATE},channels=2,layout=interleaved"))
+        window = send_window(g, rtrace, window_limit(asrc))
         asink = _udp_sink(g, "asink", asrc.bound_port)
-        tx.add(asink)
-        tx.by_name("apay").link(asink)
+        tx.add(window, asink)
+        tx.by_name("apay").link(window)
+        window.link(asink)
         ttrace = LinkTrace("asink:sink")
         tx.add_tracer(ttrace)
         src, pts = tx.by_name("src"), 0
@@ -6282,7 +6308,7 @@ def link_timing(card_line, grade, r):
     one thread on what 4o's run carried there over its first
     LINK_STAGE_FRAMES frames: rtpvrawpay2 (the graded frames on the card),
     raptorqenc (the media packets), the UDP hop (media and repairs through
-    ts-udpsink to ts-udpsrc), raptorqdec (media and repairs in the order it
+    ts-udpsink to ts-udpsrc, the sender held to a window: udp_hop), raptorqdec (media and repairs in the order it
     took them) and ts-jitterbuffer ! rtpvrawdepay2 (the packets as they
     left raptorqdec); the L24 link's buffers per second."""
     phase("6o the contribution link, timing")
@@ -6349,7 +6375,7 @@ def link_timing(card_line, grade, r):
     packets = [s.buffer for s in p.by_name("sink").samples]
     stages["raptorqenc"] = _replay(g, "raptorqenc", [("sink", media_caps, b) for b in packets])
     repairs = [_bytes(b) for k, b in arrivals if k == "dec:fec_0"]
-    stages["UDP hop"] = udp_hop(g, [_bytes(b) for b in packets] + repairs)
+    stages["UDP hop"], hop_limit, hop_most, hop_waited = udp_hop(g, [_bytes(b) for b in packets] + repairs)
     stages["raptorqdec"] = _replay(g, "raptorqdec", [
         ("sink" if k == "dec:sink" else "fec_0", media_caps if k == "dec:sink" else LINK_FEC_CAPS,
          b) for k, b in arrivals])
@@ -6368,7 +6394,9 @@ def link_timing(card_line, grade, r):
           f"frames ({len(packets)} media packets, {len(repairs)} repairs, "
           f"{len(p.by_name('sink').samples)} frames out of the depayloader): "
           + ", ".join(f"{k} {v / LINK_STAGE_FRAMES * 1e3:.1f}" for k, v in stages.items())
-          + f"; their sum {sum(stages.values()) / LINK_STAGE_FRAMES * 1e3:.1f} [{card_line}]")
+          + f"; their sum {sum(stages.values()) / LINK_STAGE_FRAMES * 1e3:.1f}; the UDP hop's "
+          f"sender held to {hop_limit} datagrams in flight (at most {hop_most}), {hop_waited / LINK_STAGE_FRAMES * 1e3:.1f} "
+          f"ms a frame of it waiting on the window [{card_line}]")
     rows["stages"] = {k: v / LINK_STAGE_FRAMES * 1e3 for k, v in stages.items()}
 
     audio, _ = link_audio_input(g)
@@ -6382,10 +6410,81 @@ def link_timing(card_line, grade, r):
     return rows
 
 
+WINDOW_DATAGRAM_COST = 4096  # receive-buffer bytes a datagram of up to 1.4 kB is allowed
+
+
+def send_window(g, arrived, limit):
+    """In front of a ts-udpsink on 127.0.0.1: holds the next datagram while
+    `limit` sent ones have not yet been counted by `arrived` (an
+    ArrivalTrace on the receiver), until no more than half of them are in
+    flight.  Loopback UDP has no flow control: a sender that outruns the
+    receiver's drain thread while that thread waits for the interpreter
+    lock overruns the receive buffer, and datagrams are lost.  With at most
+    `limit` in flight, a datagram that does not arrive is a fault.  An
+    element of the script, not of the port."""
+    from gst_plugins_rs_tpu_torch.core import BaseTransform
+
+    class SendWindow(BaseTransform):
+        ELEMENT_NAME = "send-window"
+
+        def __init__(self):
+            super().__init__("window")
+            self.sent = 0
+            self.most = 0       # the most datagrams in flight after a send
+            self.waited = 0.0
+
+        def transform_ip(self, buf):
+            if self.sent - arrived.count() >= limit:
+                t0 = time.perf_counter()
+                arrived.wait_for(lambda n: self.sent - n <= limit // 2, LINK_TIMEOUT_NS / 1e9)
+                self.waited += time.perf_counter() - t0
+            self.sent += 1
+            self.most = max(self.most, self.sent - arrived.count())
+            return buf
+
+    return SendWindow()
+
+
+def window_limit(src):
+    """The datagrams a send_window lets be in flight to the UDP source
+    `src` (bound): half of what its receive buffer holds at
+    WINDOW_DATAGRAM_COST bytes a datagram, and at least 8."""
+    import socket
+
+    rcvbuf = src.get_property("used-socket").getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+    return max(8, rcvbuf // WINDOW_DATAGRAM_COST // 2)
+
+
+class ArrivalTrace(LinkTrace):
+    """LinkTrace whose first "element:pad" counts a send_window's arrivals:
+    each buffer there wakes the window."""
+
+    def __init__(self, counted, *also):
+        import threading
+
+        super().__init__(counted, *also)
+        self.counted = counted
+        self.cond = threading.Condition()
+
+    def on_buffer(self, element, pad, buffer):
+        with self.cond:
+            super().on_buffer(element, pad, buffer)
+            self.cond.notify_all()
+
+    def count(self):
+        return len(self.seen[self.counted])
+
+    def wait_for(self, ready, timeout):
+        with self.cond:
+            return self.cond.wait_for(lambda: ready(self.count()), timeout)
+
+
 def udp_hop(g, datagrams):
-    """Host seconds for `datagrams` to go appsrc ! ts-udpsink to a ts-udpsrc
-    on a context of its own (127.0.0.1), from the first send to the last
-    arrival; every datagram must arrive."""
+    """Host seconds for `datagrams` to go appsrc ! hop-window ! ts-udpsink
+    to a ts-udpsrc on a context of its own (127.0.0.1), from the first send
+    to the last arrival, the sender held to a send_window; every datagram
+    must arrive.  Returns (seconds, the window in datagrams,
+    the most in flight, host s the sender waited on the window)."""
     import threading
 
     from gst_plugins_rs_tpu_torch.core import State
@@ -6395,14 +6494,17 @@ def udp_hop(g, datagrams):
     sink = g.element_factory_make("appsink", "sink")
     rx.add(src, sink)
     src.link(sink)
-    trace = LinkTrace("sink:sink")
+    trace = ArrivalTrace("sink:sink")
     rx.add_tracer(trace)
     rx.set_state(State.PAUSED)
+    limit = window_limit(src)
     tx = g.parse_launch("appsrc name=src")
     tx.by_name("src").set_property("caps", g.parse_caps("application/x-rtp"))
+    window = send_window(g, trace, limit)
     out = _udp_sink(g, "out", src.bound_port)
-    tx.add(out)
-    tx.by_name("src").link(out)
+    tx.add(window, out)
+    tx.by_name("src").link(window)
+    window.link(out)
     for d in datagrams:
         tx.by_name("src").push_buffer(g.Buffer(np.frombuffer(d, np.uint8)))
     tx.by_name("src").end_of_stream()
@@ -6418,8 +6520,693 @@ def udp_hop(g, datagrams):
     rx.set_state(State.NULL)
     got = trace.seen["sink:sink"]
     if errors or len(got) != len(datagrams):
-        raise AssertionError(f"the UDP hop: {len(got)} of {len(datagrams)} arrived {errors}")
-    return got[-1][0] - t0
+        raise AssertionError(f"the UDP hop: {len(got)} of {len(datagrams)} arrived, at most "
+                             f"{limit} in flight {errors}")
+    return got[-1][0] - t0, limit, window.most, window.waited
+
+
+# ---------------------------------------------------------------------------
+# The codec and image families (phases 4p/5p/6p): graded 1080p stills and an
+# animated preview through the Pillow codecs, a FLAC master into the loudness
+# path, CD+G karaoke graphics, and the libavcodec-bound elements
+# ---------------------------------------------------------------------------
+STILL_COUNT = 8             # seeded 1920x1080 RGBA stills, each its own stream (4p)
+STILL_CPU_COUNT = 2         # card against CPU (5p)
+STILL_SEED = 71
+STILL_CHUNK = 65536         # PNG bytes a buffer into imagersdec
+LOGO_W, LOGO_H = 256, 128
+OVERLAY = "location={logo} offset-x=-32 offset-y=-32 alpha=0.8"
+GRADED = ("hsvfilter name=hsv hue-shift=120 ! colorlut name=lut location={grade} "
+          "precision=approx ! imagersoverlay name=ov " + OVERLAY)
+STILL_LAUNCH = ("appsrc name=src ! imagersdec name=dec ! " + GRADED
+                + " ! rspngenc name=enc ! appsink name=sink")
+STILL_PLAIN = "appsrc name=src ! " + GRADED + " ! appsink name=sink"
+STILL_WHERE = ("hsv:sink", "lut:sink", "ov:sink", "enc:sink")
+GIF_FRAMES = 16             # an animated 480x270 preview (4p)
+GIF_W, GIF_H = 480, 270
+GIF_SEED = 73
+GIF_LAUNCH = ("appsrc name=src ! gifdec name=dec ! hsvfilter name=hsv ! colorlut name=lut "
+              "location={grade} precision=approx ! gifenc name=enc repeat=0 ! appsink name=sink")
+GIF_PLAIN = ("appsrc name=src ! hsvfilter name=hsv ! colorlut name=lut location={grade} "
+             "precision=approx ! appsink name=sink")
+FLAC_SECONDS = 8            # 4c's ticks at 192 kHz as a 24-bit stereo FLAC master (4p)
+FLAC_CPU_SECONDS = 4        # card against CPU (5p); over 3 s, so the limiter runs there too
+FLAC_CHUNK = 65536          # FLAC bytes a buffer into claxondec
+FLAC_LAUNCH = ("appsrc name=src ! claxondec name=dec ! audioconvert name=ac "
+               "! audio/x-raw,format=F64 ! audioloudnorm ! appsink name=sink")
+CDG_SECONDS = 10            # CD+G at 300 packets a second (4p, 5p)
+CDG_CPU_SECONDS = 4         # card against CPU (5p)
+CDG_SEED = 79
+CDG_CHUNK = 4800            # 200 packets a buffer into cdgparse
+CDG_LAUNCH = "appsrc name=src ! cdgparse ! cdgdec name=dec ! appsink name=sink"
+WEBP_W, WEBP_H = 320, 180
+IMAGE_TIMING_REPEATS = 2    # 6p: the FLAC path, the median of these
+
+
+def still_image(seed, w=HD_W, h=HD_H):
+    """A seeded RGBA still: smooth colour gradients, a few soft discs and
+    fine seeded grain (sigma 2), opaque, so that PNG compresses it about as
+    it would a photograph."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.empty((h, w, 4), np.float32)
+    for c in range(3):
+        fx_, fy_, ph = rng.uniform(0.5, 2.5), rng.uniform(0.5, 2.5), rng.uniform(0, 6.3)
+        img[..., c] = 128 + 80 * np.sin(np.pi * fx_ * x / w + ph) * np.cos(np.pi * fy_ * y / h + c)
+    for _ in range(6):
+        cx, cy = rng.uniform(0, w), rng.uniform(0, h)
+        r = rng.uniform(0.05, 0.2) * w
+        wgt = np.exp(-((x - cx) ** 2 + (y - cy) ** 2) / (r * r))[..., None]
+        img[..., :3] = img[..., :3] * (1 - wgt) + rng.uniform(0, 255, 3) * wgt
+    img[..., :3] += rng.normal(0, 2.0, (h, w, 3)).astype(np.float32)
+    img[..., 3] = 255
+    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
+
+
+def logo_image(seed=STILL_SEED + 100, w=LOGO_W, h=LOGO_H):
+    """A seeded RGBA logo: coloured bands under an alpha ramp with a
+    transparent border and an opaque core."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.zeros((h, w, 4), np.uint8)
+    for c in range(3):
+        img[..., c] = (rng.integers(0, 256) + 3 * x * (c + 1) + 5 * y) % 256
+    alpha = np.clip(255 * np.minimum.reduce([x, y, w - 1 - x, h - 1 - y]) / 24, 0, 255)
+    img[..., 3] = alpha.astype(np.uint8)
+    return img
+
+
+def gif_frames(n=GIF_FRAMES, seed=GIF_SEED, w=GIF_W, h=GIF_H):
+    """n seeded RGBA frames of an animated preview: a gradient that drifts
+    and a disc that moves, each frame unlike the last."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = rng.uniform(0, 255, 3)
+    out = []
+    for i in range(n):
+        f = np.empty((h, w, 4), np.float32)
+        for c in range(3):
+            f[..., c] = (base[c] + 0.4 * x + 0.3 * y + 9 * i * (c + 1)) % 256
+        cx, cy = w * (0.2 + 0.6 * i / n), h * (0.5 + 0.3 * np.sin(i))
+        disc = ((x - cx) ** 2 + (y - cy) ** 2) < (h / 5) ** 2
+        f[disc, :3] = rng.uniform(0, 255, 3)
+        f[..., 3] = 255
+        out.append(f.astype(np.uint8))
+    return out
+
+
+def cdg_stream(seconds=CDG_SECONDS, seed=CDG_SEED) -> bytes:
+    """A seeded CD+G subcode stream at 300 packets a second: both colour
+    tables and a memory and border preset first, then tile blocks (normal
+    and XOR) with now and then a scroll with preset, a scroll with copy, a
+    table reload, a preset, and padding packets that are no command."""
+    rng = np.random.default_rng(seed)
+    n = seconds * 300
+    pkts = np.zeros((n, 24), np.uint8)
+    pkts[:, 0] = 0x09
+    pkts[:, 4:20] = rng.integers(0, 64, (n, 16))
+    kinds = rng.choice([6, 38, 20, 24, 30, 31, 1, 2, 0], n,
+                       p=[0.5, 0.25, 0.02, 0.02, 0.01, 0.01, 0.005, 0.005, 0.18])
+    kinds[:4] = (30, 31, 1, 2)
+    pkts[:, 1] = kinds
+    pkts[kinds == 0, 0] = 0  # padding: not a command
+    tile = (kinds == 6) | (kinds == 38)
+    pkts[tile, 6] = rng.integers(0, 18, tile.sum())    # row: 18 rows of 12 lines
+    pkts[tile, 7] = rng.integers(0, 50, tile.sum())    # column: 50 columns of 6 pixels
+    preset = kinds == 1
+    pkts[preset, 5] = 0                                 # repeat 0: the preset applies
+    scroll = (kinds == 20) | (kinds == 24)
+    pkts[scroll, 5] = rng.integers(0, 3, scroll.sum()) << 4  # horizontal: none, right, left
+    pkts[scroll, 6] = rng.integers(1, 3, scroll.sum()) << 4  # vertical: down or up
+    return pkts.tobytes()
+
+
+def png_of(g, frame, level=6) -> bytes:
+    """A frame (host or on the card) written as PNG by the port's rspngenc."""
+    h, w, c = frame.shape
+    p = g.parse_launch(f"appsrc name=src ! rspngenc compression-level={level} "
+                       f"! appsink name=sink")
+    p.by_name("src").set_property("caps", g.parse_caps(
+        f"video/x-raw,format={'RGBA' if c == 4 else 'RGB'},width={w},height={h},framerate=1/1"))
+    p.by_name("src").push_buffer(g.Buffer(frame))
+    p.by_name("src").end_of_stream()
+    p.play_until_eos()
+    return _bytes(p.by_name("sink").samples[0].buffer)
+
+
+def decode_images(g, data, factory="imagersdec", caps="image/png"):
+    """The frames the port's `factory` decodes from `data` (one stream)."""
+    p = g.parse_launch(f"appsrc name=src ! {factory} ! appsink name=sink")
+    p.by_name("src").set_property("caps", g.parse_caps(caps))
+    p.by_name("src").push_buffer(g.Buffer(np.frombuffer(data, np.uint8).copy()))
+    p.by_name("src").end_of_stream()
+    p.play_until_eos()
+    return [s.buffer.data for s in p.by_name("sink").samples]
+
+
+def image_inputs(g, count, grade_dir):
+    """`count` seeded stills as PNG (level 1: the inputs are set-up, and a
+    level-6 encode of a 1080p still takes seconds of host time), and the
+    logo written as PNG next to the kernel builds (git-ignored): (pngs,
+    logo path)."""
+    logo = Path(grade_dir) / "smoke_logo.png"
+    logo.write_bytes(png_of(g, logo_image()))
+    return [png_of(g, still_image(STILL_SEED + i), level=1) for i in range(count)], logo
+
+
+def _push_bytes(g, p, data, chunk, caps):
+    src = p.by_name("src")
+    src.set_property("caps", g.parse_caps(caps))
+    for i in range(0, len(data), chunk):
+        src.push_buffer(g.Buffer(np.frombuffer(data[i:i + chunk], np.uint8).copy()))
+    src.end_of_stream()
+
+
+def still_pipelines(g, grade, logo, pngs=None, frames=None):
+    """Started pipelines (colorlut's fit and the logo's upload happen at the
+    start): STILL_LAUNCH on each PNG, one pipeline an image since each image
+    is its own stream, or with `frames` the graded chain alone (STILL_PLAIN)
+    on the decoded frames, all in one pipeline.  Returns [(pipeline,
+    trace)]."""
+    from gst_plugins_rs_tpu_torch.core import State
+
+    def started(p):
+        trace = BufferTrace(*STILL_WHERE)
+        p.add_tracer(trace)
+        p.set_state(State.PLAYING)
+        return p, trace
+
+    if frames is not None:
+        p = g.parse_launch(STILL_PLAIN.format(grade=grade, logo=logo))
+        h, w = frames[0].shape[:2]
+        p.by_name("src").set_property("caps", g.parse_caps(
+            f"video/x-raw,format=RGBA,width={w},height={h},framerate=1/1"))
+        for i, f in enumerate(frames):
+            p.by_name("src").push_buffer(g.Buffer(f, pts=i * 10**9, duration=10**9))
+        p.by_name("src").end_of_stream()
+        return [started(p)]
+    runs = []
+    for data in pngs:
+        p = g.parse_launch(STILL_LAUNCH.format(grade=grade, logo=logo))
+        _push_bytes(g, p, data, STILL_CHUNK, "image/png")
+        runs.append(started(p))
+    return runs
+
+
+def stream_all(runs, around=None):
+    """Every started pipeline streamed to EOS in turn (inside `around`),
+    then stopped: [(appsink buffers, trace)]."""
+    from gst_plugins_rs_tpu_torch.core import State
+
+    def stream():
+        for p, _ in runs:
+            p.run()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    (around or (lambda fn: fn()))(stream)
+    out = []
+    for p, trace in runs:
+        out.append(([s.buffer for s in p.by_name("sink").samples], trace))
+        p.set_state(State.NULL)
+    return out
+
+
+def gif_pipeline(g, grade, data=None, frames=None):
+    """GIF_LAUNCH on GIF bytes, or with `frames` the graded chain alone
+    (GIF_PLAIN) on decoded frames; started: [(pipeline, trace)]."""
+    from gst_plugins_rs_tpu_torch.core import State
+
+    if frames is None:
+        p = g.parse_launch(GIF_LAUNCH.format(grade=grade))
+        _push_bytes(g, p, data, STILL_CHUNK, "image/gif")
+    else:
+        p = g.parse_launch(GIF_PLAIN.format(grade=grade))
+        p.by_name("src").set_property("caps", g.parse_caps(
+            f"video/x-raw,format=RGBA,width={GIF_W},height={GIF_H},framerate=10/1"))
+        for i, f in enumerate(frames):
+            p.by_name("src").push_buffer(g.Buffer(f, pts=i * 10**8, duration=10**8))
+        p.by_name("src").end_of_stream()
+    trace = BufferTrace("hsv:sink", "lut:sink", "enc:sink")
+    p.add_tracer(trace)
+    p.set_state(State.PLAYING)
+    return [(p, trace)]
+
+
+def gif_of(g, frames) -> bytes:
+    """Frames written as an animated GIF (loop forever) by the port's gifenc."""
+    p = g.parse_launch("appsrc name=src ! gifenc repeat=0 ! appsink name=sink")
+    h, w = frames[0].shape[:2]
+    p.by_name("src").set_property("caps", g.parse_caps(
+        f"video/x-raw,format=RGBA,width={w},height={h},framerate=10/1"))
+    for i, f in enumerate(frames):
+        p.by_name("src").push_buffer(g.Buffer(f, pts=i * 10**8, duration=10**8))
+    p.by_name("src").end_of_stream()
+    p.play_until_eos()
+    return _bytes(p.by_name("sink").samples[0].buffer)
+
+
+def flac_master(g, seconds):
+    """`seconds` of 4c's ticks at 192 kHz, quantised to 24 bits on the host,
+    and their FLAC stream written by the port's encoder: (pcm int64 [n, 2],
+    FLAC bytes)."""
+    from gst_plugins_rs_tpu_torch.codecs import flac
+
+    p = g.parse_launch(loudnorm_launch(seconds, "appsink name=sink"))
+    p.play_until_eos()
+    x = p.by_name("sink").concat_audio()
+    pcm = np.clip(np.rint(x * 2**23), -2**23, 2**23 - 1).astype(np.int64)
+    return pcm, flac.encode(pcm, rate=192000, bps=24)
+
+
+def flac_run(g, data, around=None):
+    """FLAC_LAUNCH on the current device, `data` in FLAC_CHUNK buffers:
+    (claxondec's output buffers, audioloudnorm's output buffers)."""
+    from gst_plugins_rs_tpu_torch.core import State
+
+    p = g.parse_launch(FLAC_LAUNCH)
+    _push_bytes(g, p, data, FLAC_CHUNK, "audio/x-flac")
+    trace = BufferTrace("ac:sink")
+    p.add_tracer(trace)
+    p.set_state(State.PLAYING)
+    try:
+        (around or (lambda fn: fn()))(p.run)
+    finally:
+        p.set_state(State.NULL)
+    return trace.seen["ac:sink"], [s.buffer for s in p.by_name("sink").samples]
+
+
+def cdg_run(g, data, around=None):
+    """CDG_LAUNCH on the current device, `data` in CDG_CHUNK buffers:
+    cdgdec's frames (buffers)."""
+    from gst_plugins_rs_tpu_torch.core import State
+
+    p = g.parse_launch(CDG_LAUNCH)
+    _push_bytes(g, p, data, CDG_CHUNK, "video/x-cdg")
+    p.set_state(State.PLAYING)
+    try:
+        (around or (lambda fn: fn()))(p.run)
+    finally:
+        p.set_state(State.NULL)
+    return [s.buffer for s in p.by_name("sink").samples]
+
+
+def _copies_around(run):
+    """(run's result, Memcpy DtoH, Memcpy HtoD, device busy ms, wall s)
+    over the part of `run(around)` it passes to `around`, under
+    torch.profiler, between two marker kernels that a session must hold both
+    of (as _profiled); the busy ms leave the markers out."""
+    got, walls = [], []
+
+    def marked(profiled):
+        def inner(fn):
+            def wrapped():
+                torch.cuda._sleep(MARKER_CYCLES)
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                torch.cuda._sleep(MARKER_CYCLES)
+            profiled(wrapped)
+        got.append(run(inner))
+
+    def complete(events):
+        return sum(e.count for e in events if "spin_kernel" in e.key) == 2
+
+    _, events = device_events(marked, complete=complete, around=True)
+    busy = sum(e.self_device_time_total for e in events if "spin_kernel" not in e.key) / 1e3
+    return (got[-1], sum(e.count for e in events if e.key.startswith("Memcpy DtoH")),
+            sum(e.count for e in events if e.key.startswith("Memcpy HtoD")), busy, walls[-1])
+
+
+def _on_card(trace, where, card0):
+    return all(isinstance(b.data, torch.Tensor) and b.data.device == card0
+               for w in where for b in trace.seen[w])
+
+
+def library_bound(g):
+    """The libavcodec- and WebP-bound elements, by what this machine has.
+    Without the shim, dav1ddec, ffv1dec, rav1enc and lewtondec each fail
+    their run with the JAX elements' RuntimeError and emit nothing; with it,
+    a 64x48 FFV1 round trip is bit-exact and an AV1 one within the JAX
+    test's gate.  With WebP in Pillow, a lossless WebP of a seeded frame
+    decodes through rswebpdec bit-equal on the selected device; without, the
+    element's run fails.  Returns a list of (check, passed, detail)."""
+    from gst_plugins_rs_tpu_torch.codecs import avlib
+    from gst_plugins_rs_tpu_torch.elements.image.codecs import pillow, pillow_features
+
+    checks = []
+    feats = pillow_features()
+    checks.append(("libavcodec shim available", True, str(avlib.available())))
+    checks.append(("Pillow", True, f"{feats['version']}, WebP {feats['webp']}"))
+    w, h = 64, 48
+    ramp = np.tile(np.linspace(0, 255, w, dtype=np.uint8), (h, 1)).astype(int)
+    planes = [(np.clip(ramp + 10 * i, 0, 255).astype(np.uint8),  # tests/test_avcodecs.py's
+               np.full((h // 2, w // 2), 90 + 5 * i, np.uint8),
+               np.full((h // 2, w // 2), 150 - 5 * i, np.uint8)) for i in range(3)]
+
+    def run(factory, caps, bufs, props=""):
+        p = g.parse_launch(f"appsrc name=src ! {factory} {props} ! appsink name=sink")
+        p.by_name("src").set_property("caps", g.parse_caps(caps))
+        for b in bufs:
+            p.by_name("src").push_buffer(g.Buffer(
+                np.frombuffer(b, np.uint8).copy() if isinstance(b, bytes) else b))
+        p.by_name("src").end_of_stream()
+        p.play_until_eos()
+        return [s.buffer for s in p.by_name("sink").samples]
+
+    def host(buf):
+        return tuple(x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+                     for x in buf.data)
+
+    i420 = f"video/x-raw,format=I420,width={w},height={h},framerate=30/1"
+    if avlib.available():
+        enc = avlib.VideoEncoder("ffv1", w, h)
+        pkts = []
+        for i, (y, u, v) in enumerate(planes):
+            pkts += [d for d, _, _ in enc.encode(y, u, v, pts=i)]
+        pkts += [d for d, _, _ in enc.encode(None)]
+        out = run("ffv1dec", f"video/x-ffv,ffvversion=1,width={w},height={h}", pkts)
+        exact = len(out) == 3 and all(all(np.array_equal(a, b) for a, b in zip(f, host(o)))
+                                      for f, o in zip(planes, out))
+        checks.append(("ffv1dec round trip, bit-exact", exact, f"{len(out)} frames"))
+        av1 = run("rav1enc", i420, planes, "speed-preset=10 quantizer=60")
+        dec = run("dav1ddec", "video/x-av1,stream-format=obu-stream,alignment=tu",
+                  [_bytes(b) for b in av1])
+        err = max(float(np.abs(host(o)[0].astype(int) - f[0].astype(int)).mean())
+                  for f, o in zip(planes, dec)) if len(dec) == 3 else float("inf")
+        checks.append(("rav1enc ! dav1ddec round trip, mean luma error < 4", err < 4.0,
+                       f"{len(dec)} frames, {err:.3f}"))
+    else:
+        vorbis = [b"\x01vorbis" + bytes([0, 0, 0, 0, 2]) + (48000).to_bytes(4, "little")
+                  + bytes(16), b"\x03vorbis" + bytes(8), b"\x05vorbis" + bytes(8)]
+        for factory, caps, bufs in (
+                ("dav1ddec", "video/x-av1,stream-format=obu-stream,alignment=tu", [bytes(16)]),
+                ("ffv1dec", f"video/x-ffv,ffvversion=1,width={w},height={h}", [bytes(16)]),
+                ("rav1enc", i420, planes[:1]), ("lewtondec", "audio/x-vorbis", vorbis)):
+            try:
+                out = run(factory, caps, bufs)
+                ok, detail = False, f"no error, {len(out)} buffers"
+            except RuntimeError as e:
+                ok, detail = str(e).startswith("libavcodec shim unavailable"), str(e)
+            checks.append((f"{factory} without the shim: the JAX element's RuntimeError", ok,
+                           detail))
+    frame = np.random.default_rng(WEBP_W).integers(0, 256, (WEBP_H, WEBP_W, 3), dtype=np.uint8)
+    if feats["webp"]:
+        import io
+
+        bio = io.BytesIO()
+        pillow().fromarray(frame).save(bio, "WEBP", lossless=True)
+        got = decode_images(g, bio.getvalue(), "rswebpdec", "image/webp")
+        same = len(got) == 1 and np.array_equal(got[0].cpu().numpy(), frame)
+        where = got[0].device if got else None
+        checks.append(("rswebpdec, lossless WebP bit-equal on the selected device",
+                       same and where is not None and where.type == g.device().type,
+                       f"{WEBP_W}x{WEBP_H} RGB on {where}"))
+    else:
+        try:
+            decode_images(g, b"RIFF\x00\x00\x00\x00WEBPVP8L" + bytes(40), "rswebpdec",
+                          "image/webp")
+            checks.append(("rswebpdec without WebP: the run fails", False, "no error"))
+        except Exception as e:  # noqa: BLE001  (Pillow's own error is the result)
+            checks.append(("rswebpdec without WebP: the run fails", True, type(e).__name__))
+    return checks
+
+
+def image_pipelines(grade):
+    """Phase 4p: the codec and image families on the card.  STILL_COUNT
+    seeded 1080p stills as PNG, each its own stream through STILL_LAUNCH
+    (imagersdec, hsvfilter hue-shift=120 and colorlut approx: B4, B2, the
+    overlay, rspngenc), every frame on cuda:0 from imagersdec to rspngenc,
+    each output PNG decoded by imagersdec bit-equal to the frame that
+    entered rspngenc, and against the graded chain alone on the decoded
+    frames one more Memcpy HtoD (imagersdec) and DtoH (rspngenc) an image;
+    a 16-frame 480x270 GIF through GIF_LAUNCH, 16 frames back through
+    gifdec, one HtoD and DtoH a frame more than its graded chain; a FLAC
+    master of 4c's ticks (FLAC_SECONDS, 24-bit 192 kHz) through FLAC_LAUNCH,
+    claxondec's samples bit-equal to the encoder's input, every frame
+    decoded natively, L1 launches = 100 ms frames, audioloudnorm's output
+    finite, of the input's length, its peaks within -2 dBFS; CDG_SECONDS of
+    CD+G through CDG_LAUNCH, frames on cuda:0 and one HtoD a frame; the
+    libavcodec- and WebP-bound elements (library_bound).  Returns the
+    launches of B4, B2 and L1, and what 5p and 6p reuse: the stills' device
+    busy ms and streaming wall s under torch.profiler, the inputs (PNGs, the
+    logo, the FLAC master) and the frames into rspngenc."""
+    phase("4p the codec and image families on the card: graded 1080p stills, an animated "
+          "GIF, a FLAC master into audioloudnorm, CD+G")
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.codecs import flac
+    from gst_plugins_rs_tpu_torch.ops import colorlut_lowrank_fused as lowrank
+    from gst_plugins_rs_tpu_torch.ops import hsv_planes
+    from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter as lim
+
+    card0 = torch.device("cuda", 0)
+    pngs, logo = image_inputs(g, STILL_COUNT, Path(grade).parent)
+    print(f"{STILL_COUNT} seeded {HD_W}x{HD_H} RGBA stills as PNG: "
+          f"{[round(len(b) / 1e6, 3) for b in pngs]} MB (raw 8.294 MB); logo {LOGO_W}x{LOGO_H}")
+
+    def counted_run(make):
+        """run(around) for _copies_around: the pipelines `make` builds
+        (started outside), B4's and B2's counts set to 0 just before the
+        streaming and read just after."""
+        def run(around):
+            runs = make()
+            box = {}
+
+            def streamed(fn):
+                def inner():
+                    hsv_planes.launches = lowrank.packed_launches = 0
+                    fn()
+                    box["n"] = (hsv_planes.launches, lowrank.packed_launches)
+                around(inner)
+            return stream_all(runs, streamed), box["n"]
+        return run
+
+    (outs, n_still), dtoh, htod, busy, wall = _copies_around(
+        counted_run(lambda: still_pipelines(g, grade, logo, pngs)))
+    on_card = all(_on_card(t, STILL_WHERE, card0) for _, t in outs)
+    back = [decode_images(g, _bytes(b[0])) if len(b) == 1 else [] for b, _ in outs]
+    equal = all(len(f) == 1 and torch.equal(f[0], t.seen["enc:sink"][0].data)
+                for f, (_, t) in zip(back, outs))
+    decoded = [t.seen["hsv:sink"][0].data for _, t in outs]
+    _, p_dtoh, p_htod, p_busy, _ = _copies_around(
+        lambda around: stream_all(still_pipelines(g, grade, logo, frames=decoded), around))
+    print(f"stills: frames on {card0} from imagersdec to rspngenc: {on_card}; output PNGs "
+          f"{[round(len(_bytes(b[0])) / 1e6, 3) for b, _ in outs]} MB, each decoded by imagersdec "
+          f"bit-equal to the frame into rspngenc: {equal}; B4 / B2 launches {n_still}; Memcpy "
+          f"HtoD the path {htod}, the graded chain alone {p_htod}; DtoH {dtoh} and {p_dtoh}; "
+          f"under torch.profiler device busy {busy / STILL_COUNT:.4f} ms an image (the graded "
+          f"chain alone {p_busy / STILL_COUNT:.4f}), {100 * busy / 1e3 / wall:.3f}% of that "
+          f"run's wall ({wall:.3f} s)")
+    if not (on_card and equal):
+        raise AssertionError("stills: a frame off the card, or an output PNG differs")
+    if n_still != (STILL_COUNT, STILL_COUNT):
+        raise AssertionError(f"stills: B4 / B2 launches {n_still} != images")
+    if htod - p_htod != STILL_COUNT or dtoh - p_dtoh != STILL_COUNT:
+        raise AssertionError("stills: not one upload and one read-back an image")
+
+    gif = gif_of(g, gif_frames())
+    ([(gbufs, gtrace)], n_gif), g_dtoh, g_htod, _, _ = _copies_around(
+        counted_run(lambda: gif_pipeline(g, grade, gif)))
+    back = decode_images(g, _bytes(gbufs[0]), "gifdec", "image/gif") if len(gbufs) == 1 else []
+    g_on_card = _on_card(gtrace, ("hsv:sink", "lut:sink", "enc:sink"), card0)
+    g_dec = [b.data for b in gtrace.seen["hsv:sink"]]
+    _, gp_dtoh, gp_htod, _, _ = _copies_around(
+        lambda around: stream_all(gif_pipeline(g, grade, frames=g_dec), around))
+    print(f"GIF {GIF_W}x{GIF_H}, {GIF_FRAMES} frames ({len(gif)} B in, "
+          f"{len(_bytes(gbufs[0])) if gbufs else 0} B out): frames on {card0}: {g_on_card}; "
+          f"{len(back)} frames back through gifdec, {tuple(back[0].shape) if back else None}; "
+          f"B4 / B2 launches {n_gif}; Memcpy HtoD {g_htod} (the graded chain alone "
+          f"{gp_htod}), DtoH {g_dtoh} ({gp_dtoh})")
+    if not g_on_card or len(back) != GIF_FRAMES or n_gif != (GIF_FRAMES, GIF_FRAMES):
+        raise AssertionError("GIF: frames off the card, frames lost, or launches")
+    if g_htod - gp_htod != GIF_FRAMES or g_dtoh - gp_dtoh != GIF_FRAMES:
+        raise AssertionError("GIF: not one upload and one read-back a frame")
+    counted = {"hsv_planes": n_still[0] + n_gif[0],
+               "colorlut_lowrank_packed": n_still[1] + n_gif[1]}
+
+    pcm, data = flac_master(g, FLAC_SECONDS)
+    flac.native_frames = flac.python_frames = 0
+    lim.launches = 0
+    claxon, out = flac_run(g, data)
+    torch.cuda.synchronize()
+    l1 = lim.launches
+    native = (flac.native_frames, flac.python_frames)
+    dec_card = all(b.data.device == card0 for b in claxon)
+    got = torch.cat([b.data for b in claxon]).cpu().numpy()
+    bit_equal = got.dtype == np.int32 and np.array_equal(got, pcm)
+    y = np.concatenate([b.data.cpu().numpy() for b in out])
+    loud, peaks = _r128_of(y, 2, 192000)
+    loud_in, _ = _r128_of(pcm / 2.0**31, 2, 192000)  # what audioconvert makes of S32
+    frames = -(-y.shape[0] // LN_FRAME)
+    print(f"FLAC master: {FLAC_SECONDS} s of 192 kHz 24-bit stereo, {len(data)} B "
+          f"({len(data) / (pcm.size * 3):.3f} of 24-bit PCM) in {-(-len(data) // FLAC_CHUNK)} "
+          f"buffers; native decoder {flac.native_available()}, frames decoded natively / in "
+          f"Python {native}; claxondec's samples on {card0}: {dec_card}, bit-equal to the "
+          f"encoder's input: {bit_equal}; L1 launches {l1} ({frames} frames of 100 ms); "
+          f"audioloudnorm's input {loud_in:.3f} LUFS (claxondec's S32 carries the 24-bit samples "
+          f"unscaled, as the JAX element's does), output {loud:.3f} LUFS, sample peaks "
+          f"{[round(float(20 * np.log10(v)), 3) for v in peaks]} dBFS")
+    if native[0] < 1 or native[1] != 0:
+        raise AssertionError("FLAC: the native decoder did not decode every frame")
+    if not (dec_card and bit_equal):
+        raise AssertionError("FLAC: claxondec's samples off the card or not bit-equal")
+    if l1 != frames or not np.isfinite(y).all() or abs(y.shape[0] - pcm.shape[0]) >= LN_FRAME \
+            or max(peaks) > 10 ** (-2 / 20) + 1e-9:
+        raise AssertionError("FLAC path: L1 launches, the output's length or its peaks")
+    counted["loudnorm_limiter"] = l1
+
+    cdg = cdg_stream()
+    cframes, c_dtoh, c_htod, _, _ = _copies_around(lambda around: cdg_run(g, cdg, around))
+    c_card = all(b.data.device == card0 and tuple(b.data.shape) == (216, 300, 3)
+                 for b in cframes)
+    print(f"CD+G: {CDG_SECONDS} s, {len(cdg) // 24} packets, {len(cframes)} frames on {card0}: "
+          f"{c_card}; Memcpy HtoD {c_htod}, DtoH {c_dtoh}")
+    if not c_card or c_htod != len(cframes) or not cframes:
+        raise AssertionError("CD+G: frames off the card, or not one upload a frame")
+
+    bad = []
+    for name, ok, detail in library_bound(g):
+        print(f"{name}: {detail}{'' if ok else '  <- FAILED'}")
+        bad += [] if ok else [name]
+    if bad:
+        raise AssertionError(f"library-bound elements: {bad}")
+    return counted, {"busy": busy, "wall": wall, "pngs": pngs, "logo": logo, "flac": data,
+                     "frames": [t.seen["enc:sink"][0].data for _, t in outs]}
+
+
+def image_card_vs_cpu(grade, inputs):
+    """Phase 5p: the same inputs through the port on the CPU: STILL_CPU_COUNT
+    stills (output PNG bytes equal, the frame into imagersoverlay bit-equal,
+    the frame out within 1 LSB), the GIF (bytes equal), FLAC_CPU_SECONDS of
+    4c's ticks as FLAC (claxondec's samples equal, audioloudnorm within 5c's
+    gates) and CDG_CPU_SECONDS of the CD+G stream (frames equal), on 4p's
+    inputs."""
+    phase("5p the codec and image families, card against CPU")
+    import gst_plugins_rs_tpu_torch as g
+
+    pngs, logo = inputs["pngs"][:STILL_CPU_COUNT], inputs["logo"]
+
+    def stills():
+        return [(b[0], t) for b, t in stream_all(still_pipelines(g, grade, logo, pngs))]
+
+    def gif():
+        return stream_all(gif_pipeline(g, grade, gif_of(g, gif_frames())))[0][0][0]
+
+    _, data = flac_master(g, FLAC_CPU_SECONDS)
+    cdg = cdg_stream(CDG_CPU_SECONDS)
+    card = (stills(), gif(), flac_run(g, data), cdg_run(g, cdg))
+    host = _on("cpu", lambda: (stills(), gif(), flac_run(g, data), cdg_run(g, cdg)))
+    png_same = all(_bytes(a) == _bytes(b) for (a, _), (b, _) in zip(card[0], host[0]))
+    ov_in = all(torch.equal(a.seen["ov:sink"][0].data.cpu(), b.seen["ov:sink"][0].data)
+                for (_, a), (_, b) in zip(card[0], host[0]))
+    ov_out = max(_lsb(a.seen["enc:sink"][0].data.cpu().numpy(), b.seen["enc:sink"][0].data.numpy())
+                 for (_, a), (_, b) in zip(card[0], host[0]))
+    gif_same = _bytes(card[1]) == _bytes(host[1])
+    dec_same = np.array_equal(torch.cat([b.data for b in card[2][0]]).cpu().numpy(),
+                              torch.cat([b.data for b in host[2][0]]).numpy())
+    yc = np.concatenate([b.data.cpu().numpy() for b in card[2][1]])
+    yh = np.concatenate([b.data.numpy() for b in host[2][1]])
+    d = float(np.abs(yc - yh).max()) if yc.shape == yh.shape else float("inf")
+    lc, _ = _r128_of(yc, 2, 192000)
+    lh, _ = _r128_of(yh, 2, 192000)
+    cdg_same = len(card[3]) == len(host[3]) and all(
+        torch.equal(a.data.cpu(), b.data) for a, b in zip(card[3], host[3]))
+    print(f"{STILL_CPU_COUNT} stills: output PNG bytes equal {png_same}; the frame into "
+          f"imagersoverlay bit-equal {ov_in}, out of it max {ov_out} LSB (gate {LSB_TOL}); GIF "
+          f"bytes equal {gif_same}; FLAC {FLAC_CPU_SECONDS} s: claxondec's samples equal "
+          f"{dec_same}, audioloudnorm max abs {d:.3e} (gate {LN_SAMPLE_TOL}), {lc:.9f} vs "
+          f"{lh:.9f} LUFS (gate {LN_LOUDNESS_TOL} LU); CD+G {len(card[3])} frames equal "
+          f"{cdg_same}")
+    if not (png_same and ov_in and ov_out <= LSB_TOL and gif_same and dec_same and cdg_same):
+        raise AssertionError("the codec and image families: card and CPU disagree")
+    if d > LN_SAMPLE_TOL or abs(lc - lh) > LN_LOUDNESS_TOL:
+        raise AssertionError("the FLAC path's loudness: card and CPU disagree")
+
+
+def _stage_ms(g, launch, caps, bufs, n):
+    """Host ms an item of one element alone: appsrc ! <launch> ! appsink
+    over `bufs` (the pipeline started outside the time)."""
+    from gst_plugins_rs_tpu_torch.core import State
+
+    p = g.parse_launch(f"appsrc name=src ! {launch} ! appsink name=sink")
+    p.by_name("src").set_property("caps", g.parse_caps(caps))
+    for b in bufs:
+        p.by_name("src").push_buffer(g.Buffer(b))
+    p.by_name("src").end_of_stream()
+    p.set_state(State.PLAYING)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    p.set_state(State.NULL)
+    return wall / n * 1e3
+
+
+def image_timing(card_line, grade, profiled):
+    """Phase 6p: stills a second over 4p's STILL_COUNT streams (started
+    outside the time, under torch.profiler: the device is busy ~0.1% of that
+    wall, so the profiler's cost a kernel does not show), with the device
+    busy ms an image and its share of the wall (`profiled`); host ms an
+    image of imagersdec (2 images), rspngenc (2) and gifenc (16 frames)
+    alone, the
+    overlay's device ms a 1080p frame; claxondec alone and the FLAC path in
+    audio seconds a second; CD+G frames a second."""
+    phase("6p the codec and image families, timing")
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.elements.image.overlay import ImageOverlay
+
+    pngs, logo = profiled["pngs"][:2], profiled["logo"]
+    busy, wall = profiled["busy"], profiled["wall"]
+    print(f"stills (4p's run, {STILL_COUNT} streams started outside the time, under "
+          f"torch.profiler): {STILL_COUNT / wall:.3f} stills/s, "
+          f"{wall / STILL_COUNT * 1e3:.1f} host ms an image, device busy {busy / STILL_COUNT:.4f} ms an image, "
+          f"{100 * busy / 1e3 / wall:.3f}% of the wall [{card_line}]")
+    frames = profiled["frames"][:2]
+    dec_ms = statistics.median(_stage_ms(g, "imagersdec", "image/png",
+                                         [np.frombuffer(b, np.uint8).copy()], 1)
+                               for b in pngs)
+    rgba = f"video/x-raw,format=RGBA,width={HD_W},height={HD_H},framerate=1/1"
+    enc_ms = _stage_ms(g, "rspngenc", rgba, frames, len(frames))
+    gframes = [torch.from_numpy(f).cuda() for f in gif_frames()]
+    gif_ms = _stage_ms(g, "gifenc repeat=0", f"video/x-raw,format=RGBA,width={GIF_W},"
+                       f"height={GIF_H},framerate=10/1", gframes, len(gframes))
+    ov = ImageOverlay()
+    ov.set_property("location", str(logo))
+    ov.set_property("offset-x", -32)
+    ov.set_property("offset-y", -32)
+    ov.set_property("alpha", 0.8)
+    ov.start()
+    x = frames[0]
+    from gst_plugins_rs_tpu_torch.core import Buffer
+
+    ov_ms = cuda_ms(lambda: ov.transform(Buffer(x)))
+    print(f"host ms, each stage alone: imagersdec {dec_ms:.1f} an image (PNG decode and "
+          f"upload), rspngenc {enc_ms:.1f} an image (read-back and PNG encode at level 6), "
+          f"gifenc {gif_ms:.2f} a {GIF_W}x{GIF_H} frame; imagersoverlay {ov_ms:.4f} device ms a "
+          f"1080p frame [{card_line}]")
+
+    data = profiled["flac"]
+    t_dec = _stage_ms(g, "claxondec", "audio/x-flac",
+                      [np.frombuffer(data[i:i + FLAC_CHUNK], np.uint8).copy()
+                       for i in range(0, len(data), FLAC_CHUNK)], 1) / 1e3
+    fwalls = []
+    for _ in range(IMAGE_TIMING_REPEATS):
+        t0 = time.perf_counter()
+        flac_run(g, data)
+        torch.cuda.synchronize()
+        fwalls.append(time.perf_counter() - t0)
+    fwall = statistics.median(fwalls)
+    cdg = cdg_stream()
+    t0 = time.perf_counter()
+    n = len(cdg_run(g, cdg))
+    torch.cuda.synchronize()
+    cwall = time.perf_counter() - t0
+    print(f"claxondec alone (native): {FLAC_SECONDS / t_dec:.1f} audio s/s; the FLAC path "
+          f"(claxondec ! audioconvert ! audioloudnorm): {FLAC_SECONDS / fwall:.2f} audio s/s "
+          f"(median of {[round(FLAC_SECONDS / w, 2) for w in fwalls]}); CD+G: {n / cwall:.1f} "
+          f"frames/s, {len(cdg) // 24 / cwall:.1f} packets/s [{card_line}]")
 
 
 def main() -> int:
@@ -6461,6 +7248,7 @@ def main() -> int:
     cap_launches = caption_pipelines(grade)
     onvif_launches = onvif_pipelines()
     link_launches, link_r = link_pipelines(grade)
+    image_launches, image_profiled = image_pipelines(grade)
     compose_card_vs_cpu()
     demucs_card_vs_cpu()
     speech_card_vs_cpu()
@@ -6472,6 +7260,7 @@ def main() -> int:
     caption_card_vs_cpu(grade)
     onvif_card_vs_cpu()
     link_card_vs_cpu(grade)
+    image_card_vs_cpu(grade, image_profiled)
     timing(card_line)
     effects_timing(card_line, grade)
     fuse_timing(card_line, grade)
@@ -6486,6 +7275,7 @@ def main() -> int:
     caption_timing(card_line, grade)
     onvif_timing(card_line)
     link_timing(card_line, grade, link_r)
+    image_timing(card_line, grade, image_profiled)
     # the sharded paths' launches (phase 4k) join their kernels' counts
     launches += mesh_launches["yolox_c3"]
     for name in ("loudnorm_limiter", "loudnorm_limiter_bank"):
@@ -6504,6 +7294,10 @@ def main() -> int:
     for name in ("hsv_planes", "colorlut_lowrank_packed"):
         effect_launches[name] += link_launches[name]
     audio_launches["loudnorm_limiter"] += link_launches["loudnorm_limiter"]
+    # and the codec and image families' (phase 4p)
+    for name in ("hsv_planes", "colorlut_lowrank_packed"):
+        effect_launches[name] += image_launches[name]
+    audio_launches["loudnorm_limiter"] += image_launches["loudnorm_limiter"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "library_ms")
     main_case = next(c for c in cases if c["dtype"] == "f32" and c["batch"] == 1)
     entries = [{

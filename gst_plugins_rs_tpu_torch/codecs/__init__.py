@@ -1,1 +1,3 @@
-"""Host-side codecs of the port (brotli for the compression elements)."""
+"""Host-side codecs of the port: brotli for the compression elements, FLAC
+(from the format specification, frames through the repository's native
+decoder) and the ctypes shim over libavcodec (avlib)."""

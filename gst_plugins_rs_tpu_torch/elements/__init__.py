@@ -21,7 +21,10 @@ ST-2038 elements, the SCC/MCC parsers and encoders, cea608overlay,
 transcriberbin, translationbin), the ONVIF metadata converters
 (relationmeta2onvifmeta, onvifmeta2relationmeta) and the network elements
 of elements/net (G.711 codecs, RTP payloaders, the onvifmetadata family,
-rtpsend, rtprecv, ts-jitterbuffer)."""
+rtpsend, rtprecv, ts-jitterbuffer, RaptorQ FEC, the UDP elements), and the
+codec and image families (claxondec, lewtondec, dav1ddec, ffv1dec, rav1enc,
+rspngenc, gifenc, gifdec, rswebpdec, imagersdec, imagersoverlay, cdgparse,
+cdgdec)."""
 from . import sinks, sources  # noqa: F401
 from .analytics import (  # noqa: F401
     combiner,
@@ -37,9 +40,11 @@ from .audiofx import (  # noqa: F401
     audioloudnorm,
     audiomixer,
     audiornnoise,
+    claxondec,
     demucs,
     ebur128level,
     hrtfrender,
+    lewtondec,
     loudnormbank,
     sofalizer,
     whisper,
@@ -58,11 +63,13 @@ from .generic import (  # noqa: F401
     sodium,
     threadshare_extra,
 )
+from .image import cdg, codecs as image_codecs, overlay as image_overlay  # noqa: F401
 from .mux import flv, isobmff, tsmux  # noqa: F401
 from .net import codecs as net_codecs, onvif, rtpbin2, rtppay  # noqa: F401
 from .text import elements as text_elements  # noqa: F401
 from .utilsfx import fallbacksrc, switching, togglerecord  # noqa: F401
 from .video import (  # noqa: F401
+    avcodecs,
     colordetect,
     colorlut,
     compositor,

@@ -9,19 +9,17 @@ keeps the portable socket path as fallback when the shim is unavailable.
 The shim is the repository's shared native library, not a copy of the
 port's: it is built from native/netio.cpp with `make -C native
 libgstpu_netio.so` at first use when the library is missing (`*.so` files
-are not committed).
+are not committed; utils/native_build.py).
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 from typing import List, Tuple
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libgstpu_netio.so"))
+from ..utils import native_build
+
 _lib = None
 _lib_tried = False
 
@@ -31,12 +29,8 @@ def _load():
     if _lib is not None or _lib_tried:
         return _lib
     _lib_tried = True
-    try:
-        if not os.path.exists(_LIB_PATH):
-            subprocess.run(["make", "-C", os.path.abspath(_NATIVE_DIR), "-s",
-                            os.path.basename(_LIB_PATH)],
-                           check=True, capture_output=True)
-        lib = ctypes.CDLL(_LIB_PATH)
+    lib = native_build.load(native_build.NATIVE_DIR, "NETIO", "libgstpu_netio.so")
+    if lib is not None:
         lib.gstpu_netio_new.restype = ctypes.c_void_p
         lib.gstpu_netio_add_socket.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                                ctypes.c_uint32]
@@ -47,8 +41,6 @@ def _load():
         lib.gstpu_netio_poll.restype = ctypes.c_int
         lib.gstpu_netio_free.argtypes = [ctypes.c_void_p]
         _lib = lib
-    except Exception:
-        _lib = None
     return _lib
 
 

@@ -1,14 +1,16 @@
 """The port's decodebin and typefind against the JAX package's.
 
-The plug table names factories of later slices of the port.  Until they
-are ported, a stream that needs one of them must fail loudly and cleanly:
-an ERROR message on the bus that names the missing factory, nothing
-exposed downstream, an error flow to the upstream source, and no KeyError
-out of the streaming thread.  Streams with no decoder to plug are exposed
-raw, as in the JAX package, from numpy and from tensor payloads, and SCC
-and MCC caption files are plugged into their parsers as in the JAX
-package.  An FLV stream plugs rsflvdemux, then mulawdec on its mu-law
-audio, as in the JAX package.
+Each test of tests/test_decodebin.py runs on the port with the same inputs
+and the same assertions.  Every factory of the plug table is ported: FLAC
+streams plug claxondec, PNG and JPEG imagersdec, GIF gifdec and WebP
+rswebpdec, SCC and MCC caption files their parsers, an FLV stream
+rsflvdemux and then mulawdec on its mu-law audio, each decoding what the
+JAX package's decodebin decodes, from numpy and from tensor payloads.
+Streams with no decoder to plug are exposed raw.  Where a stream needs a
+factory that is not registered (hidden here from the registry), decodebin
+fails loudly and cleanly: an ERROR message on the bus that names the
+missing factory, nothing exposed downstream, an error flow to the upstream
+source, and no KeyError out of the streaming thread.
 """
 import numpy as np
 import pytest
@@ -20,7 +22,8 @@ from gst_plugins_rs_tpu.core.typefind import typefind as jtypefind
 from gst_plugins_rs_tpu_torch.core import FlowReturn
 from gst_plugins_rs_tpu_torch.core.registry import factory_exists
 from gst_plugins_rs_tpu_torch.core.typefind import typefind
-from torch_parity_helpers import port_on_cpu, run_launch
+from gst_plugins_rs_tpu_torch.elements.generic import decodebin
+from torch_parity_helpers import mirror_jax_tests, port_on_cpu, run_launch
 
 HEADS = {
     "flac": (b"fLaC" + bytes(60), "claxondec"),
@@ -38,6 +41,9 @@ HEADS = {
 def _port_cpu():
     with port_on_cpu():
         yield
+
+
+MIRRORED = mirror_jax_tests("test_decodebin.py", globals())
 
 
 def test_typefind_matches_jax():
@@ -67,16 +73,23 @@ def test_unknown_stream_exposed_raw_as_jax(payload):
     assert got[0] == ref[0]
 
 
-# the streams whose decoder is a factory of a later slice (sccparse,
-# mccparse and rsflvdemux are ported: their cases are below)
+def _hide(monkeypatch, factory):
+    """decodebin sees `factory` as not registered (a factory of a package
+    built without it)."""
+    assert factory_exists(factory)
+    monkeypatch.setattr(decodebin, "factory_exists", lambda name: name != factory)
+
+
+# the streams whose decoder was a factory of a later slice until this one
+# (sccparse, mccparse and rsflvdemux came before: their cases are below)
 MISSING = sorted(k for k, (_, f) in HEADS.items()
                  if f not in ("sccparse", "mccparse", "rsflvdemux"))
 
 
 @pytest.mark.parametrize("kind", MISSING)
-def test_missing_factory_posts_error_and_exposes_nothing(kind):
+def test_missing_factory_posts_error_and_exposes_nothing(monkeypatch, kind):
     head, factory = HEADS[kind]
-    assert not factory_exists(factory)
+    _hide(monkeypatch, factory)
     p = tfx.parse_launch("appsrc name=src ! decodebin name=db ! appsink name=sink")
     src, db = p.by_name("src"), p.by_name("db")
     src.set_property("caps", tfx.parse_caps("application/octet-stream"))
@@ -91,7 +104,8 @@ def test_missing_factory_posts_error_and_exposes_nothing(kind):
     assert db.src_pads() == [] and p.by_name("sink").samples == []
 
 
-def test_failed_decodebin_answers_every_buffer_with_an_error_flow():
+def test_failed_decodebin_answers_every_buffer_with_an_error_flow(monkeypatch):
+    _hide(monkeypatch, "imagersdec")
     p = tfx.parse_launch("appsrc name=src ! decodebin name=db ! appsink name=sink")
     p.by_name("src").set_property("caps", tfx.parse_caps("application/octet-stream"))
     db = p.by_name("db")
@@ -104,6 +118,54 @@ def test_failed_decodebin_answers_every_buffer_with_an_error_flow():
     finally:
         p.set_state(tfx.State.NULL)
     assert len(p.bus.messages(tfx.MessageType.ERROR)) == 1
+
+
+def _stream(kind):
+    """A seeded stream of each kind the image and codec slice decodes."""
+    import io
+
+    from PIL import Image
+
+    from gst_plugins_rs_tpu.codecs import flac
+
+    rng = np.random.default_rng(len(kind))
+    if kind == "flac":
+        t = np.arange(9000)
+        pcm = np.stack([np.sin(t * 0.02) * 9000, np.cos(t * 0.013) * 7000], 1).astype(np.int64)
+        return flac.encode(pcm + rng.integers(-40, 40, pcm.shape), rate=48000, block_size=2048)
+    y, x = np.mgrid[0:24, 0:40]
+    frame = np.stack([x * 6, y * 10, (x + y) * 4], -1).astype(np.uint8)
+    frame = (frame + rng.integers(0, 8, frame.shape)).astype(np.uint8)
+    bio = io.BytesIO()
+    params = {"jpeg": {"quality": 90}, "webp": {"lossless": True}}.get(kind, {})
+    Image.fromarray(frame).save(bio, kind.upper(), **params)
+    return bio.getvalue()
+
+
+@pytest.mark.parametrize("payload", ["numpy", "torch"])
+@pytest.mark.parametrize("kind", MISSING)
+def test_codec_and_image_streams_autoplugged_as_jax(kind, payload):
+    """decodebin typefinds the stream and plugs the slice's decoder: the
+    same buffers, timestamps and bus messages as the JAX package's
+    decodebin, the port's output on the selected device."""
+    data = _stream(kind)
+    chunks = [data[i:i + 777] for i in range(0, len(data), 777)]
+    launch = "appsrc name=src ! decodebin ! appsink name=sink"
+
+    def bufs(tensor):
+        return [dict(data=(torch.from_numpy if tensor else np.asarray)(
+            np.frombuffer(c, np.uint8).copy()), pts=None) for c in chunks]
+
+    ref = run_launch(fx, launch, bufs(False), caps="application/octet-stream")
+    got = run_launch(tfx, launch, bufs(payload == "torch"), caps="application/octet-stream")
+    assert len(ref[0]) >= 1 and got == ref
+    p = tfx.parse_launch(launch)
+    p.by_name("src").set_property("caps", tfx.parse_caps("application/octet-stream"))
+    for b in bufs(False):
+        p.by_name("src").push_buffer(tfx.Buffer(b["data"]))
+    p.by_name("src").end_of_stream()
+    p.play_until_eos()
+    assert all(isinstance(s.buffer.data, torch.Tensor) for s in p.by_name("sink").samples)
 
 
 def _caption_file(kind):

@@ -104,10 +104,9 @@ def test_decoder_takes_host_bytes_to_its_device():
 
 
 # tests/test_image_flv.py: its FLV demuxer cases (mu-law audio, into
-# mulawdec, and AVC video).  The image codecs, imagersoverlay and CD+G wait
-# for the elements/image slice; the file's top-level CD+G import is left out.
-IMAGE = "elements/image (rspngenc, gifenc/gifdec, imagersdec, imagersoverlay, cdgparse/cdgdec)"
+# mulawdec, and AVC video).  tests/test_torch_image.py mirrors its image
+# codec, imagersoverlay and CD+G classes.
+IMAGE = "tests/test_torch_image.py"
 MIRRORED = mirror_jax_tests(
     "test_image_flv.py", globals(),
-    skip={"TestPngGif": IMAGE, "TestImageOverlay": IMAGE, "TestCdg": IMAGE},
-    drop=("gst_plugins_rs_tpu.elements.image.cdg",))
+    skip={"TestPngGif": IMAGE, "TestImageOverlay": IMAGE, "TestCdg": IMAGE})

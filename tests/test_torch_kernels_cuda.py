@@ -1818,3 +1818,93 @@ def test_l24_payloader_reads_each_card_buffer_back_once(cuda):
     htod = sum(e.count for e in events if e.key.startswith("Memcpy HtoD"))
     assert (dtoh, htod) == (len(audio), 0)
     np.testing.assert_array_equal(got, torch.cat(audio).cpu().numpy())
+
+
+def _image_pipeline(g, launch, caps, bufs):
+    p = g.parse_launch(f"appsrc name=src ! {launch} ! appsink name=sink")
+    p.by_name("src").set_property("caps", g.parse_caps(caps))
+    for b in bufs:
+        p.by_name("src").push_buffer(g.Buffer(b))
+    p.by_name("src").end_of_stream()
+    p.play_until_eos()
+    return [s.buffer.data for s in p.by_name("sink").samples]
+
+
+def _seeded_rgba(seed, h=72, w=96):
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    f = np.stack([(x * 3 + y * (k + 1) + 50 * k) % 256 for k in range(4)], -1)
+    f = (f + rng.integers(0, 6, f.shape)).clip(0, 255).astype(np.uint8)
+    f[..., 3] = 255
+    return f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("props", ["offset-x=-10 offset-y=-5 alpha=0.8",
+                                   "offset-x=-50 offset-y=60 alpha=0.35",
+                                   "positioning-mode=pixels-absolute offset-x=70 offset-y=-6"])
+def test_imagersoverlay_on_card_within_one_lsb_of_cpu(cuda, tmp_path, props):
+    """imagersoverlay on card frames against the same element on the CPU:
+    within 1 u8 LSB (the composite is the same f32 blend; the placed alpha is
+    a true division on both), over offsets cropped at each side."""
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.elements.image.codecs import pillow
+
+    logo = np.random.default_rng(5).integers(0, 256, (30, 40, 4), dtype=np.uint8)
+    path = tmp_path / "logo.png"
+    pillow().fromarray(logo, "RGBA").save(path)
+    frames = [_seeded_rgba(s) for s in range(3)]
+    launch = f"imagersoverlay location={path} {props}"
+    caps = "video/x-raw,format=RGBA,width=96,height=72,framerate=30/1"
+    card = _image_pipeline(g, launch, caps, [torch.from_numpy(f).cuda() for f in frames])
+    g.set_device("cpu")
+    try:
+        host = _image_pipeline(g, launch, caps, [torch.from_numpy(f) for f in frames])
+    finally:
+        g.set_device("cuda")
+    assert all(c.device.type == "cuda" for c in card)
+    for c, h in zip(card, host):
+        assert (c.cpu().to(torch.int16) - h.to(torch.int16)).abs().max() <= 1
+
+
+@pytest.mark.cuda
+def test_imagersdec_uploads_and_rspngenc_reads_back_once_an_image(cuda):
+    """A PNG through imagersdec: one host-to-device copy an image, the frame
+    on the card; card frames through rspngenc: one device-to-host copy an
+    image, the PNG bytes equal to the same element's on the CPU
+    (torch.profiler)."""
+    import gst_plugins_rs_tpu_torch as g
+    from torch.profiler import ProfilerActivity, profile
+
+    frames = [_seeded_rgba(10 + s) for s in range(3)]
+    caps = "video/x-raw,format=RGBA,width=96,height=72,framerate=30/1"
+    g.set_device("cpu")
+    try:
+        pngs = [np.asarray(d).tobytes() for d in _image_pipeline(
+            g, "rspngenc", caps, [torch.from_numpy(f) for f in frames])]
+    finally:
+        g.set_device("cuda")
+
+    def decode(data):
+        return _image_pipeline(g, "imagersdec", "image/png",
+                               [np.frombuffer(data, np.uint8).copy()])[0]
+
+    decode(pngs[0])  # warm
+    card = [torch.from_numpy(f).cuda() for f in frames]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = [decode(p) for p in pngs]
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    htod = sum(e.count for e in events if e.key.startswith("Memcpy HtoD"))
+    dtoh = sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
+    assert (htod, dtoh) == (len(pngs), 0)
+    assert all(x.device.type == "cuda" and torch.equal(x, c) for x, c in zip(got, card))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = _image_pipeline(g, "rspngenc", caps, card)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    htod = sum(e.count for e in events if e.key.startswith("Memcpy HtoD"))
+    dtoh = sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
+    assert (dtoh, htod) == (len(card), 0)
+    assert [np.asarray(d).tobytes() for d in out] == pngs

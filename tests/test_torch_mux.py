@@ -15,16 +15,16 @@ def _port_cpu():
         yield
 
 
-# The FLAC sample entry needs the FLAC codec (codecs/flac.py), a later
-# slice's; test_mux_external_oracle.py (codecs/avlib) waits for its slice and
-# is not mirrored.  tests/test_torch_rtp_families.py mirrors test_gcc_mp2t.py.
-FLAC = "codecs/flac.py"
-MIRRORED = (mirror_jax_tests("test_fmp4_scenarios.py", globals(),
-                             skip={"TestFmuxBoxes::test_flac_fmux_boxes": FLAC})
-            + mirror_jax_tests("test_mp4_scenarios.py", globals(),
-                               skip={"TestCodecMuxBoxes::test_flac_mux_boxes": FLAC})
-            + mirror_jax_tests("test_mux.py", globals(),
-                               skip={"TestFlacMux::test_flac_sample_entry": FLAC})
+# test_mux_external_oracle.py demuxes the muxers' output with the system
+# libavformat (codecs/avlib); its HLS class needs hlscmafsink, a factory of
+# the session and service slices (ROADMAP A.4).
+# tests/test_torch_rtp_families.py mirrors test_gcc_mp2t.py.
+HLS = "hlscmafsink (ROADMAP A.4, the session and service families)"
+MIRRORED = (mirror_jax_tests("test_fmp4_scenarios.py", globals())
+            + mirror_jax_tests("test_mp4_scenarios.py", globals())
+            + mirror_jax_tests("test_mux.py", globals())
+            + mirror_jax_tests("test_mux_external_oracle.py", globals(),
+                               skip={"TestHlsExternalOracle": HLS})
             + mirror_jax_tests("test_tsmux_sei.py", globals()))
 
 

@@ -300,8 +300,12 @@ def test_factories_mirror_jax():
             "rtpopuspay2", "rtpopusdepay2", "rtpac3pay2", "rtpac3depay2", "rtpmpapay2",
             "rtpmpadepay2", "rtpmpvpay2", "rtpmpvdepay2", "rtpamrpay2", "rtpamrdepay2",
             "rtpmparobustdepay2", "rtpmp2tpay2", "rtpmp2tdepay2", "mpegtslivesrc",
-            "rtpgccbwe"} == set(names)
-    assert len(names) == 190
+            "rtpgccbwe",
+            # the codec and image families
+            "claxondec", "lewtondec", "dav1ddec", "ffv1dec", "rav1enc", "rspngenc", "gifenc",
+            "gifdec", "rswebpdec", "imagersdec", "imagersoverlay", "cdgparse",
+            "cdgdec"} == set(names)
+    assert len(names) == 203
     for name in names:
         jc, tc = jfactory(name), tfactory(name)
         assert [(p.name, repr(p.default), p.type, p.choices) for p in jc.PROPERTIES] == \
@@ -330,6 +334,10 @@ def _imports(path):
               in ("import_module", "__import__") and node.args
               and isinstance(node.args[0], ast.Constant)):
             yield str(node.args[0].value)
+
+
+PIL_FILES = {f"gst_plugins_rs_tpu_torch/{m}" for m in (
+    "utils/cea608_atlas.py", "elements/image/codecs.py", "elements/image/overlay.py")}
 
 
 def test_port_imports_no_jax():
@@ -368,16 +376,20 @@ def test_port_imports_no_jax():
                 "net/gcc.py", "elements/net/raptorq.py", "elements/net/udp.py",
                 "elements/net/rtpvideo.py", "elements/net/rtpextra.py",
                 "elements/net/rtpcodecs.py", "elements/net/mp2t.py",
-                "elements/net/gccbwe.py"):
+                "elements/net/gccbwe.py", "codecs/flac.py", "codecs/avlib.py",
+                "elements/audiofx/claxondec.py", "elements/audiofx/lewtondec.py",
+                "elements/video/avcodecs.py", "elements/image/codecs.py",
+                "elements/image/overlay.py", "elements/image/cdg.py"):
         assert f"gst_plugins_rs_tpu_torch/{mod}" in names, mod
     banned = ("jax", "jaxlib", "flax", "gst_plugins_rs_tpu")
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in banned, f"{f.relative_to(ROOT)} imports {mod}"
-            # the port needs no Pillow: only the script that draws
-            # cea608overlay's bundled atlas uses it
-            if f.name != "cea608_atlas.py":
+            # Pillow only where the port uses it as a codec library: the
+            # script that draws cea608overlay's bundled atlas, the image
+            # codecs and imagersoverlay's file decode
+            if str(f.relative_to(ROOT)) not in PIL_FILES:
                 assert top != "PIL", f"{f.relative_to(ROOT)} imports {mod}"
 
 

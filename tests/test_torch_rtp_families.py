@@ -282,6 +282,38 @@ def test_smoke_link_over_udp():
     assert all(o.device.type == "cpu" for o in r.out)
 
 
+def test_smoke_udp_hop_holds_its_window():
+    """chip_smoke.py's UDP hop (6o's stage alone) on the CPU: 3000 datagrams
+    of the link's size go ts-udpsink to ts-udpsrc over 127.0.0.1 with the
+    sender held to its window; every datagram arrives, and no more than the
+    window were ever in flight."""
+    import chip_smoke
+
+    rng = np.random.default_rng(43)
+    datagrams = [rng.integers(0, 256, chip_smoke.LINK_MTU, dtype=np.uint8).tobytes()
+                 for _ in range(3000)]
+    seconds, limit, most, waited = chip_smoke.udp_hop(tfx, datagrams)
+    assert seconds > 0 and waited >= 0
+    assert limit >= 8
+    assert 0 < most <= limit
+
+
+def test_smoke_l24_link_over_udp():
+    """chip_smoke.py's L24 link on the CPU: seeded 24-bit stereo at 192 kHz
+    through rtpL24pay2, the send window and ts-udpsink to ts-udpsrc !
+    rtpL24depay2; every packet arrives and the samples come back equal."""
+    import chip_smoke
+
+    rng = np.random.default_rng(47)
+    rate = chip_smoke.LINK_AUDIO_RATE
+    buffers = [torch.from_numpy(rng.integers(-2**23, 2**23, (rate // 10, 2), dtype=np.int32))
+               for _ in range(3)]
+    got, sent, received, wall = chip_smoke.audio_link_run(tfx, buffers)
+    assert sent == received == 3 * 100
+    assert wall > 0
+    np.testing.assert_array_equal(got, torch.cat(buffers).numpy())
+
+
 # ---------------------------------------------------------------------------
 # raptorqenc and raptorqdec across threads (the port's locks): a short
 # interpreter switch interval makes a lost or doubled update likely

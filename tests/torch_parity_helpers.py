@@ -123,7 +123,9 @@ def mirror_jax_tests(jax_test_file, namespace, skip=(), drop=()):
     or "Class::method" for a test method (the class is mirrored without
     it); a dict maps each name to the slice or file.  `drop` names modules
     of a later slice whose top-level imports the file's compiled copy leaves
-    out (`load_test_module`).  Returns the names of the mirrored tests."""
+    out (`load_test_module`).  The file's module-level `pytestmark` marks its
+    own tests and classes, not the calling module.  Returns the names of the
+    mirrored tests."""
     ns = load_test_module(jax_test_file, port=True, drop=drop)
     methods = {}
     for entry in skip:
@@ -139,10 +141,17 @@ def mirror_jax_tests(jax_test_file, namespace, skip=(), drop=()):
         ns[cls] = type(old.__name__, old.__bases__,
                        {k: v for k, v in vars(old).items()
                         if k not in ms and k not in ("__dict__", "__weakref__")})
+    # the file's module-level marks (a skipif on a system library) go to
+    # its own tests, not to the calling module's other tests
+    marks = ns.pop("pytestmark", [])
+    marks = marks if isinstance(marks, list) else [marks]
     mirrored = []
     for name, value in ns.items():
         if name.startswith("__") or name in skip:
             continue
+        if name.startswith(("test_", "Test")):
+            for mark in marks:
+                value = mark(value)
         if name.startswith("test_"):
             assert name not in namespace, f"{name} is mirrored twice"
             mirrored.append(name)
