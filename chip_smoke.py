@@ -120,7 +120,7 @@ intersrc ! livesync (its silence fill) ! appsink; every payload on cuda:0,
 shared (data_ptr) from the kernels' output to the appsink, no device-to-host
 copy beyond the kernels' own (torch.profiler, against the same chains
 without the recording stages), B4 and B2 launches = frames, L1 launches =
-100 ms frames (added to their counts); 8 frames through rsfilesink /
+100 ms frames (added to their counts); 2 frames through rsfilesink /
 rsfilesrc and the compress, brotli and sodium round trips, bit-equal, one
 device-to-host copy a buffer; card against CPU (4 frames, 6 s); frames per
 second against appsrc ! hsvfilter ! colorlut ! appsink, the host ms a frame
@@ -170,7 +170,7 @@ per second.
 = 1 and 16 frames of the 16 streams of 3d', each synchronised alone or
 enqueued back to back, with tensors of R1's sizes filled with large values
 and freed before each call; every call held to the float64 gate of 3d'.
-4o/5o/6o the uncompressed contribution link: 8 seeded 1080p RGBA frames at
+4o/5o/6o the uncompressed contribution link: 4 seeded 1080p RGBA frames at
 30/1 on cuda:0 through appsrc ! hsvfilter hue-shift=120 ! colorlut approx
 (B4, B2) ! rtpvrawpay2 mtu=1400 ! raptorqenc (its defaults: 25 protected,
 5 repairs, 1,408-byte symbols, 50 ms window), the media into one
@@ -190,7 +190,7 @@ CPU on 2 frames graded on the CPU (repair packets byte-equal, frames 0
 LSB); frames per second against the graded chain, the host ms a frame of
 each stage alone, device ms and ops a frame, the busy share, the L24
 link's buffers per second.
-4p/5p/6p the codec and image families: 8 seeded 1080p RGBA stills written
+4p/5p/6p the codec and image families: 4 seeded 1080p RGBA stills written
 as PNG by rspngenc, each its own stream through appsrc ! imagersdec !
 hsvfilter hue-shift=120 ! colorlut approx (B4, B2) ! imagersoverlay (a
 seeded 256x128 logo at -32,-32, alpha 0.8) ! rspngenc, every frame on
@@ -211,6 +211,29 @@ bit-equal, out of it within 1 LSB), the GIF (bytes equal), 4 s of FLAC
 stills a second with device ms and busy share, each stage's host ms, the
 overlay's device ms, claxondec's and the FLAC path's audio s/s, CD+G frames
 a second.
+4q/5q/6q the RTSP camera, the graded live origin, the CLI and the tracers:
+60 seeded 640x640 frames as baseline JPEG in RFC 2435 packets (rtpjpegpay2),
+served by an in-process RTSP camera over interleaved TCP with digest
+authentication to rtspsrc2 protocols=tcp ! rtpjpegdepay2, each JPEG then
+through imagersdec (an image a stream, as in both packages) onto cuda:0 and
+videoconvert ! yoloxinference (B1) ! yoloxtensordec (the session's
+requests, every frame's pixels, one HtoD a frame beyond the plain YOLOX
+stream, B1 launches = frames, every sixth frame's detections card against
+CPU within YOLOX's gates); 32 seeded 1080p RGBA frames at 16/1 through
+hsvfilter hue-shift=120 ! colorlut approx (B4, B2) ! imagersoverlay (the
+run's record as a QR code, codecs/qr.py) into a tee: hlscmafsink,
+dashsink2 (video_0) and an appsink, the output fetched back over HTTP by
+reqwesthttpsrc (bytes equal to the files), the segments' frames bit-equal
+to the appsink's, the QR record decoded by the validate action, at most one
+DtoH a frame a muxing sink; `python -m gst_plugins_rs_tpu_torch` with
+GSTPU_TRACERS (pad-push-timings, queue-levels, memory-tracer,
+chrome-tracer) and --dot on the origin's HLS branch (exit 0, every file,
+memory-tracer's bytes), and in process the same DtoH and synchronising
+calls with and without the tracers; 5q the origin's files card against CPU
+from the same graded frames, byte for byte; 6q the camera's frames/s
+against the plain YOLOX stream and each stage's host ms, the origin's
+frames/s against the graded chain, the segment writes' MB/s, the tracers'
+host ms a frame, the busy shares.
 Prints a JSON line of the kernels, the card's name and power limit, then,
 last, {"ok": true, "device": ...}.  It imports nothing of JAX and nothing of
 the JAX package.
@@ -632,11 +655,12 @@ def bound(flop, nbytes):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def write_grade() -> Path:
+def write_grade(path=None) -> Path:
     """The .cube the effects pipelines load: a 33^3 saturation-and-tint grade
     (5% saturation boost, +0.01 green, +0.02 blue, clipped), the form of
     tests/test_colorlut.py's grade, mild enough to fit at rank 16 in about a
-    second.  Written next to the kernel builds (git-ignored)."""
+    second.  Written to `path`, by default next to the kernel builds
+    (git-ignored)."""
     from gst_plugins_rs_tpu_torch.utils.build import BUILD_DIR
 
     g = np.linspace(0, 1, LUT_SIZE)
@@ -645,8 +669,10 @@ def write_grade() -> Path:
     table = np.stack([np.clip(Y + 1.05 * (Rx - Y), 0, 1),
                       np.clip(Y + 1.05 * (Gy - Y) + 0.01, 0, 1),
                       np.clip(Y + 1.05 * (Bz - Y) + 0.02, 0, 1)], -1).reshape(-1, 3)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = BUILD_DIR / "smoke_grade33.cube"
+    if path is None:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        path = BUILD_DIR / "smoke_grade33.cube"
+    path = Path(path)
     path.write_text(f'TITLE "smoke grade"\nLUT_3D_SIZE {LUT_SIZE}\n'
                     + "\n".join(f"{r:.6f} {gg:.6f} {b:.6f}" for r, gg, b in table) + "\n")
     return path
@@ -3993,7 +4019,7 @@ REC_SECONDS = 60           # 192 kHz stereo F64 through audioloudnorm ! togglere
 REC_CPU_SECONDS = 6        # card against CPU (5l)
 REC_TRACK_SPB = 1000       # the recording's audio track: 20.8 ms buffers at 48 kHz, so the
                            # video's end (32 frames, 1.0667 s) falls inside one, which is clipped
-REC_BYTE_FRAMES = 8        # frames through each byte round trip (4l; 2 in 5l)
+REC_BYTE_FRAMES = 2        # frames through each byte round trip (4l and 5l; 8 in 4l before 4q-6q)
 REC_TIMING_FRAMES = 128    # a repeat (6l): the first REC_TIMING_WARM stream untimed,
 REC_TIMING_WARM = 16       # the rest timed ...
 REC_REPEATS = 3            # ... the median of these
@@ -5602,7 +5628,7 @@ def rnnoise_stress():
 # audio over a third socket pair; the rest of the RTP families' byte round
 # trips
 # ---------------------------------------------------------------------------
-LINK_FRAMES = 8            # seeded 1080p RGBA frames at 30/1 (4o)
+LINK_FRAMES = 4            # seeded 1080p RGBA frames at 30/1 (4o; 8 before 4q-6q came)
 LINK_PROFILED_FRAMES = 2   # the copies (4o) and device time (6o), under torch.profiler
 LINK_CPU_FRAMES = 2        # card against CPU (5o)
 LINK_STAGE_FRAMES = 2      # 6o: each stage alone on the first frames' traffic
@@ -6235,8 +6261,9 @@ def link_card_vs_cpu(grade):
     """Phase 5o: the link card against CPU on LINK_CPU_FRAMES frames graded
     on the CPU (hsvfilter ! colorlut approx, plain versions): the same
     frames through link_run with the port on the card and on the CPU, the
-    repair packets raptorqdec received byte-equal and the frames out equal
-    (0 LSB); the byte round trips equal on both devices."""
+    repair packets raptorqdec received byte-equal (each packet, in whatever
+    order the encoder's timers sent them) and the frames out equal (0 LSB);
+    the byte round trips equal on both devices."""
     phase("5o the contribution link, card against CPU")
     import gst_plugins_rs_tpu_torch as g
 
@@ -6252,7 +6279,12 @@ def link_card_vs_cpu(grade):
     link_check(cpu_run, f"on the CPU, {LINK_CPU_FRAMES} frames")
     link_check(card_run, f"on the card, {LINK_CPU_FRAMES} frames")
     d = max(_lsb(c.cpu().numpy(), h.numpy()) for c, h in zip(card_run.out, cpu_run.out))
-    same_fec = card_run.fec == cpu_run.fec and len(card_run.fec) == card_run.n_fec
+    # raptorqenc numbers and stamps each repair when it builds a block, and
+    # sends it when the clock fires the repair's timer: every block of a
+    # frame carries the frame's pts, so their timers tie, and the order in
+    # which the decoder receives the repairs follows the clock thread's
+    # timing (it differed once in seven whole runs); their bytes do not
+    same_fec = sorted(card_run.fec) == sorted(cpu_run.fec) and len(card_run.fec) == card_run.n_fec
     card_bytes = link_bytes(g, link_byte_pairs(g), torch.device("cuda", 0))
     same_bytes = {k: v[1] == card_bytes[k][1] for k, v in cpu_bytes.items()}
     print(f"repair packets byte-equal: {same_fec} ({len(card_run.fec)}); frames out max "
@@ -6530,7 +6562,7 @@ def udp_hop(g, datagrams):
 # animated preview through the Pillow codecs, a FLAC master into the loudness
 # path, CD+G karaoke graphics, and the libavcodec-bound elements
 # ---------------------------------------------------------------------------
-STILL_COUNT = 8             # seeded 1920x1080 RGBA stills, each its own stream (4p)
+STILL_COUNT = 4             # seeded 1920x1080 RGBA stills, each its own stream (4p; 8 before 4q-6q)
 STILL_CPU_COUNT = 2         # card against CPU (5p)
 STILL_SEED = 71
 STILL_CHUNK = 65536         # PNG bytes a buffer into imagersdec
@@ -7209,6 +7241,982 @@ def image_timing(card_line, grade, profiled):
           f"frames/s, {len(cdg) // 24 / cwall:.1f} packets/s [{card_line}]")
 
 
+# ---------------------------------------------------------------------------
+# The RTSP camera into YOLOX and the graded live HLS/DASH origin fetched back
+# over HTTP, and the CLI with its tracers (phases 4q/5q/6q)
+# ---------------------------------------------------------------------------
+CAM_FRAMES = 60            # seeded 640x640 frames the camera serves (4q)
+CAM_CPU_EVERY = 6          # 4q: every sixth decoded frame also detected on the CPU
+CAM_SEED = 101
+CAM_FPS = 30
+CAM_QUALITY = 85           # baseline JPEG, 4:2:0, the standard Huffman tables
+CAM_CLASS_SHARE = 0.1      # anchors of the calibration frame over the class threshold ...
+CAM_CANDIDATES = 48        # ... and of those, over the box threshold
+CAM_RTP = "mtu=1400 ssrc=305419896 timestamp-offset=0 seqnum-offset=0"
+CAM_USER, CAM_PASSWORD = "camera", "s3cret"
+CAM_REALM, CAM_NONCE = "ipcamera", "4q0f1e2d3c"
+CAM_TIMEOUT_NS = 500_000_000   # rtspsrc2 ends this long after the camera's last packet
+CAM_SDP = ("v=0\r\no=- 0 0 IN IP4 127.0.0.1\r\ns=Camera\r\nt=0 0\r\n"
+           "m=video 0 RTP/AVP 26\r\na=rtpmap:26 JPEG/90000\r\na=control:stream=0\r\n")
+ORIGIN_FRAMES = 32         # seeded 1080p RGBA frames at 16/1: two 1 s segments a sink (4q)
+ORIGIN_CPU_FRAMES = 4      # 5q: at 2/1, two segments a sink
+ORIGIN_FPS = 16
+ORIGIN_SEED = 103
+ORIGIN_TARGET_S = 1        # hlscmafsink's and dashsink2's target-duration
+ORIGIN_BLOCK = 8 << 20     # reqwesthttpsrc blocksize fetching the origin
+CLI_FRAMES = 16            # videotestsrc buffers through the CLI and tracer runs
+CLI_TRACERS = ("pad-push-timings", "queue-levels", "memory-tracer", "chrome-tracer")
+Q_TIMING_REPEATS = 2       # 6q: the median of these
+
+
+def camera_frames(n=CAM_FRAMES, size=SIZE, seed=CAM_SEED):
+    """n seeded RGB u8 frames [size, size, 3] on the host, each unlike the
+    others: a photograph-like scene (still_image's gradients, discs and
+    grain), panned by a seeded offset a frame, with four patches of noise of
+    64-159 px a side at 640.  As quality 85 JPEG a frame is ~50-70 KB."""
+    scene = still_image(seed, w=size, h=size)[..., :3]
+    out = []
+    for i in range(n):
+        rng = np.random.default_rng(seed + i)
+        img = np.roll(scene, tuple(rng.integers(0, size, 2)), axis=(0, 1)).copy()
+        for _ in range(4):
+            s = int(rng.integers(size // 10, size // 4))
+            y, x = rng.integers(0, size - s, 2)
+            img[y:y + s, x:x + s] = rng.integers(0, 256, (s, s, 3), dtype=np.uint8)
+        out.append(img)
+    return out
+
+
+def jpeg_of(frame, quality=CAM_QUALITY) -> bytes:
+    """A host RGB frame as the camera's sensor pipeline encodes it: baseline
+    JPEG, 4:2:0, the standard Huffman tables (what RFC 2435 carries)."""
+    import io
+
+    from PIL import Image
+
+    out = io.BytesIO()
+    Image.fromarray(frame).save(out, "JPEG", quality=quality, subsampling=2,
+                                optimize=False, progressive=False)
+    return out.getvalue()
+
+
+def jpeg_pixels(data: bytes) -> np.ndarray:
+    """A JPEG decoded on the host (Pillow), to hold the camera's frames to."""
+    import io
+
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+def camera_packets(g, jpegs, fps=CAM_FPS):
+    """The camera's RTP packets (bytes), made by the port's rtpjpegpay2 from
+    the JPEG frames at `fps`."""
+    p = g.parse_launch(f"appsrc name=src ! rtpjpegpay2 {CAM_RTP} ! appsink name=sink")
+    p.by_name("src").set_property("caps", g.parse_caps("image/jpeg"))
+    for i, data in enumerate(jpegs):
+        p.by_name("src").push_buffer(g.Buffer(np.frombuffer(data, np.uint8).copy(),
+                                              pts=i * 10**9 // fps, duration=10**9 // fps))
+    p.by_name("src").end_of_stream()
+    p.play_until_eos()
+    return [_bytes(s.buffer) for s in p.by_name("sink").samples]
+
+
+class RtspCamera:
+    """An IP camera's RTSP server in this process, built like
+    tests/test_rtsp.py's FakeTcpRtspServer: OPTIONS, DESCRIBE (one JPEG
+    video stream, RTP/AVP 26), SETUP with interleaved TCP, PLAY and
+    TEARDOWN, each answered only under HTTP digest authentication (qop=auth,
+    a fixed realm and nonce: one 401 challenge, then every request signed);
+    on PLAY it sends `packets` as '$' records on the control connection.
+    One session; the thread ends at TEARDOWN or when the client goes."""
+
+    def __init__(self, packets, user=CAM_USER, password=CAM_PASSWORD):
+        import socket
+        import threading
+
+        self.packets, self.user, self.password = packets, user, password
+        self.sock = socket.socket()
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(1)
+        self.port = self.sock.getsockname()[1]
+        self.methods, self.challenged, self.signed = [], 0, 0
+        self.error, self.conn = None, None
+        self.thread = threading.Thread(target=self._serve, daemon=True)
+        self.thread.start()
+
+    @property
+    def url(self):
+        return f"rtsp://127.0.0.1:{self.port}/camera"
+
+    def _signed(self, lines, method):
+        import hashlib
+        import re
+
+        authz = next((ln for ln in lines if ln.lower().startswith("authorization:")), None)
+        if authz is None or "Digest" not in authz:
+            return False
+        f = dict(re.findall(r'(\w+)="?([^",]*)"?', authz.split(":", 1)[1]))
+        md5 = lambda s: hashlib.md5(s.encode()).hexdigest()  # noqa: E731
+        ha1 = md5(f"{self.user}:{CAM_REALM}:{self.password}")
+        ha2 = md5(f"{method}:{f.get('uri')}")
+        want = md5(f"{ha1}:{CAM_NONCE}:{f.get('nc')}:{f.get('cnonce')}:auth:{ha2}")
+        return f.get("username") == self.user and f.get("response") == want
+
+    def _serve(self):
+        import re
+        import socket
+        import struct
+
+        try:
+            conn, _ = self.sock.accept()
+        except OSError:
+            return
+        self.conn = conn
+        conn.settimeout(30)
+        buf, channel = b"", 0
+        try:
+            while True:
+                while b"\r\n\r\n" not in buf:
+                    chunk = conn.recv(4096)
+                    if not chunk:
+                        return
+                    buf += chunk
+                head, _, buf = buf.partition(b"\r\n\r\n")
+                lines = head.decode().split("\r\n")
+                method = lines[0].split(" ", 1)[0]
+                self.methods.append(method)
+                cseq = next(ln.split(":")[1].strip() for ln in lines
+                            if ln.lower().startswith("cseq"))
+                if not self._signed(lines, method):
+                    self.challenged += 1
+                    conn.sendall((f"RTSP/1.0 401 Unauthorized\r\nCSeq: {cseq}\r\n"
+                                  f'WWW-Authenticate: Digest realm="{CAM_REALM}", '
+                                  f'nonce="{CAM_NONCE}", qop="auth"\r\n\r\n').encode())
+                    continue
+                self.signed += 1
+                extra, body = "", b""
+                if method == "OPTIONS":
+                    extra = "Public: OPTIONS, DESCRIBE, SETUP, PLAY, TEARDOWN\r\n"
+                elif method == "DESCRIBE":
+                    body = CAM_SDP.encode()
+                    extra = (f"Content-Base: {self.url}/\r\nContent-Type: application/sdp\r\n"
+                             f"Content-Length: {len(body)}\r\n")
+                elif method == "SETUP":
+                    transport = next(ln for ln in lines if ln.startswith("Transport"))
+                    m = re.search(r"interleaved=(\d+)-(\d+)", transport)
+                    channel = int(m.group(1))
+                    extra = (f"Session: 4242\r\nTransport: RTP/AVP/TCP;unicast;"
+                             f"interleaved={m.group(1)}-{m.group(2)}\r\n")
+                elif method == "PLAY":
+                    extra = "Session: 4242\r\nRange: npt=0-\r\n"
+                conn.sendall(f"RTSP/1.0 200 OK\r\nCSeq: {cseq}\r\n{extra}\r\n".encode() + body)
+                if method == "PLAY":
+                    for pkt in self.packets:
+                        conn.sendall(b"$" + bytes([channel]) + struct.pack("!H", len(pkt)) + pkt)
+                if method == "TEARDOWN":
+                    return
+        except (OSError, socket.timeout) as e:
+            self.error = e
+        finally:
+            conn.close()
+
+    def close(self):
+        """Stop listening and end the session (a client that gave up leaves
+        the thread waiting on its connection); joins the thread."""
+        import socket
+
+        self.sock.close()
+        if self.conn is not None:
+            try:
+                self.conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        self.thread.join(10)
+
+
+def camera_receive(g, cam, n_packets):
+    """rtspsrc2 (interleaved TCP, digest auth) ! rtpjpegdepay2 ! appsink on
+    the camera: (the JPEG frames as bytes, the host clock at PLAY, the host
+    clock as each frame reached the appsink)."""
+    p = g.parse_launch(
+        f"rtspsrc2 name=rtsp location={cam.url} protocols=tcp user-id={cam.user} "
+        f"user-pw={cam.password} timeout={CAM_TIMEOUT_NS} num-buffers={n_packets} "
+        f"! rtpjpegdepay2 name=depay ! appsink name=jpegs")
+    trace = LinkTrace("jpegs:sink")
+    p.add_tracer(trace)
+    t0 = time.perf_counter()
+    p.play_until_eos()
+    return ([_bytes(s.buffer) for s in p.by_name("jpegs").samples], t0,
+            [t for t, _ in trace.seen["jpegs:sink"]])
+
+
+def camera_thresholds(g, frame):
+    """(box, class) confidence thresholds for the camera's yoloxtensordec.
+    Random-init YOLOX's scores depend on its draw of init_weights (torch's
+    generator, whose draws differ between torch versions) and on the
+    frames, so fixed thresholds give no box on one machine and the 100-box
+    cap (a ~40 ms host NMS a frame) on another.  On `frame` (the camera's
+    first frame as the host decodes it), run through the same chain on the
+    selected device: the class threshold passes the top CAM_CLASS_SHARE of
+    the anchors' class confidences, and the box threshold lies halfway
+    between the CAM_CANDIDATES-th and the next objectness of those."""
+    out = camera_detect(g, [frame], (1.0, 1.0))
+    t = _tensor_meta(out[0]).data[0].float().cpu()
+    cls = t[:, 5:].max(-1).values
+    k = int(len(cls) * CAM_CLASS_SHARE)
+    top = cls.sort(descending=True).values
+    cls_thr = float(top[k - 1] + top[k]) / 2
+    obj = t[:, 4][cls >= cls_thr].sort(descending=True).values
+    n = min(CAM_CANDIDATES, len(obj) - 1)
+    return float(obj[n - 1] + obj[n]) / 2, cls_thr
+
+
+def camera_detect(g, frames, thresholds, around=None):
+    """The decoded frames (RGB, at CAM_FPS) through appsrc ! videoconvert !
+    yoloxinference engine=fast ! yoloxtensordec (at `thresholds`, box and
+    class) ! appsink; `around`, if given, is called with the streaming.
+    Returns the appsink's buffers."""
+    box, cls = thresholds
+    h, w = frames[0].shape[:2]
+    p = g.parse_launch(f"appsrc name=src ! videoconvert ! yoloxinference engine=fast "
+                       f"! yoloxtensordec box-confidence-threshold={box} "
+                       f"class-confidence-threshold={cls} ! appsink name=sink")
+    p.by_name("src").set_property("caps", g.parse_caps(
+        f"video/x-raw,format=RGB,width={w},height={h},framerate={CAM_FPS}/1"))
+    for i, f in enumerate(frames):
+        p.by_name("src").push_buffer(g.Buffer(f, pts=i * 10**9 // CAM_FPS))
+    p.by_name("src").end_of_stream()
+    p.set_state(g.core.State.PLAYING)
+    try:
+        (around or (lambda fn: fn()))(p.run)
+    finally:
+        p.set_state(g.core.State.NULL)
+    return [s.buffer for s in p.by_name("sink").samples]
+
+
+def camera_run(g, packets, thresholds, around=None):
+    """The camera path: a session of rtspsrc2 ! rtpjpegdepay2 on an
+    RtspCamera serving `packets`, each JPEG then through appsrc ! imagersdec
+    ! appsink as a stream of its own (imagersdec decodes one image a stream,
+    at EOS, in both packages), the decoded frames through camera_detect at
+    `thresholds`.
+    `around`, if given, is called with the whole path.  Returns a namespace
+    of the JPEGs, the decoded frames, the detection buffers, the camera's
+    record (methods, challenges, signed requests, error) and the host
+    clocks of the stages."""
+    r = SimpleNamespace()
+
+    def path():
+        cam = RtspCamera(packets)
+        try:
+            r.jpegs, r.t_play, r.arrivals = camera_receive(g, cam, len(packets))
+            r.t_received = time.perf_counter()
+            r.frames = [decode_images(g, data, caps="image/jpeg")[0] for data in r.jpegs]
+            r.t_decoded = time.perf_counter()
+            r.out = camera_detect(g, r.frames, thresholds)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            r.t_done = time.perf_counter()
+        finally:
+            cam.close()
+        r.methods, r.challenged, r.signed, r.error = (cam.methods, cam.challenged, cam.signed,
+                                                      cam.error)
+
+    (around or (lambda fn: fn()))(path)
+    return r
+
+
+def camera_detections(g, buf):
+    """yoloxtensordec's detections of a buffer: [(label, x, y, w, h, conf)]."""
+    from gst_plugins_rs_tpu_torch.elements.analytics.meta import AnalyticsRelationMeta
+
+    return [(o.object_type, o.x, o.y, o.w, o.h, o.loc_conf_lvl)
+            for o in buf.get_meta(AnalyticsRelationMeta).od]
+
+
+def origin_frames(n, seed=ORIGIN_SEED, w=HD_W, h=HD_H, device="cuda"):
+    """n seeded RGBA u8 frames [h, w, 4] on `device`, each unlike the
+    others; the last is white, the page the run's QR record is read from."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    frames = [torch.randint(0, 256, (h, w, 4), generator=gen, device=device,
+                            dtype=torch.uint8) for _ in range(n - 1)]
+    return frames + [torch.full((h, w, 4), 255, dtype=torch.uint8, device=device)]
+
+
+def origin_record(seed, frames):
+    """The run's record, as the QR code carries it."""
+    return json.dumps({"seed": seed, "frames": frames}, sort_keys=True)
+
+
+def qr_png(g, text, path, module_px=8):
+    """`text` as a QR code (the port's codecs/qr.py: 8 px modules, a 4-module
+    quiet zone) written to `path` as an RGB PNG by rspngenc; returns the
+    raster's side in pixels."""
+    from gst_plugins_rs_tpu_torch.codecs import qr
+
+    raster = qr.rasterize(qr.encode(text), module_px=module_px)
+    Path(path).write_bytes(png_of(g, np.repeat(raster[..., None], 3, -1)))
+    return raster.shape[0]
+
+
+def origin_pipeline(g, out, caps, grade=None, qr=None, dynamic=True):
+    """The live origin in package `g` (the port; the CPU tests also build it
+    in the JAX package): appsrc ! [hsvfilter hue-shift=120 ! colorlut
+    location=`grade` precision=approx !] [imagersoverlay location=`qr` !]
+    tee, whose branches are hlscmafsink (target-duration ORIGIN_TARGET_S,
+    writing out/hls), dashsink2 (a video_0 request pad, dynamic, writing
+    out/dash) and an appsink, the witness.  Returns the pipeline."""
+    out = Path(out)
+    (out / "hls").mkdir(parents=True, exist_ok=True)
+    (out / "dash").mkdir(parents=True, exist_ok=True)
+    chain = ""
+    if grade is not None:
+        chain += (f"hsvfilter name=hsv hue-shift=120 ! colorlut name=lut location={grade} "
+                  f"precision=approx ! ")
+    if qr is not None:
+        chain += f"imagersoverlay name=qr location={qr} ! "
+    p = g.parse_launch(
+        f"appsrc name=src ! {chain}tee name=t "
+        f"t. ! hlscmafsink name=hls target-duration={ORIGIN_TARGET_S} "
+        f"playlist-location={out}/hls/media.m3u8 init-location={out}/hls/init%05d.mp4 "
+        f"location={out}/hls/segment%05d.m4s "
+        f"t. ! appsink name=sink")
+    dash = g.element_factory_make("dashsink2", "dash")
+    dash.set_property("mpd-root-path", str(out / "dash"))
+    dash.set_property("target-duration", ORIGIN_TARGET_S)
+    dash.set_property("dynamic", dynamic)
+    p.add(dash)
+    p.by_name("t").request_src_pad().link(dash.request_pad("video_%u"))
+    p.by_name("src").set_property("caps", g.parse_caps(caps))
+    return p
+
+
+def origin_caps(frame, fps=ORIGIN_FPS):
+    h, w = frame.shape[:2]
+    return f"video/x-raw,format=RGBA,width={w},height={h},framerate={fps}/1"
+
+
+def origin_run(g, out, frames, grade=None, qr=None, fps=ORIGIN_FPS, around=None, writes=None):
+    """Push `frames` at `fps` through origin_pipeline and play to EOS
+    (`around`, if given, is called with the streaming).  With `writes` (a
+    list), every segment write of both sinks goes through a file whose
+    writes append (bytes, seconds) to it (the sinks' get-fragment-stream /
+    get-segment-stream signals).  Returns the pipeline (stopped)."""
+    p = origin_pipeline(g, out, origin_caps(frames[0], fps), grade, qr)
+    if writes is not None:
+        class Timed:
+            def __init__(self, path):
+                self.f = open(path, "wb")
+
+            def write(self, data):
+                t0 = time.perf_counter()
+                self.f.write(data)
+                self.f.flush()
+                writes.append((len(data), time.perf_counter() - t0))
+
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *exc):
+                self.f.close()
+
+        p.by_name("hls").connect("get-fragment-stream", lambda el, path: Timed(path))
+        p.by_name("dash").connect("get-segment-stream", lambda el, path: Timed(path))
+    src = p.by_name("src")
+    dur = 10**9 // fps
+    for i, f in enumerate(frames):
+        src.push_buffer(g.Buffer(f, pts=i * dur, duration=dur))
+    src.end_of_stream()
+    p.set_state(g.core.State.PLAYING)
+    try:
+        (around or (lambda fn: fn()))(p.run)
+        _wait_eos(p.by_name("sink"))
+    finally:
+        p.set_state(g.core.State.NULL)
+    return p
+
+
+def origin_files(out):
+    """{path relative to out: bytes} of every file the origin wrote."""
+    out = Path(out)
+    return {str(f.relative_to(out)): f.read_bytes() for f in sorted(out.rglob("*")) if f.is_file()}
+
+
+@contextlib.contextmanager
+def http_origin(root):
+    """The directory `root` served over HTTP on 127.0.0.1 (http.server on a
+    thread of this process, stopped on exit); yields its base URL."""
+    import functools
+    import threading
+    from http.server import SimpleHTTPRequestHandler, ThreadingHTTPServer
+
+    class Quiet(SimpleHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), functools.partial(Quiet, directory=str(root)))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{srv.server_address[1]}"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(10)
+
+
+def http_fetch(g, url, blocksize=ORIGIN_BLOCK) -> bytes:
+    """reqwesthttpsrc ! appsink on `url`: the bytes that came back."""
+    p = g.parse_launch(f"reqwesthttpsrc location={url} blocksize={blocksize} "
+                       f"! appsink name=sink")
+    p.play_until_eos()
+    return b"".join(_bytes(s.buffer) for s in p.by_name("sink").samples)
+
+
+def origin_fetch(g, base):
+    """What a player fetches from the origin at `base`: the HLS media
+    playlist and every URI it names (EXT-X-MAP, the segments), the MPD and
+    every file its SegmentTemplates name.  Returns {path: bytes}."""
+    import re
+
+    got = {"hls/media.m3u8": http_fetch(g, f"{base}/hls/media.m3u8")}
+    playlist = got["hls/media.m3u8"].decode()
+    uris = re.findall(r'#EXT-X-MAP:URI="([^"]+)"', playlist) + [
+        ln for ln in playlist.splitlines() if ln and not ln.startswith("#")]
+    for uri in uris:
+        got[f"hls/{uri}"] = http_fetch(g, f"{base}/hls/{uri}")
+    got["dash/manifest.mpd"] = http_fetch(g, f"{base}/dash/manifest.mpd")
+    mpd = got["dash/manifest.mpd"].decode()
+    for init, media, start, body in re.findall(
+            r'initialization="([^"]+)" media="([^"]+)" startNumber="(\d+)">(.*?)</SegmentTemplate>',
+            mpd, re.S):
+        got[f"dash/{init}"] = http_fetch(g, f"{base}/dash/{init}")
+        for k in range(len(re.findall(r"<S ", body))):
+            name = media.replace("$Number$", str(int(start) + k))
+            got[f"dash/{name}"] = http_fetch(g, f"{base}/dash/{name}")
+    return got
+
+
+def origin_samples(files, prefix):
+    """The samples of the fMP4 segments under `prefix` ("hls/" or "dash/"),
+    in order, with the track of its init segment: (track, [bytes])."""
+    from gst_plugins_rs_tpu_torch.mux import reader
+
+    inits = [k for k in files if k.startswith(prefix) and k.endswith(".mp4")]
+    segs = sorted(k for k in files if k.startswith(prefix) and k.endswith(".m4s"))
+    if len(inits) != 1:
+        raise AssertionError(f"{prefix}: init segments {inits}")
+    tracks = reader.decode_tracks(reader.parse_boxes(files[inits[0]]))
+    samples = []
+    for k in sorted(segs, key=lambda s: int("".join(c for c in s.split("/")[-1] if c.isdigit()))):
+        for run in reader.decode_fragments(files[k]):
+            off = 0
+            for size in run.sample_sizes:
+                samples.append(run.data[off:off + size])
+                off += size
+    return tracks, samples, len(segs)
+
+
+def cli_tracer_spec(out):
+    """GSTPU_TRACERS for the four tracers of 4q, each writing under `out`."""
+    names = {"pad-push-timings": "pads.csv", "queue-levels": "queues.csv",
+             "memory-tracer": "memory.csv", "chrome-tracer": "trace.json"}
+    return ";".join(f"{t}(file={Path(out) / names[t]})" for t in CLI_TRACERS), \
+        {t: Path(out) / names[t] for t in CLI_TRACERS}
+
+
+def cli_launch(out, grade, frames=CLI_FRAMES, w=HD_W, h=HD_H):
+    """The origin's HLS branch with videotestsrc in front, as the CLI takes
+    it: videotestsrc ! RGBA at ORIGIN_FPS ! hsvfilter ! colorlut approx !
+    hlscmafsink, writing under out/hls."""
+    out = Path(out)
+    (out / "hls").mkdir(parents=True, exist_ok=True)
+    return (f"videotestsrc num-buffers={frames} ! video/x-raw,format=RGBA,width={w},"
+            f"height={h},framerate={ORIGIN_FPS}/1 ! hsvfilter name=hsv hue-shift=120 "
+            f"! colorlut name=lut location={grade} precision=approx ! hlscmafsink name=hls "
+            f"target-duration={ORIGIN_TARGET_S} playlist-location={out}/hls/media.m3u8 "
+            f"init-location={out}/hls/init%05d.mp4 location={out}/hls/segment%05d.m4s")
+
+
+def cli_check(out, paths, dot, frames=CLI_FRAMES, w=HD_W, h=HD_H):
+    """What a CLI run with the four tracers and --dot left under `out`:
+    {check: bool} (every tracer file written; memory-tracer's bytes into
+    hsvfilter = frames x w x h x 4; the dot names every element and links
+    them in a chain; pad-push-timings has a row a frame at hsvfilter,
+    colorlut and the sink's pad; the playlist is finished), and
+    memory-tracer's {element: (buffers, bytes)}."""
+    checks = {"files": all(p.is_file() and p.stat().st_size > 0 for p in paths.values())
+              and Path(dot).is_file()}
+    mem = {}
+    if paths["memory-tracer"].is_file():
+        for line in paths["memory-tracer"].read_text().splitlines()[1:]:
+            name, count, nbytes = line.split(",")
+            mem[name] = (int(count), int(nbytes))
+    checks["memory-tracer: hsvfilter's bytes"] = mem.get("hsv") == (frames, frames * w * h * 4)
+    text = Path(dot).read_text() if Path(dot).is_file() else ""
+    checks["dot: every element"] = all(
+        f'label="{f}' in text for f in ("videotestsrc", "capsfilter", "hsvfilter", "colorlut",
+                                         "hlscmafsink")) and text.count('" -> "') == 4
+    pads = paths["pad-push-timings"].read_text().splitlines() \
+        if paths["pad-push-timings"].is_file() else []
+    checks["pad-push-timings: a row a frame at each filter and the sink"] = \
+        pads[:1] == ["wallclock,element,pad,pts,frames"] and all(
+            sum(f",{name},sink," in row for row in pads) == frames for name in ("hsv", "lut", "hls"))
+    playlist = out / "hls" / "media.m3u8"
+    checks["playlist"] = playlist.is_file() and "#EXT-X-ENDLIST" in playlist.read_text()
+    return checks, mem
+
+
+def cli_subprocess(out, grade, frames=CLI_FRAMES):
+    """`python -m gst_plugins_rs_tpu_torch <cli_launch> --dot` in a process
+    of its own (on the card: the CLI's default), GSTPU_TRACERS set to the
+    four tracers.  Returns (exit code, stderr's tail, tracer paths, dot)."""
+    import os
+
+    spec, paths = cli_tracer_spec(out)
+    dot = Path(out) / "pipeline.dot"
+    env = dict(os.environ, GSTPU_TRACERS=spec)
+    r = subprocess.run([sys.executable, "-m", "gst_plugins_rs_tpu_torch",
+                        cli_launch(out, grade, frames), "--dot", str(dot)],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    return r.returncode, r.stderr[-2000:], paths, dot
+
+
+def traced_run(g, out, grade, tracers, frames=CLI_FRAMES, around=None, spent=None):
+    """cli_launch in this process, with the tracers of GSTPU_TRACERS = the
+    four of 4q when `tracers`, none otherwise; `around`, if given, is called
+    with the streaming.  With `spent` (a list), the host seconds of every
+    tracer call (each on_buffer and close) are appended to it.  Returns the
+    tracer paths."""
+    import os
+
+    spec, paths = cli_tracer_spec(out)
+    prev = os.environ.pop("GSTPU_TRACERS", None)
+    if tracers:
+        os.environ["GSTPU_TRACERS"] = spec
+    try:
+        p = g.parse_launch(cli_launch(out, grade, frames))
+    finally:
+        os.environ.pop("GSTPU_TRACERS", None)
+        if prev is not None:
+            os.environ["GSTPU_TRACERS"] = prev
+    if len(p.tracers) != (len(CLI_TRACERS) if tracers else 0):
+        raise AssertionError(f"{len(p.tracers)} tracers installed")
+    if spent is not None:
+        for t in p.tracers:
+            t.on_buffer = _timed(t.on_buffer, spent)
+            t.close = _timed(t.close, spent)
+    p.set_state(g.core.State.PLAYING)
+    try:
+        (around or (lambda fn: fn()))(p.run)
+    finally:
+        p.set_state(g.core.State.NULL)
+        for t in p.tracers:
+            t.close()
+    return paths
+
+
+def _timed(fn, spent):
+    def timed(*args):
+        t0 = time.perf_counter()
+        fn(*args)
+        spent.append(time.perf_counter() - t0)
+    return timed
+
+
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy", "cudaStreamQuery", "cudaEventQuery")
+
+
+def _host_waits(run):
+    """(Memcpy DtoH, the host's synchronising CUDA calls) of a call of `run`:
+    the copies from a card-only session that holds both its marker kernels
+    (_profiled: a session that lost edge events does not count, ROADMAP
+    C.3), the calls from a session with the host's activity (host events
+    are not lost).  `run` is called at least twice."""
+    _, dtoh = _profiled(run)
+    avgs, _ = device_events(run, cuda_only=False)
+    return dtoh, sum(e.count for e in avgs if e.key in SYNC_CALLS)
+
+
+def camera_pipelines(card_line):
+    """Phase 4q (a): the RTSP camera at full width on the card.  CAM_FRAMES
+    seeded 640x640 frames as baseline JPEG, in RFC 2435 packets made by
+    rtpjpegpay2, served by an RtspCamera (interleaved TCP, digest auth)
+    to rtspsrc2 ! rtpjpegdepay2; each JPEG through imagersdec (its own
+    stream) onto cuda:0, then videoconvert ! yoloxinference (YOLOX-tiny,
+    engine=fast, f32: B1) ! yoloxtensordec ! appsink.  yolox_c3's count is
+    set to 0 just before the path and read just after.  Checks: the session
+    went OPTIONS (challenged), OPTIONS, DESCRIBE, SETUP, PLAY, TEARDOWN,
+    every request signed after the one challenge; all frames arrived, each decoding to the camera's
+    JPEG's pixels; the decoded frames and every yolox-out lie on cuda:0; B1
+    launched once a frame; one Memcpy HtoD a frame beyond the plain YOLOX
+    stream's on the same decoded frames (torch.profiler); every sixth
+    frame's detections, card against CPU, within YOLOX's gates; the
+    decoder's thresholds come from camera_thresholds on the first frame.
+    Returns (B1's launches, the packets, the thresholds)."""
+    phase("4q (a) the RTSP camera on the card: rtspsrc2 (TCP, digest) ! rtpjpegdepay2, "
+          "imagersdec, YOLOX-tiny")
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.ops import yolox_c3
+
+    card0 = torch.device("cuda", 0)
+    sources = camera_frames()
+    jpegs = [jpeg_of(f) for f in sources]
+    packets = camera_packets(g, jpegs)
+    thresholds = camera_thresholds(g, torch.from_numpy(jpeg_pixels(jpegs[0]).copy()).to(card0))
+
+    def run():
+        yolox_c3.launches = 0
+        r = camera_run(g, packets, thresholds)
+        torch.cuda.synchronize()
+        return r, yolox_c3.launches
+
+    (r, launches), dtoh, htod = _profiled(run, htod=True)
+    _, plain_dtoh, plain_htod = _profiled(lambda: camera_detect(g, r.frames, thresholds),
+                                          htod=True)
+    forwards = _check_outputs([SimpleNamespace(buffer=b) for b in r.out], CAM_FRAMES)
+    session = (r.methods == ["OPTIONS", "OPTIONS", "DESCRIBE", "SETUP", "PLAY", "TEARDOWN"]
+               and r.challenged == 1 and r.signed == 5 and r.error is None)
+    same_pixels = len(r.jpegs) == CAM_FRAMES and all(
+        np.array_equal(f.cpu().numpy(), jpeg_pixels(j)) for f, j in zip(r.frames, jpegs))
+    on_card = all(isinstance(f, torch.Tensor) and f.device == card0 for f in r.frames)
+    boxes = [len(camera_detections(g, b)) for b in r.out]
+    picks = list(range(0, CAM_FRAMES, CAM_CPU_EVERY))
+    g.set_device("cpu")
+    try:
+        cpu_out = camera_detect(g, [r.frames[i].cpu() for i in picks], thresholds)
+    finally:
+        g.set_device("cuda")
+    gates = all(_detections_within_gates(camera_detections(g, h), camera_detections(g, r.out[i]))
+                for i, h in zip(picks, cpu_out))
+    print(f"camera: {len(packets)} RTP packets ({sum(map(len, packets))} B) of {CAM_FRAMES} "
+          f"JPEG frames ({sum(map(len, jpegs))} B, quality {CAM_QUALITY}); yoloxtensordec "
+          f"thresholds {thresholds[0]:.6f} / {thresholds[1]:.6f}; session "
+          f"{r.methods}, challenged {r.challenged}, signed {r.signed}: {session}")
+    print(f"{len(r.jpegs)} frames received, each decoding to its JPEG's pixels: {same_pixels}; "
+          f"decoded frames on {card0}: {on_card}; boxes a frame {min(boxes)}-{max(boxes)} (total "
+          f"{sum(boxes)}); "
+          f"{forwards} forwards, yolox_c3 launches {launches}; Memcpy HtoD {htod} against the "
+          f"plain stream's {plain_htod}, DtoH {dtoh} against {plain_dtoh}; frames {picks} card "
+          f"against CPU within the YOLOX gates: {gates} [{card_line}]")
+    if not session:
+        raise AssertionError(f"the RTSP session went {r.methods} ({r.error})")
+    if not same_pixels or not on_card:
+        raise AssertionError("a camera frame was lost, differs from its JPEG or left the card")
+    if launches != forwards or forwards != CAM_FRAMES:
+        raise AssertionError("yolox_c3 launches != frames")
+    if htod - plain_htod != CAM_FRAMES:
+        raise AssertionError(f"{htod - plain_htod} host-to-device copies for {CAM_FRAMES} frames")
+    if not gates or sum(boxes) < 1:
+        raise AssertionError("the camera's detections: card and CPU disagree, or no box")
+    return launches, packets, thresholds
+
+
+def origin_checks(g, out, frames_out, n, record):
+    """Fetch the origin at `out` over HTTP with reqwesthttpsrc and hold it:
+    {check: bool}: the fetched bytes equal the files; each sink's init
+    segment holds one uncv track of the frames' size and its segments give
+    back, in order, every frame the appsink took, bit for bit; two segments
+    a sink; the QR record decodes (validate.run_action on the pipeline)."""
+    files = origin_files(out)
+    with http_origin(out) as base:
+        fetched = origin_fetch(g, base)
+    checks = {"fetched = files": fetched == files}
+    witness = [_bytes(SimpleNamespace(data=f)) for f in frames_out]
+    h, w = frames_out[0].shape[:2]
+    for prefix in ("hls/", "dash/"):
+        tracks, samples, segs = origin_samples(files, prefix)
+        checks[f"{prefix} uncv {w}x{h}"] = len(tracks) == 1 and \
+            tracks[0].sample_entry_type == "uncv" and (tracks[0].width, tracks[0].height) == (w, h)
+        checks[f"{prefix} frames bit for bit"] = len(samples) == n and samples == witness
+        checks[f"{prefix} segments"] = segs == 2
+    return checks, files
+
+
+def origin_pipelines(card_line, grade):
+    """Phase 4q (b): the graded live origin at full width on the card.
+    ORIGIN_FRAMES seeded 1080p RGBA frames at 16/1 on cuda:0 (the last
+    white) through hsvfilter hue-shift=120 ! colorlut approx (B4, B2) !
+    imagersoverlay (the run's record as a QR code, codecs/qr.py) into a tee:
+    hlscmafsink, dashsink2 (video_0) and an appsink.  The counters of B4 and
+    B2 are set to 0 just before and read just after.  Checks: origin_checks
+    (fetched over HTTP by reqwesthttpsrc, the segments give back the
+    appsink's frames bit for bit, the QR record decodes); every frame on
+    cuda:0 up to the sinks; at most one Memcpy DtoH a frame for each muxing
+    sink beyond the graded chain into an appsink (torch.profiler); B4 and B2
+    launch once a frame.  Returns the launches."""
+    phase("4q (b) the graded live origin on the card: hlscmafsink and dashsink2, fetched "
+          "over HTTP by reqwesthttpsrc")
+    import shutil
+    import tempfile
+
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.ops import hsv_planes
+    from gst_plugins_rs_tpu_torch.ops import colorlut_lowrank_fused as lowrank
+    from gst_plugins_rs_tpu_torch.utils import validate
+
+    card0 = torch.device("cuda", 0)
+    frames = origin_frames(ORIGIN_FRAMES)
+    record = origin_record(ORIGIN_SEED, ORIGIN_FRAMES)
+    tmp = Path(tempfile.mkdtemp(prefix="origin-"))
+    try:
+        qr = tmp / "qr.png"
+        side = qr_png(g, record, qr)
+
+        def plain():
+            p = g.parse_launch(f"appsrc name=src ! hsvfilter hue-shift=120 ! colorlut "
+                               f"location={grade} precision=approx ! imagersoverlay "
+                               f"location={qr} ! appsink name=sink")
+            p.by_name("src").set_property("caps", g.parse_caps(origin_caps(frames[0])))
+            for i, f in enumerate(frames):
+                p.by_name("src").push_buffer(g.Buffer(f, pts=i * 10**9 // ORIGIN_FPS,
+                                                      duration=10**9 // ORIGIN_FPS))
+            p.by_name("src").end_of_stream()
+            p.play_until_eos()
+            torch.cuda.synchronize()
+
+        _, plain_dtoh = _profiled(plain)
+
+        def run():
+            hsv_planes.launches = lowrank.packed_launches = 0
+            p = origin_run(g, tmp / "out", frames, grade=grade, qr=qr)
+            torch.cuda.synchronize()
+            return p, {"hsv_planes": hsv_planes.launches,
+                       "colorlut_lowrank_packed": lowrank.packed_launches}
+
+        (p, launches), dtoh = _profiled(run)
+        out = [s.buffer.data for s in p.by_name("sink").samples]
+        on_card = all(isinstance(f, torch.Tensor) and f.device == card0 for f in out)
+        checks, files = origin_checks(g, tmp / "out", out, ORIGIN_FRAMES, record)
+        try:
+            decoded = validate.run_action("check-last-frame-qrcode", p, sink_name="sink",
+                                          expected_fields=json.loads(record))
+        except AssertionError as e:
+            decoded = f"failed: {e}"
+        checks["QR record"] = decoded == record
+        seg_bytes = [len(v) for k, v in files.items() if k.endswith(".m4s")]
+        print(f"origin: {ORIGIN_FRAMES} frames {HD_W}x{HD_H} RGBA at {ORIGIN_FPS}/1 on {card0} "
+              f"to the sinks: {on_card}; files {sorted(files)}; segments {seg_bytes} B; QR "
+              f"{side} px, decoded {decoded!r}; checks {checks}")
+        print(f"Memcpy DtoH: the origin {dtoh}, the graded chain into an appsink {plain_dtoh} "
+              f"(at most {2 * ORIGIN_FRAMES} more: one a frame for each muxing sink); launches "
+              f"{launches} [{card_line}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not all(checks.values()) or not on_card:
+        raise AssertionError(f"the origin: {checks}, on the card {on_card}")
+    if not 0 < dtoh - plain_dtoh <= 2 * ORIGIN_FRAMES:
+        raise AssertionError(f"{dtoh - plain_dtoh} device-to-host copies at the muxing sinks")
+    if any(n != ORIGIN_FRAMES for n in launches.values()):
+        raise AssertionError(f"launches {launches} != {ORIGIN_FRAMES} frames")
+    return launches
+
+
+def cli_pipelines(card_line, grade):
+    """Phase 4q (c): the CLI and the tracers on the card.  `python -m
+    gst_plugins_rs_tpu_torch` in a process of its own on cli_launch (the
+    origin's HLS branch behind videotestsrc, CLI_FRAMES 1080p frames) with
+    GSTPU_TRACERS = pad-push-timings, queue-levels, memory-tracer and
+    chrome-tracer, and --dot: exit 0 and cli_check.  Then the same pipeline
+    in this process with and without the tracers: the Memcpy DtoH and the
+    host's synchronising CUDA calls (torch.profiler) are equal, so the
+    tracers read nothing back and wait on nothing."""
+    phase("4q (c) the CLI and the tracers on the card")
+    import shutil
+    import tempfile
+
+    import gst_plugins_rs_tpu_torch as g
+
+    tmp = Path(tempfile.mkdtemp(prefix="cli-"))
+    try:
+        t0 = time.perf_counter()
+        rc, err, paths, dot = cli_subprocess(tmp / "cli", grade)
+        wall = time.perf_counter() - t0
+        checks, mem = cli_check(tmp / "cli", paths, dot)
+        waits = {}
+        for tracers in (False, True):
+            waits[tracers] = _host_waits(
+                lambda: traced_run(g, tmp / f"run{int(tracers)}", grade, tracers,
+                                   around=lambda fn: (fn(), torch.cuda.synchronize())))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"python -m gst_plugins_rs_tpu_torch ... --dot, GSTPU_TRACERS={','.join(CLI_TRACERS)}: "
+          f"exit {rc} in {wall:.1f} s; {checks}; memory-tracer {mem}")
+    print(f"in process, (Memcpy DtoH, synchronising calls) without the tracers {waits[False]}, "
+          f"with them {waits[True]} [{card_line}]")
+    if rc != 0:
+        raise AssertionError(f"the CLI exited {rc}: {err}")
+    if not all(checks.values()):
+        raise AssertionError(f"the CLI run's files: {checks}")
+    if waits[True] != waits[False]:
+        raise AssertionError("the tracers added a read-back or a wait on the card")
+
+
+def origin_card_vs_cpu(grade):
+    """Phase 5q: the origin's sinks, card against CPU: the CPU's graded
+    frames (ORIGIN_CPU_FRAMES at 2/1, the QR composited) pushed through the
+    origin's tee on each device; the playlist, the MPD, the init segments
+    and the media segments are equal byte for byte."""
+    phase("5q the origin's playlist, MPD and segments, card against CPU")
+    import shutil
+    import tempfile
+
+    import gst_plugins_rs_tpu_torch as g
+
+    tmp = Path(tempfile.mkdtemp(prefix="origin-cpu-"))
+    try:
+        qr = tmp / "qr.png"
+        qr_png(g, origin_record(ORIGIN_SEED, ORIGIN_CPU_FRAMES), qr)
+        g.set_device("cpu")
+        try:
+            src = origin_frames(ORIGIN_CPU_FRAMES, seed=ORIGIN_SEED + 1, device="cpu")
+            p = origin_run(g, tmp / "graded", src, grade=grade, qr=qr, fps=2)
+            graded = [s.buffer.data for s in p.by_name("sink").samples]
+            origin_run(g, tmp / "cpu", graded, fps=2)
+        finally:
+            g.set_device("cuda")
+        origin_run(g, tmp / "cuda", [f.to("cuda") for f in graded], fps=2)
+        cpu, card = origin_files(tmp / "cpu"), origin_files(tmp / "cuda")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    segs = sum(k.endswith(".m4s") for k in card)
+    print(f"{ORIGIN_CPU_FRAMES} graded frames at 2/1: files {sorted(card)}; {segs} segments; "
+          f"equal: {card == cpu}")
+    if card != cpu or segs != 4:
+        raise AssertionError("the origin's files differ between card and CPU")
+
+
+def q_timing(card_line, grade, packets, thresholds):
+    """Phase 6q: the camera's frames per second (the path of 4q (a) from
+    PLAY to the last detection, without rtspsrc2's end-of-stream timeout)
+    against the plain YOLOX stream on the same decoded frames, and the host
+    ms a frame of rtspsrc2 ! rtpjpegdepay2 and of imagersdec; the origin's
+    frames per second against the graded chain into an appsink, and the
+    segment writes' MB/s; the host ms a frame the four tracers take in
+    cli_launch in this process (the time inside their calls in a traced
+    run, beside one run with and one without them); each path's device busy
+    share.  Rates are the median of Q_TIMING_REPEATS runs (4q ran every
+    path before: weights and cuDNN plans are warm)."""
+    phase("6q the camera, the origin and the tracers, timing")
+    import shutil
+    import tempfile
+
+    import gst_plugins_rs_tpu_torch as g
+
+    def walls(run):
+        # 4q ran every path once in this process: weights, cuDNN plans warm
+        out = []
+        for _ in range(Q_TIMING_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0, res))
+        return out
+
+    def busy(run):
+        _, dev = device_events(run)
+        return sum(e.self_device_time_total for e in dev) / 1e3, sum(e.count for e in dev)
+
+    rows = {}
+    cam = walls(lambda: camera_run(g, packets, thresholds))
+    r = cam[-1][1]
+    recv = statistics.median(c.arrivals[-1] - c.t_play for _, c in cam)
+    dec = statistics.median(c.t_decoded - c.t_received for _, c in cam)
+    det = statistics.median(c.t_done - c.t_decoded for _, c in cam)
+    plain = walls(lambda: camera_detect(g, r.frames, thresholds))
+    plain_wall = statistics.median(w for w, _ in plain)
+    cam_busy, cam_ops = busy(lambda: camera_run(g, packets, thresholds))
+    plain_busy, _ = busy(lambda: camera_detect(g, r.frames, thresholds))
+    cam_wall = recv + dec + det
+    rows["camera"] = CAM_FRAMES / cam_wall
+    print(f"the camera ({CAM_FRAMES} frames): {CAM_FRAMES / cam_wall:.2f} frames/s from PLAY to "
+          f"the last detection (walls {[round(w, 3) for w, _ in cam]} s with rtspsrc2's "
+          f"{CAM_TIMEOUT_NS / 1e9} s end-of-stream timeout); host ms a frame: rtspsrc2 ! "
+          f"rtpjpegdepay2 {recv / CAM_FRAMES * 1e3:.3f}, imagersdec {dec / CAM_FRAMES * 1e3:.3f}, "
+          f"detection {det / CAM_FRAMES * 1e3:.3f}; the plain YOLOX stream "
+          f"{CAM_FRAMES / plain_wall:.2f} frames/s; device busy {cam_busy / CAM_FRAMES:.4f} ms and "
+          f"{cam_ops / CAM_FRAMES:.1f} ops a frame, {100 * cam_busy / 1e3 / cam_wall:.1f}% of the "
+          f"camera's wall, the plain stream's {100 * plain_busy / 1e3 / plain_wall:.1f}% "
+          f"[{card_line}]")
+    tmp = Path(tempfile.mkdtemp(prefix="origin-timing-"))
+    try:
+        frames = origin_frames(ORIGIN_FRAMES, seed=ORIGIN_SEED + 2)
+        qr = tmp / "qr.png"
+        qr_png(g, origin_record(ORIGIN_SEED + 2, ORIGIN_FRAMES), qr)
+        writes = []
+
+        def origin(around=None, timed=True):
+            shutil.rmtree(tmp / "out", ignore_errors=True)
+            origin_run(g, tmp / "out", frames, grade=grade, qr=qr, around=around,
+                       writes=writes if timed else None)
+
+        def graded(around=None):
+            p = g.parse_launch(f"appsrc name=src ! hsvfilter hue-shift=120 ! colorlut "
+                               f"location={grade} precision=approx ! imagersoverlay "
+                               f"location={qr} ! appsink name=sink")
+            p.by_name("src").set_property("caps", g.parse_caps(origin_caps(frames[0])))
+            for i, f in enumerate(frames):
+                p.by_name("src").push_buffer(g.Buffer(f, pts=i * 10**9 // ORIGIN_FPS,
+                                                      duration=10**9 // ORIGIN_FPS))
+            p.by_name("src").end_of_stream()
+            p.set_state(g.core.State.PLAYING)
+            try:
+                (around or (lambda fn: fn()))(p.run)
+            finally:
+                p.set_state(g.core.State.NULL)
+
+        # the streaming alone: the pipelines start (the LUT's fit) outside the clock
+        def streaming(run):
+            box = []
+
+            def timed(fn):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                box.append(time.perf_counter() - t0)
+            run(around=timed)
+            return box[0]
+
+        o_walls = [streaming(origin) for _ in range(Q_TIMING_REPEATS)]
+        p_walls = [streaming(graded) for _ in range(Q_TIMING_REPEATS)]
+        o_busy = sum(e.self_device_time_total for e in device_events(
+            lambda around: origin(around, timed=False), around=True)[1]) / 1e3
+        p_busy = sum(e.self_device_time_total for e in device_events(
+            graded, around=True)[1]) / 1e3
+        o_wall, p_wall = statistics.median(o_walls), statistics.median(p_walls)
+        mb = sum(n for n, _ in writes) / 1e6
+        secs = sum(s for _, s in writes)
+        rows["origin"] = ORIGIN_FRAMES / o_wall
+        print(f"the origin ({ORIGIN_FRAMES} frames 1080p): {ORIGIN_FRAMES / o_wall:.2f} frames/s "
+              f"(walls {[round(w, 3) for w in o_walls]} s), the graded chain into an appsink "
+              f"{ORIGIN_FRAMES / p_wall:.2f} frames/s; the sinks add "
+              f"{(o_wall - p_wall) / ORIGIN_FRAMES * 1e3:.3f} host ms a frame; segment writes "
+              f"{mb / secs:.1f} MB/s ({len(writes)} writes, {mb:.1f} MB); device busy "
+              f"{o_busy / ORIGIN_FRAMES:.4f} ms a frame, {100 * o_busy / 1e3 / o_wall:.1f}% of "
+              f"the wall (the graded chain {100 * p_busy / 1e3 / p_wall:.1f}%) [{card_line}]")
+        spent, t_walls = [], {}
+        for tracers in (False, True):
+            t_walls[tracers] = streaming(lambda around: traced_run(
+                g, tmp / "cli", grade, tracers, around=around, spent=spent if tracers else None))
+        t_busy = sum(e.self_device_time_total for e in device_events(
+            lambda around: traced_run(g, tmp / "cli", grade, True, around=around),
+            around=True)[1]) / 1e3
+        rows["tracers"] = sum(spent) / CLI_FRAMES * 1e3
+        print(f"the four tracers on {CLI_FRAMES} frames of cli_launch: "
+              f"{sum(spent) / CLI_FRAMES * 1e3:.4f} host ms a frame in their calls "
+              f"({len(spent)} calls, closing included); the "
+              f"streaming {t_walls[False] / CLI_FRAMES * 1e3:.3f} host ms a frame without them, "
+              f"{t_walls[True] / CLI_FRAMES * 1e3:.3f} with them (one run each); device busy "
+              f"{100 * t_busy / 1e3 / t_walls[True]:.1f}% with them [{card_line}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows
+
+
 def main() -> int:
     card_line = card()
     sys.path.insert(0, str(ROOT))
@@ -7276,6 +8284,11 @@ def main() -> int:
     onvif_timing(card_line)
     link_timing(card_line, grade, link_r)
     image_timing(card_line, grade, image_profiled)
+    camera_launches, cam_packets, cam_thresholds = camera_pipelines(card_line)
+    origin_launches = origin_pipelines(card_line, grade)
+    cli_pipelines(card_line, grade)
+    origin_card_vs_cpu(grade)
+    q_timing(card_line, grade, cam_packets, cam_thresholds)
     # the sharded paths' launches (phase 4k) join their kernels' counts
     launches += mesh_launches["yolox_c3"]
     for name in ("loudnorm_limiter", "loudnorm_limiter_bank"):
@@ -7298,6 +8311,10 @@ def main() -> int:
     for name in ("hsv_planes", "colorlut_lowrank_packed"):
         effect_launches[name] += image_launches[name]
     audio_launches["loudnorm_limiter"] += image_launches["loudnorm_limiter"]
+    # and the RTSP camera's and the origin's (phase 4q)
+    launches += camera_launches
+    for name in ("hsv_planes", "colorlut_lowrank_packed"):
+        effect_launches[name] += origin_launches[name]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "library_ms")
     main_case = next(c for c in cases if c["dtype"] == "f32" and c["batch"] == 1)
     entries = [{

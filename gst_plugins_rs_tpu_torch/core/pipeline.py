@@ -21,12 +21,16 @@ class Pipeline:
         self.name = name
         self.bus = Bus()
         self.elements: List[Element] = []
-        self.tracers: List = []  # tracer hooks (see Element tracing hook)
+        self.tracers: List = []  # utils.tracers hooks
         self.parent = None
         self.clock = None  # selected on PAUSED->PLAYING; use_clock() overrides
         self._forced_clock = False
         self.base_time = 0
         self._running_offset = 0  # running time accumulated before a pause
+        # GSTPU_TRACERS env activation (utils/tracers analog)
+        from ..utils.tracers import install_from_env
+
+        install_from_env(self)
 
     def use_clock(self, clock) -> None:
         """Force a specific clock (e.g. a TestClock); None reverts to auto."""

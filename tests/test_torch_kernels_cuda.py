@@ -1908,3 +1908,170 @@ def test_imagersdec_uploads_and_rspngenc_reads_back_once_an_image(cuda):
     dtoh = sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
     assert (dtoh, htod) == (len(card), 0)
     assert [np.asarray(d).tobytes() for d in out] == pngs
+
+
+def _profiled_copies(run, host_calls=False):
+    """(run's result, Memcpy DtoH, Memcpy HtoD[, the host's synchronising
+    CUDA calls]) over one call of run under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_calls else [])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        got = run()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    counts = [sum(e.count for e in ev if e.key.startswith(k))
+              for k in ("Memcpy DtoH", "Memcpy HtoD")]
+    if host_calls:
+        counts.append(sum(e.count for e in ev if e.key in (
+            "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+            "cudaMemcpy", "cudaStreamQuery", "cudaEventQuery")))
+    return (got, *counts)
+
+
+def _sink_files(root):
+    return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*"))
+            if p.is_file()}
+
+
+@pytest.mark.cuda
+def test_hls_and_dash_sinks_read_each_card_frame_back_once(cuda, tmp_path):
+    """hlscmafsink and dashsink2 on card frames: one device-to-host copy a
+    frame a sink (their embedded muxers' to_sample; the sinks write the
+    muxers' host bytes as they are), and the same files as from the same
+    frames on the host."""
+    import sys
+    from pathlib import Path
+
+    import gst_plugins_rs_tpu_torch as g
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    frames = [torch.from_numpy(_seeded_rgba(30 + i)).cuda() for i in range(4)]
+    chip_smoke.origin_run(g, tmp_path / "warm", frames, fps=2)
+    _, dtoh, htod = _profiled_copies(
+        lambda: chip_smoke.origin_run(g, tmp_path / "card", frames, fps=2))
+    assert (dtoh, htod) == (2 * len(frames), 0)
+    chip_smoke.origin_run(g, tmp_path / "host", [f.cpu() for f in frames], fps=2)
+    card, host = _sink_files(tmp_path / "card"), _sink_files(tmp_path / "host")
+    assert card == host and sum(k.endswith(".m4s") for k in card) == 4
+
+
+@pytest.mark.cuda
+def test_icecastsink_reads_each_card_buffer_back_once(cuda):
+    """icecastsink on u8 buffers on the card: one device-to-host copy a
+    buffer (core/payload.py's host_bytes), the body the buffers' bytes."""
+    import socket
+    import threading
+
+    import gst_plugins_rs_tpu_torch as g
+
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+    body = []
+
+    def serve():
+        conn, _ = srv.accept()
+        data = b""
+        while b"\r\n\r\n" not in data:
+            data += conn.recv(4096)
+        conn.sendall(b"HTTP/1.1 100 Continue\r\n\r\n")
+        rest = data.partition(b"\r\n\r\n")[2]
+        conn.settimeout(1.0)
+        try:
+            while True:
+                chunk = conn.recv(65536)
+                if not chunk:
+                    break
+                rest += chunk
+        except socket.timeout:
+            pass
+        body.append(rest)
+        conn.close()
+
+    t = threading.Thread(target=serve, daemon=True)
+    t.start()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bufs = [torch.randint(0, 256, (4096,), generator=gen, device="cuda", dtype=torch.uint8)
+            for _ in range(5)]
+
+    def run():
+        p = g.parse_launch(f"appsrc name=src ! icecastsink port={srv.getsockname()[1]}")
+        p.by_name("src").set_property("caps", g.parse_caps("application/ogg"))
+        for b in bufs:
+            p.by_name("src").push_buffer(g.Buffer(b))
+        p.by_name("src").end_of_stream()
+        p.play_until_eos()
+
+    _, dtoh, _ = _profiled_copies(run)
+    t.join(5)
+    srv.close()
+    assert dtoh == len(bufs)
+    assert body == [b"".join(b.cpu().numpy().tobytes() for b in bufs)]
+
+
+@pytest.mark.cuda
+def test_tracers_read_nothing_back_and_wait_on_nothing(cuda, tmp_path, monkeypatch):
+    """Every tracer of GSTPU_TRACERS on a pipeline of card frames: the same
+    device-to-host copies and host synchronising calls as without them
+    (torch.profiler), and memory-tracer counts the frames' bytes."""
+    import gst_plugins_rs_tpu_torch as g
+
+    frames = [torch.from_numpy(_seeded_rgba(40 + i)).cuda() for i in range(6)]
+    spec = ";".join(f"{n}(file={tmp_path / n}.out)" for n in (
+        "pad-push-timings", "queue-levels", "buffer-lateness", "memory-tracer",
+        "chrome-tracer", "perfetto-tracer", "fmt-tracer")) + ";py-tracing;pipeline-snapshot"
+
+    def run(traced):
+        if traced:
+            monkeypatch.setenv("GSTPU_TRACERS", spec)
+        else:
+            monkeypatch.delenv("GSTPU_TRACERS", raising=False)
+        p = g.parse_launch("appsrc name=src ! hsvfilter name=hsv hue-shift=30 "
+                           "! videoflip method=rotate-180 ! appsink name=sink")
+        p.by_name("src").set_property("caps", g.parse_caps(
+            "video/x-raw,format=RGBA,width=96,height=72,framerate=30/1"))
+        for i, f in enumerate(frames):
+            p.by_name("src").push_buffer(g.Buffer(f, pts=i * 33_333_333, duration=33_333_333))
+        p.by_name("src").end_of_stream()
+        p.play_until_eos()
+        for t in p.tracers:
+            t.close()
+        return len(p.tracers)
+
+    run(False)  # warm
+    plain = _profiled_copies(lambda: run(False), host_calls=True)
+    traced = _profiled_copies(lambda: run(True), host_calls=True)
+    assert (plain[0], traced[0]) == (0, 9)
+    assert traced[1:] == plain[1:]
+    rows = (tmp_path / "memory-tracer.out").read_text().splitlines()
+    assert f"hsv,6,{6 * 96 * 72 * 4}" in rows
+
+
+@pytest.mark.cuda
+def test_validate_reads_the_last_card_frame_back_once(cuda):
+    """check-last-frame-qrcode on card frames: one device-to-host copy, of
+    the last frame, at the end of the run."""
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.codecs import qr
+    from gst_plugins_rs_tpu_torch.utils import validate
+
+    img = qr.rasterize(qr.encode('{"seed": 1}'), module_px=4)
+    page = np.full((120, 160, 3), 255, np.uint8)
+    page[:img.shape[0], :img.shape[1]] = img[..., None]
+    frames = [torch.zeros((120, 160, 3), dtype=torch.uint8, device="cuda")] * 3 + [
+        torch.from_numpy(page).cuda()]
+    p = g.parse_launch("appsrc name=src ! appsink name=sink")
+    p.by_name("src").set_property("caps", g.parse_caps(
+        "video/x-raw,format=RGB,width=160,height=120,framerate=1/1"))
+    for f in frames:
+        p.by_name("src").push_buffer(g.Buffer(f))
+    p.by_name("src").end_of_stream()
+    _, dtoh, htod = _profiled_copies(p.play_until_eos)
+    assert (dtoh, htod) == (0, 0)
+    got, dtoh, htod = _profiled_copies(lambda: validate.run_action(
+        "check-last-frame-qrcode", p, expected_fields={"seed": 1}))
+    assert (got, dtoh, htod) == ('{"seed": 1}', 1, 0)

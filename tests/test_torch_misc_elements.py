@@ -1,6 +1,6 @@
 """The port's misc elements against tests/test_misc_elements.py: each of its
-tests runs on the port, with the same inputs and the same assertions,
-except the registry dump: utils/registry_dump belongs to a later slice."""
+tests runs on the port, with the same inputs and the same assertions, the
+registry dump's too (utils/registry_dump)."""
 import pytest
 
 import gst_plugins_rs_tpu_torch  # noqa: F401  (registers the elements)
@@ -13,4 +13,4 @@ def _port_cpu():
         yield
 
 
-MIRRORED = mirror_jax_tests("test_misc_elements.py", globals(), skip=("test_registry_dump",))
+MIRRORED = mirror_jax_tests("test_misc_elements.py", globals())

@@ -15,16 +15,13 @@ def _port_cpu():
         yield
 
 
-# test_mux_external_oracle.py demuxes the muxers' output with the system
-# libavformat (codecs/avlib); its HLS class needs hlscmafsink, a factory of
-# the session and service slices (ROADMAP A.4).
+# test_mux_external_oracle.py demuxes the muxers' output (and hlscmafsink's
+# segments) with the system libavformat (codecs/avlib).
 # tests/test_torch_rtp_families.py mirrors test_gcc_mp2t.py.
-HLS = "hlscmafsink (ROADMAP A.4, the session and service families)"
 MIRRORED = (mirror_jax_tests("test_fmp4_scenarios.py", globals())
             + mirror_jax_tests("test_mp4_scenarios.py", globals())
             + mirror_jax_tests("test_mux.py", globals())
-            + mirror_jax_tests("test_mux_external_oracle.py", globals(),
-                               skip={"TestHlsExternalOracle": HLS})
+            + mirror_jax_tests("test_mux_external_oracle.py", globals())
             + mirror_jax_tests("test_tsmux_sei.py", globals()))
 
 

@@ -304,8 +304,11 @@ def test_factories_mirror_jax():
             # the codec and image families
             "claxondec", "lewtondec", "dav1ddec", "ffv1dec", "rav1enc", "rspngenc", "gifenc",
             "gifdec", "rswebpdec", "imagersdec", "imagersoverlay", "cdgparse",
-            "cdgdec"} == set(names)
-    assert len(names) == 203
+            "cdgdec",
+            # the RTSP, HTTP, HLS and DASH families
+            "rtspsrc2", "reqwesthttpsrc", "icecastsink", "hlscmafsink", "hlssink3",
+            "hlswebvttsink", "hlsmultivariantsink", "dashsink2"} == set(names)
+    assert len(names) == 211
     for name in names:
         jc, tc = jfactory(name), tfactory(name)
         assert [(p.name, repr(p.default), p.type, p.choices) for p in jc.PROPERTIES] == \
@@ -337,7 +340,8 @@ def _imports(path):
 
 
 PIL_FILES = {f"gst_plugins_rs_tpu_torch/{m}" for m in (
-    "utils/cea608_atlas.py", "elements/image/codecs.py", "elements/image/overlay.py")}
+    "utils/cea608_atlas.py", "elements/image/codecs.py", "elements/image/overlay.py")} | {
+    "chip_smoke.py"}
 
 
 def test_port_imports_no_jax():
@@ -379,7 +383,12 @@ def test_port_imports_no_jax():
                 "elements/net/gccbwe.py", "codecs/flac.py", "codecs/avlib.py",
                 "elements/audiofx/claxondec.py", "elements/audiofx/lewtondec.py",
                 "elements/video/avcodecs.py", "elements/image/codecs.py",
-                "elements/image/overlay.py", "elements/image/cdg.py"):
+                "elements/image/overlay.py", "elements/image/cdg.py",
+                "codecs/qr.py", "utils/validate.py", "utils/tracers.py", "utils/native.py",
+                "utils/registry_dump.py", "launch.py", "__main__.py", "net/sdp.py",
+                "net/hls.py", "elements/net/rtsp.py", "elements/net/http.py",
+                "elements/net/hlssink.py", "elements/net/hlsmultivariant.py",
+                "elements/net/dashsink.py"):
         assert f"gst_plugins_rs_tpu_torch/{mod}" in names, mod
     banned = ("jax", "jaxlib", "flax", "gst_plugins_rs_tpu")
     for f in files:
@@ -388,7 +397,9 @@ def test_port_imports_no_jax():
             assert top not in banned, f"{f.relative_to(ROOT)} imports {mod}"
             # Pillow only where the port uses it as a codec library: the
             # script that draws cea608overlay's bundled atlas, the image
-            # codecs and imagersoverlay's file decode
+            # codecs and imagersoverlay's file decode; and the smoke's RTSP
+            # camera, whose sensor encodes its frames as JPEG (the port has
+            # no JPEG encoder, nor has the JAX package)
             if str(f.relative_to(ROOT)) not in PIL_FILES:
                 assert top != "PIL", f"{f.relative_to(ROOT)} imports {mod}"
 
