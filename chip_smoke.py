@@ -234,6 +234,26 @@ from the same graded frames, byte for byte; 6q the camera's frames/s
 against the plain YOLOX stream and each stage's host ms, the origin's
 frames/s against the graded chain, the segment writes' MB/s, the tracers'
 host ms a frame, the busy shares.
+4r/5r/6r a WHIP camera into YOLOX and a denoised voice over WebRTC: 4q's 60
+JPEGs, paced at 30/1 from a live appsrc, through rtpjpegpay2 !
+whipclientsink into whipserversrc (a bearer token, 127.0.0.1) !
+rtpjpegdepay2 over ICE, DTLS and SRTP, each JPEG through imagersdec onto
+cuda:0 and YOLOX-tiny (B1) at 4q's thresholds (every RTP packet and JPEG
+byte-equal to what was sent, no datagram lost, the SDP fingerprints the
+certificates each DTLS peer saw, SRTP hiding the JPEG payload, one HtoD a
+frame beyond the plain YOLOX stream, B1 launches = frames); 10 s of seeded
+noisy speech uploaded a 100 ms buffer at a time through audiornnoise (R1) !
+S16 ! webrtcsink (its L16 chain) to webrtcsrc ! rtpL16depay2 ! audioconvert
+! audioresample ! F64 192 kHz ! audioloudnorm (L1) through the in-process
+signalling server over websockets, a navigation event back over the SCTP
+'input' channel (the samples after the priming packets bit-equal, the
+payloads on cuda:0 before R1 and L1, R1 a buffer, L1 a 100 ms frame, one
+HtoD a received packet and one DtoH a sent buffer beyond the plain
+chains); 5r both legs on the CPU (4 frames, 2 s) against the card within
+YOLOX's, RNNoise's and audioloudnorm's gates; 6r the camera unpaced
+(frames/s against 6q's camera and the plain stream, host ms a frame in
+whipclientsink and the ingest's SRTP receive, datagrams lost, ICE and DTLS
+ms, busy share) and the voice's audio s/s and busy share.
 Prints a JSON line of the kernels, the card's name and power limit, then,
 last, {"ok": true, "device": ...}.  It imports nothing of JAX and nothing of
 the JAX package.
@@ -4015,7 +4035,7 @@ def mesh_timing(card_line):
 # ---------------------------------------------------------------------------
 REC_FRAMES = 32            # seeded 1080p RGBA frames through the recording path (4l)
 REC_CPU_FRAMES = 6         # card against CPU (5l)
-REC_SECONDS = 60           # 192 kHz stereo F64 through audioloudnorm ! togglerecord (4l)
+REC_SECONDS = 30           # 192 kHz F64 through audioloudnorm ! togglerecord (4l; 60 before 4r)
 REC_CPU_SECONDS = 6        # card against CPU (5l)
 REC_TRACK_SPB = 1000       # the recording's audio track: 20.8 ms buffers at 48 kHz, so the
                            # video's end (32 frames, 1.0667 s) falls inside one, which is clipped
@@ -5628,10 +5648,10 @@ def rnnoise_stress():
 # audio over a third socket pair; the rest of the RTP families' byte round
 # trips
 # ---------------------------------------------------------------------------
-LINK_FRAMES = 4            # seeded 1080p RGBA frames at 30/1 (4o; 8 before 4q-6q came)
-LINK_PROFILED_FRAMES = 2   # the copies (4o) and device time (6o), under torch.profiler
-LINK_CPU_FRAMES = 2        # card against CPU (5o)
-LINK_STAGE_FRAMES = 2      # 6o: each stage alone on the first frames' traffic
+LINK_FRAMES = 2            # seeded 1080p RGBA frames at 30/1 (4o; 4 before 4r-6r, 8 before 4q-6q)
+LINK_PROFILED_FRAMES = 1   # the copies (4o) and device time (6o) under torch.profiler (2 before 4r)
+LINK_CPU_FRAMES = 1        # card against CPU (5o; 2 before 4r-6r)
+LINK_STAGE_FRAMES = 1      # 6o: each stage alone on the first frames' traffic (2 before 4r-6r)
 LINK_SEED = 61
 LINK_MTU = 1400
 LINK_RTP = f"mtu={LINK_MTU} ssrc=3405691582 timestamp-offset=0 seqnum-offset=65000"
@@ -7472,14 +7492,14 @@ def camera_thresholds(g, frame):
     return float(obj[n - 1] + obj[n]) / 2, cls_thr
 
 
-def camera_detect(g, frames, thresholds, around=None):
+def camera_detect(g, frames, thresholds, around=None, detect="yoloxinference engine=fast"):
     """The decoded frames (RGB, at CAM_FPS) through appsrc ! videoconvert !
-    yoloxinference engine=fast ! yoloxtensordec (at `thresholds`, box and
-    class) ! appsink; `around`, if given, is called with the streaming.
-    Returns the appsink's buffers."""
+    `detect` (yoloxinference engine=fast) ! yoloxtensordec (at `thresholds`,
+    box and class) ! appsink; `around`, if given, is called with the
+    streaming.  Returns the appsink's buffers."""
     box, cls = thresholds
     h, w = frames[0].shape[:2]
-    p = g.parse_launch(f"appsrc name=src ! videoconvert ! yoloxinference engine=fast "
+    p = g.parse_launch(f"appsrc name=src ! videoconvert ! {detect} "
                        f"! yoloxtensordec box-confidence-threshold={box} "
                        f"class-confidence-threshold={cls} ! appsink name=sink")
     p.by_name("src").set_property("caps", g.parse_caps(
@@ -7528,11 +7548,12 @@ def camera_run(g, packets, thresholds, around=None):
 
 
 def camera_detections(g, buf):
-    """yoloxtensordec's detections of a buffer: [(label, x, y, w, h, conf)]."""
-    from gst_plugins_rs_tpu_torch.elements.analytics.meta import AnalyticsRelationMeta
+    """yoloxtensordec's detections of a buffer of package `g` (the tests
+    pass either): [(label, x, y, w, h, conf)]."""
+    from importlib import import_module
 
-    return [(o.object_type, o.x, o.y, o.w, o.h, o.loc_conf_lvl)
-            for o in buf.get_meta(AnalyticsRelationMeta).od]
+    meta = import_module(f"{g.__name__}.elements.analytics.meta").AnalyticsRelationMeta
+    return [(o.object_type, o.x, o.y, o.w, o.h, o.loc_conf_lvl) for o in buf.get_meta(meta).od]
 
 
 def origin_frames(n, seed=ORIGIN_SEED, w=HD_W, h=HD_H, device="cuda"):
@@ -8217,6 +8238,603 @@ def q_timing(card_line, grade, packets, thresholds):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# A WHIP camera into YOLOX and a denoised voice from webrtcsink to webrtcsrc,
+# over ICE, DTLS and SRTP (phases 4r/5r/6r)
+# ---------------------------------------------------------------------------
+WHIP_TOKEN = "4r-ingest-token"
+WHIP_QUIET_S = 0.5             # the ingest ends once every datagram is in, or none came this long
+WHIP_CPU_FRAMES = 4            # 5r: the camera's first frames on the CPU
+WHIP_SRTP_SAMPLES = 8          # SRTP datagrams captured at the camera (4r)
+VOICE_RATE = 48000
+VOICE_SPB = 4800               # 100 ms buffers: one R1 call each
+VOICE_SECONDS = 10             # 4r (b)
+VOICE_CPU_SECONDS = 2          # 5r (b)
+VOICE_SEED = 107
+VOICE_SNR_DB = 10              # white noise under the speech
+VOICE_NAV = {"event": "mouse-button-press", "button": 1, "x": 12.5, "y": 34.0}
+WEBRTC_WAIT_S = 30             # each wait on a session, a channel or an event
+RNNOISE_GATE = 1e-4            # a sample, card against CPU (as 5d)
+LOUDNORM_GATE = 1e-6           # a sample, card against CPU (as 5c)
+
+
+def _wait(cond, what, timeout=WEBRTC_WAIT_S):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def _running(p, errors):
+    """A thread driving the PLAYING pipeline `p` to its end; what it raises
+    goes into `errors` (re-raised by _join)."""
+    import threading
+
+    t = threading.Thread(target=lambda: errors.extend(_run_errors(p)), daemon=True)
+    t.start()
+    return t
+
+
+def _join(t, errors, what):
+    t.join(WEBRTC_WAIT_S)
+    if t.is_alive():
+        raise AssertionError(f"{what}: the pipeline's thread did not end")
+    if errors:
+        raise errors[0]
+
+
+def _sdp_fingerprint(sdp):
+    import re
+
+    return re.search(r"^a=fingerprint:sha-256 (\S+)", sdp, re.M).group(1).upper()
+
+
+class _Timed:
+    """Wraps a bound method: its calls and the host seconds spent in them."""
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.seconds = fn, 0, 0.0
+
+    def __call__(self, *args):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args)
+        finally:
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+
+
+def whip_run(g, jpegs, fps=CAM_FPS, paced=True):
+    """The WHIP camera: `jpegs` pushed into appsrc (image/jpeg at `fps`,
+    each stamped with the camera clock as it is pushed; paced at `fps` from
+    the second frame, once the session is up, or unpaced) ! rtpjpegpay2 !
+    whipclientsink, which ingests into whipserversrc (auth-token, on
+    127.0.0.1) ! rtpjpegdepay2 ! appsink; the ingest is ended once it holds
+    every datagram sent (or none came for WHIP_QUIET_S).  Returns a namespace of the
+    received JPEGs (bytes) and their host clock, the datagrams the camera
+    sent and the ingest received, both offers' fingerprints and the
+    certificates' each DTLS peer saw, (plain, SRTP) pairs captured at the
+    camera, the ICE and DTLS times of the camera's session, and the host
+    seconds in whipclientsink's render and in the ingest session's SRTP
+    receive.  `g` is the package to drive (the tests pass either)."""
+    from importlib import import_module
+
+    certificate_fingerprint = import_module(f"{g.__name__}.net.dtls").certificate_fingerprint
+    r = SimpleNamespace(srtp=[])
+    ingest = g.parse_launch(f"whipserversrc name=whip auth-token={WHIP_TOKEN} "
+                            f"timeout={WEBRTC_WAIT_S * 10**9} ! rtpjpegdepay2 name=depay "
+                            f"! appsink name=jpegs")
+    trace = LinkTrace("jpegs:sink", "depay:sink")
+    ingest.add_tracer(trace)
+    camera = g.parse_launch(f"appsrc name=src ! rtpjpegpay2 {CAM_RTP} ! whipclientsink "
+                            f"name=whip auth-token={WHIP_TOKEN}")
+    sent = LinkTrace("whip:sink")
+    camera.add_tracer(sent)
+    src, client, server = camera.by_name("src"), camera.by_name("whip"), ingest.by_name("whip")
+    src.set_property("caps", g.parse_caps(f"image/jpeg,framerate={fps}/1"))
+    render = client.render = _Timed(client.render)
+    errors = []
+    ingest.set_state(g.core.State.PLAYING)
+    client.set_property("whip-endpoint", f"http://127.0.0.1:{server.bound_port}/whip")
+    t_ingest = _running(ingest, errors)
+    try:
+        camera.set_state(g.core.State.PLAYING)
+        t0 = time.perf_counter()
+        r.t_start = t0
+        for i, data in enumerate(jpegs):
+            if paced and i:
+                time.sleep(max(0.0, r.t_first + i / fps - time.perf_counter()))
+            src.push_buffer(g.Buffer(np.frombuffer(data, np.uint8).copy(),
+                                     pts=int((time.perf_counter() - t0) * 1e9),
+                                     duration=10**9 // fps))
+            camera.run(max_iterations=1)
+            if i == 0:
+                # the session is up: its ends, and SRTP captured from here on
+                r.t_first = time.perf_counter()
+                pc = client._pc
+                (spc,) = server._server.sessions.values()
+                receive = spc._handle_srtp = _Timed(spc._handle_srtp)
+                r.offer_fp = _sdp_fingerprint(pc.create_offer("sendonly"))
+                r.answer_fp = _sdp_fingerprint(spc._sdp("active", "recvonly"))
+                r.server_saw = certificate_fingerprint(spc.dtls.peer_cert_der)
+                r.client_saw = certificate_fingerprint(pc.dtls.peer_cert_der)
+                # the port's PeerConnection keeps its set-up clocks (nan
+                # for the JAX package's, which has none)
+                t = [getattr(pc, k, float("nan")) for k in ("t_start", "t_ice", "t_dtls")]
+                r.ice_ms, r.dtls_ms = (t[1] - t[0]) * 1e3, (t[2] - t[1]) * 1e3
+                protect = pc.srtp_tx.protect
+
+                def capture(packet, protect=protect):
+                    out = protect(packet)
+                    if len(r.srtp) < WHIP_SRTP_SAMPLES:
+                        r.srtp.append((packet, out))
+                    return out
+
+                pc.srtp_tx.protect = capture
+        src.end_of_stream()
+        camera.run()
+        r.t_sent = time.perf_counter()
+        # whipserversrc ends only at its timeout (both packages): end the
+        # ingest once it holds every datagram sent, or none came for a while
+        n_sent, seen = len(sent.seen["whip:sink"]), trace.seen["depay:sink"]
+        last = (-1, time.perf_counter())
+        while len(seen) < n_sent and time.perf_counter() - last[1] < WHIP_QUIET_S:
+            if len(seen) != last[0]:
+                last = (len(seen), time.perf_counter())
+            time.sleep(0.005)
+    finally:
+        camera.set_state(g.core.State.NULL)
+        server._queue.put(None)
+        _join(t_ingest, errors, "the WHIP ingest")
+        ingest.set_state(g.core.State.NULL)
+    r.packets = [_bytes(b) for _, b in sent.seen["whip:sink"]]
+    r.arrived = [_bytes(b) for _, b in trace.seen["depay:sink"]]
+    r.sent, r.received = len(r.packets), len(r.arrived)
+    r.jpegs = [_bytes(b) for _, b in trace.seen["jpegs:sink"]]
+    r.arrivals = [t for t, _ in trace.seen["jpegs:sink"]]
+    r.render_s, r.receive_s = render.seconds, receive.seconds
+    return r
+
+
+def rfc2435_jpegs(g, jpegs):
+    """The JPEGs as RFC 2435 carries them: `jpegs` through rtpjpegpay2 !
+    rtpjpegdepay2 in one pipeline.  The depayloader rebuilds each file's
+    headers from the packets' fields, so a file differs from the camera's
+    in its header bytes; its scan (from SOS on) is the camera's."""
+    p = g.parse_launch(f"appsrc name=src ! rtpjpegpay2 {CAM_RTP} ! rtpjpegdepay2 "
+                       f"! appsink name=sink")
+    p.by_name("src").set_property("caps", g.parse_caps("image/jpeg"))
+    for i, data in enumerate(jpegs):
+        p.by_name("src").push_buffer(g.Buffer(np.frombuffer(data, np.uint8).copy(),
+                                              pts=i * 10**9 // CAM_FPS))
+    p.by_name("src").end_of_stream()
+    p.play_until_eos()
+    return [_bytes(s.buffer) for s in p.by_name("sink").samples]
+
+
+def _scan(jpeg):
+    return jpeg[jpeg.index(b"\xff\xda"):]
+
+
+def whip_check(r, jpegs, carried, label):
+    """4r's and 5r's checks of a WHIP session: every RTP packet received
+    byte-equal to the one sent, none lost; every JPEG byte-equal to
+    `carried` (rfc2435_jpegs of `jpegs`) and its scan to the camera's; each
+    SDP fingerprint the certificate its DTLS peer saw; the captured SRTP
+    datagrams carry their header in the clear and their JPEG payload not
+    (and a 10-byte tag)."""
+    equal = r.arrived == r.packets and r.jpegs == carried and \
+        [_scan(j) for j in r.jpegs] == [_scan(j) for j in jpegs]
+    fps_ok = r.offer_fp == r.server_saw and r.answer_fp == r.client_saw
+    hidden = 0 < len(r.srtp) <= WHIP_SRTP_SAMPLES and all(
+        s[:12] == p[:12] and len(s) == len(p) + 10 and p[20:52] not in s and p[12:] != s[12:-10]
+        for p, s in r.srtp)
+    print(f"{label}: {len(r.jpegs)} of {len(jpegs)} JPEGs and the RTP packets byte-equal: "
+          f"{equal}; datagrams sent "
+          f"{r.sent}, received {r.received}, lost {r.sent - r.received}; SDP fingerprints "
+          f"the DTLS peers' certificates: {fps_ok} (offer {r.offer_fp[:23]}..., answer "
+          f"{r.answer_fp[:23]}...); {len(r.srtp)} captured SRTP datagrams hold their header "
+          f"in the clear and not their JPEG payload: {hidden}; ICE {r.ice_ms:.1f} ms, DTLS "
+          f"{r.dtls_ms:.1f} ms")
+    if not equal or r.sent != r.received:
+        raise AssertionError(f"{label}: a JPEG was lost or changed, or a datagram lost")
+    if not fps_ok or not hidden:
+        raise AssertionError(f"{label}: a fingerprint differs from its SDP, or SRTP leaks")
+
+
+def webrtc_camera(g, jpegs, thresholds, paced=True, detect="yoloxinference engine=fast"):
+    """4r (a): whip_run on `jpegs`, each received JPEG through imagersdec
+    (its own stream, as 4q) and the decoded frames through camera_detect.
+    Adds the decoded frames, the detections and the host clocks to
+    whip_run's namespace."""
+    r = whip_run(g, jpegs, paced=paced)
+    r.t_received = time.perf_counter()
+    r.frames = [decode_images(g, data, caps="image/jpeg")[0] for data in r.jpegs]
+    r.t_decoded = time.perf_counter()
+    r.out = camera_detect(g, r.frames, thresholds, detect=detect)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    r.t_done = time.perf_counter()
+    return r
+
+
+def noisy_voice(seconds=VOICE_SECONDS, seed=VOICE_SEED):
+    """`seconds` of seeded noisy speech, F32 48 kHz mono [n, 1] on the host:
+    sentences of the speech synthesiser (16 kHz) one after another, 3x
+    linearly interpolated, with white noise VOICE_SNR_DB under the speech,
+    peak 0.5."""
+    from gst_plugins_rs_tpu_torch.ops.speechsynth import LEXICON, RATE, synth_sentence
+
+    rng = np.random.default_rng(seed)
+    vocab = sorted(LEXICON)
+    parts, n = [], 0
+    while n < seconds * RATE:
+        words = [vocab[int(k)] for k in rng.integers(len(vocab), size=6)]
+        parts.append(synth_sentence(words, seed=int(rng.integers(1 << 30))))
+        n += len(parts[-1])
+    speech = np.concatenate(parts)[:seconds * RATE].astype(np.float64)
+    x = np.interp(np.arange(seconds * VOICE_RATE) * (RATE / VOICE_RATE),
+                  np.arange(speech.size), speech)
+    level = np.sqrt((x ** 2).mean() / 10 ** (VOICE_SNR_DB / 10))
+    x = x + rng.standard_normal(x.size) * level
+    return (0.5 * x / np.abs(x).max()).astype(np.float32)[:, None]
+
+
+VOICE_CONSUMER = ("rtpL16depay2 name=depay ! audioconvert name=up ! audio/x-raw,format=F32 "
+                  "! audioresample ! audio/x-raw,rate=192000 ! audioconvert "
+                  "! audio/x-raw,format=F64,rate=192000 ! audioloudnorm name=norm "
+                  "! appsink name=sink")
+
+
+def voice_run(g, voice, upload=None):
+    """4r (b): the producer `appsrc (F32 48 kHz mono, VOICE_SPB buffers, each
+    through `upload` first: the microphone's copy to the card) !
+    audiornnoise ! audioconvert ! S16 ! webrtcsink` and the consumer
+    `webrtcsrc ! VOICE_CONSUMER`, both with enable-data-channel-navigation,
+    through an in-process SignallingServer.  The first buffer primes the
+    producer (its caps build the L16 chain; no session exists, so its
+    packets go nowhere); once both ends of the session are up, the consumer
+    sends a navigation event upstream from rtpL16depay2 over the 'input'
+    data channel, and the producer's side must receive it; then the rest of
+    the voice, end of stream, and the producer's endSession ends the
+    consumer.  Returns a namespace of the S16 buffers webrtcsink took, the
+    denoised F32 buffers, the buffers at audiornnoise's and audioloudnorm's
+    sink pads, the consumer's received S16 samples and its output, the
+    navigation events the producer saw, and host clocks.  `g` is the
+    package to drive (the tests pass either)."""
+    from importlib import import_module
+
+    SignallingServer = import_module(f"{g.__name__}.net.webrtc_signalling").SignallingServer
+    Structure = import_module(f"{g.__name__}.core.caps").Structure
+    events = import_module(f"{g.__name__}.core.events")
+    upload = upload or (lambda a: a)
+    r = SimpleNamespace()
+    server = SignallingServer()
+    try:
+        nav = "enable-data-channel-navigation=true"
+        tx = g.parse_launch(f"appsrc name=src ! audiornnoise name=rnn ! audioconvert name=conv "
+                            f"! audio/x-raw,format=S16 ! webrtcsink name=tx "
+                            f"signaller-uri={server.uri} {nav}")
+        rx = g.parse_launch(f"webrtcsrc name=rx signaller-uri={server.uri} {nav} "
+                            f"timeout={WEBRTC_WAIT_S * 10**9} ! {VOICE_CONSUMER}")
+        tap_tx = BufferTrace("tx:sink", "conv:sink", "rnn:sink")
+        tap_rx = BufferTrace("up:sink", "norm:sink")
+        tx.add_tracer(tap_tx)
+        rx.add_tracer(tap_rx)
+        src, sink, wsrc = tx.by_name("src"), tx.by_name("tx"), rx.by_name("rx")
+        src.set_property("caps", g.parse_caps(
+            f"audio/x-raw,format=F32,rate={VOICE_RATE},channels=1,layout=interleaved"))
+        seen = []
+        conv_src = tx.by_name("conv").pad("src")
+        forward = conv_src.event_function
+
+        def spy(pad, ev):
+            seen.append(ev)
+            return forward(pad, ev) if forward else True
+
+        conv_src.event_function = spy
+        bufs = [voice[i:i + VOICE_SPB] for i in range(0, len(voice), VOICE_SPB)]
+        errors = []
+        tx.set_state(g.core.State.PLAYING)
+        src.push_buffer(g.Buffer(upload(bufs[0]), pts=0))
+        tx.run(max_iterations=1)
+        r.primed = len(tap_tx.seen["tx:sink"])
+        rx.set_state(g.core.State.PLAYING)
+        t_rx = _running(rx, errors)
+        _wait(lambda: sink.connected_sessions() or errors, "the producer's session")
+        _wait(lambda: (wsrc._pc is not None and wsrc._pc._connected.is_set()) or errors,
+              "the consumer's session")
+        _wait(lambda: ("input" in wsrc._channels and wsrc._channels["input"].ready.is_set())
+              or errors, "the 'input' data channel")
+        if errors:
+            raise errors[0]
+        ev = events.Event.new_navigation(Structure("navigation", **VOICE_NAV))
+        r.nav_sent = rx.by_name("depay").pad("sink").push_event(ev)
+        nav_type = events.EventType.NAVIGATION
+        _wait(lambda: any(e.type == nav_type for e in seen),
+              "the navigation event at the producer")
+        navs = [e.get("structure") for e in seen if e.type == nav_type]
+        r.nav = [dict(s.fields) for s in navs]
+        r.t0 = time.perf_counter()
+        for i, b in enumerate(bufs[1:], 1):
+            src.push_buffer(g.Buffer(upload(b), pts=i * VOICE_SPB * 10**9 // VOICE_RATE))
+        src.end_of_stream()
+        tx.run()
+        r.t_sent = time.perf_counter()
+        tx.set_state(g.core.State.NULL)  # endSession: the consumer ends after what it holds
+        _join(t_rx, errors, "the voice's consumer")
+        r.t_done = time.perf_counter()
+    finally:
+        tx.set_state(g.core.State.NULL)
+        rx.set_state(g.core.State.NULL)
+        server.stop()
+    r.sent = [b for b in tap_tx.seen["tx:sink"]]
+    r.denoised = [b for b in tap_tx.seen["conv:sink"]]
+    r.at_rnnoise = [b for b in tap_tx.seen["rnn:sink"]]
+    r.at_loudnorm = [b for b in tap_rx.seen["norm:sink"]]
+    r.received = [b for b in tap_rx.seen["up:sink"]]
+    r.out = [s.buffer for s in rx.by_name("sink").samples]
+    return r
+
+
+def _samples(bufs):
+    return np.concatenate([b.data.cpu().numpy() if isinstance(b.data, torch.Tensor)
+                           else np.asarray(b.data) for b in bufs]) if bufs else np.zeros((0, 1))
+
+
+def voice_check(r, label):
+    """4r's and 5r's checks of a voice session: the samples after the
+    priming packets bit-equal to the S16 samples webrtcsink took, and no
+    more lost than the priming buffer held; the navigation event arrived
+    with its fields.  Returns (sent S16, received S16, lost samples)."""
+    sent, got = _samples(r.sent), _samples(r.received)
+    lost = len(sent) - len(got)
+    primed = len(_samples(r.sent[:r.primed]))
+    equal = lost >= 0 and np.array_equal(got, sent[lost:])
+    nav_ok = r.nav_sent and r.nav == [VOICE_NAV]
+    print(f"{label}: {len(r.sent)} S16 buffers ({len(sent)} samples) into webrtcsink, "
+          f"{len(r.received)} packets ({len(got)} samples) out of rtpL16depay2; the first "
+          f"{lost} samples lost while priming ({primed} primed); the rest bit-equal: {equal}; "
+          f"navigation over SCTP {r.nav}: {nav_ok}")
+    if not equal or not 0 < lost <= primed:
+        raise AssertionError(f"{label}: the received samples differ from those sent")
+    if not nav_ok:
+        raise AssertionError(f"{label}: the navigation event did not reach the producer")
+    return sent, got, lost
+
+
+def voice_plain(g, received, upload=None):
+    """The consumer's chain after webrtcsrc, fed `received` (S16 [n, 1]
+    buffers) through appsrc: audioconvert ! audioresample ! audioconvert !
+    audioloudnorm ! appsink.  Returns the output buffers."""
+    upload = upload or (lambda a: a)
+    p = g.parse_launch(f"appsrc name=src ! {VOICE_CONSUMER.split('! ', 1)[1]}")
+    src = p.by_name("src")
+    src.set_property("caps", g.parse_caps(
+        f"audio/x-raw,format=S16,rate={VOICE_RATE},channels=1,layout=interleaved"))
+    for b in received:
+        src.push_buffer(g.Buffer(upload(b.data), pts=b.pts, duration=b.duration))
+    src.end_of_stream()
+    p.play_until_eos()
+    return [s.buffer for s in p.by_name("sink").samples]
+
+
+def producer_plain(g, voice, upload):
+    """The producer's chain before webrtcsink into an appsink."""
+    p = g.parse_launch("appsrc name=src ! audiornnoise ! audioconvert ! audio/x-raw,format=S16 "
+                       "! appsink name=sink")
+    src = p.by_name("src")
+    src.set_property("caps", g.parse_caps(
+        f"audio/x-raw,format=F32,rate={VOICE_RATE},channels=1,layout=interleaved"))
+    for i in range(0, len(voice), VOICE_SPB):
+        src.push_buffer(g.Buffer(upload(voice[i:i + VOICE_SPB]),
+                                 pts=i * 10**9 // VOICE_RATE))
+    src.end_of_stream()
+    p.play_until_eos()
+    return [s.buffer for s in p.by_name("sink").samples]
+
+
+def webrtc_pipelines(card_line, thresholds):
+    """Phase 4r: (a) the WHIP camera, 4q's CAM_FRAMES JPEGs paced at
+    CAM_FPS into webrtc_camera on cuda:0 (yoloxinference YOLOX-tiny,
+    engine=fast, f32: B1) with 4q's thresholds: whip_check's checks, the
+    decoded frames on cuda:0, B1 once a frame, one Memcpy HtoD a frame
+    beyond the plain YOLOX stream on the same frames.  (b) the denoised
+    voice: voice_run on VOICE_SECONDS of noisy_voice, each buffer uploaded
+    to cuda:0 as the producer pushes it: voice_check's checks, the payloads
+    on cuda:0 at audiornnoise's and audioloudnorm's sink pads, R1 once a
+    buffer and L1 once an output frame, and one HtoD a buffer each way of
+    the link and one DtoH a buffer at the producer beyond the two plain
+    chains on the same inputs.  Each kernel's count is set to 0 just before
+    its leg and read just after.  Returns ({kernel: launches}, leg (a)'s
+    namespace, leg (b)'s)."""
+    phase("4r (a) the WHIP camera on the card: rtpjpegpay2 ! whipclientsink -> whipserversrc "
+          "! rtpjpegdepay2, imagersdec, YOLOX-tiny, over ICE, DTLS and SRTP")
+    import websockets
+    import cryptography
+
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter, rnnoise_gru, yolox_c3
+
+    print(f"websockets {websockets.__version__}, cryptography {cryptography.__version__}: "
+          f"webrtcsink and webrtcsrc signal over websockets")
+    card0 = torch.device("cuda", 0)
+    jpegs = [jpeg_of(f) for f in camera_frames()]
+
+    def run_a():
+        yolox_c3.launches = 0
+        r = webrtc_camera(g, jpegs, thresholds)
+        torch.cuda.synchronize()
+        return r, yolox_c3.launches
+
+    (a, b1), _, htod = _profiled(run_a, htod=True)
+    _, _, plain_htod = _profiled(lambda: camera_detect(g, a.frames, thresholds), htod=True)
+    whip_check(a, jpegs, rfc2435_jpegs(g, jpegs), "the WHIP camera")
+    forwards = _check_outputs([SimpleNamespace(buffer=b) for b in a.out], CAM_FRAMES)
+    on_card = all(isinstance(f, torch.Tensor) and f.device == card0 for f in a.frames)
+    boxes = [len(camera_detections(g, b)) for b in a.out]
+    print(f"decoded frames on {card0}: {on_card}; boxes a frame {min(boxes)}-{max(boxes)}; "
+          f"{forwards} forwards, yolox_c3 launches {b1}; Memcpy HtoD {htod} against the plain "
+          f"stream's {plain_htod} [{card_line}]")
+    if not on_card or b1 != forwards or forwards != CAM_FRAMES:
+        raise AssertionError("the WHIP camera's frames left the card, or B1 launches != frames")
+    if htod - plain_htod != CAM_FRAMES:
+        raise AssertionError(f"{htod - plain_htod} host-to-device copies for {CAM_FRAMES} frames")
+
+    phase("4r (b) the denoised voice on the card: audiornnoise ! S16 ! webrtcsink -> webrtcsrc "
+          "! rtpL16depay2 ! ... ! audioloudnorm, navigation over SCTP")
+    voice = noisy_voice()
+    upload = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card0)  # noqa: E731
+    # warm: the audio ops upload their constants at the first call of each
+    # shape (ops/ebur128.py's block matrices, ...), and the plain chains run
+    # after the path, so a cold path counted 24-38 HtoD more (on an H100)
+    voice_run(g, voice, upload)
+
+    def run_b():
+        rnnoise_gru.launches = loudnorm_limiter.launches = 0
+        r = voice_run(g, voice, upload)
+        torch.cuda.synchronize()
+        return r, rnnoise_gru.launches, loudnorm_limiter.launches
+
+    (b, r1, l1), dtoh, htod = _profiled(run_b, htod=True)
+    sent, got, lost = voice_check(b, "the voice")
+    card_in = [SimpleNamespace(data=upload(x.data), pts=x.pts, duration=x.duration)
+               for x in b.received]
+
+    def plains():
+        producer_plain(g, voice, upload)
+        voice_plain(g, card_in)
+
+    _, plain_dtoh, plain_htod = _profiled(plains, htod=True)
+    on_card = all(isinstance(x.data, torch.Tensor) and x.data.device == card0
+                  for x in b.at_rnnoise + b.at_loudnorm)
+    out = _samples(b.out)
+    frames_out = -(-out.shape[0] // LN_FRAME)
+    print(f"payloads on {card0} at audiornnoise ({len(b.at_rnnoise)}) and audioloudnorm "
+          f"({len(b.at_loudnorm)}): {on_card}; R1 launches {r1} for {len(b.at_rnnoise)} buffers, "
+          f"L1 launches {l1} for {frames_out} 100 ms output frames ({out.shape[0]} samples); "
+          f"Memcpy HtoD {htod} against the plain chains' {plain_htod} (the microphone's "
+          f"{len(b.at_rnnoise)} uploads in both; {len(b.received)} buffers up at the "
+          f"consumer), DtoH {dtoh} against {plain_dtoh} ({len(b.sent)} S16 buffers paid "
+          f"out) [{card_line}]")
+    if not on_card:
+        raise AssertionError("the voice's payload is not on the card before R1 or L1")
+    if r1 != len(b.at_rnnoise) or not 95 <= r1 <= 105 or l1 != frames_out \
+            or not 95 <= l1 <= 105:
+        raise AssertionError("R1 or L1 launches differ from the voice's buffers")
+    if htod - plain_htod != len(b.received) or dtoh - plain_dtoh != len(b.sent):
+        raise AssertionError(f"the voice's copies: HtoD {htod - plain_htod}, DtoH "
+                             f"{dtoh - plain_dtoh} beyond the plain chains")
+    if not np.isfinite(out).all() or out.shape[1] != 1:
+        raise AssertionError("audioloudnorm's output on the voice")
+    return {"yolox_c3": b1, "rnnoise_gru": r1, "loudnorm_limiter": l1}, a, b
+
+
+def webrtc_card_vs_cpu(a, b, thresholds):
+    """Phase 5r: (a) on the CPU at WHIP_CPU_FRAMES frames (whip_check's
+    checks; the detections of those frames against 4r's card detections,
+    within YOLOX's gates) and (b) on the CPU at VOICE_CPU_SECONDS of the
+    same voice (voice_check's checks; the denoised samples against 4r's
+    card samples within RNNOISE_GATE; the CPU run's received samples
+    through the consumer's chain on the card against its CPU output within
+    LOUDNORM_GATE)."""
+    phase("5r the WHIP camera and the voice, card against CPU")
+    import gst_plugins_rs_tpu_torch as g
+
+    jpegs = [jpeg_of(f) for f in camera_frames(WHIP_CPU_FRAMES)]
+    voice = noisy_voice()[:VOICE_CPU_SECONDS * VOICE_RATE]
+    g.set_device("cpu")
+    try:
+        ca = webrtc_camera(g, jpegs, thresholds)
+        whip_check(ca, jpegs, rfc2435_jpegs(g, jpegs), "the WHIP camera on the CPU")
+        cb = voice_run(g, voice)
+        voice_check(cb, "the voice on the CPU")
+    finally:
+        g.set_device("cuda")
+    gates = all(_detections_within_gates(camera_detections(g, c), camera_detections(g, k))
+                for c, k in zip(ca.out, a.out))
+    den_c, den_k = _samples(cb.denoised), _samples(b.denoised)
+    rn_err = float(np.abs(den_c - den_k[:len(den_c)]).max())
+    card0 = torch.device("cuda", 0)
+    norm_k = _samples(voice_plain(g, cb.received, lambda x: torch.from_numpy(
+        np.ascontiguousarray(x)).to(card0)))
+    norm_c = _samples(cb.out)
+    ln_err = float(np.abs(norm_k - norm_c).max()) if norm_k.shape == norm_c.shape else np.inf
+    print(f"WHIP camera frames 0-{WHIP_CPU_FRAMES - 1}, card against CPU within the YOLOX "
+          f"gates: {gates}; the voice's first {VOICE_CPU_SECONDS} s: audiornnoise max error "
+          f"{rn_err:.3e} (gate {RNNOISE_GATE}), audioloudnorm on the CPU run's received "
+          f"samples max error {ln_err:.3e} over {norm_c.shape[0]} samples (gate "
+          f"{LOUDNORM_GATE})")
+    if not gates or len(ca.out) != WHIP_CPU_FRAMES:
+        raise AssertionError("the WHIP camera's detections: card and CPU disagree")
+    if not rn_err <= RNNOISE_GATE or not ln_err <= LOUDNORM_GATE or norm_c.shape[0] == 0:
+        raise AssertionError("the voice: card and CPU disagree")
+
+
+def webrtc_timing(card_line, thresholds, camera_fps):
+    """Phase 6r: (a) the WHIP camera unpaced (all frames pushed as fast as
+    the session takes them): frames a second from the session's first frame
+    to the last detection (the last JPEG's arrival, not the ingest's end),
+    against 4q's RTSP camera (`camera_fps`, 6q) and the plain YOLOX stream
+    on the same decoded frames; the host ms a frame in whipclientsink's
+    render (SRTP protect and send) and in the ingest session's SRTP
+    receive; datagrams lost; ICE and DTLS ms; the device's busy share.
+    (b) the voice: audio seconds a second from the first buffer after the
+    session is up to the consumer's end, and the busy share.  Medians of
+    Q_TIMING_REPEATS runs, after 4r's warm runs."""
+    phase("6r the WHIP camera and the voice, timing")
+    import gst_plugins_rs_tpu_torch as g
+
+    jpegs = [jpeg_of(f) for f in camera_frames()]
+    runs = []
+    for _ in range(Q_TIMING_REPEATS):
+        torch.cuda.synchronize()
+        runs.append(webrtc_camera(g, jpegs, thresholds, paced=False))
+    walls = [(r.arrivals[-1] - r.t_first) + (r.t_done - r.t_received) for r in runs]
+    wall = statistics.median(walls)
+    r = runs[-1]
+    plain = []
+    for _ in range(Q_TIMING_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        camera_detect(g, r.frames, thresholds)
+        torch.cuda.synchronize()
+        plain.append(time.perf_counter() - t0)
+    _, dev = device_events(lambda: webrtc_camera(g, jpegs, thresholds, paced=False))
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    med = lambda f: statistics.median(f(x) for x in runs)  # noqa: E731
+    print(f"the WHIP camera unpaced ({CAM_FRAMES} frames): {CAM_FRAMES / wall:.2f} frames/s "
+          f"(walls {[round(w, 3) for w in walls]} s), 4q's RTSP camera {camera_fps:.2f}, the "
+          f"plain YOLOX stream {CAM_FRAMES / statistics.median(plain):.2f}; host ms a frame: "
+          f"whipclientsink {med(lambda x: x.render_s) / CAM_FRAMES * 1e3:.3f}, the ingest's "
+          f"SRTP receive {med(lambda x: x.receive_s) / (CAM_FRAMES - 1) * 1e3:.3f}, the "
+          f"receive to the last JPEG "
+          f"{med(lambda x: x.arrivals[-1] - x.t_first) / CAM_FRAMES * 1e3:.3f}, "
+          f"imagersdec {med(lambda x: x.t_decoded - x.t_received) / CAM_FRAMES * 1e3:.3f}, "
+          f"detection {med(lambda x: x.t_done - x.t_decoded) / CAM_FRAMES * 1e3:.3f}; "
+          f"datagrams lost {[x.sent - x.received for x in runs]} of {[x.sent for x in runs]}; "
+          f"ICE {[round(x.ice_ms, 2) for x in runs]} ms, DTLS "
+          f"{[round(x.dtls_ms, 2) for x in runs]} ms; device busy {100 * busy / wall:.1f}% of "
+          f"the wall [{card_line}]")
+    voice = noisy_voice()
+    card0 = torch.device("cuda", 0)
+    upload = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card0)  # noqa: E731
+    vruns = []
+    for _ in range(Q_TIMING_REPEATS):
+        torch.cuda.synchronize()
+        vruns.append(voice_run(g, voice, upload))
+    vwalls = [v.t_done - v.t0 for v in vruns]
+    vwall = statistics.median(vwalls)
+    _, dev = device_events(lambda: voice_run(g, voice, upload))
+    vbusy = sum(e.self_device_time_total for e in dev) / 1e6
+    print(f"the voice ({VOICE_SECONDS} s): {VOICE_SECONDS / vwall:.2f} audio s/s (walls "
+          f"{[round(w, 3) for w in vwalls]} s from the first buffer after the session is up "
+          f"to the consumer's end); device busy {100 * vbusy / vwall:.1f}% of the wall "
+          f"[{card_line}]")
+    return {"whip_fps": CAM_FRAMES / wall, "voice_s_per_s": VOICE_SECONDS / vwall}
+
+
 def main() -> int:
     card_line = card()
     sys.path.insert(0, str(ROOT))
@@ -8288,7 +8906,10 @@ def main() -> int:
     origin_launches = origin_pipelines(card_line, grade)
     cli_pipelines(card_line, grade)
     origin_card_vs_cpu(grade)
-    q_timing(card_line, grade, cam_packets, cam_thresholds)
+    q_rows = q_timing(card_line, grade, cam_packets, cam_thresholds)
+    webrtc_launches, whip_r, voice_r = webrtc_pipelines(card_line, cam_thresholds)
+    webrtc_card_vs_cpu(whip_r, voice_r, cam_thresholds)
+    webrtc_timing(card_line, cam_thresholds, q_rows["camera"])
     # the sharded paths' launches (phase 4k) join their kernels' counts
     launches += mesh_launches["yolox_c3"]
     for name in ("loudnorm_limiter", "loudnorm_limiter_bank"):
@@ -8315,6 +8936,10 @@ def main() -> int:
     launches += camera_launches
     for name in ("hsv_planes", "colorlut_lowrank_packed"):
         effect_launches[name] += origin_launches[name]
+    # and the WHIP camera's and the voice's (phase 4r)
+    launches += webrtc_launches["yolox_c3"]
+    for name in ("rnnoise_gru", "loudnorm_limiter"):
+        audio_launches[name] += webrtc_launches[name]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "library_ms")
     main_case = next(c for c in cases if c["dtype"] == "f32" and c["batch"] == 1)
     entries = [{

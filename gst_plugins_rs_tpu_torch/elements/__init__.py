@@ -21,7 +21,11 @@ ST-2038 elements, the SCC/MCC parsers and encoders, cea608overlay,
 transcriberbin, translationbin), the ONVIF metadata converters
 (relationmeta2onvifmeta, onvifmeta2relationmeta) and the network elements
 of elements/net (G.711 codecs, RTP payloaders, the onvifmetadata family,
-rtpsend, rtprecv, ts-jitterbuffer, RaptorQ FEC, the UDP elements), and the
+rtpsend, rtprecv, ts-jitterbuffer, RaptorQ FEC, the UDP elements, the RTSP,
+HTTP, HLS and DASH elements, and the WebRTC family: webrtcsink, webrtcsrc,
+webrtcsend, webrtcrecv, whipsink, whepsrc, whipclientsink, whepclientsrc,
+whipserversrc, whepserversink, janusvrwebrtcsink, janusvrwebrtcsrc,
+awskvswebrtcsink, uepswebrtcsink), and the
 codec and image families (claxondec, lewtondec, dav1ddec, ffv1dec, rav1enc,
 rspngenc, gifenc, gifdec, rswebpdec, imagersdec, imagersoverlay, cdgparse,
 cdgdec)."""

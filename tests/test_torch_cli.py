@@ -34,18 +34,16 @@ def _port_cpu():
 
 MIRRORED = mirror_jax_tests("test_cli.py", globals())
 
-N_PORTED = 211
-# The 36 factories of the session and service families still to port
-# (ROADMAP A.4): WebRTC, QUIC and the cloud services.
+N_PORTED = 225
+# The 22 factories of the QUIC and cloud-service families still to port
+# (ROADMAP A.4).
 NOT_PORTED = {
-    "awskvswebrtcsink", "awspolly", "awss3hlssink", "awss3putobjectsink", "awss3sink",
-    "awss3src", "awstranscribeparse", "awstranscriber", "awstranscriber2", "awstranslate",
+    "awspolly", "awss3hlssink", "awss3putobjectsink", "awss3sink", "awss3src",
+    "awstranscribeparse", "awstranscriber", "awstranscriber2", "awstranslate",
     "deepgramtranscriber", "elevenlabssynthesizer", "elevenlabsvoicecloner",
-    "janusvrwebrtcsink", "janusvrwebrtcsrc", "llamacpp-texttransform", "quinnquicdemux",
-    "quinnquicmux", "quinnquicsink", "quinnquicsrc", "quinnroqdemux", "quinnroqmux",
-    "quinnwtsink", "quinnwtsrc", "speechmaticstranscriber", "uepswebrtcsink", "webrtcrecv",
-    "webrtcsend", "webrtcsink", "webrtcsrc", "whepclientsrc", "whepserversink", "whepsrc",
-    "whipclientsink", "whipserversrc", "whipsink",
+    "llamacpp-texttransform", "quinnquicdemux", "quinnquicmux", "quinnquicsink",
+    "quinnquicsrc", "quinnroqdemux", "quinnroqmux", "quinnwtsink", "quinnwtsrc",
+    "speechmaticstranscriber",
 }
 # Property docs that quote the JAX package's TPU measurements or name its
 # device (no TPU figure stands as the port's): the port states its own.

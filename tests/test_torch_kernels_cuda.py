@@ -2075,3 +2075,142 @@ def test_validate_reads_the_last_card_frame_back_once(cuda):
     got, dtoh, htod = _profiled_copies(lambda: validate.run_action(
         "check-last-frame-qrcode", p, expected_fields={"seed": 1}))
     assert (got, dtoh, htod) == ('{"seed": 1}', 1, 0)
+
+
+def _smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.cuda
+def test_rtpjpegdepay2_into_imagersdec_uploads_each_frame_once(cuda):
+    """The WHIP ingest's media leg: JPEGs through rtpjpegpay2 ! rtpjpegdepay2
+    (host bytes), each then through imagersdec: one host-to-device copy a
+    frame, none back, and the frames on cuda:0 equal to the host decode."""
+    import gst_plugins_rs_tpu_torch as g
+
+    cs = _smoke()
+    jpegs = [cs.jpeg_of(f) for f in cs.camera_frames(3, size=64, seed=31)]
+    carried = cs.rfc2435_jpegs(g, jpegs)
+
+    def run():
+        return [cs.decode_images(g, data, caps="image/jpeg")[0] for data in carried]
+
+    run()  # warm
+    frames, dtoh, htod = _profiled_copies(run)
+    assert (dtoh, htod) == (0, len(jpegs))
+    assert all(f.device == torch.device("cuda", 0) for f in frames)
+    assert all(np.array_equal(f.cpu().numpy(), cs.jpeg_pixels(j)) for f, j in zip(frames, jpegs))
+
+
+@pytest.mark.cuda
+def test_webrtcsink_l16_chain_reads_each_card_buffer_back_once(cuda):
+    """webrtcsink on card S16 audio builds its rtpL16pay2 chain: one
+    device-to-host copy a buffer, in the payloader (none in the stack), and
+    the packets of the same audio on the host."""
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.net.webrtc_signalling import SignallingServer
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    audio = [torch.randint(-32768, 32768, (4800, 1), generator=gen, device="cuda",
+                           dtype=torch.int32).to(torch.int16) for _ in range(6)]
+    server = SignallingServer()
+
+    def run(bufs):
+        p = g.parse_launch(f"appsrc name=src ! webrtcsink name=tx signaller-uri={server.uri}")
+        p.by_name("src").set_property("caps", g.parse_caps(
+            "audio/x-raw,format=S16,rate=48000,channels=1,layout=interleaved"))
+        tx, packets = p.by_name("tx"), []
+        send = tx._send_rtp_buffer
+        tx._send_rtp_buffer = lambda buf: (packets.append(np.asarray(buf.data).tobytes()),
+                                           send(buf))[1]
+        for i, b in enumerate(bufs):
+            p.by_name("src").push_buffer(g.Buffer(b, pts=i * 100_000_000))
+        p.by_name("src").end_of_stream()
+        p.play_until_eos()
+        return packets
+
+    try:
+        run(audio)  # warm
+        packets, dtoh, htod = _profiled_copies(lambda: run(audio))
+        assert (dtoh, htod) == (len(audio), 0) and len(packets) > len(audio)
+        g.set_device("cpu")
+        try:
+            assert packets == run([a.cpu() for a in audio])
+        finally:
+            g.set_device("cuda")
+    finally:
+        server.stop()
+
+
+@pytest.mark.cuda
+def test_received_l16_reaches_audioloudnorm_on_the_card(cuda):
+    """The voice consumer's chain after webrtcsrc: L16 packets through
+    rtpL16depay2 (host samples) ! audioconvert ! audioresample !
+    audioconvert ! audioloudnorm: one host-to-device copy a packet beyond
+    the same chain fed the samples on the card, every buffer at
+    audioloudnorm's sink pad on cuda:0, L1 launched once a 100 ms output
+    frame, the output within 5r's gate of the same chain on the CPU."""
+    from types import SimpleNamespace
+
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.ops import loudnorm_limiter
+
+    cs = _smoke()
+    # 5 s: a stream shorter than audioloudnorm's 3 s lookahead ends without L1
+    voice = (cs.noisy_voice(5, seed=41) * 32767).astype(np.int16)
+    g.set_device("cpu")
+    try:
+        p = g.parse_launch("appsrc name=src ! rtpL16pay2 ssrc=1 timestamp-offset=0 "
+                           "seqnum-offset=0 ! appsink name=sink")
+        p.by_name("src").set_property("caps", g.parse_caps(
+            "audio/x-raw,format=S16,rate=48000,channels=1,layout=interleaved"))
+        for i in range(0, len(voice), 4800):
+            p.by_name("src").push_buffer(g.Buffer(voice[i:i + 4800], pts=i * 10**9 // 48000))
+        p.by_name("src").end_of_stream()
+        p.play_until_eos()
+        packets = [np.asarray(s.buffer.data).tobytes() for s in p.by_name("sink").samples]
+    finally:
+        g.set_device("cuda")
+
+    def run():
+        q = g.parse_launch(f"appsrc name=src ! {cs.VOICE_CONSUMER}")
+        q.by_name("src").set_property("caps", g.parse_caps(
+            "application/x-rtp,media=audio,payload=96,encoding-name=L16,clock-rate=48000"))
+        tap = cs.BufferTrace("up:sink", "norm:sink")
+        q.add_tracer(tap)
+        for pkt in packets:
+            q.by_name("src").push_buffer(g.Buffer(np.frombuffer(pkt, np.uint8).copy()))
+        q.by_name("src").end_of_stream()
+        q.play_until_eos()
+        return tap.seen, [s.buffer for s in q.by_name("sink").samples]
+
+    seen, _ = run()  # warm
+    on_card = [SimpleNamespace(data=torch.from_numpy(np.asarray(b.data)).cuda(), pts=b.pts,
+                               duration=b.duration) for b in seen["up:sink"]]
+    cs.voice_plain(g, on_card)  # warm
+
+    def counted():
+        loudnorm_limiter.launches = 0
+        return run(), loudnorm_limiter.launches
+
+    # sessions that hold both marker kernels (chip_smoke._profiled, ROADMAP C.3)
+    ((seen, out), launches), dtoh, htod = cs._profiled(counted, htod=True)
+    out = cs._samples(out)
+    _, plain_dtoh, plain_htod = cs._profiled(lambda: cs.voice_plain(g, on_card), htod=True)
+    assert len(seen["up:sink"]) == len(packets)
+    assert (htod - plain_htod, dtoh - plain_dtoh) == (len(packets), 0)
+    assert seen["norm:sink"] and all(b.data.device == torch.device("cuda", 0)
+                                     for b in seen["norm:sink"])
+    assert launches == -(-out.shape[0] // cs.LN_FRAME)
+    g.set_device("cpu")
+    try:
+        ref = cs._samples(run()[1])
+    finally:
+        g.set_device("cuda")
+    assert out.shape == ref.shape and float(np.abs(out - ref).max()) <= cs.LOUDNORM_GATE

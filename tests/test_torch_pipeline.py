@@ -307,8 +307,13 @@ def test_factories_mirror_jax():
             "cdgdec",
             # the RTSP, HTTP, HLS and DASH families
             "rtspsrc2", "reqwesthttpsrc", "icecastsink", "hlscmafsink", "hlssink3",
-            "hlswebvttsink", "hlsmultivariantsink", "dashsink2"} == set(names)
-    assert len(names) == 211
+            "hlswebvttsink", "hlsmultivariantsink", "dashsink2",
+            # the WebRTC family
+            "webrtcsink", "webrtcsrc", "webrtcsend", "webrtcrecv", "whipsink", "whepsrc",
+            "whipclientsink", "whepclientsrc", "whipserversrc", "whepserversink",
+            "janusvrwebrtcsink", "janusvrwebrtcsrc", "awskvswebrtcsink",
+            "uepswebrtcsink"} == set(names)
+    assert len(names) == 225
     for name in names:
         jc, tc = jfactory(name), tfactory(name)
         assert [(p.name, repr(p.default), p.type, p.choices) for p in jc.PROPERTIES] == \
@@ -388,7 +393,12 @@ def test_port_imports_no_jax():
                 "utils/registry_dump.py", "launch.py", "__main__.py", "net/sdp.py",
                 "net/hls.py", "elements/net/rtsp.py", "elements/net/http.py",
                 "elements/net/hlssink.py", "elements/net/hlsmultivariant.py",
-                "elements/net/dashsink.py"):
+                "elements/net/dashsink.py", "net/stun.py", "net/ice.py", "net/dtls.py",
+                "net/srtp.py", "net/sctp.py", "net/webrtc_peer.py",
+                "net/webrtc_signalling.py", "net/sigv4.py", "elements/net/webrtcbin2.py",
+                "elements/net/webrtc.py", "elements/net/whipwhep.py",
+                "elements/net/webrtchttp.py", "elements/net/kvs_ueps.py",
+                "elements/net/janusvr.py"):
         assert f"gst_plugins_rs_tpu_torch/{mod}" in names, mod
     banned = ("jax", "jaxlib", "flax", "gst_plugins_rs_tpu")
     for f in files:
