@@ -254,6 +254,28 @@ YOLOX's, RNNoise's and audioloudnorm's gates; 6r the camera unpaced
 (frames/s against 6q's camera and the plain stream, host ms a frame in
 whipclientsink and the ingest's SRTP receive, datagrams lost, ICE and DTLS
 ms, busy share) and the voice's audio s/s and busy share.
+4s/4t/5s/6s the camera over RTP over QUIC, a dubbed voice and an archive on
+S3: 4q's 60 JPEGs, paced at 30/1 from a live appsrc, through rtpjpegpay2 !
+quinnroqmux (one stream flow) ! quinnquicsink over 127.0.0.1 to
+quinnquicsrc ! quinnroqdemux ! rtpjpegdepay2, each JPEG through imagersdec
+onto cuda:0 and YOLOX-tiny (B1) at 4q's thresholds (every RTP packet and
+JPEG byte-equal, one HtoD a frame beyond the plain YOLOX stream, B1
+launches = frames; the handshake ms and the connection's stats); 10 s of
+the seeded noisy speech through audiornnoise (R1) ! audioresample !
+S16 16 kHz ! awstranscriber2 ! awstranslate ! awspolly ! audioconvert !
+audioresample ! F64 192 kHz ! audioloudnorm (L1) against in-process fakes
+of Transcribe, Translate and Polly that check every request's SigV4
+signature (every AudioEvent byte-equal to the front half's S16, every
+transcript translated and synthesized, one DtoH an AudioEvent and one HtoD
+a Polly buffer beyond the plain halves, R1 a buffer, L1 a 100 ms frame);
+4q's first 16 origin frames through hsvfilter ! colorlut approx (B4, B2) !
+cmafmux ! awss3sink (a multipart upload in 5 MiB parts to a fake S3), read
+back by awss3src in ranged GETs (the object byte-equal to the same chain's
+file, its samples the graded frames bit for bit, one DtoH a frame); 5s the
+three on the CPU (4 frames, 2 s, 2 frames) against the card; 6s the QUIC
+camera unpaced against 6q's and 6r's cameras and the plain stream, the
+host ms a frame in quinnquicsink and the receiving endpoint, the voice's
+audio s/s, the upload's MB/s and each path's busy share.
 Prints a JSON line of the kernels, the card's name and power limit, then,
 last, {"ok": true, "device": ...}.  It imports nothing of JAX and nothing of
 the JAX package.
@@ -4035,7 +4057,8 @@ def mesh_timing(card_line):
 # ---------------------------------------------------------------------------
 REC_FRAMES = 32            # seeded 1080p RGBA frames through the recording path (4l)
 REC_CPU_FRAMES = 6         # card against CPU (5l)
-REC_SECONDS = 30           # 192 kHz F64 through audioloudnorm ! togglerecord (4l; 60 before 4r)
+REC_SECONDS = 20           # 192 kHz F64 through audioloudnorm ! togglerecord (4l; 60 before 4r,
+                           # 30 before 4s)
 REC_CPU_SECONDS = 6        # card against CPU (5l)
 REC_TRACK_SPB = 1000       # the recording's audio track: 20.8 ms buffers at 48 kHz, so the
                            # video's end (32 frames, 1.0667 s) falls inside one, which is clipped
@@ -4267,9 +4290,11 @@ def rec_audio(seconds, gap):
     return out, trace
 
 
-def _profiled(run, htod=False):
+def _profiled(run, htod=False, busy=False):
     """(run's result, device-to-host copies), and the host-to-device copies
-    after them with `htod`, over one call of `run` under torch.profiler,
+    after them with `htod`, and the seconds of device time (the markers
+    left out) after those with `busy`, over one call of `run` under
+    torch.profiler,
     the card's activity only.  A marker kernel (the spin
     kernel of torch.cuda._sleep) goes first and another last, inside the
     session's pads (device_events): only a session that holds both markers
@@ -4287,10 +4312,13 @@ def _profiled(run, htod=False):
         return sum(e.count for e in events if "spin_kernel" in e.key) == 2
 
     _, events = device_events(marked, complete=complete)
-    dtoh = sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
+    out = [got[-1], sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))]
     if htod:
-        return got[-1], dtoh, sum(e.count for e in events if e.key.startswith("Memcpy HtoD"))
-    return got[-1], dtoh
+        out.append(sum(e.count for e in events if e.key.startswith("Memcpy HtoD")))
+    if busy:
+        out.append(sum(e.self_device_time_total for e in events
+                       if "spin_kernel" not in e.key) / 1e6)
+    return tuple(out)
 
 
 MARKER_CYCLES = 1000
@@ -7286,7 +7314,7 @@ ORIGIN_TARGET_S = 1        # hlscmafsink's and dashsink2's target-duration
 ORIGIN_BLOCK = 8 << 20     # reqwesthttpsrc blocksize fetching the origin
 CLI_FRAMES = 16            # videotestsrc buffers through the CLI and tracer runs
 CLI_TRACERS = ("pad-push-timings", "queue-levels", "memory-tracer", "chrome-tracer")
-Q_TIMING_REPEATS = 2       # 6q: the median of these
+Q_TIMING_REPEATS = 1       # 6q and 6r: the median of these (2 before 4s-6s)
 
 
 def camera_frames(n=CAM_FRAMES, size=SIZE, seed=CAM_SEED):
@@ -8835,6 +8863,859 @@ def webrtc_timing(card_line, thresholds, camera_fps):
     return {"whip_fps": CAM_FRAMES / wall, "voice_s_per_s": VOICE_SECONDS / vwall}
 
 
+# ---------------------------------------------------------------------------
+# The camera over RTP over QUIC into YOLOX, a denoised voice dubbed through
+# Transcribe, Translate and Polly into the limiter, and a graded recording
+# archived to S3 (phases 4s/5s/6s)
+# ---------------------------------------------------------------------------
+QUIC_FLOW = 7                  # the camera's RoQ flow id
+QUIC_RTP_CAPS = "application/x-rtp,media=video,encoding-name=JPEG,clock-rate=90000,payload=26"
+QUIC_CPU_FRAMES = 4            # 5s: the camera's first frames on the CPU
+CLOUD_KEY = "AKIDSMOKE4T"
+CLOUD_SECRET = "smoke-4t-secret"
+CLOUD_REGION = "eu-west-1"
+DUB_FRONT = ("audiornnoise name=rnn ! audioresample name=rs ! audio/x-raw,rate=16000 "
+             "! audioconvert ! audio/x-raw,format=S16,rate=16000,channels=1")
+DUB_BACK = ("audioconvert name=up ! audio/x-raw,format=F32 ! audioresample "
+            "! audio/x-raw,rate=192000 ! audioconvert ! audio/x-raw,format=F64,rate=192000 "
+            "! audioloudnorm name=norm ! appsink name=sink")
+DUB_SAMPLES_A_CHAR = 160       # the fake Polly's speech: 10 ms at 16 kHz a character
+ARCHIVE_FRAMES = 16            # 4t (b): 4q's first 16 origin frames at 16/1
+ARCHIVE_CPU_FRAMES = 2         # 5s (b)
+ARCHIVE_PART = 5 << 20         # awss3sink's part-size: the AWS minimum
+ARCHIVE_BLOCK = 8 << 20        # awss3src's blocksize (ranged GETs)
+ARCHIVE_BUCKET = "recordings"
+ARCHIVE_KEY = "graded/take1.mp4"
+
+
+def roq_link(g, demux, pad):
+    """Link quinnroqdemux's flow pads to `pad` as they appear.  Both
+    packages emit request-flow-id-map once a new flow's pad exists and before
+    its caps go out: the handler links the pad and answers the flow's caps
+    (the reference's use of the signal)."""
+    caps = g.parse_caps(QUIC_RTP_CAPS)
+
+    def on_flow(element, flow_id):
+        element.pad(f"src_{flow_id}").link(pad)
+        return caps
+
+    demux.connect("request-flow-id-map", on_flow)
+
+
+def quic_run(g, jpegs, fps=CAM_FPS, paced=True):
+    """The camera over RTP over QUIC: `jpegs` pushed into appsrc
+    (image/jpeg at `fps`, stamped with the camera clock; paced from the
+    second frame, or unpaced) ! rtpjpegpay2 ! quinnroqmux (one stream flow,
+    QUIC_FLOW) ! quinnquicsink over 127.0.0.1 to quinnquicsrc !
+    quinnroqdemux ! rtpjpegdepay2 ! appsink.  The receiver is ended once the
+    sender has drained (every byte acked, within WEBRTC_WAIT_S).  Returns a namespace of the RTP
+    packets into the muxer and into the depayloader, the received JPEGs and
+    their host clock, the handshake ms, the sink's `stats` as its connection
+    closed, and the host seconds in quinnquicsink's render and in the
+    receiving endpoint.  `g` is the package to drive (the tests pass
+    either)."""
+    r = SimpleNamespace()
+    rx = g.Pipeline()
+    q = g.element_factory_make("quinnquicsrc", "q")
+    q.set_property("port", 0)  # 127.0.0.1, a free port
+    q.set_property("idle-timeout", WEBRTC_WAIT_S * 10**9)
+    demux = g.element_factory_make("quinnroqdemux", "demux")
+    depay = g.element_factory_make("rtpjpegdepay2", "depay")
+    out = g.element_factory_make("appsink", "jpegs")
+    rx.add(q, demux, depay, out)
+    q.link(demux)
+    depay.link(out)
+    roq_link(g, demux, depay.pad("sink"))
+    trace = LinkTrace("jpegs:sink", "depay:sink")
+    rx.add_tracer(trace)
+    camera = g.parse_launch(f"appsrc name=src ! rtpjpegpay2 {CAM_RTP} ! quinnroqmux name=mux "
+                            f"! quinnquicsink name=quic secure-connection=false "
+                            f"timeout={WEBRTC_WAIT_S}")
+    camera.by_name("mux").pad("stream_0").set_property("flow-id", QUIC_FLOW)
+    sent = LinkTrace("mux:stream_0")
+    camera.add_tracer(sent)
+    src, client = camera.by_name("src"), camera.by_name("quic")
+    src.set_property("caps", g.parse_caps(f"image/jpeg,framerate={fps}/1"))
+    render = client.render = _Timed(client.render)
+    setup = client.on_ready_to_paused = _Timed(client.on_ready_to_paused)
+    errors = []
+    rx.set_state(g.core.State.PLAYING)
+    client.set_property("port", q.bound_port)
+    t_rx = _running(rx, errors)
+    receive = None
+    try:
+        camera.set_state(g.core.State.PLAYING)
+        r.handshake_ms = setup.seconds * 1e3
+        t0 = time.perf_counter()
+        for i, data in enumerate(jpegs):
+            if paced and i:
+                time.sleep(max(0.0, r.t_first + i / fps - time.perf_counter()))
+            src.push_buffer(g.Buffer(np.frombuffer(data, np.uint8).copy(),
+                                     pts=int((time.perf_counter() - t0) * 1e9),
+                                     duration=10**9 // fps))
+            camera.run(max_iterations=1)
+            if i == 0:
+                r.t_first = time.perf_counter()
+                conn = q._ep.conn
+                receive = conn.handle_datagram = _Timed(conn.handle_datagram)
+                ep = client._ep
+                close = ep.close
+
+                def closing(close=close):
+                    r.stats = dict(client.get_property("stats").fields)
+                    close()
+
+                ep.close = closing
+        src.end_of_stream()
+        camera.run()
+        camera.set_state(g.core.State.NULL)  # drains: every byte acked, then closes
+        r.t_sent = time.perf_counter()
+    finally:
+        camera.set_state(g.core.State.NULL)
+        q._queue.put(None)  # the receiver ends after what it holds
+        _join(t_rx, errors, "the QUIC receiver")
+        rx.set_state(g.core.State.NULL)
+    r.packets = [_bytes(b) for _, b in sent.seen["mux:stream_0"]]
+    r.arrived = [_bytes(b) for _, b in trace.seen["depay:sink"]]
+    r.jpegs = [_bytes(b) for _, b in trace.seen["jpegs:sink"]]
+    r.arrivals = [t for t, _ in trace.seen["jpegs:sink"]]
+    r.render_s, r.receive_s = render.seconds, receive.seconds if receive else 0.0
+    return r
+
+
+def quic_check(r, jpegs, carried, label):
+    """4s's and 5s's checks of a QUIC session: every RTP packet received
+    byte-equal to the one sent, none lost; every JPEG byte-equal to
+    `carried` (rfc2435_jpegs of `jpegs`) and its scan to the camera's; the
+    connection's stats read as it closed."""
+    equal = r.arrived == r.packets and r.jpegs == carried and \
+        [_scan(j) for j in r.jpegs] == [_scan(j) for j in jpegs]
+    s = r.stats
+    print(f"{label}: {len(r.jpegs)} of {len(jpegs)} JPEGs and {len(r.arrived)} of "
+          f"{len(r.packets)} RTP packets byte-equal: {equal}; handshake {r.handshake_ms:.1f} ms; "
+          f"at close: cwnd {s['cwnd']} B, srtt {s['srtt-ms']:.3f} ms, PTO {s['pto-ms']:.1f} ms, "
+          f"{s.get('packets-sent', 'n/a')} packets sent, {s.get('packets-lost', 'n/a')} declared "
+          f"lost and sent again, {s.get('pto-resends', 'n/a')} sent again after their PTO")
+    if not equal or len(r.jpegs) != len(jpegs):
+        raise AssertionError(f"{label}: a JPEG or an RTP packet was lost or changed")
+
+
+def quic_camera(g, jpegs, thresholds, paced=True, detect="yoloxinference engine=fast"):
+    """4s: quic_run on `jpegs`, each received JPEG through imagersdec (its
+    own stream, as 4q) and the decoded frames through camera_detect.  Adds
+    the decoded frames, the detections and the host clocks to quic_run's
+    namespace."""
+    r = quic_run(g, jpegs, paced=paced)
+    r.t_received = time.perf_counter()
+    r.frames = [decode_images(g, data, caps="image/jpeg")[0] for data in r.jpegs]
+    r.t_decoded = time.perf_counter()
+    r.out = camera_detect(g, r.frames, thresholds, detect=detect)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    r.t_done = time.perf_counter()
+    return r
+
+
+def sigv4_ok(method, target, headers, body, secret=CLOUD_SECRET):
+    """A fake service's check of a request's SigV4 Authorization header:
+    the signature recomputed from the signed headers, the path, the query
+    and the body's hash (the port's net/sigv4.py)."""
+    import hashlib
+    import hmac
+    import re
+    import urllib.parse
+
+    from gst_plugins_rs_tpu_torch.net import sigv4
+
+    m = re.fullmatch(r"AWS4-HMAC-SHA256 Credential=([^/]+)/(\d{8})/([^/]+)/([^/]+)/aws4_request, "
+                     r"SignedHeaders=([^,]+), Signature=([0-9a-f]{64})",
+                     headers.get("Authorization", ""))
+    if m is None or m.group(1) != CLOUD_KEY:
+        return False
+    _, date, region, service, signed, sig = m.groups()
+    payload_hash = hashlib.sha256(body).hexdigest()
+    hdrs = {n: headers.get(n, "") for n in signed.split(";")}
+    if hdrs.get("x-amz-content-sha256") != payload_hash:
+        return False
+    u = urllib.parse.urlsplit(target)
+    creq, _ = sigv4.canonical_request(method, u.path, dict(urllib.parse.parse_qsl(
+        u.query, keep_blank_values=True)), hdrs, payload_hash)
+    sts = sigv4.string_to_sign(hdrs.get("x-amz-date", ""),
+                               f"{date}/{region}/{service}/aws4_request", creq)
+    want = hmac.new(sigv4.signing_key(secret, date, region, service), sts.encode(),
+                    hashlib.sha256).hexdigest()
+    return hmac.compare_digest(want, sig)
+
+
+def transcript_of(n, payload):
+    """The fake Transcribe's final transcript of its n-th AudioEvent."""
+    import zlib
+
+    return f"segment {n} {zlib.crc32(payload):08x}"
+
+
+def translation_of(text):
+    """The fake Translate's Spanish."""
+    return "[es] " + " ".join(reversed(text.split()))
+
+
+def polly_pcm(text):
+    """The fake Polly's speech for `text`: DUB_SAMPLES_A_CHAR seeded S16
+    samples a character (its seed the text's CRC)."""
+    import zlib
+
+    rng = np.random.default_rng(zlib.crc32(text.encode()))
+    n = DUB_SAMPLES_A_CHAR * len(text)
+    return (rng.standard_normal(n) * 3000).clip(-32768, 32767).astype("<i2")
+
+
+@contextlib.contextmanager
+def cloud_fakes():
+    """Transcribe (websockets: a presigned URL, event-stream AudioEvents in,
+    a partial and a final TranscriptEvent for each non-empty one, the stream
+    ended after the empty one), Translate and Polly (REST) and S3 (REST:
+    multipart uploads, PutObject, HEAD, ranged GETs) on 127.0.0.1, threads
+    of this process stopped on exit.  Each checks every request's SigV4
+    signature (the presigned URL's for Transcribe) and refuses a request
+    that fails.  Yields a namespace of the endpoints and of what each
+    received: the AudioEvent payloads and their transcripts, the texts
+    translated and synthesized, the S3 objects and requests, and the
+    requests refused (`reset()` clears the records)."""
+    import json
+    import re
+    import threading
+    import urllib.parse
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from websockets.sync.server import serve as ws_serve
+
+    from gst_plugins_rs_tpu_torch.net import eventstream, sigv4
+
+    f = SimpleNamespace(objects={}, parts={})
+    lock = threading.Lock()
+
+    def reset():
+        f.events, f.transcripts, f.translated, f.synthesized = [], [], [], []
+        f.s3_requests, f.refused = [], []
+
+    reset()
+    f.reset = reset
+
+    def transcribe(ws):
+        url = f"http://{ws.request.headers.get('Host')}{ws.request.path}"
+        if not sigv4.verify_presigned(url, CLOUD_SECRET):
+            f.refused.append(("transcribe", ws.request.path))
+            return
+        n = 0
+        for raw in ws:
+            _, payload, _ = eventstream.decode_message(raw if isinstance(raw, bytes)
+                                                       else raw.encode())
+            if not payload:
+                break  # the end of the audio: the stream ends after the last transcript
+            n += 1
+            text = transcript_of(n, payload)
+            with lock:
+                f.events.append(payload)
+                f.transcripts.append(text)
+            doc = {"Transcript": {"Results": [
+                {"IsPartial": True, "Alternatives": [{"Transcript": text.split()[0]}]},
+                {"IsPartial": False, "Alternatives": [{"Transcript": text}]}]}}
+            ws.send(eventstream.encode_message(
+                {":message-type": "event", ":event-type": "TranscriptEvent"},
+                json.dumps(doc).encode()))
+
+    class Api(BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def _reply(self, status, body=b"", headers=(), length=None):
+            self.send_response(status)
+            for k, v in headers:
+                self.send_header(k, v)
+            self.send_header("Content-Length", str(len(body) if length is None else length))
+            self.end_headers()
+            if body:
+                self.wfile.write(body)
+
+        def _checked(self):
+            body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            if not sigv4_ok(self.command, self.path, self.headers, body):
+                f.refused.append((self.command, self.path))
+                self._reply(403, b"SignatureDoesNotMatch")
+                return None
+            return body
+
+        def do_POST(self):
+            body = self._checked()
+            if body is None:
+                return
+            if self.server.kind == "s3":
+                return self._s3(body)
+            doc = json.loads(body)
+            if self.path == "/v1/speech":
+                with lock:
+                    f.synthesized.append(doc["Text"])
+                return self._reply(200, polly_pcm(doc["Text"]).tobytes())
+            if "TranslateText" not in self.headers.get("x-amz-target", ""):
+                return self._reply(400, b"unknown target")
+            out = translation_of(doc["Text"])
+            with lock:
+                f.translated.append((doc["Text"], doc["TargetLanguageCode"]))
+            self._reply(200, json.dumps({"TranslatedText": out}).encode())
+
+        def _s3(self, body):
+            u = urllib.parse.urlsplit(self.path)
+            q = dict(urllib.parse.parse_qsl(u.query, keep_blank_values=True))
+            f.s3_requests.append((self.command, u.path, self.headers.get("Range"), len(body)))
+            if self.command == "PUT" and "partNumber" in q:
+                f.parts.setdefault((u.path, q["uploadId"]), {})[int(q["partNumber"])] = body
+                return self._reply(200, headers=[("ETag", f'"etag-{q["partNumber"]}"')])
+            if self.command == "PUT":
+                f.objects[u.path] = body
+                return self._reply(200, headers=[("ETag", '"etag-put"')])
+            if self.command == "POST" and "uploads" in q:
+                upload = f"upload-{len(f.parts)}"
+                f.parts[(u.path, upload)] = {}
+                return self._reply(200, (f"<InitiateMultipartUploadResult><UploadId>{upload}"
+                                         f"</UploadId></InitiateMultipartUploadResult>").encode())
+            if self.command == "POST" and "uploadId" in q:
+                parts = f.parts.pop((u.path, q["uploadId"]), {})
+                f.objects[u.path] = b"".join(parts[k] for k in sorted(parts))
+                return self._reply(200)
+            obj = f.objects.get(u.path)
+            if obj is None:
+                return self._reply(404)
+            if self.command == "HEAD":
+                return self._reply(200, length=len(obj))
+            m = re.fullmatch(r"bytes=(\d+)-(\d*)", self.headers.get("Range", ""))
+            if m is None:
+                return self._reply(200, obj)
+            end = int(m.group(2)) + 1 if m.group(2) else len(obj)
+            self._reply(206, obj[int(m.group(1)):end])
+
+        do_PUT = do_POST
+
+        def do_GET(self):
+            if self._checked() is not None:
+                self._s3(b"")
+
+        do_HEAD = do_GET
+
+        def do_DELETE(self):
+            if self._checked() is not None:
+                f.s3_requests.append(("DELETE", self.path, None, 0))
+                self._reply(204)
+
+    servers = []
+    threads = []
+    ws = ws_serve(transcribe, "127.0.0.1", 0)
+    threads.append(threading.Thread(target=ws.serve_forever, daemon=True))
+    for kind in ("api", "s3"):
+        srv = ThreadingHTTPServer(("127.0.0.1", 0), Api)
+        srv.kind = kind
+        servers.append(srv)
+        threads.append(threading.Thread(target=srv.serve_forever, daemon=True))
+    for t in threads:
+        t.start()
+    f.transcribe = f"ws://127.0.0.1:{ws.socket.getsockname()[1]}/stream-transcription-websocket"
+    f.api = f"http://127.0.0.1:{servers[0].server_address[1]}"
+    f.s3 = f"http://127.0.0.1:{servers[1].server_address[1]}"
+    try:
+        yield f
+    finally:
+        ws.shutdown()
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+        for t in threads:
+            t.join(10)
+
+
+def dub_pipeline(g, fakes):
+    """appsrc (F32 48 kHz mono) ! DUB_FRONT ! awstranscriber2 (a presigned
+    URL of the fake) ! awstranslate (en -> es) ! awspolly (16 kHz, es-ES) !
+    DUB_BACK in package `g`, every service on `fakes` with the smoke's
+    credentials."""
+    from gst_plugins_rs_tpu_torch.net import sigv4
+
+    p = g.parse_launch(f"appsrc name=src ! {DUB_FRONT} ! awstranscriber2 name=asr "
+                       f"! awstranslate name=tr ! awspolly name=tts ! {DUB_BACK}")
+    for name in ("asr", "tr", "tts"):
+        el = p.by_name(name)
+        for k, v in (("region", CLOUD_REGION), ("access-key", CLOUD_KEY),
+                     ("secret-access-key", CLOUD_SECRET), ("endpoint-uri", fakes.api)):
+            el.set_property(k, v)
+    p.by_name("asr").set_property("endpoint-uri", sigv4.presign_url(
+        "GET", fakes.transcribe, CLOUD_REGION, "transcribe", CLOUD_KEY, CLOUD_SECRET,
+        extra_params={"language-code": "en-US", "media-encoding": "pcm", "sample-rate": "16000"}))
+    p.by_name("tr").set_property("input-language-code", "en")
+    p.by_name("tr").set_property("output-language-code", "es")
+    p.by_name("tts").set_property("language-code", "es-ES")
+    p.by_name("tts").set_property("voice-id", "Lucia")
+    p.by_name("src").set_property("caps", g.parse_caps(
+        f"audio/x-raw,format=F32,rate={VOICE_RATE},channels=1,layout=interleaved"))
+    return p
+
+
+def _push_voice(g, p, voice, upload):
+    src = p.by_name("src")
+    for i in range(0, len(voice), VOICE_SPB):
+        src.push_buffer(g.Buffer(upload(voice[i:i + VOICE_SPB]), pts=i * 10**9 // VOICE_RATE))
+    src.end_of_stream()
+
+
+def dub_run(g, voice, fakes, upload=None):
+    """4t (a): `voice` (F32 48 kHz [n, 1]) in VOICE_SPB buffers, each through
+    `upload` first (the microphone's copy to the card), through
+    dub_pipeline to EOS.  Returns a namespace of the buffers at
+    audiornnoise's, audioresample's (the denoised voice), awstranscriber2's,
+    the back half's and audioloudnorm's sink pads, the output, what the
+    fakes received (AudioEvents, transcripts, texts translated and
+    synthesized, requests refused) and the host clocks.  `g` is the package
+    to drive (the tests pass either)."""
+    upload = upload or (lambda a: a)
+    fakes.reset()
+    p = dub_pipeline(g, fakes)
+    tap = BufferTrace("rnn:sink", "rs:sink", "asr:sink", "up:sink", "norm:sink")
+    p.add_tracer(tap)
+    _push_voice(g, p, voice, upload)
+    r = SimpleNamespace(t0=time.perf_counter())
+    p.play_until_eos()
+    r.t_done = time.perf_counter()
+    (r.at_rnnoise, r.denoised, r.s16, r.polly, r.at_loudnorm) = (
+        tap.seen[k] for k in ("rnn:sink", "rs:sink", "asr:sink", "up:sink", "norm:sink"))
+    r.out = [s.buffer for s in p.by_name("sink").samples]
+    r.events, r.transcripts = list(fakes.events), list(fakes.transcripts)
+    r.translated, r.synthesized = list(fakes.translated), list(fakes.synthesized)
+    r.refused = list(fakes.refused)
+    return r
+
+
+def dub_front(g, voice, upload=None):
+    """The voice's front half, appsrc ! DUB_FRONT ! appsink: the S16
+    buffers the transcriber takes."""
+    upload = upload or (lambda a: a)
+    p = g.parse_launch(f"appsrc name=src ! {DUB_FRONT} ! appsink name=sink")
+    p.by_name("src").set_property("caps", g.parse_caps(
+        f"audio/x-raw,format=F32,rate={VOICE_RATE},channels=1,layout=interleaved"))
+    _push_voice(g, p, voice, upload)
+    p.play_until_eos()
+    return [s.buffer for s in p.by_name("sink").samples]
+
+
+def dub_back(g, polly, upload=None):
+    """The voice's back half, appsrc (S16 16 kHz mono) ! DUB_BACK, fed the
+    buffers `polly` (each through `upload`).  Returns the output buffers."""
+    upload = upload or (lambda a: a)
+    p = g.parse_launch(f"appsrc name=src ! {DUB_BACK}")
+    src = p.by_name("src")
+    src.set_property("caps", g.parse_caps(
+        "audio/x-raw,format=S16,rate=16000,channels=1,layout=interleaved"))
+    for b in polly:
+        src.push_buffer(g.Buffer(upload(b.data), pts=b.pts, duration=b.duration))
+    src.end_of_stream()
+    p.play_until_eos()
+    return [s.buffer for s in p.by_name("sink").samples]
+
+
+def dub_check(r, front, label):
+    """4t (a)'s and 5s's checks of a dubbed voice: no request refused; every
+    AudioEvent payload byte-equal to the S16 buffer the transcriber took and
+    to the front half's (`front`, dub_front on the same device); a
+    transcript an AudioEvent, each translated and its translation
+    synthesized, in order; a buffer of the back half a transcript, each
+    Polly's PCM for its text; the output finite."""
+    took = [_bytes(b) for b in r.s16]
+    events_ok = r.events == took == [_bytes(b) for b in front] and len(r.events) > 0
+    chain_ok = (len(r.transcripts) == len(r.events)
+                and r.translated == [(t, "es") for t in r.transcripts]
+                and r.synthesized == [translation_of(t) for t in r.transcripts])
+    pcm_ok = len(r.polly) == len(r.synthesized) and all(
+        _bytes(b) == polly_pcm(t).tobytes() for b, t in zip(r.polly, r.synthesized))
+    out = _samples(r.out)
+    print(f"{label}: {len(r.events)} AudioEvents ({sum(map(len, r.events))} B) byte-equal to "
+          f"the S16 the transcriber took and to the front half's: {events_ok}; "
+          f"{len(r.transcripts)} transcripts, {len(r.translated)} translated, "
+          f"{len(r.synthesized)} synthesized, in order: {chain_ok}; {len(r.polly)} Polly "
+          f"buffers ({sum(b.data.shape[0] for b in r.polly)} samples) equal to the fake's PCM: "
+          f"{pcm_ok}; {out.shape[0]} samples out; requests refused {r.refused}")
+    if r.refused or not events_ok:
+        raise AssertionError(f"{label}: a request was refused or an AudioEvent differs")
+    if not chain_ok or not pcm_ok:
+        raise AssertionError(f"{label}: a transcript was not translated and synthesized")
+    if out.shape[0] == 0 or not np.isfinite(out).all():
+        raise AssertionError(f"{label}: audioloudnorm's output")
+    return out
+
+
+def archive_run(g, frames, fakes=None, grade=None, path=None, fps=ORIGIN_FPS, around=None,
+                part=ARCHIVE_PART):
+    """4t (b): `frames` (RGBA) at `fps` through appsrc ! [hsvfilter
+    hue-shift=120 ! colorlut location=`grade` precision=approx !] cmafmux
+    (1 s fragments) ! awss3sink (a multipart upload in `part` byte parts
+    to `fakes`' S3, ARCHIVE_BUCKET/ARCHIVE_KEY), or rsfilesink at `path`.
+    `around`, if given, is called with the streaming.  Returns the frames
+    cmafmux took (graded) and the pipeline (stopped)."""
+    chain = (f"hsvfilter name=hsv hue-shift=120 ! colorlut name=lut location={grade} "
+             f"precision=approx ! " if grade is not None else "")
+    sink = "awss3sink name=s3" if path is None else f"rsfilesink location={path}"
+    p = g.parse_launch(f"appsrc name=src ! {chain}cmafmux name=mux fragment-duration={10**9} "
+                       f"! {sink}")
+    if path is None:
+        s3 = p.by_name("s3")
+        for k, v in (("bucket", ARCHIVE_BUCKET), ("key", ARCHIVE_KEY), ("region", CLOUD_REGION),
+                     ("access-key", CLOUD_KEY), ("secret-access-key", CLOUD_SECRET),
+                     ("endpoint-uri", fakes.s3), ("part-size", part),
+                     ("content-type", "video/mp4")):
+            s3.set_property(k, v)
+    tap = BufferTrace("mux:sink")
+    p.add_tracer(tap)
+    src = p.by_name("src")
+    src.set_property("caps", g.parse_caps(origin_caps(frames[0], fps)))
+    for i, f in enumerate(frames):
+        src.push_buffer(g.Buffer(f, pts=i * 10**9 // fps, duration=10**9 // fps))
+    src.end_of_stream()
+    p.set_state(g.core.State.PLAYING)
+    try:
+        (around or (lambda fn: fn()))(p.run)
+    finally:
+        p.set_state(g.core.State.NULL)
+    return [b.data for b in tap.seen["mux:sink"]], p
+
+
+def archive_read(g, fakes, block=ARCHIVE_BLOCK):
+    """awss3src (ranged GETs of `block` bytes) ! appsink on the archived
+    object: its bytes."""
+    p = g.parse_launch("awss3src name=s3 ! appsink name=sink")
+    s3 = p.by_name("s3")
+    for k, v in (("bucket", ARCHIVE_BUCKET), ("key", ARCHIVE_KEY), ("region", CLOUD_REGION),
+                 ("access-key", CLOUD_KEY), ("secret-access-key", CLOUD_SECRET),
+                 ("endpoint-uri", fakes.s3), ("blocksize", block)):
+        s3.set_property(k, v)
+    p.play_until_eos()
+    return b"".join(_bytes(s.buffer) for s in p.by_name("sink").samples)
+
+
+def archive_object(fakes):
+    return fakes.objects.get(f"/{ARCHIVE_BUCKET}/{ARCHIVE_KEY}")
+
+
+def object_samples(data):
+    """The samples of a fragmented MP4 in one piece (cmafmux's stream):
+    (its track, [sample bytes])."""
+    from gst_plugins_rs_tpu_torch.mux import reader
+
+    tracks = reader.decode_tracks(reader.parse_boxes(data))
+    samples = []
+    for run in reader.decode_fragments(data):
+        off = 0
+        for size in run.sample_sizes:
+            samples.append(run.data[off:off + size])
+            off += size
+    return tracks, samples
+
+
+def archive_check(g, fakes, graded, filed, label, part=ARCHIVE_PART, block=ARCHIVE_BLOCK):
+    """4t (b)'s checks: the object awss3sink completed byte-equal to the
+    same chain's file (`filed`), uploaded in parts of `part` bytes (the
+    last the rest), no request refused; read back by awss3src in ranged
+    GETs of `block` bytes, equal; its samples the graded frames bit for
+    bit."""
+    obj = archive_object(fakes) or b""
+    parts = [n for m, _, _, n in fakes.s3_requests if m == "PUT"]
+    ok = (obj == filed and len(obj) > 0 and not fakes.refused
+          and parts == [part] * (len(parts) - 1) + [len(obj) - part * (len(parts) - 1)]
+          and len(parts) == -(-len(obj) // part))
+    fakes.s3_requests.clear()
+    back = archive_read(g, fakes, block)
+    gets = [rng for m, _, rng, _ in fakes.s3_requests if m == "GET"]
+    _, samples = object_samples(obj)
+    frames_ok = len(samples) == len(graded) and all(
+        s == _bytes(SimpleNamespace(data=f)) for s, f in zip(samples, graded))
+    print(f"{label}: object of {len(obj)} B in {len(parts)} parts, equal to the file "
+          f"of the same chain: {ok}; read back in {len(gets)} ranged GETs, equal: {back == obj}; "
+          f"{len(samples)} samples, the graded frames bit for bit: {frames_ok}; requests "
+          f"refused {fakes.refused}")
+    if not ok or back != obj or len(gets) != -(-len(obj) // block):
+        raise AssertionError(f"{label}: the archived object differs, or a request was refused")
+    if not frames_ok:
+        raise AssertionError(f"{label}: the archived samples differ from the graded frames")
+
+
+def quic_pipelines(card_line, thresholds):
+    """Phase 4s: the camera over RTP over QUIC.  4q's CAM_FRAMES JPEGs paced
+    at CAM_FPS into quic_camera on cuda:0 (yoloxinference YOLOX-tiny,
+    engine=fast, f32: B1) at 4q's thresholds: quic_check's checks, the
+    decoded frames on cuda:0, B1 once a frame, one Memcpy HtoD a frame
+    beyond the plain YOLOX stream on the same frames.  yolox_c3's count is
+    set to 0 just before the path and read just after.  Returns (B1's
+    launches, the run's namespace, the run's device seconds)."""
+    phase("4s the camera over RTP over QUIC on the card: rtpjpegpay2 ! quinnroqmux ! "
+          "quinnquicsink -> quinnquicsrc ! quinnroqdemux ! rtpjpegdepay2, imagersdec, YOLOX-tiny")
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.ops import yolox_c3
+
+    card0 = torch.device("cuda", 0)
+    jpegs = [jpeg_of(f) for f in camera_frames()]
+
+    def run():
+        yolox_c3.launches = 0
+        r = quic_camera(g, jpegs, thresholds)
+        torch.cuda.synchronize()
+        return r, yolox_c3.launches
+
+    (r, b1), _, htod, device_s = _profiled(run, htod=True, busy=True)
+    _, _, plain_htod = _profiled(lambda: camera_detect(g, r.frames, thresholds), htod=True)
+    quic_check(r, jpegs, rfc2435_jpegs(g, jpegs), "the QUIC camera")
+    forwards = _check_outputs([SimpleNamespace(buffer=b) for b in r.out], CAM_FRAMES)
+    on_card = all(isinstance(f, torch.Tensor) and f.device == card0 for f in r.frames)
+    boxes = [len(camera_detections(g, b)) for b in r.out]
+    print(f"decoded frames on {card0}: {on_card}; boxes a frame {min(boxes)}-{max(boxes)}; "
+          f"{forwards} forwards, yolox_c3 launches {b1}; Memcpy HtoD {htod} against the plain "
+          f"stream's {plain_htod} [{card_line}]")
+    if not on_card or b1 != forwards or forwards != CAM_FRAMES:
+        raise AssertionError("the QUIC camera's frames left the card, or B1 launches != frames")
+    if htod - plain_htod != CAM_FRAMES:
+        raise AssertionError(f"{htod - plain_htod} host-to-device copies for {CAM_FRAMES} frames")
+    return b1, r, device_s
+
+
+def cloud_pipelines(card_line, grade, fakes):
+    """Phase 4t.  (a) the dubbed voice: VOICE_SECONDS of noisy_voice,
+    uploaded to cuda:0 a buffer at a time, through dub_run (R1, L1) against
+    the fakes: dub_check's checks with the front half on the card, the
+    payloads on cuda:0 at audiornnoise's and audioloudnorm's sink pads, R1
+    a buffer and L1 a 100 ms output frame, one DtoH a transcriber buffer
+    and one HtoD a Polly buffer beyond the two plain halves (the front half
+    on the same uploads, the back half on Polly's PCM already on the card).
+    The voice runs once warm before its copies are counted (4r).  (b) the
+    graded recording: the first ARCHIVE_FRAMES of 4q's origin frames on the
+    card through archive_run into the fake S3 (B4, B2): archive_check's
+    checks, one DtoH a frame (cmafmux's) beyond the graded chain into an
+    appsink and none in awss3sink, B2 and B4 once a frame.  Each kernel's
+    count is set to 0 just before its leg and read just after.  Returns
+    ({kernel: launches}, leg (a)'s namespace, leg (b)'s graded frames,
+    {leg: its run's device seconds})."""
+    phase("4t (a) the dubbed voice on the card: audiornnoise ! ... ! S16 16 kHz ! "
+          "awstranscriber2 ! awstranslate ! awspolly ! ... ! F64 192 kHz ! audioloudnorm")
+    import shutil
+    import tempfile
+
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.ops import hsv_planes, loudnorm_limiter, rnnoise_gru
+    from gst_plugins_rs_tpu_torch.ops import colorlut_lowrank_fused as lowrank
+
+    card0 = torch.device("cuda", 0)
+    voice = noisy_voice()
+    upload = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card0)  # noqa: E731
+    dub_run(g, voice, fakes, upload)  # warm (4r: a cold run counts more HtoD)
+
+    def run_a():
+        rnnoise_gru.launches = loudnorm_limiter.launches = 0
+        r = dub_run(g, voice, fakes, upload)
+        torch.cuda.synchronize()
+        return r, rnnoise_gru.launches, loudnorm_limiter.launches
+
+    (a, r1, l1), dtoh, htod, voice_s = _profiled(run_a, htod=True, busy=True)
+    polly_on_card = [SimpleNamespace(data=upload(_samples([b])), pts=b.pts, duration=b.duration)
+                     for b in a.polly]
+    box = []
+
+    def plains():
+        box.append(dub_front(g, voice, upload))
+        dub_back(g, polly_on_card)
+
+    _, plain_dtoh, plain_htod = _profiled(plains, htod=True)
+    out = dub_check(a, box[-1], "the dubbed voice")
+    on_card = all(isinstance(x.data, torch.Tensor) and x.data.device == card0
+                  for x in a.at_rnnoise + a.at_loudnorm)
+    frames_out = -(-out.shape[0] // LN_FRAME)
+    print(f"payloads on {card0} at audiornnoise ({len(a.at_rnnoise)}) and audioloudnorm "
+          f"({len(a.at_loudnorm)}): {on_card}; R1 launches {r1} for {len(a.at_rnnoise)} buffers, "
+          f"L1 launches {l1} for {frames_out} 100 ms output frames; Memcpy DtoH {dtoh} against "
+          f"the plain halves' {plain_dtoh} ({len(a.events)} AudioEvents), HtoD {htod} against "
+          f"{plain_htod} ({len(a.polly)} Polly buffers; the microphone's {len(a.at_rnnoise)} "
+          f"uploads in both); wall {a.t_done - a.t0:.3f} s [{card_line}]")
+    if not on_card:
+        raise AssertionError("the voice's payload is not on the card before R1 or L1")
+    if r1 != len(a.at_rnnoise) or not 95 <= r1 <= 105 or l1 != frames_out:
+        raise AssertionError("R1 or L1 launches differ from the voice's buffers and frames")
+    if dtoh - plain_dtoh != len(a.events) or htod - plain_htod != len(a.polly):
+        raise AssertionError(f"the voice's copies: DtoH {dtoh - plain_dtoh}, HtoD "
+                             f"{htod - plain_htod} beyond the plain halves")
+
+    phase("4t (b) the graded recording archived to S3 on the card: hsvfilter ! colorlut "
+          "approx ! cmafmux ! awss3sink, read back by awss3src")
+    frames = origin_frames(ORIGIN_FRAMES)[:ARCHIVE_FRAMES]
+    tmp = Path(tempfile.mkdtemp(prefix="archive-"))
+    try:
+        def run_b():
+            fakes.reset()
+            hsv_planes.launches = lowrank.packed_launches = 0
+            graded, _ = archive_run(g, frames, fakes, grade=grade)
+            torch.cuda.synchronize()
+            return graded, hsv_planes.launches, lowrank.packed_launches
+
+        (graded, b4, b2), b_dtoh, _, archive_s = _profiled(run_b, htod=True, busy=True)
+
+        def plain_b():
+            p = g.parse_launch(f"appsrc name=src ! hsvfilter hue-shift=120 ! colorlut "
+                               f"location={grade} precision=approx ! appsink name=sink")
+            p.by_name("src").set_property("caps", g.parse_caps(origin_caps(frames[0])))
+            for i, f in enumerate(frames):
+                p.by_name("src").push_buffer(g.Buffer(f, pts=i * 10**9 // ORIGIN_FPS,
+                                                      duration=10**9 // ORIGIN_FPS))
+            p.by_name("src").end_of_stream()
+            p.play_until_eos()
+
+        _, plain_b_dtoh = _profiled(plain_b)
+        archive_run(g, frames, grade=grade, path=tmp / "take1.mp4")
+        archive_check(g, fakes, graded, (tmp / "take1.mp4").read_bytes(), "the archive")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    on_card = all(isinstance(f, torch.Tensor) and f.device == card0 for f in graded)
+    print(f"graded frames on {card0}: {on_card}; hsv_planes launches {b4}, "
+          f"colorlut_lowrank packed launches {b2} for {ARCHIVE_FRAMES} frames; Memcpy DtoH "
+          f"{b_dtoh} against the graded chain's {plain_b_dtoh} [{card_line}]")
+    if not on_card or b4 != ARCHIVE_FRAMES or b2 != ARCHIVE_FRAMES:
+        raise AssertionError("B4 or B2 launches differ from the archive's frames")
+    if b_dtoh - plain_b_dtoh != ARCHIVE_FRAMES:
+        raise AssertionError(f"{b_dtoh - plain_b_dtoh} device-to-host copies for "
+                             f"{ARCHIVE_FRAMES} frames (cmafmux's one a frame, none in awss3sink)")
+    return ({"rnnoise_gru": r1, "loudnorm_limiter": l1, "hsv_planes": b4,
+             "colorlut_lowrank_packed": b2}, a, graded, {"voice": voice_s, "archive": archive_s})
+
+
+def quic_cloud_card_vs_cpu(cam, voice_r, graded, thresholds, fakes):
+    """Phase 5s: (a) the QUIC camera on the CPU at QUIC_CPU_FRAMES frames
+    (quic_check's checks; the detections against 4s's card detections,
+    within YOLOX's gates); (b) the dubbed voice on the CPU at
+    VOICE_CPU_SECONDS (dub_check's checks; the denoised samples against
+    4t's within RNNOISE_GATE, the AudioEvents' S16 within 1, the CPU run's
+    Polly buffers through the back half on the card against its CPU output
+    within LOUDNORM_GATE); (c) ARCHIVE_CPU_FRAMES of 4t's graded frames,
+    moved to the CPU, through cmafmux ! awss3sink on each device: the
+    objects equal byte for byte."""
+    phase("5s the QUIC camera, the dubbed voice and the archive, card against CPU")
+    import gst_plugins_rs_tpu_torch as g
+
+    jpegs = [jpeg_of(f) for f in camera_frames(QUIC_CPU_FRAMES)]
+    voice = noisy_voice()[:VOICE_CPU_SECONDS * VOICE_RATE]
+    cpu_graded = [f.cpu() for f in graded[:ARCHIVE_CPU_FRAMES]]
+    g.set_device("cpu")
+    try:
+        ca = quic_camera(g, jpegs, thresholds)
+        quic_check(ca, jpegs, rfc2435_jpegs(g, jpegs), "the QUIC camera on the CPU")
+        cv = dub_run(g, voice, fakes)
+        dub_check(cv, dub_front(g, voice), "the dubbed voice on the CPU")
+        fakes.reset()
+        archive_run(g, cpu_graded, fakes)
+        cpu_obj = archive_object(fakes)
+    finally:
+        g.set_device("cuda")
+    fakes.reset()
+    archive_run(g, [f.to("cuda") for f in cpu_graded], fakes)
+    card_obj = archive_object(fakes)
+    gates = all(_detections_within_gates(camera_detections(g, c), camera_detections(g, k))
+                for c, k in zip(ca.out, cam.out))
+    den_c, den_k = _samples(cv.denoised), _samples(voice_r.denoised)
+    rn_err = float(np.abs(den_c - den_k[:len(den_c)]).max())
+    s16_c = np.concatenate([np.frombuffer(e, "<i2") for e in cv.events]).astype(np.int32)
+    s16_k = np.concatenate([np.frombuffer(e, "<i2") for e in voice_r.events]).astype(np.int32)
+    n = min(len(s16_c), len(s16_k)) - 16_000 // 10  # the CPU run's last buffer flushes early
+    s16_err = int(np.abs(s16_c[:n] - s16_k[:n]).max())
+    card0 = torch.device("cuda", 0)
+    norm_k = _samples(dub_back(g, cv.polly, lambda x: torch.from_numpy(
+        np.ascontiguousarray(x)).to(card0)))
+    norm_c = _samples(cv.out)
+    ln_err = float(np.abs(norm_k - norm_c).max()) if norm_k.shape == norm_c.shape else np.inf
+    print(f"QUIC camera frames 0-{QUIC_CPU_FRAMES - 1}, card against CPU within the YOLOX gates: "
+          f"{gates}; the voice's first {VOICE_CPU_SECONDS} s: audiornnoise max error "
+          f"{rn_err:.3e} (gate {RNNOISE_GATE}), the AudioEvents' S16 max difference {s16_err} "
+          f"over {n} samples (gate 1), audioloudnorm on the CPU run's Polly buffers max error "
+          f"{ln_err:.3e} over {norm_c.shape[0]} samples (gate {LOUDNORM_GATE}); "
+          f"{ARCHIVE_CPU_FRAMES} graded frames archived from each device, objects "
+          f"({len(card_obj or b'')} B) equal: {card_obj == cpu_obj}")
+    if not gates or len(ca.out) != QUIC_CPU_FRAMES:
+        raise AssertionError("the QUIC camera's detections: card and CPU disagree")
+    if not rn_err <= RNNOISE_GATE or s16_err > 1 or not ln_err <= LOUDNORM_GATE \
+            or norm_c.shape[0] == 0:
+        raise AssertionError("the dubbed voice: card and CPU disagree")
+    if card_obj is None or card_obj != cpu_obj:
+        raise AssertionError("the archived objects differ between card and CPU")
+
+
+def quic_cloud_timing(card_line, thresholds, fakes, grade, rtsp_fps, whip_fps, device_s):
+    """Phase 6s, one timed run of each path (4s and 4t ran each before:
+    weights, cuDNN plans and the audio ops' constants are warm); a path's
+    busy share is the device seconds of its profiled run in 4s or 4t (the
+    same work, `device_s`) over this run's wall.  (a) The QUIC camera
+    unpaced (all frames pushed as fast as the connection takes them):
+    frames a second from the first frame to the last detection (the last
+    JPEG's arrival, not the receiver's end), against 6q's RTSP camera
+    (`rtsp_fps`), 6r's WHIP camera (`whip_fps`) and the plain YOLOX stream
+    on the same decoded frames; the host ms a frame in quinnquicsink's
+    render and in the receiving endpoint; the stats at close.  (b) The
+    dubbed voice's audio seconds a second.  (c) The archive's upload MB/s
+    (the object's bytes over the host seconds in awss3sink's render and end
+    of stream) and frames a second."""
+    phase("6s the QUIC camera, the dubbed voice and the archive, timing")
+    import gst_plugins_rs_tpu_torch as g
+
+    jpegs = [jpeg_of(f) for f in camera_frames()]
+    torch.cuda.synchronize()
+    r = quic_camera(g, jpegs, thresholds, paced=False)
+    wall = (r.arrivals[-1] - r.t_first) + (r.t_done - r.t_received)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    camera_detect(g, r.frames, thresholds)
+    torch.cuda.synchronize()
+    plain = time.perf_counter() - t0
+    print(f"the QUIC camera unpaced ({CAM_FRAMES} frames): {CAM_FRAMES / wall:.2f} frames/s "
+          f"(wall {wall:.3f} s), 6q's RTSP camera {rtsp_fps:.2f}, 6r's WHIP camera "
+          f"{whip_fps:.2f}, the plain YOLOX stream {CAM_FRAMES / plain:.2f}; host ms a frame: "
+          f"quinnquicsink's render {r.render_s / CAM_FRAMES * 1e3:.3f}, the receiving endpoint "
+          f"{r.receive_s / CAM_FRAMES * 1e3:.3f}, the receive to the last JPEG "
+          f"{(r.arrivals[-1] - r.t_first) / CAM_FRAMES * 1e3:.3f}, imagersdec "
+          f"{(r.t_decoded - r.t_received) / CAM_FRAMES * 1e3:.3f}, detection "
+          f"{(r.t_done - r.t_decoded) / CAM_FRAMES * 1e3:.3f}; handshake {r.handshake_ms:.2f} ms; "
+          f"at close cwnd {r.stats['cwnd']} B, srtt {r.stats['srtt-ms']:.3f} ms, packets sent "
+          f"{r.stats['packets-sent']}, declared lost {r.stats['packets-lost']}, PTO resends "
+          f"{r.stats['pto-resends']}; device {device_s['camera'] * 1e3:.3f} ms (4s), busy "
+          f"{100 * device_s['camera'] / wall:.1f}% of the wall [{card_line}]")
+    card0 = torch.device("cuda", 0)
+    voice = noisy_voice()
+    upload = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card0)  # noqa: E731
+    torch.cuda.synchronize()
+    v = dub_run(g, voice, fakes, upload)
+    vwall = v.t_done - v.t0
+    print(f"the dubbed voice ({VOICE_SECONDS} s): {VOICE_SECONDS / vwall:.2f} audio s/s (wall "
+          f"{vwall:.3f} s from play to EOS, {len(v.events)} AudioEvents, {len(v.polly)} Polly "
+          f"buffers); device {device_s['voice'] * 1e3:.3f} ms (4t), busy "
+          f"{100 * device_s['voice'] / vwall:.1f}% of the wall [{card_line}]")
+    frames = origin_frames(ORIGIN_FRAMES)[:ARCHIVE_FRAMES]
+    spent = {}
+
+    def streaming(run):
+        s3 = run.__self__.by_name("s3")
+        s3.render = spent["render"] = _Timed(s3.render)
+        s3.on_event = spent["eos"] = _Timed(s3.on_event)
+        t0 = time.perf_counter()
+        run()
+        spent["wall"] = time.perf_counter() - t0
+
+    fakes.reset()
+    archive_run(g, frames, fakes, grade=grade, around=streaming)
+    size, awall = len(archive_object(fakes)), spent["wall"]
+    upload_s = spent["render"].seconds + spent["eos"].seconds
+    print(f"the archive ({ARCHIVE_FRAMES} frames 1080p, {size} B): upload "
+          f"{size / 1e6 / upload_s:.1f} MB/s in awss3sink's render and end of stream "
+          f"({upload_s:.3f} s), {ARCHIVE_FRAMES / awall:.2f} frames/s streaming (wall "
+          f"{awall:.3f} s); device {device_s['archive'] * 1e3:.3f} ms (4t), busy "
+          f"{100 * device_s['archive'] / awall:.1f}% of the streaming's wall [{card_line}]")
+    return {"quic_fps": CAM_FRAMES / wall, "voice_s_per_s": VOICE_SECONDS / vwall,
+            "upload_mb_s": size / 1e6 / upload_s}
+
 def main() -> int:
     card_line = card()
     sys.path.insert(0, str(ROOT))
@@ -8909,7 +9790,13 @@ def main() -> int:
     q_rows = q_timing(card_line, grade, cam_packets, cam_thresholds)
     webrtc_launches, whip_r, voice_r = webrtc_pipelines(card_line, cam_thresholds)
     webrtc_card_vs_cpu(whip_r, voice_r, cam_thresholds)
-    webrtc_timing(card_line, cam_thresholds, q_rows["camera"])
+    r_rows = webrtc_timing(card_line, cam_thresholds, q_rows["camera"])
+    quic_launches, quic_r, quic_s = quic_pipelines(card_line, cam_thresholds)
+    with cloud_fakes() as fakes:
+        cloud_launches, dub_r, archived, cloud_s = cloud_pipelines(card_line, grade, fakes)
+        quic_cloud_card_vs_cpu(quic_r, dub_r, archived, cam_thresholds, fakes)
+        quic_cloud_timing(card_line, cam_thresholds, fakes, grade, q_rows["camera"],
+                          r_rows["whip_fps"], {"camera": quic_s, **cloud_s})
     # the sharded paths' launches (phase 4k) join their kernels' counts
     launches += mesh_launches["yolox_c3"]
     for name in ("loudnorm_limiter", "loudnorm_limiter_bank"):
@@ -8940,6 +9827,12 @@ def main() -> int:
     launches += webrtc_launches["yolox_c3"]
     for name in ("rnnoise_gru", "loudnorm_limiter"):
         audio_launches[name] += webrtc_launches[name]
+    # and the QUIC camera's, the dubbed voice's and the archive's (phases 4s, 4t)
+    launches += quic_launches
+    for name in ("rnnoise_gru", "loudnorm_limiter"):
+        audio_launches[name] += cloud_launches[name]
+    for name in ("hsv_planes", "colorlut_lowrank_packed"):
+        effect_launches[name] += cloud_launches[name]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "library_ms")
     main_case = next(c for c in cases if c["dtype"] == "f32" and c["batch"] == 1)
     entries = [{

@@ -32,11 +32,10 @@ prefixed `transcriber::` are forwarded to the transcriber (child-proxy
 analog).  Multi-language translation channels live in translationbin.
 
 The port: the bin builds its children by factory name when it goes to
-PAUSED.  Where a factory it needs is not registered in the port (the
-default translator `awstranslate` and `awstranscriber` belong to a slice
-still to come), the bin posts an ERROR message on the bus that names the
-factory, builds nothing, and answers every buffer with FlowReturn.ERROR;
-audio and video events pass on.  Caption bytes are host numpy arrays;
+PAUSED.  Where a factory it needs is not registered (an unknown name, or
+a factory left out of a build), the bin posts an ERROR message on the bus
+that names the factory, builds nothing, and answers every buffer with
+FlowReturn.ERROR; audio and video events pass on.  Caption bytes are host numpy arrays;
 audio and video payloads pass through as they came (tensors on the card
 stay there).
 """

@@ -14,8 +14,8 @@ Pads are requested with `request_src_pad(language_code=...)` or the
 textual `src_%u` form plus the pad's language property.
 
 The port: where the transcriber or a translator the pads need is not
-registered in the port (the default translator `awstranslate` belongs to a
-slice still to come), the bin posts an ERROR message naming the factory,
+registered (an unknown name, or a factory left out of a build), the bin
+posts an ERROR message naming the factory,
 builds nothing, answers every buffer with FlowReturn.ERROR and passes
 events on to its src pad.
 """

@@ -8,8 +8,8 @@ inputs: the caption bytes equal, the overlaid frames within
 OVERLAY_LSB_TOL of the JAX package's, the fragmented files equal outside
 their mdat payloads, the audio samples bit-equal.  Also: test_whisper.py's
 transcriberbin cases and test_asr_quality.py's speech-to-captions case on
-the port, the ERROR the bins post where a factory of a later slice is
-needed, translationbin's same-language branch, and that the path raises
+the port, the ERROR the bins post where a factory they need is not
+registered, translationbin's same-language branch, and that the path raises
 with no card and no request for the CPU.
 """
 import numpy as np
@@ -20,6 +20,7 @@ import chip_smoke as cs
 import gst_plugins_rs_tpu as fx
 import gst_plugins_rs_tpu_torch as tfx
 from gst_plugins_rs_tpu_torch.core.registry import factory_exists
+from gst_plugins_rs_tpu_torch.elements.cc import transcriberbin
 from torch_parity_helpers import mirror_jax_tests, port_on_cpu
 
 # The composite is the same f32 arithmetic in both packages; XLA may fuse
@@ -156,16 +157,23 @@ def _caption_bin(pkg, **props):
     return p
 
 
+def _hide(monkeypatch, factory):
+    """The bins see `factory` as not registered (a factory of a package
+    built without it)."""
+    assert factory_exists(factory)
+    monkeypatch.setattr(transcriberbin, "factory_exists", lambda name: name != factory)
+
+
 @pytest.mark.parametrize("props, factory", [
     ({"translation-languages": "fr=cc1"}, "awstranslate"),
     ({"transcriber": "awstranscriber"}, "awstranscriber"),
 ])
-def test_transcriberbin_missing_factory_posts_error(props, factory):
-    """Where the JAX package would build a factory of elements/net, the
-    port's transcriberbin posts an ERROR naming it and fails the stream
-    with an error flow, with no KeyError out of a streaming thread."""
+def test_transcriberbin_missing_factory_posts_error(monkeypatch, props, factory):
+    """Where a factory the bin needs is not registered, the port's
+    transcriberbin posts an ERROR naming it and fails the stream with an
+    error flow, with no KeyError out of a streaming thread."""
     assert fx.element_factory_make(factory) is not None  # the JAX package has it
-    assert not factory_exists(factory)
+    _hide(monkeypatch, factory)
     p = _caption_bin(tfx, **props)
     with pytest.raises(RuntimeError, match="flow error"):
         p.play_until_eos()
@@ -209,7 +217,8 @@ def test_translationbin_same_language_branch_matches_jax():
     assert all(w in got[0][0][0] for w in cs.CAP_WORDS)
 
 
-def test_translationbin_missing_translator_posts_error():
+def test_translationbin_missing_translator_posts_error(monkeypatch):
+    _hide(monkeypatch, "awstranslate")
     p = _translation(tfx, "es-ES")
     with pytest.raises(RuntimeError, match="flow error"):
         p.play_until_eos()

@@ -5,8 +5,8 @@ tests/test_cli.py runs on the port with the same inputs and assertions.
 Then: `--list-elements` prints a line a factory the port registers, each
 equal to the JAX CLI's line for it; `--inspect` prints what the JAX CLI
 prints for every such factory; `dump_registry()` equals the JAX package's
-dump, and docs/elements.json, on each of them, and the factories it lacks
-are the session and service families' 36 left.  Where the two packages'
+dump, and docs/elements.json, on each of them, and it lacks none of the
+JAX package's factories.  Where the two packages'
 texts differ they do so on purpose, and the tests name each place."""
 import json
 import pathlib
@@ -34,17 +34,9 @@ def _port_cpu():
 
 MIRRORED = mirror_jax_tests("test_cli.py", globals())
 
-N_PORTED = 225
-# The 22 factories of the QUIC and cloud-service families still to port
-# (ROADMAP A.4).
-NOT_PORTED = {
-    "awspolly", "awss3hlssink", "awss3putobjectsink", "awss3sink", "awss3src",
-    "awstranscribeparse", "awstranscriber", "awstranscriber2", "awstranslate",
-    "deepgramtranscriber", "elevenlabssynthesizer", "elevenlabsvoicecloner",
-    "llamacpp-texttransform", "quinnquicdemux", "quinnquicmux", "quinnquicsink",
-    "quinnquicsrc", "quinnroqdemux", "quinnroqmux", "quinnwtsink", "quinnwtsrc",
-    "speechmaticstranscriber",
-}
+N_PORTED = 247
+# Every factory of the JAX package is ported (ROADMAP A.4).
+NOT_PORTED = set()
 # Property docs that quote the JAX package's TPU measurements or name its
 # device (no TPU figure stands as the port's): the port states its own.
 DOC_DIVERGENT = {
@@ -108,8 +100,8 @@ def test_registry_dump_equals_docs_elements_json(dumps):
     """docs/elements.json, the JAX package's published dump: the port's
     entry equals it for every factory the port has, apart from the named
     divergences and the two raptorq entries the file predates (there the
-    port equals the JAX package, test above); the file's other factories
-    are the 36 left."""
+    port equals the JAX package, test above); the file names no other
+    factory."""
     port, ref = dumps
     docs = json.loads((ROOT / "docs" / "elements.json").read_text())
     assert set(docs) - set(port) == NOT_PORTED

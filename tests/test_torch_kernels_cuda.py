@@ -2214,3 +2214,262 @@ def test_received_l16_reaches_audioloudnorm_on_the_card(cuda):
     finally:
         g.set_device("cuda")
     assert out.shape == ref.shape and float(np.abs(out - ref).max()) <= cs.LOUDNORM_GATE
+
+
+def _card_bytes(n, size, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randint(0, 256, (size,), generator=gen, device="cuda", dtype=torch.uint8)
+            for _ in range(n)]
+
+
+def _receiver(g, factory):
+    """quinnquicsrc / quinnwtsrc on 127.0.0.1 (a free port) ! appsink,
+    PLAYING on a thread of its own; (pipeline, source, appsink, thread)."""
+    import threading
+
+    p = g.Pipeline()
+    src, sink = g.element_factory_make(factory), g.element_factory_make("appsink")
+    src.set_property("port", 0)
+    src.set_property("idle-timeout", 1_000_000_000)
+    p.add(src, sink)
+    src.link(sink)
+    p.set_state(g.core.State.PLAYING)
+    t = threading.Thread(target=p.run, daemon=True)
+    t.start()
+    return p, src, sink, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factory,receiver", [("quinnquicsink", "quinnquicsrc"),
+                                              ("quinnwtsink", "quinnwtsrc")])
+def test_quic_sinks_read_each_card_buffer_back_once(cuda, factory, receiver):
+    """quinnquicsink and quinnwtsink on card payloads: one device-to-host
+    copy a buffer (core/payload.py's host_bytes), the receiver's bytes the
+    buffers' bytes."""
+    import gst_plugins_rs_tpu_torch as g
+
+    bufs = _card_bytes(4, 3000, 61)
+    rx, src, sink, t = _receiver(g, receiver)
+    try:
+        p = g.parse_launch(f"appsrc name=src ! {factory} name=q secure-connection=false")
+        q = p.by_name("q")
+        q.set_property("port", src.bound_port)
+        if factory == "quinnwtsink":
+            q.set_property("url", f"https://127.0.0.1:{src.bound_port}/stream")
+        p.by_name("src").set_property("caps", g.parse_caps("application/octet-stream"))
+
+        def run():
+            for b in bufs:
+                p.by_name("src").push_buffer(g.Buffer(b))
+            p.by_name("src").end_of_stream()
+            p.play_until_eos()
+
+        _, dtoh, htod = _profiled_copies(run)
+        t.join(30)
+    finally:
+        rx.set_state(g.core.State.NULL)
+    got = b"".join(np.asarray(s.buffer.data).tobytes() for s in sink.samples)
+    assert (dtoh, htod) == (len(bufs), 0)
+    assert got == b"".join(b.cpu().numpy().tobytes() for b in bufs)
+
+
+@pytest.mark.cuda
+def test_quinnroqmux_reads_each_card_packet_back_once(cuda):
+    """quinnroqmux on card RTP packets: one device-to-host copy a packet;
+    the RoQ stream is the flow id and each packet length-prefixed."""
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.net.quic import encode_varint
+
+    pkts = _card_bytes(5, 1200, 62)
+    p = g.parse_launch("appsrc name=src ! quinnroqmux name=mux ! appsink name=sink")
+    p.by_name("mux").pad("stream_0").set_property("flow-id", 7)
+    p.by_name("src").set_property("caps", g.parse_caps("application/x-rtp"))
+
+    def run():
+        for b in pkts:
+            p.by_name("src").push_buffer(g.Buffer(b))
+        p.by_name("src").end_of_stream()
+        p.play_until_eos()
+
+    _, dtoh, htod = _profiled_copies(run)
+    got = b"".join(np.asarray(s.buffer.data).tobytes() for s in p.by_name("sink").samples)
+    host = [b.cpu().numpy().tobytes() for b in pkts]
+    assert (dtoh, htod) == (len(pkts), 0)
+    assert got == encode_varint(7) + b"".join(encode_varint(len(h)) + h for h in host)
+
+
+def _s3_sink(g, cs, fakes, factory):
+    p = g.parse_launch(f"appsrc name=src ! {factory} name=s3")
+    s3 = p.by_name("s3")
+    for k, v in (("bucket", "b"), ("region", cs.CLOUD_REGION), ("access-key", cs.CLOUD_KEY),
+                 ("secret-access-key", cs.CLOUD_SECRET), ("endpoint-uri", fakes.s3)):
+        s3.set_property(k, v)
+    if factory == "awss3hlssink":
+        s3.set_property("key-prefix", "live")
+        s3.set_property("target-duration", 1_000_000_000)
+    else:
+        s3.set_property("key", "k.bin")
+    if factory == "awss3sink":
+        s3.set_property("part-size", 10_000)
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factory", ["awss3sink", "awss3putobjectsink", "awss3hlssink"])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32], ids=["u8", "f32"])
+def test_s3_sinks_read_each_card_buffer_back_once(cuda, factory, dtype):
+    """The S3 sinks on card payloads: one device-to-host copy a buffer, the
+    object (or the segments) the payloads' raw bytes (a float tensor's bytes
+    as they lie, never value-cast)."""
+    import gst_plugins_rs_tpu_torch as g
+
+    cs = _smoke()
+    bufs = [b.view(dtype) for b in _card_bytes(4, 4096, 63)]
+    with cs.cloud_fakes() as fakes:
+        p = _s3_sink(g, cs, fakes, factory)
+        p.by_name("src").set_property("caps", g.parse_caps("application/octet-stream"))
+
+        def run():
+            for i, b in enumerate(bufs):
+                p.by_name("src").push_buffer(g.Buffer(b, pts=i * 600_000_000))
+            p.by_name("src").end_of_stream()
+            p.play_until_eos()
+
+        _, dtoh, htod = _profiled_copies(run)
+        objects = dict(fakes.objects)
+        assert not fakes.refused
+    want = b"".join(b.cpu().numpy().tobytes() for b in bufs)
+    if factory == "awss3hlssink":
+        got = b"".join(v for k, v in sorted(objects.items()) if k.endswith(".ts"))
+    else:
+        got = objects["/b/k.bin"]
+    assert (dtoh, htod) == (len(bufs), 0)
+    assert got == want
+
+
+def _ws_fake(handler):
+    import threading
+
+    from websockets.sync.server import serve
+
+    srv = serve(handler, "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"ws://127.0.0.1:{srv.socket.getsockname()[1]}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factory", ["awstranscriber2", "awstranscriber", "deepgramtranscriber",
+                                     "speechmaticstranscriber"])
+def test_transcribers_read_each_card_buffer_back_once(cuda, factory):
+    """The transcribers on card F32 audio: one device-to-host copy a buffer,
+    the audio the service takes the host conversion to S16 of the same
+    samples, every transcript out."""
+    import json
+
+    import gst_plugins_rs_tpu_torch as g
+    from gst_plugins_rs_tpu_torch.net import eventstream, sigv4
+
+    cs = _smoke()
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    bufs = [torch.rand((1600, 1), generator=gen, device="cuda") * 2.4 - 1.2 for _ in range(4)]
+    got = []
+
+    def handler(ws):  # each protocol's audio frames; a final transcript for each
+        for raw in ws:
+            if isinstance(raw, bytes) and factory.startswith("aws"):
+                _, raw, _ = eventstream.decode_message(raw)
+                if not raw:
+                    return
+                got.append(raw)
+                doc = {"Transcript": {"Results": [{"IsPartial": False, "Alternatives": [
+                    {"Transcript": f"t{len(got)}"}]}]}}
+                ws.send(eventstream.encode_message(
+                    {":message-type": "event", ":event-type": "TranscriptEvent"},
+                    json.dumps(doc).encode()))
+            elif isinstance(raw, bytes):
+                got.append(raw)
+                ws.send(json.dumps(
+                    {"type": "Results", "is_final": True,
+                     "channel": {"alternatives": [{"transcript": f"t{len(got)}"}]}}
+                    if factory == "deepgramtranscriber" else
+                    {"message": "AddTranscript",
+                     "results": [{"alternatives": [{"content": f"t{len(got)}"}]}]}))
+            else:
+                msg = json.loads(raw)
+                if msg.get("message") == "StartRecognition":
+                    ws.send(json.dumps({"message": "RecognitionStarted"}))
+                elif msg.get("message") == "EndOfStream":
+                    ws.send(json.dumps({"message": "EndOfTranscript"}))
+                    return
+                elif msg.get("type") == "CloseStream":
+                    return
+
+    srv, uri = _ws_fake(handler)
+    try:
+        p = g.parse_launch(f"appsrc name=src ! {factory} name=t ! appsink name=sink")
+        t = p.by_name("t")
+        if factory.startswith("aws"):
+            t.set_property("endpoint-uri", sigv4.presign_url(
+                "GET", uri, cs.CLOUD_REGION, "transcribe", cs.CLOUD_KEY, cs.CLOUD_SECRET))
+        else:
+            t.set_property("url", uri)
+        p.by_name("src").set_property("caps", g.parse_caps(
+            "audio/x-raw,format=F32,rate=16000,channels=1,layout=interleaved"))
+
+        def run():
+            for b in bufs:
+                p.by_name("src").push_buffer(g.Buffer(b))
+            p.by_name("src").end_of_stream()
+            p.play_until_eos()
+
+        _, dtoh, htod = _profiled_copies(run)
+    finally:
+        srv.shutdown()
+    host = [(np.clip(b.cpu().numpy(), -1, 1) * 32767).astype(np.int16).tobytes() for b in bufs]
+    texts = [bytes(np.asarray(s.buffer.data, np.uint8)).decode()
+             for s in p.by_name("sink").samples]
+    assert (dtoh, htod) == (len(bufs), 0)
+    assert got == host
+    assert texts == [f"t{i + 1}" for i in range(len(bufs))]
+
+
+@pytest.mark.cuda
+def test_polly_reaches_audioloudnorm_with_one_upload_a_buffer(cuda):
+    """awspolly's host PCM into the dubbed voice's back half: one
+    host-to-device copy a Polly buffer beyond the same chain fed the PCM on
+    the card, every buffer at audioloudnorm's sink pad on cuda:0."""
+    from types import SimpleNamespace
+
+    import gst_plugins_rs_tpu_torch as g
+
+    cs = _smoke()
+    texts = [f"[es] frase {i} " + "palabra " * 60 for i in range(8)]  # ~5 s of speech
+    with cs.cloud_fakes() as fakes:
+        def run():
+            p = g.parse_launch(f"appsrc name=src ! awspolly name=tts ! {cs.DUB_BACK}")
+            for k, v in (("region", cs.CLOUD_REGION), ("access-key", cs.CLOUD_KEY),
+                         ("secret-access-key", cs.CLOUD_SECRET), ("endpoint-uri", fakes.api)):
+                p.by_name("tts").set_property(k, v)
+            tap = cs.BufferTrace("up:sink", "norm:sink")
+            p.add_tracer(tap)
+            p.by_name("src").set_property("caps", g.parse_caps("text/x-raw,format=utf8"))
+            for i, t in enumerate(texts):
+                p.by_name("src").push_buffer(g.Buffer(np.frombuffer(t.encode(), np.uint8).copy(),
+                                                      pts=i * 10**9))
+            p.by_name("src").end_of_stream()
+            p.play_until_eos()
+            return tap.seen
+
+        run()  # warm: the audio ops' per-shape constants
+        seen, dtoh, htod = cs._profiled(run, htod=True)
+        assert not fakes.refused and fakes.synthesized[-len(texts):] == texts
+    on_card = [SimpleNamespace(data=torch.from_numpy(np.asarray(b.data)).cuda(), pts=b.pts,
+                               duration=b.duration) for b in seen["up:sink"]]
+    cs.dub_back(g, on_card)  # warm
+    _, plain_dtoh, plain_htod = cs._profiled(lambda: cs.dub_back(g, on_card), htod=True)
+    assert len(seen["up:sink"]) == len(texts)
+    assert all(np.array_equal(np.asarray(b.data)[:, 0], cs.polly_pcm(t))
+               for b, t in zip(seen["up:sink"], texts))
+    assert (htod - plain_htod, dtoh - plain_dtoh) == (len(texts), 0)
+    assert seen["norm:sink"] and all(b.data.device == torch.device("cuda", 0)
+                                     for b in seen["norm:sink"])

@@ -312,8 +312,15 @@ def test_factories_mirror_jax():
             "webrtcsink", "webrtcsrc", "webrtcsend", "webrtcrecv", "whipsink", "whepsrc",
             "whipclientsink", "whepclientsrc", "whipserversrc", "whepserversink",
             "janusvrwebrtcsink", "janusvrwebrtcsrc", "awskvswebrtcsink",
-            "uepswebrtcsink"} == set(names)
-    assert len(names) == 225
+            "uepswebrtcsink",
+            # the QUIC and cloud-service families
+            "quinnquicsink", "quinnquicsrc", "quinnquicmux", "quinnquicdemux",
+            "quinnroqmux", "quinnroqdemux", "quinnwtsink", "quinnwtsrc", "awss3src",
+            "awss3sink", "awss3putobjectsink", "awss3hlssink", "awspolly", "awstranslate",
+            "awstranscribeparse", "awstranscriber2", "awstranscriber",
+            "deepgramtranscriber", "speechmaticstranscriber", "elevenlabssynthesizer",
+            "elevenlabsvoicecloner", "llamacpp-texttransform"} == set(names)
+    assert len(names) == 247
     for name in names:
         jc, tc = jfactory(name), tfactory(name)
         assert [(p.name, repr(p.default), p.type, p.choices) for p in jc.PROPERTIES] == \
@@ -398,7 +405,10 @@ def test_port_imports_no_jax():
                 "net/webrtc_signalling.py", "net/sigv4.py", "elements/net/webrtcbin2.py",
                 "elements/net/webrtc.py", "elements/net/whipwhep.py",
                 "elements/net/webrtchttp.py", "elements/net/kvs_ueps.py",
-                "elements/net/janusvr.py"):
+                "elements/net/janusvr.py", "net/eventstream.py", "net/s3.py",
+                "net/tls13.py", "net/quic.py", "net/webtransport.py",
+                "elements/net/aws.py", "elements/net/services.py",
+                "elements/net/quinn.py"):
         assert f"gst_plugins_rs_tpu_torch/{mod}" in names, mod
     banned = ("jax", "jaxlib", "flax", "gst_plugins_rs_tpu")
     for f in files:

@@ -111,7 +111,7 @@ def official_checkpoint(variables, path):
     return path
 
 
-def mirror_jax_tests(jax_test_file, namespace, skip=(), drop=()):
+def mirror_jax_tests(jax_test_file, namespace, skip=(), drop=(), subs=()):
     """Run a test file of the JAX package against the port.
 
     The file is compiled by `load_test_module(..., port=True)`, and its
@@ -124,9 +124,11 @@ def mirror_jax_tests(jax_test_file, namespace, skip=(), drop=()):
     it); a dict maps each name to the slice or file.  `drop` names modules
     of a later slice whose top-level imports the file's compiled copy leaves
     out (`load_test_module`).  The file's module-level `pytestmark` marks its
-    own tests and classes, not the calling module.  Returns the names of the
-    mirrored tests."""
-    ns = load_test_module(jax_test_file, port=True, drop=drop)
+    own tests and classes, not the calling module.  `subs` are (pattern,
+    replacement) regex pairs applied to the file's source before it is
+    compiled (`load_test_module`).  Returns the names of the mirrored
+    tests."""
+    ns = load_test_module(jax_test_file, port=True, drop=drop, subs=subs)
     methods = {}
     for entry in skip:
         if "::" in entry:
